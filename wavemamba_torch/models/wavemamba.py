@@ -1,0 +1,345 @@
+"""WaveMamba: the wavelet state-space U-Net for UHD low-light enhancement.
+
+The counterpart of `wavemamba_tpu/models/wavemamba.py`, inference forward
+only, float32. Modules are NCHW inside, the reference's own layout, and
+their attribute names are the `.pth` keys, so
+`load_state_dict(strict=True)` takes the shipped checkpoints as they are.
+`wavemamba_apply` keeps the JAX package's NHWC layout at the boundary.
+
+SS2D runs its four directional scans as two direction pairs (rows:
+directions 0 and 2, columns: 1 and 3) through `ops/scan_cuda.py:
+ss2d_scan_pair`, kernel K1 on a CUDA tensor and its plain version on a CPU
+tensor.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from wavemamba_torch.ops.haar import dwt2, iwt2_cat
+from wavemamba_torch.ops.nn import LayerNorm, l2_normalize, layer_norm
+from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair
+
+_ROWS, _COLS = [0, 2], [1, 3]  # direction pairs: row-major and column-major fwd/rev
+
+
+@dataclasses.dataclass(frozen=True)
+class WaveMambaConfig:
+    """Architecture of the shipped model (`wavemamba_tpu` defaults)."""
+
+    in_chn: int = 3
+    wf: int = 32
+    n_l_blocks: Sequence[int] = (1, 2, 4)
+    n_h_blocks: Sequence[int] = (1, 1, 2)
+    ffn_scale: float = 2.0
+    d_state: int = 16
+    d_conv: int = 3
+    ffn_restormer: bool = False
+
+    @property
+    def d_inner(self) -> int:
+        return int(self.ffn_scale * self.wf)
+
+    @property
+    def dt_rank(self) -> int:
+        return math.ceil(self.wf / 16)
+
+
+class SS2D(nn.Module):
+    """2-D selective scan: four directional 1-D scans over the token grid."""
+
+    def __init__(self, cfg: WaveMambaConfig):
+        super().__init__()
+        c, d, n, r = cfg.wf, cfg.d_inner, cfg.d_state, cfg.dt_rank
+        self.in_proj = nn.Linear(c, 2 * d, bias=False)
+        self.conv2d = nn.Conv2d(d, d, cfg.d_conv, padding=(cfg.d_conv - 1) // 2, groups=d)
+        self.x_proj_weight = nn.Parameter(torch.zeros(4, r + 2 * n, d))
+        self.dt_projs_weight = nn.Parameter(torch.zeros(4, d, r))
+        self.dt_projs_bias = nn.Parameter(torch.zeros(4, d))
+        self.A_logs = nn.Parameter(torch.zeros(4 * d, n))
+        self.Ds = nn.Parameter(torch.ones(4 * d))
+        self.out_norm = LayerNorm(d, eps=1e-5, dim=-1)
+        self.out_proj = nn.Linear(d, c, bias=False)
+        self.scan = ss2d_scan_pair
+
+    def forward(self, x):
+        """x: (B, C, H, W) -> (B, C, H, W)."""
+        b, _, h, w = x.shape
+        d = self.conv2d.in_channels
+        xx, z = self.in_proj(x.permute(0, 2, 3, 1)).chunk(2, dim=-1)  # (B, H, W, D)
+        xx = F.silu(self.conv2d(xx.permute(0, 3, 1, 2)))  # (B, D, H, W)
+        A = -torch.exp(self.A_logs.float()).view(4, d, -1).transpose(1, 2)  # (4, N, D)
+        wx = self.x_proj_weight.transpose(1, 2)  # (4, D, R+2N)
+        dtw = self.dt_projs_weight.transpose(1, 2)  # (4, R, D)
+        dsk = self.Ds.view(4, d)
+
+        def pair(tokens, k):
+            return self.scan(tokens, wx[k].contiguous(), dtw[k].contiguous(),
+                             self.dt_projs_bias[k].contiguous(), A[k].contiguous(),
+                             dsk[k].contiguous())
+
+        pr = pair(xx.permute(0, 2, 3, 1).reshape(b, h * w, d).contiguous(), _ROWS)
+        pc = pair(xx.permute(0, 3, 2, 1).reshape(b, w * h, d).contiguous(), _COLS)
+        y = (pr[:, 0] + pr[:, 1]).view(b, h, w, d) \
+            + (pc[:, 0] + pc[:, 1]).view(b, w, h, d).transpose(1, 2)
+        y = self.out_norm(y) * F.silu(z)
+        return self.out_proj(y).permute(0, 3, 1, 2)
+
+
+class FFN(nn.Module):
+    """NAFNet-style gated FFN (`ffn`)."""
+
+    def __init__(self, c, expand=2):
+        super().__init__()
+        dw = c * expand
+        self.conv1 = nn.Conv2d(c, dw, 1)
+        self.conv2 = nn.Conv2d(dw, dw, 3, padding=1, groups=dw)
+        self.conv3 = nn.Conv2d(dw // 2, c, 1)
+
+    def forward(self, x):
+        y1, y2 = self.conv2(self.conv1(x)).chunk(2, dim=1)
+        return self.conv3(F.gelu(y1) * y2)
+
+
+class LFSSBlock(nn.Module):
+    def __init__(self, cfg: WaveMambaConfig):
+        super().__init__()
+        c = cfg.wf
+        self.ln_1 = LayerNorm(c, eps=1e-6)
+        self.self_attention = SS2D(cfg)
+        self.skip_scale = nn.Parameter(torch.ones(c))
+        self.ln_2 = LayerNorm(c, eps=1e-5)
+        self.conv_blk = FFN(c)
+        self.skip_scale2 = nn.Parameter(torch.ones(c))
+
+    def forward(self, x):
+        x = x * self.skip_scale.view(1, -1, 1, 1) + self.self_attention(self.ln_1(x))
+        return x * self.skip_scale2.view(1, -1, 1, 1) + self.conv_blk(self.ln_2(x))
+
+
+def matching(x, perc):
+    """For each channel of x, the channel of `perc` nearest in L2 over the
+    flattened spatial map (match_factor=1). x, perc: (B, C, H, W)."""
+    b, c, h, w = x.shape
+    xf = x.reshape(b, c, h * w).float()
+    pf = perc.reshape(b, c, h * w).float()
+    d2 = (xf * xf).sum(-1)[:, :, None] + (pf * pf).sum(-1)[:, None, :] \
+        - 2.0 * torch.bmm(xf, pf.transpose(1, 2))
+    idx = d2.argmin(-1)  # (B, C)
+    sel = torch.gather(perc.reshape(b, c, h * w), 1, idx[:, :, None].expand(b, c, h * w))
+    return sel.view(b, c, h, w)
+
+
+class PAConv(nn.Module):
+    def __init__(self, nf):
+        super().__init__()
+        self.k2 = nn.Conv2d(nf, nf, 1)
+        self.k3 = nn.Conv2d(nf, nf, 3, padding=1, bias=False)
+        self.k4 = nn.Conv2d(nf, nf // 2, 3, padding=1, bias=False)
+
+    def forward(self, x):
+        return self.k4(self.k3(x) * torch.sigmoid(self.k2(x)))
+
+
+class MatchingTransformation(nn.Module):
+    def __init__(self, c):
+        super().__init__()
+        self.paconv = PAConv(2 * c)
+
+    def forward(self, x, perc):
+        return self.paconv(torch.cat([x, matching(x, perc)], dim=1))
+
+
+class CMTAttention(nn.Module):
+    """Transposed (channel) attention with perception-matched queries."""
+
+    def __init__(self, c, num_heads=1):
+        super().__init__()
+        self.num_heads = num_heads
+        self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1))
+        self.qkv = nn.Conv2d(c, 3 * c, 1)
+        self.qkv_dwconv = nn.Conv2d(3 * c, 3 * c, 3, padding=1, groups=3 * c)
+        self.project_out = nn.Conv2d(c, c, 1)
+        self.matching_transformation = MatchingTransformation(c)
+
+    def forward(self, x, perc):
+        b, c, h, w = x.shape
+        q, k, v = self.qkv_dwconv(self.qkv(x)).chunk(3, dim=1)
+        q = self.matching_transformation(q, perc)
+
+        def heads(t):  # (B, C, H, W) -> (B, heads, C/heads, L)
+            return t.reshape(b, self.num_heads, c // self.num_heads, h * w)
+
+        q, k, v = l2_normalize(heads(q)), l2_normalize(heads(k)), heads(v)
+        attn = torch.softmax(q @ k.transpose(-2, -1) * self.temperature, dim=-1)
+        return self.project_out((attn @ v).reshape(b, c, h, w))
+
+
+class FeedForward(nn.Module):
+    def __init__(self, c):
+        super().__init__()
+        self.project_in = nn.Sequential(nn.Conv2d(c, c, 1), nn.Conv2d(c, c, 3, padding=1, groups=c))
+        self.matching_transformation = MatchingTransformation(c)
+        self.project_out = nn.Sequential(nn.Conv2d(c, c, 3, padding=1, groups=c), nn.GELU(),
+                                         nn.Conv2d(c, c, 1))
+
+    def forward(self, x, perc):
+        return self.project_out(self.matching_transformation(self.project_in(x), perc))
+
+
+class FeedForwardRestormer(nn.Module):
+    def __init__(self, c, expand=1):
+        super().__init__()
+        hidden = int(c * expand)
+        self.project_in = nn.Conv2d(c, 2 * hidden, 1)
+        self.dwconv = nn.Conv2d(2 * hidden, 2 * hidden, 3, padding=1, groups=2 * hidden)
+        self.project_out = nn.Conv2d(hidden, c, 1)
+
+    def forward(self, x, perc=None):
+        y1, y2 = self.dwconv(self.project_in(x)).chunk(2, dim=1)
+        return self.project_out(F.gelu(y1) * y2)
+
+
+class HFEBlock(nn.Module):
+    def __init__(self, c, ffn_restormer=False):
+        super().__init__()
+        self.norm1 = LayerNorm(c, eps=1e-6)
+        self.attn = CMTAttention(c)
+        self.norm2 = LayerNorm(c, eps=1e-6)
+        self.LayerNorm = LayerNorm(c, eps=1e-6)
+        self.ffn = FeedForwardRestormer(c) if ffn_restormer else FeedForward(c)
+
+    def forward(self, x, perc):
+        perc = self.LayerNorm(perc)
+        x = x + self.attn(self.norm1(x), perc)
+        return x + self.ffn(self.norm2(x), perc)
+
+
+class SKFF(nn.Module):
+    """Selective kernel fusion of the three high-frequency subbands."""
+
+    def __init__(self, c, height=3, reduction=8):
+        super().__init__()
+        d = max(c // reduction, 4)
+        self.conv_du = nn.Sequential(nn.Conv2d(c, d, 1, bias=False), nn.PReLU())
+        self.fcs = nn.ModuleList(nn.Conv2d(d, c, 1, bias=False) for _ in range(height))
+
+    def forward(self, feats):
+        u = feats[0]
+        for f in feats[1:]:
+            u = u + f
+        z = self.conv_du(u.mean(dim=(2, 3), keepdim=True))
+        att = torch.softmax(torch.stack([fc(z) for fc in self.fcs], 0), dim=0)
+        out = att[0] * feats[0]
+        for i in range(1, len(feats)):
+            out = out + att[i] * feats[i]
+        return out
+
+
+class DownFRG(nn.Module):
+    def __init__(self, cfg: WaveMambaConfig, n_l, n_h):
+        super().__init__()
+        c = cfg.wf
+        self.l_conv = nn.Conv2d(2 * c, c, 3, padding=1)
+        self.l_blk = nn.ModuleList(LFSSBlock(cfg) for _ in range(n_l))
+        self.h_fusion = SKFF(c)
+        self.h_blk = nn.ModuleList(HFEBlock(c, cfg.ffn_restormer) for _ in range(n_h))
+
+    def forward(self, x, x_d):
+        ll, hl, lh, hh = dwt2(x)
+        ll = self.l_conv(torch.cat([ll, x_d], dim=1))
+        for blk in self.l_blk:
+            ll = blk(ll)
+        xh = self.h_fusion([hl, lh, hh])
+        for blk in self.h_blk:
+            xh = blk(xh, ll)
+        return ll, xh
+
+
+class UpFRG(nn.Module):
+    def __init__(self, cfg: WaveMambaConfig, n_l, n_h):
+        super().__init__()
+        c = cfg.wf
+        self.l_blk = nn.ModuleList(LFSSBlock(cfg) for _ in range(n_l))
+        self.h_out_conv = nn.Conv2d(c, 3 * c, 3, padding=1)
+        self.h_blk = nn.ModuleList(HFEBlock(c, cfg.ffn_restormer) for _ in range(n_h))
+
+    def forward(self, x_l, x_h):
+        for blk in self.l_blk:
+            x_l = blk(x_l)
+        for blk in self.h_blk:
+            x_h = blk(x_h, x_l)
+        return iwt2_cat(torch.cat([x_l, self.h_out_conv(x_h)], dim=1))
+
+
+class UNet(nn.Module):
+    def __init__(self, cfg: WaveMambaConfig):
+        super().__init__()
+        c, ic = cfg.wf, cfg.in_chn
+        nl, nh = cfg.n_l_blocks, cfg.n_h_blocks
+        self.ps_down1 = nn.Sequential(nn.PixelUnshuffle(2), nn.Conv2d(4 * ic, c, 1))
+        self.ps_down2 = nn.Sequential(nn.PixelUnshuffle(4), nn.Conv2d(16 * ic, c, 1))
+        self.ps_down3 = nn.Sequential(nn.PixelUnshuffle(8), nn.Conv2d(64 * ic, c, 1))
+        self.conv_01 = nn.Conv2d(ic, c, 3, padding=1)
+        self.down_group1 = DownFRG(cfg, nl[0], nh[0])
+        self.down_group2 = DownFRG(cfg, nl[1], nh[1])
+        self.down_group3 = DownFRG(cfg, nl[2], nh[2])
+        self.up_group3 = UpFRG(cfg, nl[2], nh[2])
+        self.up_group2 = UpFRG(cfg, nl[1], nh[1])
+        self.up_group1 = UpFRG(cfg, nl[0], nh[0])
+        self.last = nn.Conv2d(c, ic, 3, padding=1)
+
+    def forward(self, x):
+        """x: (B, in_chn, H, W), H and W multiples of 8. Global residual."""
+        x_l, xh1 = self.down_group1(self.conv_01(x), self.ps_down1(x))
+        x_l, xh2 = self.down_group2(x_l, self.ps_down2(x))
+        x_l, xh3 = self.down_group3(x_l, self.ps_down3(x))
+        x_l = self.up_group3(x_l, xh3)
+        x_l = self.up_group2(x_l, xh2)
+        x_l = self.up_group1(x_l, xh1)
+        return self.last(x_l) + x
+
+
+class WaveMamba(nn.Module):
+    def __init__(self, cfg: WaveMambaConfig = WaveMambaConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.restoration_network = UNet(cfg)
+
+    def forward(self, x):
+        return self.restoration_network(x)
+
+
+def set_scan(model: nn.Module, scan) -> None:
+    """Route every SS2D of `model` through `scan` (same signature as
+    `ss2d_scan_pair`); used to run the plain scan on the card."""
+    for m in model.modules():
+        if isinstance(m, SS2D):
+            m.scan = scan
+
+
+@torch.no_grad()
+def wavemamba_apply(model: WaveMamba, x):
+    """x: (B, H, W, in_chn) float32 NHWC, H and W multiples of 8 -> same."""
+    return model(x.permute(0, 3, 1, 2).float()).permute(0, 2, 3, 1)
+
+
+def pad_to_multiple(x: np.ndarray, multiple=8):
+    """Reflect-pad (B, H, W, C) bottom/right to a multiple, on the host;
+    returns (padded, h, w). numpy re-reflects a pad wider than the image."""
+    _, h, w, _ = x.shape
+    ph, pw = (-h) % multiple, (-w) % multiple
+    if ph or pw:
+        x = np.pad(x, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="reflect")
+    return x, h, w
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

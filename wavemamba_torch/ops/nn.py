@@ -1,0 +1,53 @@
+"""Neural-net primitives that stock PyTorch does not give in the form the
+model needs. The counterpart of `wavemamba_tpu/ops/nn.py`.
+
+The port keeps the reference's NCHW layout inside the model, so most of the
+JAX module maps onto stock modules and functions, each held against its JAX
+counterpart by `tests/test_torch_ops.py`:
+
+    conv2d (HWIO, NHWC)     -> nn.Conv2d (OIHW, NCHW; groups, padding)
+    linear ((in, out))      -> nn.Linear ((out, in))
+    gelu (exact erf), silu  -> F.gelu, F.silu
+    prelu (one slope)       -> nn.PReLU()
+    pixel_(un)shuffle       -> nn.PixelUnshuffle, F.pixel_shuffle
+
+What is left is the LayerNorm with float32 statistics over an arbitrary axis
+(the model normalises over the last axis in SS2D and over channels, axis 1,
+everywhere else) and the L2 normalisation of the channel attention.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def layer_norm(x, weight, bias, eps=1e-5, dim=-1):
+    """LayerNorm over axis `dim`, float32 statistics (biased variance)."""
+    xf = x.float()
+    mu = xf.mean(dim, keepdim=True)
+    var = (xf - mu).square().mean(dim, keepdim=True)
+    shape = [1] * x.dim()
+    shape[dim] = -1
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float().view(shape) + bias.float().view(shape)).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """Parameters `weight`/`bias` (the `.pth` names) over axis `dim`."""
+
+    def __init__(self, c, eps, dim=1):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.eps = eps
+        self.dim = dim
+
+    def forward(self, x):
+        return layer_norm(x, self.weight, self.bias, self.eps, self.dim)
+
+
+def l2_normalize(x, dim=-1, eps=1e-12):
+    """torch F.normalize(p=2): x / max(||x||_2, eps)."""
+    return F.normalize(x, p=2.0, dim=dim, eps=eps)

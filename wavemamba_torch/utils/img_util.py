@@ -1,0 +1,59 @@
+"""Image IO and conversion, NHWC. The counterpart of
+`wavemamba_tpu/utils/img_util.py`: disk IO is BGR uint8 through OpenCV,
+the model sees (1, H, W, 3) RGB float32. `cv2` is imported by the two IO
+functions only, so the rest of the port runs where OpenCV is missing."""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+
+def imread(path, flag="color", float32=False):
+    """Read an image file -> BGR HWC uint8 (or float32 in [0, 1])."""
+    import cv2
+
+    flags = {"color": cv2.IMREAD_COLOR, "grayscale": cv2.IMREAD_GRAYSCALE,
+             "unchanged": cv2.IMREAD_UNCHANGED}
+    with open(path, "rb") as f:
+        img = cv2.imdecode(np.frombuffer(f.read(), np.uint8), flags[flag])
+    if float32:
+        img = img.astype(np.float32) / 255.0
+    return img
+
+
+def imwrite(img, file_path, params=None, auto_mkdir=True):
+    """Write a BGR uint8 HWC image."""
+    import cv2
+
+    if auto_mkdir:
+        os.makedirs(os.path.abspath(os.path.dirname(file_path)), exist_ok=True)
+    if not cv2.imwrite(file_path, img, params or []):
+        raise IOError(f"failed to write {file_path}")
+    return True
+
+
+def img2batch(img, bgr2rgb=True, float32=True):
+    """HWC BGR (uint8 or float) -> (1, H, W, C) RGB float32 in [0, 1]."""
+    img = np.asarray(img)
+    if img.dtype == np.uint8:
+        img = img.astype(np.float32) / 255.0
+    if bgr2rgb and img.ndim == 3 and img.shape[2] == 3:
+        img = img[..., ::-1]
+    if float32:
+        img = img.astype(np.float32)
+    return img[None].copy()
+
+
+def batch2img(batch, rgb2bgr=True, min_max=(0, 1)):
+    """(1|B, H, W, C) RGB float -> uint8 BGR HWC of the first item: clamp
+    to min_max, rescale to [0, 1], *255 and round."""
+    img = np.asarray(batch)
+    if img.ndim == 4:
+        img = img[0]
+    img = np.clip(img, min_max[0], min_max[1])
+    img = (img - min_max[0]) / (min_max[1] - min_max[0])
+    if rgb2bgr and img.ndim == 3 and img.shape[2] == 3:
+        img = img[..., ::-1]
+    return (img * 255.0).round().astype(np.uint8)
