@@ -3,29 +3,46 @@
 
 Run from the root of a checkout: `python3 chip_smoke.py`. It builds every
 kernel of the port from `wavemamba_torch/csrc/`, holds each against its
-plain PyTorch version on the card, serves the shipped model at full width,
-and prints one JSON line per phase:
+plain PyTorch version on the card, serves the shipped model and trains a
+fresh one at full width, and prints one JSON line per phase:
 
-  1. device  the card (nvidia-smi), torch and CUDA versions, the kernel build.
+  1. device  the card (nvidia-smi), torch and CUDA versions, the kernel builds.
   2. k1      kernel K1 (`ss2d_scan_pair`) against `ss2d_scan_pair_plain` at
              the three scan lengths of a 1080p forward, on a ragged length
              and on a column (transposed) token stream; times and bounds.
-  3. serve   `ckpt/WaveMamba_ProcLLIE_BSRGAN_XXL4.pth` through the CLI's
-             load -> bucket pad -> forward -> crop path, three seeded
-             low-light requests (1080x1920, 1080x1920, 720x1280); launches
-             of K1, latency, peak memory, outputs finite and brighter.
-  4. model   the full model with K1 against the same model with the plain
+  3. k2      kernel K2 (`ss2d_scan_pair_bwd`, K1's backward) against
+             `ss2d_scan_pair_plain_bwd` at the training shapes, on a ragged
+             length and on a column stream, all six outputs and K1's carries;
+             times at the three training lengths and bounds.
+  4. serve   `ckpt/WaveMamba_ProcLLIE_BSRGAN_XXL4.pth` through the CLI's
+             load -> bucket pad -> forward -> crop path, two seeded
+             low-light requests (1080x1920, 720x1280); launches of K1,
+             latency, peak memory, outputs finite and brighter.
+  5. model   the full model with K1 against the same model with the plain
              scan at 256x384, and the card against the CPU at 64x96.
-  5. profile device time by kernel (torch.profiler) over one 1152x1920
-             forward, and the card's idle share.
+  6. grad    loss and every parameter's gradient at 128x128, batch 2, with
+             K1 + K2 against the same model with the plain scan and the
+             plain backward.
+  7. train   a seeded fresh model, the settings of
+             `options/train_wavemamba_uhdll.yml` (AdamW, cosine schedule, L1 +
+             0.1 FFT, batch 8 of 512x512, float32), one warm-up step and six
+             steps on a seeded synthetic batch: launches of K1 and K2 per
+             step, ms per step, images/s, peak memory, the loss falls, EMA
+             and lr follow their formulas.
+  8. resume  the training state saved after step 3, restored into a fresh
+             trainer, takes step 4 again: the same loss and parameters.
+  9. profile device time by kernel (torch.profiler) over one 1152x1920
+             forward and over one training step, and the card's idle share.
 
 Then the `kernels` line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, and the script exits non-zero without the last line. It needs
-one card and exits non-zero where CUDA is missing.
+one card and exits non-zero where CUDA is missing. `--remat` trains with
+block recompute, to measure it; the step fits an 80 GB card without.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -55,6 +72,30 @@ K1_ATOL = 1e-4
 # The whole model, K1 against the plain scan on the card, and the card
 # (cuDNN / cuBLAS in full f32, TF32 off) against the CPU.
 MODEL_ATOL = 1e-4
+# K2 against its plain version: max abs difference over each output's max abs
+# value. Both follow the same arithmetic in f32; the sums over tokens and
+# batch (up to 524,288 terms) are taken in another order.
+K2_RTOL = 1e-5
+# Loss and gradients of the whole model, K1 + K2 against plain scan + plain
+# backward, both on the card: the loss relative, each gradient by its max abs
+# difference over the gradient's max abs value (cuDNN's and cuBLAS's backward
+# sums are the same on both sides; the scans differ as above).
+GRAD_LOSS_RTOL = 1e-5
+GRAD_RTOL = 2e-4
+# A restored trainer against the one that went on: cuDNN's weight gradients
+# and the gather's backward add with atomics, so a step is not bitwise
+# repeatable; Adam divides by sqrt(v), which can turn a last-bit difference in
+# a near-zero gradient into a small fraction of lr = 5e-4. A restore that lost
+# the moments or the EMA would move a parameter by a whole update, 5e-4. The
+# parameters and the EMA by their max abs difference, Adam's two moments by
+# theirs over the moment's max abs value.
+RESUME_LOSS_RTOL = 1e-5
+RESUME_ATOL = 1e-5
+RESUME_MOMENT_RTOL = 1e-4
+TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS, EMA_DECAY = 8, 512, 6, 0.999
+TRAIN_LENGTHS = [65536, 16384, 4096]  # tokens per image at the three LFSS levels of 512x512
+SCHEDULER = {"type": "CosineAnnealingRestartCyclicLR", "periods": [100, 100000],
+             "restart_weights": [1, 1], "eta_mins": [0.0005, 0.0000001]}
 LEVELS_1080P = [(576, 960), (288, 480), (144, 240)]  # token grid of each LFSS level
 
 
@@ -67,9 +108,11 @@ def check(cond, what):
         raise RuntimeError(f"check failed: {what}")
 
 
-def cuda_ms(fn, reps):
-    """Median device time of `fn` in ms over `reps` runs after one warm-up."""
-    fn()
+def cuda_ms(fn, reps, warmup=True):
+    """Median device time of `fn` in ms over `reps` runs, after one warm-up
+    unless `warmup` is off (for the plain versions, which take seconds)."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -104,6 +147,30 @@ def k1_bound(B, L, D, N, R):
     return times[unit], ("bytes" if unit == "hbm" else "operations"), unit
 
 
+def k2_bound(B, L, D, N, R, T=64):
+    """Least time (ms) the card could take for one K2 call; as `k1_bound`.
+
+    Bytes: x and dy read once, dx written once, the chunk-entry states and
+    chunk decays read once, the weights read and their gradients written.
+    Per (token, direction), each computed once: on the FMA pipe, the
+    projection 2DJ (J = R+2N) and dt 2RD; per (n, d) the state's recompute 4
+    (da*A, the FMA of h, du*B) and the adjoint 13 (g, a*g, g*da*u, common,
+    g.B, dda, dA); the sums over channels for dB and dC 3ND; the projection
+    backward 2RD + 2DJ, the weight sums 2DJ + 2RD, and some 10 D for the
+    softplus, the sigmoid's divide, dz, du and the small sums. On the SFU one
+    exp per (n, d) and three per d (softplus, sigmoid, its reciprocal)."""
+    J = R + 2 * N
+    nc = -(-L // T)
+    weights = 2 * D * J + 2 * R * D + 2 * D + 2 * N * D + 2 * D
+    nbytes = 4 * (B * L * D * (1 + 2 + 1) + B * 2 * nc * (N * D + D) + 2 * weights)
+    fma_ops = 2 * B * L * (3 * 2 * D * J + 3 * 2 * R * D + (4 + 13 + 3) * N * D + 10 * D)
+    sfu_ops = 2 * B * L * (N * D + 3 * D)
+    times = {"hbm": nbytes / HBM_BYTES_S * 1e3, "fma": fma_ops / F32_OPS_S * 1e3,
+             "sfu": sfu_ops / SFU_OPS_S * 1e3}
+    unit = max(times, key=times.get)
+    return times[unit], ("bytes" if unit == "hbm" else "operations"), unit
+
+
 def pair_inputs(rs, B, L, D=64, N=16, R=2):
     """Synthetic K1 inputs, the distribution of the JAX package's kernel test."""
     cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
@@ -119,15 +186,28 @@ def phase_device():
     from wavemamba_torch.ops import scan_cuda
 
     t0 = time.perf_counter()
-    lib = scan_cuda.build()
+    libs = scan_cuda.build_all()  # one nvcc per source, started together
     build_s = time.perf_counter() - t0
-    ptxas = [ln.replace("ptxas info    :", "").strip()
-             for ln in lib.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+
+    def ptxas(lib, kernels):
+        """Registers and spills of each kernel of the build, as `-Xptxas -v`
+        reports them; of a templated kernel, the shipped dt_rank's (<16, 2>)."""
+        lines = lib.with_suffix(".log").read_text().splitlines()
+        out = []
+        for i, ln in enumerate(lines):
+            name = next((k for k in kernels if k in ln), None)
+            if "Compiling entry function" in ln and name and (
+                    "ILi16ELi" not in ln or "ILi16ELi2E" in ln):
+                out.append(name + ": " + ", ".join(
+                    x.replace("ptxas info    :", "").strip() for x in lines[i + 2:i + 4]))
+        return out
+
     emit({"phase": "device", "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "k1_build_s": build_s, "k1_library": os.path.relpath(lib, ROOT), "ptxas": ptxas})
+          "build_s": build_s, "libraries": [os.path.relpath(lib, ROOT) for lib in libs],
+          "k1_ptxas": ptxas(libs[0], ["chunk_scan", "chunk_prefix"]),
+          "k2_ptxas": ptxas(libs[1], ["bwd_local", "bwd_prefix", "bwd_main", "bwd_reduce"])})
     return smi
 
 
@@ -154,12 +234,74 @@ def phase_k1():
                "max_abs_err": err, "tol": K1_ATOL, "y_max_abs": float(y_plain.abs().max())}
         if not columns and name != "ragged":
             row["ms"] = cuda_ms(lambda: ss2d_scan_pair(*args), 20)
-            row["plain_ms"] = cuda_ms(lambda: ss2d_scan_pair_plain(*args), 3)
+            row["plain_ms"] = cuda_ms(lambda: ss2d_scan_pair_plain(*args), 1, warmup=False)
             row["bound_ms"], row["bound_by"], row["bound_unit"] = k1_bound(1, h * w, 64, 16, 2)
         row["launches"] = ss2d_scan_pair.launches
         emit(row)
         rows.append(row)
         del y, y_plain, args
+    return rows
+
+
+OUTPUTS = ("dx", "dwx", "ddtw", "dbias", "dA", "ddsk")
+
+
+def phase_k2():
+    from wavemamba_torch.ops.scan import ss2d_scan_pair_plain, ss2d_scan_pair_plain_bwd
+    from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair, ss2d_scan_pair_bwd
+
+    rs = np.random.RandomState(2)
+    rows = []
+    # The three LFSS levels of a training step at batch 8 of 512x512 (level 1
+    # first, as TRAIN_LENGTHS), then a ragged length and a column stream.
+    cases = [("level1", TRAIN_BATCH, 256, 256, False), ("level2", TRAIN_BATCH, 128, 128, False),
+             ("level3", TRAIN_BATCH, 64, 64, False), ("ragged", 1, 1, 1000, False),
+             ("columns", 1, 48, 80, True)]
+    check([h * w for _, _, h, w, _ in cases[:3]] == TRAIN_LENGTHS, "the k2 cases are the training lengths")
+    for name, B, h, w, columns in cases:
+        L = h * w
+        args = pair_inputs(rs, B, L)
+        if columns:
+            x = args[0].view(B, h, w, -1).transpose(1, 2).reshape(B, L, -1).contiguous()
+            args = (x,) + args[1:]
+        dy = torch.from_numpy(rs.randn(B, 2, L, 64).astype(np.float32)).cuda()
+        y, state, sumda = ss2d_scan_pair(*args, return_carries=True)
+        got = ss2d_scan_pair_bwd(*args, state, sumda, dy)
+        again = ss2d_scan_pair_bwd(*args, state, sumda, dy)
+        torch.cuda.synchronize()
+        y_plain, state_plain, sumda_plain = ss2d_scan_pair_plain(*args, return_carries=True)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = ss2d_scan_pair_plain_bwd(*args, state_plain, dy)
+        end.record()
+        end.synchronize()
+        # K1 at this batch: y and what it hands to K2.
+        fwd_err = {"y": float((y - y_plain).abs().max()),
+                   "state": float((state - state_plain).abs().max()),
+                   "sumda": float((sumda - sumda_plain).abs().max())}
+        check(max(fwd_err.values()) <= K1_ATOL, f"K1 {name} B={B}: y and carries {fwd_err}")
+        row = {"phase": "k2", "case": name, "B": B, "L": L, "D": 64, "N": 16, "R": 2,
+               "tol_rel": K2_RTOL, "k1": fwd_err, "max_abs_err": {}, "max_rel_err": {}}
+        for key, g, g2, w_ in zip(OUTPUTS, got, again, want):
+            check(g.shape == w_.shape and bool(torch.isfinite(g).all()), f"K2 {name} {key}: finite")
+            check(torch.equal(g, g2), f"K2 {name} {key}: the same bits on a second run")
+            err = float((g - w_).abs().max())
+            row["max_abs_err"][key] = err
+            row["max_rel_err"][key] = err / float(w_.abs().max())
+            check(row["max_rel_err"][key] <= K2_RTOL,
+                  f"K2 {name} {key}: max rel err {row['max_rel_err'][key]} <= {K2_RTOL}")
+        del got, again, y, y_plain, state_plain, sumda_plain, want
+        if B == TRAIN_BATCH:  # one call of a training step at this LFSS level
+            row["ms"] = cuda_ms(lambda: ss2d_scan_pair_bwd(*args, state, sumda, dy), 10)
+            row["k1_ms"] = cuda_ms(lambda: ss2d_scan_pair(*args), 10)
+            row["plain_ms"] = start.elapsed_time(end)  # the one run compared above
+            row["bound_ms"], row["bound_by"], row["bound_unit"] = k2_bound(B, L, 64, 16, 2)
+            row["k1_bound_ms"] = k1_bound(B, L, 64, 16, 2)[0]
+        row["launches"] = ss2d_scan_pair_bwd.launches
+        emit(row)
+        rows.append(row)
+        del state, sumda, args, dy
     return rows
 
 
@@ -172,7 +314,7 @@ def phase_serve(model):
     per_forward = 2 * 2 * sum(cfg.n_l_blocks)  # two pairs per SS2D, down and up halves
     check(per_forward == 28, "the shipped config scans 28 pairs per forward")
     rs = np.random.RandomState(0)
-    shapes = [(1080, 1920), (1080, 1920), (720, 1280)]
+    shapes = [(1080, 1920), (720, 1280)]
     images = [(rs.rand(1, h, w, 3) * 0.12).astype(np.float32) for h, w in shapes]
     ladder = BucketLadder()
     enhance(model, images[0], ladder)  # warm-up: cuDNN plans, the allocator's pool
@@ -212,7 +354,7 @@ def phase_serve(model):
     forward_ms = cuda_ms(lambda: wavemamba_apply(model, x), 3)
     emit({"phase": "serve", "requests": len(images), "k1_launches": launches,
           "forward_ms_1152x1920": forward_ms, "peak_memory_bytes": peak})
-    return launches, x
+    return launches, x, forward_ms
 
 
 def phase_model(model):
@@ -246,38 +388,233 @@ def phase_model(model):
     check(err <= MODEL_ATOL, f"model card vs CPU {err} <= {MODEL_ATOL}")
 
 
-def phase_profile(model, x):
-    """Device time by kernel over one 1152x1920 forward, and the share of the
-    forward's wall time in which the card ran no kernel."""
+class PlainScanPair(torch.autograd.Function):
+    """The plain scan with the plain backward, on whatever device: what K1 +
+    K2 (`scan_cuda.SS2DScanPair`) are held against in the `grad` phase."""
+
+    @staticmethod
+    def forward(ctx, x, wx, dtw, bias, A, dsk):
+        from wavemamba_torch.ops.scan import ss2d_scan_pair_plain
+
+        y, state, _ = ss2d_scan_pair_plain(x, wx, dtw, bias, A, dsk, return_carries=True)
+        ctx.save_for_backward(x, wx, dtw, bias, A, dsk, state)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        from wavemamba_torch.ops.scan import ss2d_scan_pair_plain_bwd
+
+        return ss2d_scan_pair_plain_bwd(*ctx.saved_tensors, dy)
+
+
+def synthetic_batch(seed, batch, size):
+    """A seeded low-light pair on the card, NHWC float32: gt uniform, lq = gt
+    * 0.12 + noise."""
+    rs = np.random.RandomState(seed)
+    gt = rs.rand(batch, size, size, 3).astype(np.float32)
+    lq = np.clip(gt * 0.12 + rs.randn(batch, size, size, 3).astype(np.float32) * 0.01, 0, 1)
+    return torch.from_numpy(lq.astype(np.float32)).cuda(), torch.from_numpy(gt).cuda()
+
+
+def phase_grad():
+    from wavemamba_torch.models import init_network
+    from wavemamba_torch.models.wavemamba import set_scan
+    from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair, ss2d_scan_pair_bwd
+    from wavemamba_torch.train.trainer import TrainConfig, loss_fn
+
+    model = init_network({"type": "WaveMamba", "remat": False},
+                         torch.Generator().manual_seed(11), device="cuda")
+    lq, gt = synthetic_batch(12, 2, 128)
+    tcfg = TrainConfig()
+    results = []
+    before = ss2d_scan_pair.launches, ss2d_scan_pair_bwd.launches
+    for scan in (ss2d_scan_pair, PlainScanPair.apply):
+        set_scan(model, scan)
+        model.zero_grad(set_to_none=True)
+        total, _ = loss_fn(model, tcfg, lq, gt)
+        total.backward()
+        results.append((float(total.detach()), {n: p.grad.clone() for n, p in model.named_parameters()}))
+    launched = (ss2d_scan_pair.launches - before[0], ss2d_scan_pair_bwd.launches - before[1])
+    check(launched == (28, 28), f"{launched} K1/K2 launches in one forward and backward")
+    (loss_k, grads_k), (loss_p, grads_p) = results
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst = max(((float((grads_k[n] - g).abs().max()) / (float(g.abs().max()) + 1e-30), n)
+                 for n, g in grads_p.items()))
+    check(all(bool(torch.isfinite(g).all()) for g in grads_k.values()), "gradients finite")
+    emit({"phase": "grad", "image": [128, 128], "batch": 2, "loss_kernel": loss_k,
+          "loss_plain": loss_p, "loss_rel_err": loss_rel, "loss_tol": GRAD_LOSS_RTOL,
+          "parameters": len(grads_p), "worst_grad_rel_err": worst[0], "worst_grad": worst[1],
+          "grad_tol": GRAD_RTOL,
+          "max_grad_abs_err": max(float((grads_k[n] - g).abs().max()) for n, g in grads_p.items())})
+    check(loss_rel <= GRAD_LOSS_RTOL, f"loss kernel vs plain {loss_rel} <= {GRAD_LOSS_RTOL}")
+    check(worst[0] <= GRAD_RTOL, f"gradient of {worst[1]}: {worst[0]} <= {GRAD_RTOL}")
+
+
+def train_setup(remat, seed=21):
+    from wavemamba_torch.models import init_network
+    from wavemamba_torch.train.trainer import TrainConfig, create_train_state, make_train_step
+
+    tcfg = TrainConfig(lr=5e-4, weight_decay=1e-3, betas=(0.9, 0.99), scheduler=SCHEDULER,
+                       pixel_weight=1.0, fft_weight=0.1, ema_decay=EMA_DECAY)
+    model = init_network({"type": "WaveMamba", "remat": remat},
+                         torch.Generator().manual_seed(seed), device="cuda")
+    return create_train_state(model, tcfg), make_train_step(tcfg), tcfg
+
+
+def phase_train(remat):
+    """One warm-up step and TRAIN_STEPS steps at full width and depth on one
+    fixed seeded batch of TRAIN_BATCH images, with block recompute if `remat`.
+    A step that does not fit the card's memory fails the run. Returns what the
+    later phases need."""
+    from wavemamba_torch.checkpoint import save_training_state
+    from wavemamba_torch.models import param_count
+    from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair, ss2d_scan_pair_bwd
+    from wavemamba_torch.train.trainer import make_lr
+
+    batch = TRAIN_BATCH
+    state, step, tcfg = train_setup(remat)
+    lq, gt = synthetic_batch(22, batch, TRAIN_SIZE)
+    torch.cuda.reset_peak_memory_stats()
+    state, m = step(state, lq, gt)  # warm-up: cuDNN plans, the allocator's pool
+    warm_loss = float(m["total"])
+    check(param_count(state.model) == 1_512_718, "the shipped config has 1,512,718 parameters")
+    per_step = 2 * 2 * sum(state.model.cfg.n_l_blocks)  # pairs scanned in a forward
+    k1_per_step = per_step * (2 if remat else 1)  # the recompute runs K1 again
+    lr = make_lr(tcfg)
+    named = dict(state.model.named_parameters())
+    states_dir = os.path.join(ROOT, "build", "chip_smoke", "training_states")
+
+    ss2d_scan_pair.launches = ss2d_scan_pair_bwd.launches = 0  # the main path's counts start here
+    losses, times, saved = [], [], {}
+    for i in range(1, TRAIN_STEPS + 1):  # state.step == i before the step
+        ema_before = {n: e.clone() for n, e in state.ema.items()}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, lq, gt)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(m["total"]))
+        check(state.optimizer.param_groups[0]["lr"] == lr(i), f"lr of step {i} is schedule({i})")
+        ema_err = max(float((state.ema[n] - (ema_before[n] * EMA_DECAY
+                                             + p.detach() * (1 - EMA_DECAY))).abs().max())
+                      for n, p in named.items())
+        check(ema_err <= 1e-6, f"EMA after step {i} follows its formula ({ema_err})")
+        if state.step == 3:
+            saved["path"] = save_training_state(state, states_dir, 3)
+        if state.step == 4:
+            saved["loss"] = losses[-1]
+            saved["state"] = state.state_dict()
+    k1_launches, k2_launches = ss2d_scan_pair.launches, ss2d_scan_pair_bwd.launches  # read after
+    peak = torch.cuda.max_memory_allocated()
+
+    check(all(np.isfinite(losses)) and np.isfinite(warm_loss), "losses finite")
+    check(losses[-1] < warm_loss, f"the loss fell on the repeated batch: {warm_loss} -> {losses[-1]}")
+    check(k2_launches == per_step * TRAIN_STEPS == 28 * TRAIN_STEPS,
+          f"{k2_launches} K2 launches in {TRAIN_STEPS} steps")
+    check(k1_launches == k1_per_step * TRAIN_STEPS, f"{k1_launches} K1 launches in {TRAIN_STEPS} steps")
+    check(state.step == TRAIN_STEPS + 1, "the step count")
+    ms = float(np.median(times))
+    emit({"phase": "train", "batch": batch, "size": [TRAIN_SIZE, TRAIN_SIZE], "remat": remat,
+          "steps": TRAIN_STEPS, "loss_first": warm_loss, "losses": losses, "step_ms": times,
+          "ms_per_step": ms, "images_per_s": batch / ms * 1e3, "peak_memory_bytes": peak,
+          "k1_launches": k1_launches, "k2_launches": k2_launches,
+          "k1_per_step": k1_per_step, "k2_per_step": per_step, "lr": lr(TRAIN_STEPS)})
+    return dict(state=state, step=step, tcfg=tcfg, lq=lq, gt=gt, remat=remat, saved=saved,
+                ms_per_step=ms,
+                k1_launches=k1_launches, k2_launches=k2_launches)
+
+
+def phase_resume(run):
+    """The state saved after step 3 goes into a fresh trainer (other initial
+    weights) and takes step 4 on the same batch: the loss and the parameters
+    of the trainer that went on."""
+    from wavemamba_torch.checkpoint import find_resume_state, restore_training_state
+
+    saved = run["saved"]
+    path = find_resume_state(os.path.dirname(saved["path"]))
+    check(path == saved["path"], f"find_resume_state finds {saved['path']}")
+    fresh, step, _ = train_setup(run["remat"], seed=99)
+    fresh = restore_training_state(path, fresh)
+    check(fresh.step == 3, "the restored step count")
+    fresh, m = step(fresh, run["lq"], run["gt"])
+    loss = float(m["total"])
+    loss_rel = abs(loss - saved["loss"]) / abs(saved["loss"])
+    got, want = fresh.state_dict(), saved["state"]
+    check(got["step"] == want["step"] == 4 and got["adam_step"] == want["adam_step"],
+          "the step counts after the resumed step")
+    diff = lambda key: max(float((got[key][n] - w).abs().max()) for n, w in want[key].items())
+    size = lambda key: max(float(w.abs().max()) for w in want[key].values())
+    err, ema_err = diff("params"), diff("ema")
+    moment_rel = {key: diff(key) / size(key) for key in ("exp_avg", "exp_avg_sq")}
+    emit({"phase": "resume", "state": os.path.relpath(path, ROOT), "loss": loss,
+          "loss_went_on": saved["loss"], "loss_rel_err": loss_rel, "loss_tol": RESUME_LOSS_RTOL,
+          "max_param_abs_err": err, "max_ema_abs_err": ema_err, "param_tol": RESUME_ATOL,
+          "moment_rel_err": moment_rel, "moment_tol": RESUME_MOMENT_RTOL})
+    check(loss_rel <= RESUME_LOSS_RTOL, f"resumed loss {loss} vs {saved['loss']}")
+    check(err <= RESUME_ATOL, f"resumed parameters within {RESUME_ATOL}: {err}")
+    check(ema_err <= RESUME_ATOL, f"resumed EMA within {RESUME_ATOL}: {ema_err}")
+    check(max(moment_rel.values()) <= RESUME_MOMENT_RTOL,
+          f"resumed Adam moments within {RESUME_MOMENT_RTOL} of their max: {moment_rel}")
+
+
+def profile_rows(fn):
+    """Run `fn` under torch.profiler: (wall ms, [(device us, calls, kernel name)])."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from wavemamba_torch.models.wavemamba import wavemamba_apply
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start.record()
-        wavemamba_apply(model, x)
+        fn()
         end.record()
         torch.cuda.synchronize()
     wall_ms = start.elapsed_time(end)
     by_name = {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        # Kernels and copies only: the profiler mirrors host annotations
+        # (`Optimizer.step#AdamW.step`) onto the device's timeline as spans.
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False) \
+                or e.name.startswith("Optimizer."):
             continue
         us, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (us + e.device_time_total, n + 1)
-    rows = sorted(((us, n, name) for name, (us, n) in by_name.items()), reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    k1_ms = sum(r[0] for r in rows if "chunk_scan" in r[2] or "chunk_prefix" in r[2]) / 1e3
-    conv_ms = sum(r[0] for r in rows if "conv" in r[2].lower() or "xmma" in r[2]) / 1e3
-    emit({"phase": "profile", "image": [1152, 1920], "wall_ms": wall_ms, "busy_ms": busy_ms,
-          "idle_share": 1.0 - busy_ms / wall_ms, "k1_ms": k1_ms, "conv_ms": conv_ms,
-          "kernels": len(rows), "launches": sum(r[1] for r in rows),
-          "top": [{"us": us, "calls": n, "name": name[:90]} for us, n, name in rows[:20]]})
+    return wall_ms, sorted(((us, n, name) for name, (us, n) in by_name.items()), reverse=True)
+
+
+def phase_profile(model, x, forward_ms, run):
+    """Device time by kernel over one 1152x1920 forward and over one training
+    step, and the share of each one's wall time in which the card ran no
+    kernel."""
+    from wavemamba_torch.models.wavemamba import wavemamba_apply
+
+    def report(what, wall_ms, rows, unprofiled_ms, **extra):
+        busy_ms = sum(r[0] for r in rows) / 1e3
+        named = lambda *keys: sum(r[0] for r in rows if any(k in r[2] for k in keys)) / 1e3
+        emit({"phase": "profile", "what": what, **extra, "wall_ms": wall_ms, "busy_ms": busy_ms,
+              "idle_share": 1.0 - busy_ms / wall_ms,
+              # against the same work's time without the profiler's overhead
+              "unprofiled_ms": unprofiled_ms, "idle_share_unprofiled": 1.0 - busy_ms / unprofiled_ms,
+              "k1_ms": named("chunk_scan", "chunk_prefix"),
+              "k2_ms": named("bwd_local", "bwd_prefix", "bwd_main", "bwd_reduce"),
+              "conv_ms": sum(r[0] for r in rows
+                             if "conv" in r[2].lower() or "xmma" in r[2] or "wgrad" in r[2]
+                             or "dgrad" in r[2]) / 1e3,
+              "kernels": len(rows), "launches": sum(r[1] for r in rows),
+              "top": [{"us": us, "calls": n, "name": name[:90]} for us, n, name in rows[:20]]})
+
+    report("forward", *profile_rows(lambda: wavemamba_apply(model, x)), forward_ms,
+           image=[1152, 1920])
+    report("train_step", *profile_rows(lambda: run["step"](run["state"], run["lq"], run["gt"])),
+           run["ms_per_step"], batch=run["lq"].shape[0], size=[TRAIN_SIZE, TRAIN_SIZE], remat=run["remat"])
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--remat", action="store_true",
+                        help="block recompute in the train phase (to measure it; the step "
+                             "fits an 80 GB card without)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
 
@@ -288,22 +625,39 @@ def main():
     set_parity_mode()
     smi = phase_device()
     k1_rows = phase_k1()
+    k2_rows = phase_k2()
     t0 = time.perf_counter()
     model = build_network({"type": "WaveMamba"}, load_network(CKPT, device="cuda"), device="cuda")
     emit({"phase": "load", "checkpoint": os.path.relpath(CKPT, ROOT),
           "load_s": time.perf_counter() - t0})
-    launches, x1080 = phase_serve(model)
+    launches, x1080, forward_ms = phase_serve(model)
     phase_model(model)
-    phase_profile(model, x1080)
+    phase_grad()
+    run = phase_train(args.remat)
+    phase_resume(run)
+    phase_profile(model, x1080, forward_ms, run)
 
+    # K1 at level 1 of the 1080p forward; K2 at level 1 of the training step.
+    # Launches: the serve path's and the training path's, each counted from 0.
     level1 = k1_rows[0]
+    k2_level1 = k2_rows[0]
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "ss2d_scan_pair (K1)", "route": "cuda", "source": "wavemamba_torch/csrc/ss2d_scan.cu",
-        "replaces": "wavemamba_tpu/ops/scan_pallas.py:705", "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in k1_rows), "ms": level1["ms"],
-        "plain_ms": level1["plain_ms"], "bound_ms": level1["bound_ms"],
-        "bound_by": level1["bound_by"], "library_ms": None}]})
+        "replaces": "wavemamba_tpu/ops/scan_pallas.py:705",
+        "launches": launches + run["k1_launches"], "launches_serve": launches,
+        "launches_train": run["k1_launches"],
+        "max_abs_err": max([r["max_abs_err"] for r in k1_rows] + [max(r["k1"].values()) for r in k2_rows]),
+        "ms": level1["ms"], "plain_ms": level1["plain_ms"], "bound_ms": level1["bound_ms"],
+        "bound_by": level1["bound_by"], "library_ms": None}, {
+        "name": "ss2d_scan_pair_bwd (K2)", "route": "cuda",
+        "source": "wavemamba_torch/csrc/ss2d_scan_bwd.cu",
+        "replaces": "wavemamba_tpu/ops/scan_pallas.py:952", "launches": run["k2_launches"],
+        "max_abs_err": max(max(r["max_abs_err"].values()) for r in k2_rows),
+        "max_rel_err": max(max(r["max_rel_err"].values()) for r in k2_rows),
+        "ms": k2_level1["ms"], "plain_ms": k2_level1["plain_ms"],
+        "bound_ms": k2_level1["bound_ms"], "bound_by": k2_level1["bound_by"],
+        "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

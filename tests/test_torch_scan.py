@@ -89,6 +89,7 @@ class FakeCuda:
         self.t = t
         self.shape, self.dtype = t.shape, t.dtype
         self.device = torch.device("cuda", 0)
+        self.requires_grad = False
 
     def is_contiguous(self):
         return self.t.is_contiguous()

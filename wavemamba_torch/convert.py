@@ -5,6 +5,8 @@ no conversion (`load_pth`). `state_dict_from_jax` carries a parameter tree of
 the JAX package (`wavemamba_tpu`, NHWC/HWIO, given as numpy arrays) over to
 the port's state dict: the exact inverse of the JAX package's `.pth`
 importer, and the port's own copy of its `convert/torch_export.py`.
+`train_state_from_jax` does the same for a whole JAX train state, so that
+both trainers can continue from one state.
 """
 
 from __future__ import annotations
@@ -82,3 +84,30 @@ def state_dict_from_jax(params) -> dict:
     out: dict = {}
     _emit(out, [], params)
     return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in out.items()}
+
+
+def _adam_state(opt_state):
+    """optax's ScaleByAdamState inside an optimizer state of nested tuples:
+    the one entry with `mu`, `nu` and `count`."""
+    if all(hasattr(opt_state, a) for a in ("mu", "nu", "count")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(state) -> dict:
+    """A train state of the JAX package, arrays as numpy ({'step', 'params',
+    'opt_state' (optax adamw, with or without a clip before it), 'ema'?}) ->
+    what `train.trainer.TrainState.load_state_dict` takes: parameters, Adam's
+    `mu`/`nu`/`count` as `exp_avg`/`exp_avg_sq`/`adam_step`, and the EMA."""
+    adam = _adam_state(state["opt_state"])
+    if adam is None:
+        raise ValueError("no Adam state (mu, nu, count) in opt_state")
+    return {"step": int(state["step"]), "params": state_dict_from_jax(state["params"]),
+            "exp_avg": state_dict_from_jax(adam.mu), "exp_avg_sq": state_dict_from_jax(adam.nu),
+            "adam_step": int(adam.count),
+            "ema": state_dict_from_jax(state["ema"]) if "ema" in state else None}

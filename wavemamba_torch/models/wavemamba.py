@@ -1,15 +1,22 @@
 """WaveMamba: the wavelet state-space U-Net for UHD low-light enhancement.
 
-The counterpart of `wavemamba_tpu/models/wavemamba.py`, inference forward
-only, float32. Modules are NCHW inside, the reference's own layout, and
-their attribute names are the `.pth` keys, so
-`load_state_dict(strict=True)` takes the shipped checkpoints as they are.
-`wavemamba_apply` keeps the JAX package's NHWC layout at the boundary.
+The counterpart of `wavemamba_tpu/models/wavemamba.py`, float32. Modules are
+NCHW inside, the reference's own layout, and their attribute names are the
+`.pth` keys, so `load_state_dict(strict=True)` takes the shipped checkpoints
+as they are. `wavemamba_apply` (inference, no gradient) and
+`wavemamba_forward` (differentiable) keep the JAX package's NHWC layout at
+the boundary. `init_wavemamba` fills a model from a `torch.Generator` with
+the JAX package's `init_*` distributions.
 
 SS2D runs its four directional scans as two direction pairs (rows:
 directions 0 and 2, columns: 1 and 3) through `ops/scan_cuda.py:
-ss2d_scan_pair`, kernel K1 on a CUDA tensor and its plain version on a CPU
-tensor.
+ss2d_scan_pair`: kernel K1, and under autograd K2 as its backward, on a CUDA
+tensor; their plain versions on a CPU tensor.
+
+With `cfg.remat` every LFSS and HFE block runs under
+`torch.utils.checkpoint`: the backward pass recomputes the block's forward
+(the scan included) instead of keeping its activations, the JAX package's
+'full' remat policy. Its 'save_scan' policy is not ported.
 """
 
 from __future__ import annotations
@@ -22,9 +29,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from wavemamba_torch.ops.haar import dwt2, iwt2_cat
-from wavemamba_torch.ops.nn import LayerNorm, l2_normalize, layer_norm
+from wavemamba_torch.ops.nn import (
+    LayerNorm,
+    _fan_in_uniform,
+    init_conv2d,
+    init_layer_norm,
+    init_linear,
+    l2_normalize,
+)
 from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair
 
 _ROWS, _COLS = [0, 2], [1, 3]  # direction pairs: row-major and column-major fwd/rev
@@ -42,6 +57,9 @@ class WaveMambaConfig:
     d_state: int = 16
     d_conv: int = 3
     ffn_restormer: bool = False
+    # Execution knob, not part of the checkpoint: recompute every LFSS and HFE
+    # block in the backward pass instead of keeping its activations.
+    remat: bool = True
 
     @property
     def d_inner(self) -> int:
@@ -128,11 +146,12 @@ def matching(x, perc):
     """For each channel of x, the channel of `perc` nearest in L2 over the
     flattened spatial map (match_factor=1). x, perc: (B, C, H, W)."""
     b, c, h, w = x.shape
-    xf = x.reshape(b, c, h * w).float()
-    pf = perc.reshape(b, c, h * w).float()
-    d2 = (xf * xf).sum(-1)[:, :, None] + (pf * pf).sum(-1)[:, None, :] \
-        - 2.0 * torch.bmm(xf, pf.transpose(1, 2))
-    idx = d2.argmin(-1)  # (B, C)
+    with torch.no_grad():  # the argmin carries no gradient; the gather below does
+        xf = x.reshape(b, c, h * w).float()
+        pf = perc.reshape(b, c, h * w).float()
+        d2 = (xf * xf).sum(-1)[:, :, None] + (pf * pf).sum(-1)[:, None, :] \
+            - 2.0 * torch.bmm(xf, pf.transpose(1, 2))
+        idx = d2.argmin(-1)  # (B, C)
     sel = torch.gather(perc.reshape(b, c, h * w), 1, idx[:, :, None].expand(b, c, h * w))
     return sel.view(b, c, h, w)
 
@@ -243,10 +262,18 @@ class SKFF(nn.Module):
         return out
 
 
+def _run_block(blk, remat, *args):
+    """`blk(*args)`, recomputed in the backward pass when `remat` is on."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(blk, *args, use_reentrant=False, preserve_rng_state=False)
+    return blk(*args)
+
+
 class DownFRG(nn.Module):
     def __init__(self, cfg: WaveMambaConfig, n_l, n_h):
         super().__init__()
         c = cfg.wf
+        self.remat = cfg.remat
         self.l_conv = nn.Conv2d(2 * c, c, 3, padding=1)
         self.l_blk = nn.ModuleList(LFSSBlock(cfg) for _ in range(n_l))
         self.h_fusion = SKFF(c)
@@ -256,10 +283,10 @@ class DownFRG(nn.Module):
         ll, hl, lh, hh = dwt2(x)
         ll = self.l_conv(torch.cat([ll, x_d], dim=1))
         for blk in self.l_blk:
-            ll = blk(ll)
+            ll = _run_block(blk, self.remat, ll)
         xh = self.h_fusion([hl, lh, hh])
         for blk in self.h_blk:
-            xh = blk(xh, ll)
+            xh = _run_block(blk, self.remat, xh, ll)
         return ll, xh
 
 
@@ -267,15 +294,16 @@ class UpFRG(nn.Module):
     def __init__(self, cfg: WaveMambaConfig, n_l, n_h):
         super().__init__()
         c = cfg.wf
+        self.remat = cfg.remat
         self.l_blk = nn.ModuleList(LFSSBlock(cfg) for _ in range(n_l))
         self.h_out_conv = nn.Conv2d(c, 3 * c, 3, padding=1)
         self.h_blk = nn.ModuleList(HFEBlock(c, cfg.ffn_restormer) for _ in range(n_h))
 
     def forward(self, x_l, x_h):
         for blk in self.l_blk:
-            x_l = blk(x_l)
+            x_l = _run_block(blk, self.remat, x_l)
         for blk in self.h_blk:
-            x_h = blk(x_h, x_l)
+            x_h = _run_block(blk, self.remat, x_h, x_l)
         return iwt2_cat(torch.cat([x_l, self.h_out_conv(x_h)], dim=1))
 
 
@@ -325,10 +353,57 @@ def set_scan(model: nn.Module, scan) -> None:
             m.scan = scan
 
 
+def init_ss2d(m: SS2D, generator, dt_min=0.001, dt_max=0.1, dt_init_floor=1e-4):
+    """SS2D's own parameters: x_proj U(+-1/sqrt(d)), dt_projs U(+-r^-0.5), the
+    dt bias an inverse softplus so that softplus(bias) is log-uniform in
+    [dt_min, dt_max] (floored), A_logs = log(1..N) (S4D-real), Ds = 1."""
+    d, n = m.conv2d.in_channels, m.A_logs.shape[1]
+    r = m.dt_projs_weight.shape[2]
+    _fan_in_uniform(m.x_proj_weight, d, generator)
+    _fan_in_uniform(m.dt_projs_weight, r, generator)
+    with torch.no_grad():
+        unit = torch.empty(4, d, device=generator.device).uniform_(0.0, 1.0, generator=generator)
+        dt = torch.exp(unit * (math.log(dt_max) - math.log(dt_min)) + math.log(dt_min))
+        dt = dt.clamp_min(dt_init_floor)
+        m.dt_projs_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+        m.A_logs.copy_(torch.log(torch.arange(1, n + 1, dtype=torch.float32)).expand(4 * d, n))
+        m.Ds.fill_(1.0)
+
+
+def init_wavemamba(model: nn.Module, generator) -> nn.Module:
+    """Fill every parameter of `model` from `generator` with the distributions
+    of the JAX package's `init_*` (torch's defaults for convolutions and linear
+    layers; norms, skip scales and the attention temperature at 1, PReLU 0.25).
+    The numbers differ from `jax.random`'s; the distributions do not."""
+    for m in model.modules():
+        if isinstance(m, SS2D):
+            init_ss2d(m, generator)
+        elif isinstance(m, nn.Conv2d):
+            init_conv2d(m, generator)
+        elif isinstance(m, nn.Linear):
+            init_linear(m, generator)
+        elif isinstance(m, LayerNorm):
+            init_layer_norm(m)
+        elif isinstance(m, nn.PReLU):
+            nn.init.constant_(m.weight, 0.25)
+        elif isinstance(m, LFSSBlock):
+            nn.init.ones_(m.skip_scale)
+            nn.init.ones_(m.skip_scale2)
+        elif isinstance(m, CMTAttention):
+            nn.init.ones_(m.temperature)
+    return model
+
+
+def wavemamba_forward(model: WaveMamba, x):
+    """x: (B, H, W, in_chn) float32 NHWC, H and W multiples of 8 -> same.
+    Differentiable; `wavemamba_apply` is the same without a gradient."""
+    return model(x.permute(0, 3, 1, 2).float()).permute(0, 2, 3, 1)
+
+
 @torch.no_grad()
 def wavemamba_apply(model: WaveMamba, x):
     """x: (B, H, W, in_chn) float32 NHWC, H and W multiples of 8 -> same."""
-    return model(x.permute(0, 3, 1, 2).float()).permute(0, 2, 3, 1)
+    return wavemamba_forward(model, x)
 
 
 def pad_to_multiple(x: np.ndarray, multiple=8):

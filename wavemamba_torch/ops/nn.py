@@ -13,10 +13,14 @@ counterpart by `tests/test_torch_ops.py`:
 
 What is left is the LayerNorm with float32 statistics over an arbitrary axis
 (the model normalises over the last axis in SS2D and over channels, axis 1,
-everywhere else) and the L2 normalisation of the channel attention.
+everywhere else), the L2 normalisation of the channel attention, and the
+initialisers: the JAX package's `init_*` return new arrays from a key, these
+fill a module's parameters in place from a `torch.Generator`.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -51,3 +55,33 @@ class LayerNorm(nn.Module):
 def l2_normalize(x, dim=-1, eps=1e-12):
     """torch F.normalize(p=2): x / max(||x||_2, eps)."""
     return F.normalize(x, p=2.0, dim=dim, eps=eps)
+
+
+def _fan_in_uniform(t, fan_in, generator):
+    """Fill `t` with U(-1/sqrt(fan_in), 1/sqrt(fan_in)) drawn from `generator`
+    (on the generator's device, then copied to the tensor's)."""
+    bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+    with torch.no_grad():
+        t.copy_(torch.empty(t.shape, device=generator.device).uniform_(
+            -bound, bound, generator=generator))
+
+
+def init_conv2d(m: nn.Conv2d, generator):
+    """torch's nn.Conv2d default (kaiming_uniform a=sqrt(5) == U(+-1/sqrt(fan_in)))
+    for the weight and the bias."""
+    fan_in = (m.in_channels // m.groups) * m.kernel_size[0] * m.kernel_size[1]
+    _fan_in_uniform(m.weight, fan_in, generator)
+    if m.bias is not None:
+        _fan_in_uniform(m.bias, fan_in, generator)
+
+
+def init_linear(m: nn.Linear, generator):
+    _fan_in_uniform(m.weight, m.in_features, generator)
+    if m.bias is not None:
+        _fan_in_uniform(m.bias, m.in_features, generator)
+
+
+def init_layer_norm(m: LayerNorm):
+    with torch.no_grad():
+        m.weight.fill_(1.0)
+        m.bias.fill_(0.0)

@@ -16,8 +16,10 @@ Layouts (K = number of direction streams):
     returns y          : (B, K, L, D)
 
 `ss2d_scan_pair_plain` is the plain version of kernel K1
-(`ops/scan_cuda.py:ss2d_scan_pair`): it runs on CPU tensors and is the
-kernel's oracle on the card.
+(`ops/scan_cuda.py:ss2d_scan_pair`) and `ss2d_scan_pair_plain_bwd` the plain
+version of kernel K2 (`ops/scan_cuda.py:ss2d_scan_pair_bwd`), K1's backward:
+they run on CPU tensors and are the kernels' oracles on the card. Both work
+in float32, or in float64 when every input is float64 (for `gradcheck`).
 """
 
 from __future__ import annotations
@@ -26,10 +28,15 @@ import torch
 import torch.nn.functional as F
 
 
+def _f32(t):
+    """float32 unless `t` is float64 already."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def selective_scan_ref(u, delta, A, Bs, Cs, D_skip, delta_bias):
     """Step-by-step reference. Small L only."""
-    u = u.float()
-    da = F.softplus(delta.float() + delta_bias[None, :, None, :])
+    u = _f32(u)
+    da = F.softplus(_f32(delta) + delta_bias[None, :, None, :])
     b, k, length, d = u.shape
     h = u.new_zeros(b, k, d, A.shape[-1])
     ys = []
@@ -40,12 +47,25 @@ def selective_scan_ref(u, delta, A, Bs, Cs, D_skip, delta_bias):
     return torch.stack(ys, 2) + D_skip[None, :, None, :] * u
 
 
+def _linscan(a, b, h0):
+    """h_t = a_t * h_{t-1} + b_t along axis 2, h_{-1} = h0; every h_t.
+
+    a, b: (B, K, T, ., .); h0: (B, K, ., .). A log-depth (Hillis-Steele) scan
+    of the transitions."""
+    t = a.shape[2]
+    s = 1
+    while s < t:
+        b = torch.cat([b[:, :, :s], a[:, :, s:] * b[:, :, :-s] + b[:, :, s:]], 2)
+        a = torch.cat([a[:, :, :s], a[:, :, s:] * a[:, :, :-s]], 2)
+        s *= 2
+    return a * h0[:, :, None] + b
+
+
 def selective_scan_chunked(u, delta, A, Bs, Cs, D_skip, delta_bias, chunk=64):
-    """Sequential over chunks of `chunk` tokens; inside a chunk, a log-depth
-    (Hillis-Steele) scan of the per-token transitions, vectorised over
-    (B, K, T, D, N)."""
-    u = u.float()
-    da = F.softplus(delta.float() + delta_bias[None, :, None, :])
+    """Sequential over chunks of `chunk` tokens; inside a chunk, `_linscan`,
+    vectorised over (B, K, T, D, N)."""
+    u = _f32(u)
+    da = F.softplus(_f32(delta) + delta_bias[None, :, None, :])
     dau = da * u
     b, k, length, d = u.shape
     h = u.new_zeros(b, k, d, A.shape[-1])
@@ -53,37 +73,122 @@ def selective_scan_chunked(u, delta, A, Bs, Cs, D_skip, delta_bias, chunk=64):
     for l0 in range(0, length, chunk):
         sl = slice(l0, l0 + chunk)
         a = torch.exp(da[:, :, sl, :, None] * A[None, :, None])  # (B, K, T, D, N)
-        s_b = dau[:, :, sl, :, None] * Bs[:, :, sl, None, :]
-        t = a.shape[2]
-        s = 1
-        while s < t:
-            s_b = torch.cat([s_b[:, :, :s], a[:, :, s:] * s_b[:, :, :-s] + s_b[:, :, s:]], 2)
-            a = torch.cat([a[:, :, :s], a[:, :, s:] * a[:, :, :-s]], 2)
-            s *= 2
-        hs = a * h[:, :, None] + s_b
+        hs = _linscan(a, dau[:, :, sl, :, None] * Bs[:, :, sl, None, :], h)
         ys.append(torch.einsum("bktdn,bktn->bktd", hs, Cs[:, :, sl]))
         h = hs[:, :, -1]
     return torch.cat(ys, 2) + D_skip[None, :, None, :] * u
 
 
-def ss2d_scan_pair_plain(x, wx, dtw, bias, A, dsk, chunk=64):
+def _flip1(t, axis):
+    """Member 1 of a pair reversed along `axis`, member 0 as it is."""
+    return torch.stack([t[:, 0], t[:, 1].flip(axis - 1)], 1)
+
+
+def _pair_streams(x, wx, dtw, bias, chunk):
+    """Both members' streams in their own processing order, zero-padded to
+    whole chunks: u, z (before the softplus), da (0 on the padding, so a
+    padded token passes the state through), x_dbl, all (B, 2, Lp, .).
+
+    Member 1 runs over the reversed stream, so its padding comes first and
+    its processing chunk p is the stream's chunk nc-1-p: the chunking of the
+    kernels."""
+    r = dtw.shape[1]
+    x = _f32(x)
+    length = x.shape[1]
+    xp = F.pad(x, (0, 0, 0, (-length) % chunk))
+    xd = torch.einsum("bld,kdc->bklc", xp, wx)
+    z = torch.einsum("bklr,krd->bkld", xd[..., :r], dtw) + bias[None, :, None, :]
+    valid = (torch.arange(xp.shape[1], device=x.device) < length).to(x.dtype)
+    da = F.softplus(z) * valid[None, None, :, None]
+    u = torch.stack([xp, xp], 1)
+    return tuple(_flip1(t, 2) for t in (u, z, da, xd))
+
+
+def ss2d_scan_pair_plain(x, wx, dtw, bias, A, dsk, chunk=64, return_carries=False):
     """Projection + scan of one SS2D direction pair (the plain version of K1).
 
     x: (B, L, D) token stream; wx: (2, D, R+2N) projection weights of
     [forward, reverse]; dtw: (2, R, D); bias, dsk: (2, D); A: (2, N, D),
     negative. Member 0 scans forward, member 1 in reverse; both outputs come
     back in token order: y (B, 2, L, D) float32.
+
+    With `return_carries`, also what the backward needs: `state`
+    (B, 2, nc, N, D), the state entering each chunk of `chunk` tokens, indexed
+    by the chunk's place in the stream for both members (member 1 enters chunk
+    c after chunks nc-1 .. c+1), and `sumda` (B, 2, nc, D), each chunk's sum of
+    da (its decay is exp(A * sumda)).
     """
-    r = dtw.shape[1]
-    n = A.shape[1]
-    x = x.float()
-    xd = torch.einsum("bld,kdc->bklc", x, wx)
-    dts = torch.einsum("bklr,krd->bkld", xd[..., :r], dtw)
+    r, n = dtw.shape[1], A.shape[1]
+    length = x.shape[1]
+    u, _, da, xd = _pair_streams(x, wx, dtw, bias, chunk)
+    dau = da * u
+    Bs, Cs = xd[..., r:r + n], xd[..., r + n:]
+    h = u.new_zeros(u.shape[0], 2, n, u.shape[-1])
+    ys, states = [], []
+    for l0 in range(0, u.shape[2], chunk):
+        sl = slice(l0, l0 + chunk)
+        a = torch.exp(da[:, :, sl, None, :] * A[None, :, None])  # (B, 2, T, N, D)
+        hs = _linscan(a, dau[:, :, sl, None, :] * Bs[:, :, sl, :, None], h)
+        ys.append(torch.einsum("bktnd,bktn->bktd", hs, Cs[:, :, sl]))
+        states.append(h)
+        h = hs[:, :, -1]
+    y = _flip1(torch.cat(ys, 2) + dsk[None, :, None, :] * u, 2)[:, :, :length]
+    if not return_carries:
+        return y
+    sumda = da.view(da.shape[0], 2, -1, chunk, da.shape[-1]).sum(3)
+    return y, _flip1(torch.stack(states, 2), 2).contiguous(), _flip1(sumda, 2).contiguous()
 
-    def pair(t):  # member 1 runs over the reversed stream
-        return torch.stack([t[:, 0], t[:, 1].flip(1)], 1)
 
-    u = torch.stack([x, x.flip(1)], 1)
-    y = selective_scan_chunked(u, pair(dts), A.transpose(1, 2), pair(xd[..., r:r + n]),
-                               pair(xd[..., r + n:]), dsk, bias, chunk=chunk)
-    return pair(y)
+def ss2d_scan_pair_plain_bwd(x, wx, dtw, bias, A, dsk, state, dy, chunk=64):
+    """Backward of `ss2d_scan_pair_plain` (the plain version of K2), written
+    out by hand in the kernel's arithmetic, not `torch.autograd`.
+
+    `state` is the forward's chunk-entry states at the same `chunk`; dy:
+    (B, 2, L, D). Per chunk, from the last processed to the first: recompute
+    h from the entering state, run the adjoint g_t = a_{t+1} g_{t+1} + C_t dy_t
+    in reverse, then the gradients of da, z, u, B and C, the projection
+    backward, and the sums for the weights. Returns (dx, dwx, ddtw, dbias, dA,
+    ddsk): dx (B, L, D) summed over the pair, the others in the layouts of
+    wx, dtw, bias, A and dsk.
+    """
+    r, n = dtw.shape[1], A.shape[1]
+    length = x.shape[1]
+    u, z, da, xd = _pair_streams(x, wx, dtw, bias, chunk)
+    dyp = _flip1(F.pad(_f32(dy), (0, 0, 0, u.shape[2] - length)), 2)
+    h_in = _flip1(state, 2)  # processing order
+    sig = torch.sigmoid(z)
+    dau = da * u
+    Bs, Cs = xd[..., r:r + n], xd[..., r + n:]
+    g_carry = u.new_zeros(u.shape[0], 2, n, u.shape[-1])
+    dwx, ddtw = torch.zeros_like(wx, dtype=u.dtype), torch.zeros_like(dtw, dtype=u.dtype)
+    dbias, ddsk = torch.zeros_like(bias, dtype=u.dtype), torch.zeros_like(dsk, dtype=u.dtype)
+    dA = torch.zeros_like(A, dtype=u.dtype)
+    dxs = []
+    for p in reversed(range(u.shape[2] // chunk)):
+        sl = slice(p * chunk, (p + 1) * chunk)
+        uc, dac, dyc, Bc = u[:, :, sl], da[:, :, sl], dyp[:, :, sl], Bs[:, :, sl, :, None]
+        a = torch.exp(dac[:, :, :, None, :] * A[None, :, None])  # (B, 2, T, N, D)
+        h = _linscan(a, dau[:, :, sl, None, :] * Bc, h_in[:, :, p])
+        # The carry from the chunk processed after this one arrives already
+        # multiplied by that chunk's first a.
+        a_next = torch.cat([a[:, :, 1:], torch.ones_like(a[:, :, :1])], 2)
+        q = Cs[:, :, sl, :, None] * dyc[:, :, :, None, :]
+        g = _linscan(a_next.flip(2), q.flip(2), g_carry).flip(2)
+        g_carry = a[:, :, 0] * g[:, :, 0]
+
+        gdau = g * dau[:, :, sl, None, :]
+        common = g * h - gdau * Bc  # g * a_t * h_{t-1}
+        gB = (g * Bc).sum(3)
+        dda = (common * A[None, :, None]).sum(3) + gB * uc
+        ddr = dda * sig[:, :, sl]  # gradient of z
+        du = dac * gB + dsk[None, :, None, :] * dyc
+        dxr = torch.einsum("bktd,krd->bktr", ddr, dtw)
+        dxd = torch.cat([dxr, gdau.sum(4), (dyc[:, :, :, None, :] * h).sum(4)], -1)
+        dxs.append(torch.einsum("bktj,kdj->bktd", dxd, wx) + du)
+        dwx += torch.einsum("bktd,bktj->kdj", uc, dxd)
+        ddtw += torch.einsum("bktr,bktd->krd", xd[:, :, sl, :r], ddr)
+        dbias += ddr.sum((0, 2))
+        dA += (common * dac[:, :, :, None, :]).sum((0, 2))
+        ddsk += (dyc * uc).sum((0, 2))
+    dxp = _flip1(torch.cat(dxs[::-1], 2), 2)
+    return (dxp[:, 0] + dxp[:, 1])[:, :length], dwx, ddtw, dbias, dA, ddsk

@@ -1,14 +1,19 @@
-"""Kernel K1 on the card: the fused SS2D projection + selective scan.
+"""Kernels K1 and K2 on the card: the fused SS2D projection + selective scan
+and its backward.
 
 `ss2d_scan_pair` replaces the TPU kernel
-`wavemamba_tpu/ops/scan_pallas.py:ss2d_scan_fused` (`_fused_kernel`). Its
-CUDA source is `wavemamba_torch/csrc/ss2d_scan.cu`; the note at its top says
-what bounds it and how it is laid out. The source is compiled for sm_90a with
-`nvcc` at the first launch, into `build/wavemamba_torch/` keyed by a hash of
-the source and the compiler flags, and loaded with ctypes. Importing this module needs no `nvcc`.
+`wavemamba_tpu/ops/scan_pallas.py:ss2d_scan_fused` (`_fused_kernel`), source
+`wavemamba_torch/csrc/ss2d_scan.cu`; `ss2d_scan_pair_bwd` replaces
+`ss2d_scan_fused_bwd` (`_fused_bwd_kernel`), source `csrc/ss2d_scan_bwd.cu`;
+`SS2DScanPair` joins them as the counterpart of the custom VJP
+`ss2d_scan_fused_diff`. The note at the top of each source says what bounds
+the kernel and how it is laid out. A source is compiled for sm_90a with `nvcc`
+at the first launch, into `build/wavemamba_torch/` keyed by a hash of the
+source and the compiler flags, and loaded with ctypes. Importing this module
+needs no `nvcc`.
 
-A CPU tensor takes the plain version (`ops/scan.py:ss2d_scan_pair_plain`);
-a CUDA tensor launches the kernel or raises.
+A CPU tensor takes the plain versions (`ops/scan.py:ss2d_scan_pair_plain`,
+`ss2d_scan_pair_plain_bwd`); a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -19,18 +24,22 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
-from wavemamba_torch.ops.scan import ss2d_scan_pair_plain
+from wavemamba_torch.ops.scan import ss2d_scan_pair_plain, ss2d_scan_pair_plain_bwd
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "ss2d_scan.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCE = CSRC / "ss2d_scan.cu"
+SOURCE_BWD = CSRC / "ss2d_scan_bwd.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "wavemamba_torch"
-D_STATE = 16  # the one state width the kernel is compiled for
+D_STATE = 16  # the one state width the kernels are compiled for
 MAX_DT_RANK = 4
-MAX_D = 128  # 2*D threads per block
-CHUNK = 64  # tokens per block of the kernel, and the plain version's chunk on the CPU
+MAX_D = 128  # K1: 2*D threads per block
+MAX_D_BWD = 64  # K2: its shared-memory tiles are sized for 2*D <= 128 threads
+CHUNK = 64  # tokens per block of the kernels, and the plain versions' chunk on the CPU
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -41,35 +50,46 @@ def _nvcc() -> str:
                  "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME): the K1 kernel is built from source")
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the kernels are built from source")
 
 
-def build() -> Path:
-    """Compile the K1 source into a shared library for sm_90a; returns its path.
+def build(source: Path = SOURCE) -> Path:
+    """Compile a kernel source into a shared library for sm_90a; returns its path.
 
     The library is named by the hash of the source and `NVCC_FLAGS`, so an
     unchanged build is made once. `nvcc`'s resource report (`-Xptxas -v`) is kept beside it as
     a `.log` file."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{SOURCE.stem}_{digest}.so"
+    digest = hashlib.sha256(source.read_bytes() + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"{source.stem}_{digest}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source}:\n{proc.stderr}")
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
 
 
+def build_all() -> list[Path]:
+    """Both libraries, one `nvcc` each, started together."""
+    with ThreadPoolExecutor(2) as pool:
+        return list(pool.map(build, (SOURCE, SOURCE_BWD)))
+
+
+def _need_cuda(kernel: str) -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"the {kernel} kernel needs a CUDA device; "
+                           "torch.cuda.is_available() is False")
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
-    if not torch.cuda.is_available():
-        raise RuntimeError("the K1 kernel needs a CUDA device; torch.cuda.is_available() is False")
-    lib = ctypes.CDLL(str(build()))
+    _need_cuda("K1")
+    lib = ctypes.CDLL(str(build(SOURCE)))
     fn = lib.ss2d_scan_pair_f32
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -78,35 +98,50 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def ss2d_scan_pair(x, wx, dtw, bias, A, dsk):
-    """Fused projection + scan of one SS2D direction pair.
+@functools.cache
+def _library_bwd() -> ctypes.CDLL:
+    _need_cuda("K2")
+    lib = ctypes.CDLL(str(build(SOURCE_BWD)))
+    fn = lib.ss2d_scan_pair_bwd_f32
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.ss2d_scan_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.ss2d_scan_bwd_error_string.restype = ctypes.c_char_p
+    return lib
 
-    x: (B, L, D) token stream; wx: (2, D, R+2N); dtw: (2, R, D); bias, dsk:
-    (2, D); A: (2, N, D), negative. Returns y (B, 2, L, D) float32: member 0
-    scanned forward, member 1 in reverse, both in token order. Both the
-    kernel and the plain version work in chunks of `CHUNK` tokens. Counts
-    its kernel launches in `ss2d_scan_pair.launches`.
-    """
-    if x.device.type == "cpu":
-        return ss2d_scan_pair_plain(x, wx, dtw, bias, A, dsk, chunk=CHUNK)
-    if x.device.type != "cuda":
-        raise ValueError(f"ss2d_scan_pair: unsupported device {x.device}")
-    b, length, d = x.shape
-    r, n = dtw.shape[1], A.shape[1]
-    expected = {"x": (x, (b, length, d)), "wx": (wx, (2, d, r + 2 * n)),
-                "dtw": (dtw, (2, r, d)), "bias": (bias, (2, d)), "A": (A, (2, n, d)),
-                "dsk": (dsk, (2, d))}
-    for name, (t, shape) in expected.items():
+
+def _check_inputs(name, x, tensors, max_d):
+    """Raise on what a kernel does not take. tensors: {name: (tensor, shape)}."""
+    for key, (t, shape) in tensors.items():
         if t.device != x.device or t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"ss2d_scan_pair: {name} must be float32 {shape} on {x.device}, "
+            raise ValueError(f"{name}: {key} must be float32 {shape} on {x.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
-            raise ValueError(f"ss2d_scan_pair: {name} must be contiguous")
-    if n != D_STATE or not 1 <= r <= MAX_DT_RANK or not 1 <= d <= MAX_D:
-        raise ValueError(f"ss2d_scan_pair: kernel takes N={D_STATE}, 1<=R<={MAX_DT_RANK}, "
-                         f"D<={MAX_D}; got N={n}, R={r}, D={d}")
+            raise ValueError(f"{name}: {key} must be contiguous")
+    b, length, d = x.shape
+    r, n = tensors["dtw"][1][1], tensors["A"][1][1]
+    if n != D_STATE or not 1 <= r <= MAX_DT_RANK or not 1 <= d <= max_d:
+        raise ValueError(f"{name}: kernel takes N={D_STATE}, 1<=R<={MAX_DT_RANK}, "
+                         f"D<={max_d}; got N={n}, R={r}, D={d}")
     if b < 1 or length < 1:
-        raise ValueError(f"ss2d_scan_pair: empty input {tuple(x.shape)}")
+        raise ValueError(f"{name}: empty input {tuple(x.shape)}")
+
+
+def _pair_shapes(x, wx, dtw, bias, A, dsk):
+    b, length, d = x.shape
+    r, n = dtw.shape[1], A.shape[1]
+    return {"x": (x, (b, length, d)), "wx": (wx, (2, d, r + 2 * n)),
+            "dtw": (dtw, (2, r, d)), "bias": (bias, (2, d)), "A": (A, (2, n, d)),
+            "dsk": (dsk, (2, d))}
+
+
+def _launch_k1(x, wx, dtw, bias, A, dsk):
+    """K1 on CUDA tensors: y, and the scratch it leaves behind, `state`
+    (B, 2, nc, N, D), the state entering each chunk, and `sumda` (B, 2, nc, D),
+    each chunk's sum of da: what K2 needs."""
+    _check_inputs("ss2d_scan_pair", x, _pair_shapes(x, wx, dtw, bias, A, dsk), MAX_D)
+    b, length, d = x.shape
+    r, n = dtw.shape[1], A.shape[1]
     lib = _library()
     nc = -(-length // CHUNK)
     y = torch.empty((b, 2, length, d), device=x.device, dtype=torch.float32)
@@ -121,7 +156,100 @@ def ss2d_scan_pair(x, wx, dtw, bias, A, dsk):
     if err != 0:
         raise RuntimeError(f"ss2d_scan_pair launch failed: {lib.ss2d_scan_error_string(err).decode()}")
     ss2d_scan_pair.launches += 1
-    return y
+    return y, state, sumda
+
+
+def _forward(x, wx, dtw, bias, A, dsk):
+    """(y, state, sumda) on either device."""
+    if x.device.type == "cpu":
+        return ss2d_scan_pair_plain(x, wx, dtw, bias, A, dsk, chunk=CHUNK, return_carries=True)
+    if x.device.type != "cuda":
+        raise ValueError(f"ss2d_scan_pair: unsupported device {x.device}")
+    return _launch_k1(x, wx, dtw, bias, A, dsk)
+
+
+def ss2d_scan_pair(x, wx, dtw, bias, A, dsk, return_carries=False):
+    """Fused projection + scan of one SS2D direction pair.
+
+    x: (B, L, D) token stream; wx: (2, D, R+2N); dtw: (2, R, D); bias, dsk:
+    (2, D); A: (2, N, D), negative. Returns y (B, 2, L, D) float32: member 0
+    scanned forward, member 1 in reverse, both in token order. Both the
+    kernel and the plain version work in chunks of `CHUNK` tokens. With
+    `return_carries` also the chunk-entry states (B, 2, nc, N, D) and the
+    chunks' sums of da (B, 2, nc, D), detached. Differentiable: when an input
+    requires grad the call goes through `SS2DScanPair`, whose backward is K2.
+    Counts its kernel launches in `ss2d_scan_pair.launches`.
+    """
+    args = (x, wx, dtw, bias, A, dsk)
+    if return_carries:
+        return _forward(*args)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return SS2DScanPair.apply(*args)
+    return _forward(*args)[0]
 
 
 ss2d_scan_pair.launches = 0
+
+
+def ss2d_scan_pair_bwd(x, wx, dtw, bias, A, dsk, state, sumda, dy):
+    """Backward of `ss2d_scan_pair` (kernel K2).
+
+    `state`, `sumda`: what the forward returns with `return_carries`; dy:
+    (B, 2, L, D). Returns (dx, dwx, ddtw, dbias, dA, ddsk), dx (B, L, D) summed
+    over the pair and the rest in the layouts of wx, dtw, bias, A and dsk.
+    The sums over tokens and batch are taken in a fixed order: the same bits
+    every run. Counts its kernel launches in `ss2d_scan_pair_bwd.launches`.
+    """
+    if x.device.type == "cpu":
+        return ss2d_scan_pair_plain_bwd(x, wx, dtw, bias, A, dsk, state, dy, chunk=CHUNK)
+    if x.device.type != "cuda":
+        raise ValueError(f"ss2d_scan_pair_bwd: unsupported device {x.device}")
+    b, length, d = x.shape
+    r, n = dtw.shape[1], A.shape[1]
+    nc = -(-length // CHUNK)
+    shapes = _pair_shapes(x, wx, dtw, bias, A, dsk)
+    shapes.update(state=(state, (b, 2, nc, n, d)), sumda=(sumda, (b, 2, nc, d)),
+                  dy=(dy, (b, 2, length, d)))
+    _check_inputs("ss2d_scan_pair_bwd", x, shapes, MAX_D_BWD)
+    lib = _library_bwd()
+    j = r + 2 * n
+    rows = j + r + 1 + n + 1  # dwx | ddtw | dbias | dA | ddsk
+    # Blocks that share a batch element's chunks: two waves of one block per SM.
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    gx = min(nc, max(1, -(-2 * sms // b)))
+    dx = torch.empty_like(x)
+    gcar = torch.empty_like(state)
+    part = torch.empty((b * gx, rows, 2, d), device=x.device, dtype=torch.float32)
+    sums = torch.empty((rows, 2, d), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ss2d_scan_pair_bwd_f32(
+            x.data_ptr(), wx.data_ptr(), dtw.data_ptr(), bias.data_ptr(), A.data_ptr(),
+            dsk.data_ptr(), state.data_ptr(), sumda.data_ptr(), dy.data_ptr(),
+            dx.data_ptr(), gcar.data_ptr(), part.data_ptr(), sums.data_ptr(),
+            b, length, d, n, r, CHUNK, gx, stream)
+    if err != 0:
+        raise RuntimeError("ss2d_scan_pair_bwd launch failed: "
+                           f"{lib.ss2d_scan_bwd_error_string(err).decode()}")
+    ss2d_scan_pair_bwd.launches += 1
+    return (dx, sums[:j].permute(1, 2, 0).contiguous(),
+            sums[j:j + r].transpose(0, 1).contiguous(), sums[j + r],
+            sums[j + r + 1:j + r + 1 + n].transpose(0, 1).contiguous(), sums[j + r + 1 + n])
+
+
+ss2d_scan_pair_bwd.launches = 0
+
+
+class SS2DScanPair(torch.autograd.Function):
+    """`ss2d_scan_pair` with K2 as its backward: the forward keeps the inputs,
+    the chunk-entry states and the chunk decays; nothing else is saved."""
+
+    @staticmethod
+    def forward(ctx, x, wx, dtw, bias, A, dsk):
+        y, state, sumda = _forward(x, wx, dtw, bias, A, dsk)
+        ctx.save_for_backward(x, wx, dtw, bias, A, dsk, state, sumda)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ss2d_scan_pair_bwd(*ctx.saved_tensors, dy.contiguous())
