@@ -3,8 +3,9 @@
 
 Run from the root of a checkout: `python3 chip_smoke.py`. It builds every
 kernel of the port from `wavemamba_torch/csrc/`, holds each against its
-plain PyTorch version on the card, serves the shipped model and trains a
-fresh one at full width, and prints one JSON line per phase:
+plain PyTorch version on the card, serves the shipped model, trains a fresh
+one at full width, drives the yml pipelines' path with `scan_impl: pallas`,
+and prints one JSON line per phase:
 
   1. device  the card (nvidia-smi), torch and CUDA versions, the kernel builds.
   2. k1      kernel K1 (`ss2d_scan_pair`) against `ss2d_scan_pair_plain` at
@@ -14,15 +15,23 @@ fresh one at full width, and prints one JSON line per phase:
              `ss2d_scan_pair_plain_bwd` at the training shapes, on a ragged
              length and on a column stream, all six outputs and K1's carries;
              times at the three training lengths and bounds.
+  3b. k3     kernel K3 (`selective_scan_cuda`, the unfused scan of
+             `scan_impl: pallas`) against `selective_scan_plain` at the route's
+             shapes: the three scan lengths of a 1080p forward, the three of a
+             batch-8 512x512 step, a ragged length; times and bounds.
+  3c. k4     kernel K4 (`selective_scan_cuda_bwd`, K3's backward) against
+             `selective_scan_plain_bwd` at the three training shapes and the
+             ragged one, all seven outputs, the same bits twice; times, bounds.
   4. serve   `ckpt/WaveMamba_ProcLLIE_BSRGAN_XXL4.pth` through the CLI's
              load -> bucket pad -> forward -> crop path, two seeded
              low-light requests (1080x1920, 720x1280); launches of K1,
              latency, peak memory, outputs finite and brighter.
   5. model   the full model with K1 against the same model with the plain
-             scan at 256x384, and the card against the CPU at 64x96.
+             scan at 256x384, the card against the CPU at 64x96, and the
+             unfused route: K3 against the plain scan, and against K1.
   6. grad    loss and every parameter's gradient at 128x128, batch 2, with
              K1 + K2 against the same model with the plain scan and the
-             plain backward.
+             plain backward; the same for K3 + K4 on the unfused route.
   7. train   a seeded fresh model, the settings of
              `options/train_wavemamba_uhdll.yml` (AdamW, cosine schedule, L1 +
              0.1 FFT, batch 8 of 512x512, float32), one warm-up step and six
@@ -31,8 +40,19 @@ fresh one at full width, and prints one JSON line per phase:
              and lr follow their formulas.
   8. resume  the training state saved after step 3, restored into a fresh
              trainer, takes step 4 again: the same loss and parameters.
-  9. profile device time by kernel (torch.profiler) over one 1152x1920
-             forward and over one training step, and the card's idle share.
+  9. pipeline the path of `python -m wavemamba_torch.pipelines.train` with
+             `network_g.scan_impl: pallas`, from an options dict as a yml parses
+             to (this script needs no PyYAML): `build_model` -> a seeded
+             in-memory dataset of uint8 pairs -> `EnlargedSampler` ->
+             `ThreadedLoader` -> `device_prefetch` -> `optimize_parameters`,
+             one warm-up step and four steps at batch 8 of 512x512;
+             `validation` on two pairs with psnr/ssim and best tracking;
+             `save`, `resume` into a fresh `RestorationModel` and one more
+             step that repeats; one 1080x1920 request through
+             `RestorationModel.test`. 14 K3 and 14 K4 launches a step, no K1/K2.
+ 10. profile device time by kernel (torch.profiler) over one 1152x1920
+             forward, one training step of the fused route and one of the
+             unfused route, and the card's idle share.
 
 Then the `kernels` line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, and the script exits non-zero without the last line. It needs
@@ -92,7 +112,15 @@ GRAD_RTOL = 2e-4
 RESUME_LOSS_RTOL = 1e-5
 RESUME_ATOL = 1e-5
 RESUME_MOMENT_RTOL = 1e-4
+# K3 against its plain version: max abs difference on the synthetic inputs
+# below (|y| up to ~10); the chunk prefix sums in another order than the plain
+# version's log-depth scan. K4: each output's max abs difference over its max
+# abs value, as K2; the sums over tokens and batch (up to 524,288 terms per
+# direction) are taken in another order.
+K3_ATOL = 1e-4
+K4_RTOL = 1e-5
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS, EMA_DECAY = 8, 512, 6, 0.999
+PIPELINE_STEPS = 4
 TRAIN_LENGTHS = [65536, 16384, 4096]  # tokens per image at the three LFSS levels of 512x512
 SCHEDULER = {"type": "CosineAnnealingRestartCyclicLR", "periods": [100, 100000],
              "restart_weights": [1, 1], "eta_mins": [0.0005, 0.0000001]}
@@ -125,6 +153,14 @@ def cuda_ms(fn, reps, warmup=True):
     return float(np.median(times))
 
 
+def _bound(nbytes, fma_ops, sfu_ops):
+    """(ms, "bytes" or "operations", unit) of the slowest of the three units."""
+    times = {"hbm": nbytes / HBM_BYTES_S * 1e3, "fma": fma_ops / F32_OPS_S * 1e3,
+             "sfu": sfu_ops / SFU_OPS_S * 1e3}
+    unit = max(times, key=times.get)
+    return times[unit], ("bytes" if unit == "hbm" else "operations"), unit
+
+
 def k1_bound(B, L, D, N, R):
     """Least time (ms) the card could take for one K1 call, what bounds it
     ("bytes" or "operations"), and the unit that bounds it ("hbm", "fma" or
@@ -141,10 +177,7 @@ def k1_bound(B, L, D, N, R):
     nbytes = 4 * (B * L * D + 2 * B * L * D + weights)
     fma_ops = 2 * B * L * (2 * D * (R + 2 * N) + 2 * R * D + D + 6 * N * D + D + 2 * D)
     sfu_ops = 2 * B * L * (N * D + D)
-    times = {"hbm": nbytes / HBM_BYTES_S * 1e3, "fma": fma_ops / F32_OPS_S * 1e3,
-             "sfu": sfu_ops / SFU_OPS_S * 1e3}
-    unit = max(times, key=times.get)
-    return times[unit], ("bytes" if unit == "hbm" else "operations"), unit
+    return _bound(nbytes, fma_ops, sfu_ops)
 
 
 def k2_bound(B, L, D, N, R, T=64):
@@ -165,10 +198,43 @@ def k2_bound(B, L, D, N, R, T=64):
     nbytes = 4 * (B * L * D * (1 + 2 + 1) + B * 2 * nc * (N * D + D) + 2 * weights)
     fma_ops = 2 * B * L * (3 * 2 * D * J + 3 * 2 * R * D + (4 + 13 + 3) * N * D + 10 * D)
     sfu_ops = 2 * B * L * (N * D + 3 * D)
-    times = {"hbm": nbytes / HBM_BYTES_S * 1e3, "fma": fma_ops / F32_OPS_S * 1e3,
-             "sfu": sfu_ops / SFU_OPS_S * 1e3}
-    unit = max(times, key=times.get)
-    return times[unit], ("bytes" if unit == "hbm" else "operations"), unit
+    return _bound(nbytes, fma_ops, sfu_ops)
+
+
+def k3_bound(B, K, L, D, N):
+    """Least time (ms) the card could take for one K3 call; as `k1_bound`.
+
+    Bytes: u, delta, Bs, Cs read once, y written once, the weights read once.
+    Per (token, stream), each computed once: on the FMA pipe log1p of the
+    softplus D, the recurrence 6 per (n, d), du D and the output FMA 2D; on the
+    SFU one exp per (n, d) and one per d for the softplus."""
+    weights = K * (D * N + 2 * D)
+    nbytes = 4 * (B * K * L * (3 * D + 2 * N) + weights)
+    return _bound(nbytes, B * K * L * (6 * N * D + 4 * D), B * K * L * (N * D + D))
+
+
+def k4_bound(B, K, L, D, N, T=64):
+    """Least time (ms) the card could take for one K4 call; as `k2_bound`.
+
+    Bytes: u, delta, dy, Bs, Cs read once, du, ddelta, dB, dC written once,
+    the chunk-entry states and chunk sums of da read once, the weights read
+    and their gradients written. Per (token, stream) and (n, d), on the FMA
+    pipe: the state's recompute 4, the adjoint 13, the sums over channels for
+    dB and dC 3, and some 10 D for the softplus, the sigmoid's divide, ddelta,
+    du and the small sums; on the SFU one exp per (n, d) and three per d."""
+    nc = -(-L // T)
+    weights = K * (D * N + 2 * D)
+    nbytes = 4 * (B * K * L * (5 * D + 4 * N) + B * K * nc * (N * D + D) + 2 * weights)
+    return _bound(nbytes, B * K * L * (20 * N * D + 10 * D), B * K * L * (N * D + 3 * D))
+
+
+def scan_inputs(rs, B, L, K=4, D=64, N=16):
+    """Synthetic K3 inputs at the unfused route's layouts: da around 0.1-1, as
+    the dt projection gives, B and C of the projections' size."""
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+    return (cuda(rs.rand(B, K, L, D) * 0.5), cuda(rs.randn(B, K, L, D) * 0.5 - 1.0),
+            -torch.exp(cuda(rs.rand(K, D, N))), cuda(rs.randn(B, K, L, N) * 0.5),
+            cuda(rs.randn(B, K, L, N) * 0.5), cuda(rs.rand(K, D)), cuda(rs.rand(K, D) * 0.1))
 
 
 def pair_inputs(rs, B, L, D=64, N=16, R=2):
@@ -207,7 +273,9 @@ def phase_device():
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "libraries": [os.path.relpath(lib, ROOT) for lib in libs],
           "k1_ptxas": ptxas(libs[0], ["chunk_scan", "chunk_prefix"]),
-          "k2_ptxas": ptxas(libs[1], ["bwd_local", "bwd_prefix", "bwd_main", "bwd_reduce"])})
+          "k2_ptxas": ptxas(libs[1], ["bwd_local", "bwd_prefix", "bwd_main", "bwd_reduce"]),
+          "k3_ptxas": ptxas(libs[2], ["scan_chunk", "chunk_prefix"]),
+          "k4_ptxas": ptxas(libs[3], ["bwd_local", "chunk_prefix", "bwd_main", "bwd_reduce"])})
     return smi
 
 
@@ -305,6 +373,83 @@ def phase_k2():
     return rows
 
 
+def timed_once(fn):
+    """(result, device ms) of one run of `fn`: for the plain versions."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+SCAN_OUTPUTS = ("du", "ddelta", "dA", "dBs", "dCs", "dD_skip", "ddelta_bias")
+
+
+def phase_k3_k4():
+    """K3 and K4 at the shapes the unfused route gives them: one call scans
+    all four directions of an SS2D block. The training shapes also go through
+    K4, on the carries K3 left."""
+    from wavemamba_torch.ops.scan import selective_scan_plain, selective_scan_plain_bwd
+    from wavemamba_torch.ops.scan_cuda import selective_scan_cuda, selective_scan_cuda_bwd
+
+    rs = np.random.RandomState(4)
+    cases = [("serve_level%d" % (i + 1), 1, h * w, False) for i, (h, w) in enumerate(LEVELS_1080P)]
+    cases += [("train_level%d" % (i + 1), TRAIN_BATCH, L, True) for i, L in enumerate(TRAIN_LENGTHS)]
+    cases += [("ragged", 1, 1000, True)]
+    k3_rows, k4_rows = [], []
+    for name, B, L, backward in cases:
+        args = scan_inputs(rs, B, L)
+        y, state, sumda = selective_scan_cuda(*args, return_carries=True)
+        torch.cuda.synchronize()
+        (y_plain, state_plain, sumda_plain), plain_ms = timed_once(
+            lambda: selective_scan_plain(*args, return_carries=True))
+        err = {"y": float((y - y_plain).abs().max()), "state": float((state - state_plain).abs().max()),
+               "sumda": float((sumda - sumda_plain).abs().max())}
+        check(bool(torch.isfinite(y).all()), f"K3 {name}: finite")
+        check(max(err.values()) <= K3_ATOL, f"K3 {name}: y and carries {err} <= {K3_ATOL}")
+        row = {"phase": "k3", "case": name, "B": B, "K": 4, "L": L, "D": 64, "N": 16,
+               "max_abs_err": err["y"], "carries_err": err, "tol": K3_ATOL,
+               "y_max_abs": float(y_plain.abs().max())}
+        del y, y_plain, sumda_plain
+        if name != "ragged":
+            row["ms"] = cuda_ms(lambda: selective_scan_cuda(*args), 10)
+            row["plain_ms"] = plain_ms
+            row["bound_ms"], row["bound_by"], row["bound_unit"] = k3_bound(B, 4, L, 64, 16)
+        row["launches"] = selective_scan_cuda.launches
+        emit(row)
+        k3_rows.append(row)
+        if backward:
+            dy = torch.from_numpy(rs.randn(B, 4, L, 64).astype(np.float32)).cuda()
+            got = selective_scan_cuda_bwd(*args, state, sumda, dy)
+            again = selective_scan_cuda_bwd(*args, state, sumda, dy)
+            torch.cuda.synchronize()
+            want, plain_ms = timed_once(lambda: selective_scan_plain_bwd(*args, state_plain, dy))
+            row = {"phase": "k4", "case": name, "B": B, "K": 4, "L": L, "D": 64, "N": 16,
+                   "tol_rel": K4_RTOL, "max_abs_err": {}, "max_rel_err": {}}
+            for key, g, g2, w_ in zip(SCAN_OUTPUTS, got, again, want):
+                check(g.shape == w_.shape and bool(torch.isfinite(g).all()), f"K4 {name} {key}: finite")
+                check(torch.equal(g, g2), f"K4 {name} {key}: the same bits on a second run")
+                e = float((g - w_).abs().max())
+                row["max_abs_err"][key] = e
+                row["max_rel_err"][key] = e / float(w_.abs().max())
+                check(row["max_rel_err"][key] <= K4_RTOL,
+                      f"K4 {name} {key}: max rel err {row['max_rel_err'][key]} <= {K4_RTOL}")
+            del got, again, want
+            if name != "ragged":
+                row["ms"] = cuda_ms(lambda: selective_scan_cuda_bwd(*args, state, sumda, dy), 10)
+                row["plain_ms"] = plain_ms
+                row["bound_ms"], row["bound_by"], row["bound_unit"] = k4_bound(B, 4, L, 64, 16)
+            row["launches"] = selective_scan_cuda_bwd.launches
+            emit(row)
+            k4_rows.append(row)
+            del dy
+        del args, state, sumda, state_plain
+        torch.cuda.empty_cache()
+    return k3_rows, k4_rows
+
+
 def phase_serve(model):
     from wavemamba_torch.inference import enhance
     from wavemamba_torch.models.buckets import BucketLadder
@@ -387,6 +532,27 @@ def phase_model(model):
           "max_abs_err": err, "tol": MODEL_ATOL})
     check(err <= MODEL_ATOL, f"model card vs CPU {err} <= {MODEL_ATOL}")
 
+    # The unfused route (`scan_impl: pallas`) on the same weights: K3 against
+    # the plain scan, and against the fused route's output above.
+    from wavemamba_torch.models.wavemamba import set_unfused_scan
+    from wavemamba_torch.ops.scan import selective_scan_plain
+    from wavemamba_torch.ops.scan_cuda import selective_scan_cuda
+
+    unfused = build_network({"type": "WaveMamba", "scan_impl": "pallas"},
+                            load_network(CKPT, device="cuda"), device="cuda")
+    before = selective_scan_cuda.launches, ss2d_scan_pair.launches
+    y_k3 = wavemamba_apply(unfused, x)
+    check((selective_scan_cuda.launches - before[0], ss2d_scan_pair.launches - before[1]) == (14, 0),
+          "the unfused forward launches K3 14 times and K1 never")
+    set_unfused_scan(unfused, selective_scan_plain)
+    y_plain = wavemamba_apply(unfused, x)
+    err = float((y_k3 - y_plain).abs().max())
+    routes = float((y_k3 - y_kernel).abs().max())
+    emit({"phase": "model", "case": "unfused_kernel_vs_plain", "image": [256, 384],
+          "max_abs_err": err, "unfused_vs_fused_max_abs_err": routes, "tol": MODEL_ATOL})
+    check(err <= MODEL_ATOL, f"unfused model, K3 vs plain {err} <= {MODEL_ATOL}")
+    check(routes <= MODEL_ATOL, f"unfused vs fused route {routes} <= {MODEL_ATOL}")
+
 
 class PlainScanPair(torch.autograd.Function):
     """The plain scan with the plain backward, on whatever device: what K1 +
@@ -416,32 +582,60 @@ def synthetic_batch(seed, batch, size):
     return torch.from_numpy(lq.astype(np.float32)).cuda(), torch.from_numpy(gt).cuda()
 
 
-def phase_grad():
+class PlainSelectiveScan(torch.autograd.Function):
+    """The plain unfused scan with the plain backward: what K3 + K4
+    (`scan_cuda.SelectiveScan`) are held against in the `grad` phase."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        from wavemamba_torch.ops.scan import selective_scan_plain
+
+        y, state, _ = selective_scan_plain(*args, return_carries=True)
+        ctx.save_for_backward(*args, state)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        from wavemamba_torch.ops.scan import selective_scan_plain_bwd
+
+        return selective_scan_plain_bwd(*ctx.saved_tensors, dy)
+
+
+def phase_grad(route):
+    """Loss and gradients of the whole model, the route's kernels against its
+    plain scan with the plain backward: 'fused' is K1 + K2 (28 + 28 launches),
+    'unfused' (`scan_impl: pallas`) K3 + K4 (14 + 14)."""
     from wavemamba_torch.models import init_network
-    from wavemamba_torch.models.wavemamba import set_scan
-    from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair, ss2d_scan_pair_bwd
+    from wavemamba_torch.models.wavemamba import set_scan, set_unfused_scan
+    from wavemamba_torch.ops import scan_cuda
     from wavemamba_torch.train.trainer import TrainConfig, loss_fn
 
-    model = init_network({"type": "WaveMamba", "remat": False},
+    fused = route == "fused"
+    model = init_network({"type": "WaveMamba", "remat": False,
+                          "scan_impl": "pallas_fused" if fused else "pallas"},
                          torch.Generator().manual_seed(11), device="cuda")
     lq, gt = synthetic_batch(12, 2, 128)
     tcfg = TrainConfig()
     results = []
-    before = ss2d_scan_pair.launches, ss2d_scan_pair_bwd.launches
-    for scan in (ss2d_scan_pair, PlainScanPair.apply):
-        set_scan(model, scan)
+    wrappers = (scan_cuda.ss2d_scan_pair, scan_cuda.ss2d_scan_pair_bwd,
+                scan_cuda.selective_scan_cuda, scan_cuda.selective_scan_cuda_bwd)
+    before = [w.launches for w in wrappers]
+    scans = (scan_cuda.ss2d_scan_pair, PlainScanPair.apply) if fused else (None, PlainSelectiveScan.apply)
+    for scan in scans:
+        (set_scan if fused else set_unfused_scan)(model, scan)
         model.zero_grad(set_to_none=True)
         total, _ = loss_fn(model, tcfg, lq, gt)
         total.backward()
         results.append((float(total.detach()), {n: p.grad.clone() for n, p in model.named_parameters()}))
-    launched = (ss2d_scan_pair.launches - before[0], ss2d_scan_pair_bwd.launches - before[1])
-    check(launched == (28, 28), f"{launched} K1/K2 launches in one forward and backward")
+    launched = tuple(w.launches - b for w, b in zip(wrappers, before))
+    check(launched == ((28, 28, 0, 0) if fused else (0, 0, 14, 14)),
+          f"{launched} K1/K2/K3/K4 launches in one forward and backward of the {route} route")
     (loss_k, grads_k), (loss_p, grads_p) = results
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     worst = max(((float((grads_k[n] - g).abs().max()) / (float(g.abs().max()) + 1e-30), n)
                  for n, g in grads_p.items()))
     check(all(bool(torch.isfinite(g).all()) for g in grads_k.values()), "gradients finite")
-    emit({"phase": "grad", "image": [128, 128], "batch": 2, "loss_kernel": loss_k,
+    emit({"phase": "grad", "route": route, "image": [128, 128], "batch": 2, "loss_kernel": loss_k,
           "loss_plain": loss_p, "loss_rel_err": loss_rel, "loss_tol": GRAD_LOSS_RTOL,
           "parameters": len(grads_p), "worst_grad_rel_err": worst[0], "worst_grad": worst[1],
           "grad_tol": GRAD_RTOL,
@@ -558,6 +752,207 @@ def phase_resume(run):
           f"resumed Adam moments within {RESUME_MOMENT_RTOL} of their max: {moment_rel}")
 
 
+class SyntheticPairs:
+    """A seeded in-memory map-style dataset of low-light pairs, HWC RGB: uint8
+    for training (what `transfer_dtype: uint8` ships), float32 in [0, 1] for
+    validation. Items as `PairedImageDataset` gives them."""
+
+    def __init__(self, n, size, seed, uint8):
+        rs = np.random.RandomState(seed)
+        self.items = []
+        for i in range(n):
+            gt = rs.randint(0, 256, (size, size, 3)).astype(np.uint8)
+            lq = np.clip(gt * 0.12 + rs.randn(size, size, 3) * 2.5, 0, 255).astype(np.uint8)
+            if not uint8:
+                gt, lq = gt.astype(np.float32) / 255.0, lq.astype(np.float32) / 255.0
+            self.items.append({"lq": lq, "gt": gt, "lq_path": f"synthetic/lq/{i:03d}.png",
+                               "gt_path": f"synthetic/gt/{i:03d}.png"})
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, index):
+        return self.items[index]
+
+
+def pipeline_opt(seed):
+    """The options of `options/train_wavemamba_uhdll.yml` as `parse_options`
+    hands them on, with `scan_impl: pallas`, EMA on and no block recompute."""
+    root = os.path.join(ROOT, "build", "chip_smoke", "experiments", "pipeline")
+    return {
+        "name": "pipeline", "model_type": "FeMaSRModel", "scale": 1, "manual_seed": seed,
+        "is_train": True, "device": "cuda",
+        "network_g": {"type": "WaveMamba", "in_chn": 3, "wf": 32, "n_l_blocks": [1, 2, 4],
+                      "n_h_blocks": [1, 1, 2], "ffn_scale": 2.0, "scan_impl": "pallas",
+                      "remat": False},
+        "path": {"pretrain_network_g": None, "resume_state": None, "experiments_root": root,
+                 "models": os.path.join(root, "models"),
+                 "training_states": os.path.join(root, "training_states"),
+                 "visualization": os.path.join(root, "visualization")},
+        "train": {"optim_g": {"type": "AdamW", "lr": 5e-4, "weight_decay": 1e-3, "betas": [0.9, 0.99]},
+                  "scheduler": dict(SCHEDULER), "total_iter": 101000, "warmup_iter": -1,
+                  "ema_decay": EMA_DECAY,
+                  "pixel_opt": {"type": "L1Loss", "loss_weight": 1.0, "reduction": "mean"},
+                  "fft_opt": {"type": "FFTLoss", "loss_weight": 0.1, "reduction": "mean"}},
+        "val": {"val_freq": 5000, "save_img": False, "key_metric": "psnr", "metrics": {
+            "psnr": {"type": "psnr", "crop_border": 4, "test_y_channel": True},
+            "ssim": {"type": "ssim", "crop_border": 4, "test_y_channel": True}}},
+    }
+
+
+def phase_pipeline(fused_ms_per_step):
+    """This slice's path at full width and depth with `scan_impl: pallas`. Its
+    numbers stand beside the fused route's of this run (`train`, `serve`)."""
+    import shutil
+
+    from wavemamba_torch.data import EnlargedSampler, ThreadedLoader, device_prefetch
+    from wavemamba_torch.ops import scan_cuda
+    from wavemamba_torch.runner import build_model
+
+    wrappers = {"k1": scan_cuda.ss2d_scan_pair, "k2": scan_cuda.ss2d_scan_pair_bwd,
+                "k3": scan_cuda.selective_scan_cuda, "k4": scan_cuda.selective_scan_cuda_bwd}
+    counts = lambda: {k: w.launches for k, w in wrappers.items()}
+    opt = pipeline_opt(seed=31)
+    shutil.rmtree(opt["path"]["experiments_root"], ignore_errors=True)
+    model = build_model(opt)
+    per_forward = 2 * sum(model.cfg.n_l_blocks)  # one K3 launch per SS2D block, down and up
+    check(per_forward == 14, "the shipped config scans 14 SS2D blocks per forward")
+    train_set = SyntheticPairs(16, TRAIN_SIZE, seed=32, uint8=True)
+    sampler = EnlargedSampler(len(train_set), 1, 0, ratio=4)
+    loader = ThreadedLoader(train_set, batch_size=TRAIN_BATCH, sampler=sampler, num_workers=4,
+                            drop_last=True, seed=opt["manual_seed"])
+    check(len(loader) == 8, "eight batches an epoch")
+    loader.set_epoch(0)
+    batches = device_prefetch(loader, "cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    first = next(batches)
+    check(first["lq"].dtype == torch.uint8 and first["lq"].shape == (TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3)
+          and first["lq"].is_cuda, "the loader hands uint8 NHWC batches on the card")
+    warm_loss = float(model.optimize_parameters(first)["total"])  # warm-up
+
+    for w in wrappers.values():  # this path's counts start here
+        w.launches = 0
+    losses, times, waits = [], [], []
+
+    def step():
+        t0 = time.perf_counter()
+        batch = next(batches)
+        waits.append((time.perf_counter() - t0) * 1e3)
+        before = counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = model.optimize_parameters(batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(metrics["total"]))
+        launched = {k: v - before[k] for k, v in counts().items()}
+        check(launched == {"k1": 0, "k2": 0, "k3": per_forward, "k4": per_forward},
+              f"step {len(times)}: {launched} launches; 14 K3 + 14 K4 and no K1/K2 expected")
+        return batch
+
+    for _ in range(PIPELINE_STEPS):
+        step()
+    saved_iter = model.state.step
+    model.save(saved_iter)
+    # One more step, which the resumed model repeats below.
+    saved = {"batch": step(), "loss": losses[-1], "state": model.state.state_dict()}
+    train_launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    batches.close()
+    check(all(np.isfinite(losses)) and np.isfinite(warm_loss), "losses finite")
+    check(saved_iter == PIPELINE_STEPS + 1 and model.state.step == saved_iter + 1, "the step count")
+    check(model.current_lr(saved_iter) == model.state.optimizer.param_groups[0]["lr"],
+          "current_lr is the optimizer's")
+    ms = float(np.median(times[:PIPELINE_STEPS]))
+    emit({"phase": "pipeline", "what": "train", "scan_impl": "pallas", "batch": TRAIN_BATCH,
+          "size": [TRAIN_SIZE, TRAIN_SIZE], "steps": len(times), "loss_first": warm_loss,
+          "losses": losses, "step_ms": times, "ms_per_step": ms,
+          "images_per_s": TRAIN_BATCH / ms * 1e3, "fused_ms_per_step": fused_ms_per_step,
+          "data_wait_ms": waits, "data_wait_ms_per_step": float(np.median(waits)),
+          "peak_memory_bytes": peak, "launches": train_launches,
+          "k3_per_step": per_forward, "k4_per_step": per_forward})
+
+    # Validation through the runner: the EMA weights, psnr / ssim, best tracking.
+    val_set = SyntheticPairs(2, TRAIN_SIZE, seed=33, uint8=False)
+    val_loader = ThreadedLoader(val_set, batch_size=1, num_workers=2)
+    before = counts()
+    avg, improved = model.validation(device_prefetch(val_loader, "cuda"), current_iter=saved_iter)
+    avg2, improved2 = model.validation(device_prefetch(val_loader, "cuda"), current_iter=saved_iter)
+    val_launches = {k: v - before[k] for k, v in counts().items()}
+    check(set(avg) == {"psnr", "ssim"} and all(np.isfinite(v) for v in avg.values()), f"metrics {avg}")
+    check(improved, "the first validation is the best so far")
+    check(all(abs(avg2[k] - v) <= 1e-6 for k, v in avg.items()), f"a repeated validation {avg2} vs {avg}")
+    check(improved2 == (avg2["psnr"] > avg["psnr"])
+          and model.best_metric_results == {"psnr": max(avg["psnr"], avg2["psnr"])}, "best-metric tracking")
+    check(val_launches == {"k1": 0, "k2": 0, "k3": 4 * per_forward, "k4": 0},
+          f"validation launches {val_launches}")
+    emit({"phase": "pipeline", "what": "validation", "images": 2, "metrics": avg,
+          "launches": val_launches})
+
+    # save -> resume into a fresh model (other initial weights) -> the same step again.
+    from wavemamba_torch.checkpoint import find_resume_state
+
+    path = find_resume_state(opt["path"]["training_states"])
+    check(path is not None and path.endswith(f"{saved_iter}.state"), f"the saved state {path}")
+    check(sorted(os.listdir(opt["path"]["models"])) ==
+          [f"net_g_{saved_iter}.pth", f"net_g_ema_{saved_iter}.pth", "net_g_ema_latest.pth",
+           "net_g_latest.pth"], "the saved networks")
+    fresh = build_model({**pipeline_opt(seed=77), "path": opt["path"]})
+    check(fresh.resume() == saved_iter, "the resumed iteration")
+    loss = float(fresh.optimize_parameters(saved["batch"])["total"])
+    loss_rel = abs(loss - saved["loss"]) / abs(saved["loss"])
+    got, want = fresh.state.state_dict(), saved["state"]
+    diff = lambda key: max(float((got[key][n] - w).abs().max()) for n, w in want[key].items())
+    size = lambda key: max(float(w.abs().max()) for w in want[key].values())
+    err, ema_err = diff("params"), diff("ema")
+    moment_rel = {key: diff(key) / size(key) for key in ("exp_avg", "exp_avg_sq")}
+    emit({"phase": "pipeline", "what": "resume", "state": os.path.relpath(path, ROOT), "loss": loss,
+          "loss_went_on": saved["loss"], "loss_rel_err": loss_rel, "loss_tol": RESUME_LOSS_RTOL,
+          "max_param_abs_err": err, "max_ema_abs_err": ema_err, "param_tol": RESUME_ATOL,
+          "moment_rel_err": moment_rel, "moment_tol": RESUME_MOMENT_RTOL})
+    check(got["step"] == want["step"] == saved_iter + 1, "the step counts after the resumed step")
+    check(loss_rel <= RESUME_LOSS_RTOL, f"resumed loss {loss} vs {saved['loss']}")
+    check(err <= RESUME_ATOL and ema_err <= RESUME_ATOL, f"resumed parameters and EMA: {err}, {ema_err}")
+    check(max(moment_rel.values()) <= RESUME_MOMENT_RTOL, f"resumed Adam moments: {moment_rel}")
+    del fresh, got, want, saved
+
+    # One 1080x1920 request through the runner on this route, beside the
+    # same request on the fused route with the same (EMA) weights: unfused,
+    # fused, fused, unfused, after a warm-up of each.
+    rs = np.random.RandomState(0)
+    img = (rs.rand(1, 1080, 1920, 3) * 0.12).astype(np.float32)
+    fused_opt = pipeline_opt(seed=31)
+    fused_opt["is_train"] = False
+    fused_opt["network_g"]["scan_impl"] = "pallas_fused"
+    fused = build_model(fused_opt)
+    fused.model.load_state_dict(model.state.ema, strict=True)
+    check(counts()["k1"] == 0 and counts()["k2"] == 0, "no K1 / K2 launch on this route")
+    model.test(img)
+    fused.test(img)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = counts()
+    out, request_ms = timed_once(lambda: model.test(img))
+    serve_launches = {k: v - before[k] for k, v in counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    out_fused, fused_ms = timed_once(lambda: fused.test(img))
+    fused_ms = [fused_ms, timed_once(lambda: fused.test(img))[1]]
+    request_ms = [request_ms, timed_once(lambda: model.test(img))[1]]
+    routes = float(np.abs(out - out_fused).max())
+    check(out.shape == img.shape and bool(np.isfinite(out).all()), "the request's output")
+    check(serve_launches == {"k1": 0, "k2": 0, "k3": per_forward, "k4": 0},
+          f"request launches {serve_launches}")
+    check(routes <= MODEL_ATOL, f"the request on the two routes {routes} <= {MODEL_ATOL}")
+    emit({"phase": "pipeline", "what": "serve", "image": [1080, 1920], "latency_ms": request_ms,
+          "fused_latency_ms": fused_ms, "unfused_vs_fused_max_abs_err": routes,
+          "k3_launches": serve_launches["k3"], "peak_memory_bytes": peak})
+    total = counts()  # K1 now holds the fused model's three requests; K3 and K4 this route's
+    check(total["k1"] == 3 * 2 * per_forward and total["k2"] == 0, "the fused requests' K1 launches")
+    return dict(model=model, loader=loader, ms_per_step=ms, launches=total)
+
+
 def profile_rows(fn):
     """Run `fn` under torch.profiler: (wall ms, [(device us, calls, kernel name)])."""
     from torch.autograd import DeviceType
@@ -582,21 +977,28 @@ def profile_rows(fn):
     return wall_ms, sorted(((us, n, name) for name, (us, n) in by_name.items()), reverse=True)
 
 
-def phase_profile(model, x, forward_ms, run):
-    """Device time by kernel over one 1152x1920 forward and over one training
-    step, and the share of each one's wall time in which the card ran no
-    kernel."""
+def phase_profile(model, x, forward_ms, run, pipe):
+    """Device time by kernel over one 1152x1920 forward, one training step of
+    the fused route (K1 + K2) and one of the unfused route (K3 + K4, through
+    the runner), and the share of each one's wall time in which the card ran
+    no kernel."""
     from wavemamba_torch.models.wavemamba import wavemamba_apply
 
     def report(what, wall_ms, rows, unprofiled_ms, **extra):
         busy_ms = sum(r[0] for r in rows) / 1e3
         named = lambda *keys: sum(r[0] for r in rows if any(k in r[2] for k in keys)) / 1e3
+        # K2 and K4 name their kernels alike (each in its own library): a
+        # profile holds one route, so the adjoint's time is that route's.
+        adjoint = named("bwd_local", "bwd_prefix", "bwd_main", "bwd_reduce", "chunk_prefix<true>")
         emit({"phase": "profile", "what": what, **extra, "wall_ms": wall_ms, "busy_ms": busy_ms,
               "idle_share": 1.0 - busy_ms / wall_ms,
               # against the same work's time without the profiler's overhead
               "unprofiled_ms": unprofiled_ms, "idle_share_unprofiled": 1.0 - busy_ms / unprofiled_ms,
-              "k1_ms": named("chunk_scan", "chunk_prefix"),
-              "k2_ms": named("bwd_local", "bwd_prefix", "bwd_main", "bwd_reduce"),
+              "k1_ms": named("chunk_scan", "::chunk_prefix("),
+              "k2_ms": 0.0 if what == "train_step_unfused" else adjoint,
+              "k3_ms": named("scan_chunk", "chunk_prefix<false>"),
+              "k4_ms": adjoint if what == "train_step_unfused" else 0.0,
+              "flip_ms": named("flip"),
               "conv_ms": sum(r[0] for r in rows
                              if "conv" in r[2].lower() or "xmma" in r[2] or "wgrad" in r[2]
                              or "dgrad" in r[2]) / 1e3,
@@ -607,6 +1009,9 @@ def phase_profile(model, x, forward_ms, run):
            image=[1152, 1920])
     report("train_step", *profile_rows(lambda: run["step"](run["state"], run["lq"], run["gt"])),
            run["ms_per_step"], batch=run["lq"].shape[0], size=[TRAIN_SIZE, TRAIN_SIZE], remat=run["remat"])
+    batch = {"lq": run["lq"], "gt": run["gt"]}
+    report("train_step_unfused", *profile_rows(lambda: pipe["model"].optimize_parameters(batch)),
+           pipe["ms_per_step"], batch=run["lq"].shape[0], size=[TRAIN_SIZE, TRAIN_SIZE], remat=False)
 
 
 def main():
@@ -626,21 +1031,28 @@ def main():
     smi = phase_device()
     k1_rows = phase_k1()
     k2_rows = phase_k2()
+    k3_rows, k4_rows = phase_k3_k4()
     t0 = time.perf_counter()
     model = build_network({"type": "WaveMamba"}, load_network(CKPT, device="cuda"), device="cuda")
     emit({"phase": "load", "checkpoint": os.path.relpath(CKPT, ROOT),
           "load_s": time.perf_counter() - t0})
     launches, x1080, forward_ms = phase_serve(model)
     phase_model(model)
-    phase_grad()
+    phase_grad("fused")
+    phase_grad("unfused")
     run = phase_train(args.remat)
     phase_resume(run)
-    phase_profile(model, x1080, forward_ms, run)
+    pipe = phase_pipeline(run["ms_per_step"])
+    phase_profile(model, x1080, forward_ms, run, pipe)
 
-    # K1 at level 1 of the 1080p forward; K2 at level 1 of the training step.
-    # Launches: the serve path's and the training path's, each counted from 0.
+    # K1 at level 1 of the 1080p forward; K2, K3 and K4 at level 1 of the
+    # training step. Launches: each path's own, counted from 0 just before it:
+    # K1 the serve path's and the fused training path's, K2 the latter's, K3
+    # and K4 the pipeline path's (steps, validation, the request).
     level1 = k1_rows[0]
     k2_level1 = k2_rows[0]
+    k3_level1 = next(r for r in k3_rows if r["case"] == "train_level1")
+    k4_level1 = next(r for r in k4_rows if r["case"] == "train_level1")
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "ss2d_scan_pair (K1)", "route": "cuda", "source": "wavemamba_torch/csrc/ss2d_scan.cu",
@@ -657,6 +1069,21 @@ def main():
         "max_rel_err": max(max(r["max_rel_err"].values()) for r in k2_rows),
         "ms": k2_level1["ms"], "plain_ms": k2_level1["plain_ms"],
         "bound_ms": k2_level1["bound_ms"], "bound_by": k2_level1["bound_by"],
+        "library_ms": None}, {
+        "name": "selective_scan_cuda (K3)", "route": "cuda",
+        "source": "wavemamba_torch/csrc/selective_scan.cu",
+        "replaces": "wavemamba_tpu/ops/scan_pallas.py:134", "launches": pipe["launches"]["k3"],
+        "max_abs_err": max(max(r["carries_err"].values()) for r in k3_rows),
+        "ms": k3_level1["ms"], "plain_ms": k3_level1["plain_ms"],
+        "bound_ms": k3_level1["bound_ms"], "bound_by": k3_level1["bound_by"],
+        "library_ms": None}, {
+        "name": "selective_scan_cuda_bwd (K4)", "route": "cuda",
+        "source": "wavemamba_torch/csrc/selective_scan_bwd.cu",
+        "replaces": "wavemamba_tpu/ops/scan_pallas.py:317", "launches": pipe["launches"]["k4"],
+        "max_abs_err": max(max(r["max_abs_err"].values()) for r in k4_rows),
+        "max_rel_err": max(max(r["max_rel_err"].values()) for r in k4_rows),
+        "ms": k4_level1["ms"], "plain_ms": k4_level1["plain_ms"],
+        "bound_ms": k4_level1["bound_ms"], "bound_by": k4_level1["bound_by"],
         "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -28,6 +28,11 @@ from wavemamba_tpu.utils import color as jcolor
 from wavemamba_tpu.utils import img_util as jimg
 from wavemamba_tpu.utils.misc import scandir as j_scandir
 
+# The suite runs in several worker processes on a few cores: torch's intra-op
+# threads spin while they wait, and the tiny tensors here gain nothing from them.
+torch.set_num_threads(1)
+
+
 SIZE_FLAGS = ["--wf", "8", "--n_l_blocks", "1", "1", "1", "--n_h_blocks", "1", "1", "1"]
 LINE = re.compile(r"^(\S+): [\d.]+s  psnr ([\d.]+)  ssim ([\d.]+)$")
 

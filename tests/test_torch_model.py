@@ -22,6 +22,11 @@ from wavemamba_tpu.convert.torch_export import params_to_state_dict
 from wavemamba_tpu.convert.torch_import import load_wavemamba_checkpoint
 from wavemamba_tpu.models import wavemamba as jwm
 
+# The suite runs in several worker processes on a few cores: torch's intra-op
+# threads spin while they wait, and the tiny tensors here gain nothing from them.
+torch.set_num_threads(1)
+
+
 XXL4 = "ckpt/WaveMamba_ProcLLIE_BSRGAN_XXL4.pth"
 ATOL = 1e-5
 
@@ -145,3 +150,111 @@ def test_pad_to_multiple_matches():
     got, gh, gw = twm.pad_to_multiple(x, 8)
     assert (gh, gw) == (h, w) == (13, 6)
     np.testing.assert_array_equal(got, np.asarray(want))
+
+
+# The unfused route: every `scan_impl` against the JAX model of the same
+# setting (its 'pallas' runs the Pallas kernels in interpret mode off the TPU).
+# Forward 1e-5 absolute as above; a gradient by its max difference over the
+# gradient's max, 1e-4: exact float32 on both sides, other summation orders.
+UNFUSED = ["ref", "chunked", "par", "pallas"]
+GRAD_REL = 1e-4
+
+
+def _grad_rel(got, want):
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-12))
+
+
+@pytest.mark.parametrize("impl", UNFUSED)
+def test_ss2d_unfused_matches_forward_and_gradients(impl):
+    kw = dict(wf=16, scan_impl=impl, scan_chunk=64, scan_sub=8)
+    cfg = jwm.WaveMambaConfig(**kw)
+    p = jwm.init_ss2d(jax.random.PRNGKey(0), cfg)
+    x = _image(1, 2, 12, 20, 16)  # non-square: the column directions differ from the rows
+    dy = _image(2, 2, 12, 20, 16) - 0.5
+    def fwd_and_grads(p, x):  # one jit: the compile is this test's cost
+        y, vjp = jax.vjp(lambda p, x: jwm.ss2d_apply(p, cfg, x), p, x)
+        return y, vjp(jnp.asarray(dy))
+
+    want, jgrads = jax.jit(fwd_and_grads)(p, x)
+    want = np.asarray(want)
+    m = _module(twm.SS2D, p, twm.WaveMambaConfig(**kw)).train()
+    xt = _nchw(x).requires_grad_()
+    y = m(xt)
+    np.testing.assert_allclose(_nhwc(y), want, atol=ATOL, rtol=0)
+    (y * _nchw(dy)).sum().backward()
+    assert _grad_rel(_nhwc(xt.grad), np.asarray(jgrads[1])) < GRAD_REL
+    wgrads = convert.state_dict_from_jax(_np_tree(jgrads[0]))
+    for name, prm in m.named_parameters():
+        assert _grad_rel(prm.grad.numpy(), wgrads[name].numpy()) < GRAD_REL, (impl, name)
+
+
+@pytest.mark.parametrize("impl", UNFUSED)
+def test_small_unet_matches_with_scan_impl(impl):
+    kw = dict(wf=16, n_l_blocks=(1, 1, 1), n_h_blocks=(1, 1, 1), scan_impl=impl, scan_chunk=64,
+              scan_sub=8, remat=False)
+    cfg = jwm.WaveMambaConfig(**kw)
+    params = jwm.init_wavemamba(jax.random.PRNGKey(7), cfg)
+    x = _image(8, 1, 32, 40, 3, scale=0.3)
+    gt = _image(9, 1, 32, 40, 3)
+    def loss(p):  # the output rides along as aux: one jit, one compile
+        out = jwm.wavemamba_apply(p, cfg, x)
+        return jnp.mean(jnp.abs(out - gt)), out
+
+    (jloss, want), jgrads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+    want = np.asarray(want)
+    sd = convert.state_dict_from_jax(_np_tree(params))
+    model = build_network({"type": "WaveMamba", **kw}, sd, device="cpu")
+    assert all(m.scan_impl == impl for m in model.modules() if isinstance(m, twm.SS2D))
+    np.testing.assert_allclose(twm.wavemamba_apply(model, torch.from_numpy(x)).numpy(), want,
+                               atol=ATOL, rtol=0)
+    total = (twm.wavemamba_forward(model, torch.from_numpy(x)) - torch.from_numpy(gt)).abs().mean()
+    total.backward()
+    assert abs(float(total.detach()) - float(jloss)) < 1e-6
+    wgrads = convert.state_dict_from_jax(_np_tree(jgrads))
+    for name, prm in model.named_parameters():
+        assert _grad_rel(prm.grad.numpy(), wgrads[name].numpy()) < GRAD_REL, (impl, name)
+
+
+def test_unfused_scan_can_be_rerouted():
+    """`set_unfused_scan` sends the unfused route's scan elsewhere (the plain
+    version on the card, in `chip_smoke.py`) and None restores the dispatcher."""
+    from wavemamba_torch.ops.scan import selective_scan_plain
+
+    cfg = twm.WaveMambaConfig(wf=16, n_l_blocks=(1, 1, 1), n_h_blocks=(1, 1, 1), scan_impl="pallas")
+    model = twm.init_wavemamba(twm.WaveMamba(cfg), torch.Generator().manual_seed(0)).eval()
+    x = torch.from_numpy(_image(11, 1, 16, 24, 3))
+    want = twm.wavemamba_apply(model, x)
+    calls = []
+    twm.set_unfused_scan(model, lambda *a: calls.append(1) or selective_scan_plain(*a))
+    np.testing.assert_array_equal(twm.wavemamba_apply(model, x).numpy(), want.numpy())
+    assert len(calls) == 6  # one scan per SS2D: three levels, down and up
+    twm.set_unfused_scan(model, None)
+    twm.wavemamba_apply(model, x)
+    assert len(calls) == 6
+
+
+def test_network_g_keys_are_honoured_or_refused():
+    """The factory's one rule: config fields are honoured, the JAX package's
+    other execution knobs pass at their float32 values and raise naming their
+    ROADMAP item otherwise, anything else is a KeyError."""
+    from wavemamba_torch.models import config_from_opt
+
+    base = {"type": "WaveMamba", "wf": 16, "n_l_blocks": [1, 1, 1], "n_h_blocks": [1, 1, 1]}
+    cfg = config_from_opt({**base, "scan_impl": "pallas", "scan_chunk": 128, "scan_sub": 8,
+                           "compute_dtype": "float32", "scan_dtype": "float32", "conv_impl": "xla"})
+    assert (cfg.scan_impl, cfg.scan_chunk, cfg.scan_sub) == ("pallas", 128, 8)
+    assert cfg.n_l_blocks == (1, 1, 1)
+    assert config_from_opt(base).scan_impl == "pallas_fused"  # the port's default
+    for key, value, match in [("compute_dtype", "bfloat16", "item 4"),
+                              ("scan_dtype", "bfloat16", "item 4"),
+                              ("conv_impl", "fused", "item 12"),
+                              ("remat_policy", "save_scan", "item 6"),
+                              ("scan_impl", "seq_sharded", "item 9")]:
+        with pytest.raises(NotImplementedError, match=match):
+            config_from_opt({**base, key: value})
+    with pytest.raises(KeyError, match="unknown network_g key"):
+        config_from_opt({**base, "widht": 3})
+    with pytest.raises(ValueError, match="unknown scan_impl"):
+        config_from_opt({**base, "scan_impl": "fast"})
+    with pytest.raises(NotImplementedError, match="item 11"):
+        config_from_opt({"type": "ART"})

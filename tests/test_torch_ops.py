@@ -15,6 +15,10 @@ from wavemamba_torch.ops import nn as tnn
 from wavemamba_tpu.ops import haar as jhaar
 from wavemamba_tpu.ops import nn as jnn
 
+# The suite runs in several worker processes on a few cores: torch's intra-op
+# threads spin while they wait, and the tiny tensors here gain nothing from them.
+torch.set_num_threads(1)
+
 ATOL = 1e-6
 ULP2 = 2.0**-22  # two float32 ulps, relative
 

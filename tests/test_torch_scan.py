@@ -17,6 +17,11 @@ from wavemamba_torch.ops import scan_cuda
 from wavemamba_tpu.ops import scan as jscan
 from wavemamba_tpu.ops.scan_pallas import ss2d_scan_fused
 
+# The suite runs in several worker processes on a few cores: torch's intra-op
+# threads spin while they wait, and the tiny tensors here gain nothing from them.
+torch.set_num_threads(1)
+
+
 TOL = 2e-5
 
 

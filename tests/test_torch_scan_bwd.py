@@ -21,6 +21,10 @@ from wavemamba_torch.ops import scan as tscan
 from wavemamba_torch.ops import scan_cuda
 from wavemamba_tpu.ops.scan_pallas import ss2d_scan_fused, ss2d_scan_fused_bwd
 
+# The suite runs in several worker processes on a few cores: torch's intra-op
+# threads spin while they wait, and the tiny tensors here gain nothing from them.
+torch.set_num_threads(1)
+
 REL = 5e-6
 NAMES = ("dx", "dwx", "ddtw", "dbias", "dA", "ddsk")
 CASES = [

@@ -31,6 +31,11 @@ from wavemamba_tpu.models import wavemamba as jwm
 from wavemamba_tpu.train import schedules as jsched
 from wavemamba_tpu.train import trainer as jtrain
 
+# The suite runs in several worker processes on a few cores: torch's intra-op
+# threads spin while they wait, and the tiny tensors here gain nothing from them.
+torch.set_num_threads(1)
+
+
 SMALL = dict(wf=16, n_l_blocks=(1, 1, 1), n_h_blocks=(1, 1, 1))
 OPT = {"type": "WaveMamba", **SMALL, "remat": False}
 SCHEDULER = {"type": "CosineAnnealingRestartCyclicLR", "periods": [100, 100000],

@@ -2,6 +2,9 @@
 
 The JAX package `wavemamba_tpu` is the reference; this package imports
 neither it nor JAX. Modules mirror its layout (`ops/`, `models/`,
-`metrics/`, `utils/`, `inference.py`). Kernels written by hand for sm_90a
-live in `csrc/` and are built at their first launch.
+`metrics/`, `utils/`, `data/`, `train/`, `runner.py`, `pipelines/`,
+`inference.py`). Kernels written by hand for sm_90a live in `csrc/` and are
+built at their first launch.
 """
+
+__version__ = "0.3.0"

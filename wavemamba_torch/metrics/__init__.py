@@ -3,6 +3,9 @@
 
 from wavemamba_torch.metrics.psnr_ssim import calculate_psnr, calculate_ssim
 
+# direction: True if higher is better.
+METRIC_DIRECTION = {"psnr": True, "ssim": True, "lpips": False}
+
 
 def build_metric(opt: dict):
     """opt: {'type': 'psnr'|'ssim', ...kwargs} -> fn(img, img2) -> float.
@@ -20,4 +23,4 @@ def build_metric(opt: dict):
     raise KeyError(f"Unknown metric type {name!r}")
 
 
-__all__ = ["build_metric", "calculate_psnr", "calculate_ssim"]
+__all__ = ["METRIC_DIRECTION", "build_metric", "calculate_psnr", "calculate_ssim"]

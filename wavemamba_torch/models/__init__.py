@@ -1,5 +1,15 @@
 """Model factory (`type: WaveMamba` only): `build_network` for weights that
-exist, `init_network` for a fresh model to train."""
+exist, `init_network` for a fresh model to train.
+
+One rule for every key of a `network_g` dict, whoever passes it (the inference
+CLI, the trainer, the yml pipelines): a field of `WaveMambaConfig` is honoured
+(the architecture, `scan_impl`, `scan_chunk`, `scan_sub`, `remat`); an
+execution knob of the JAX package that the port does not run yet is accepted
+at the value of the float32 path the port does run and raises
+`NotImplementedError`, naming where it waits in ROADMAP.md, at any other; any
+other key raises `KeyError`. Nothing is dropped silently: a shipped yml that
+asks for `compute_dtype: bfloat16` runs after `--force_yml
+network_g:compute_dtype=float32`."""
 
 from __future__ import annotations
 
@@ -18,22 +28,47 @@ from wavemamba_torch.models.wavemamba import (
 )
 
 
-def _config(opt: dict) -> WaveMambaConfig:
+# The JAX package's execution knobs that the port does not run yet: the values
+# it accepts (what the port does anyway) and where the others wait.
+_NOT_PORTED = {
+    "compute_dtype": (("float32",), "queue 1, item 4 (the bf16 fast preset)"),
+    "scan_dtype": (("float32",), "queue 1, item 4 (the bf16 fast preset)"),
+    "remat_policy": (("full",), "queue 1, item 6 (the save_scan policy)"),
+    "conv_impl": (("xla",), "queue 1, item 12 (kernels K6 / K7)"),
+    "conv1x1_as_conv": (((), []), "queue 1, item 12 (kernels K6 / K7)"),
+    "scan_mesh": ((None,), "queue 1, item 9 (multi-GPU)"),
+    "scan_mesh_axis": (("data",), "queue 1, item 9 (multi-GPU)"),
+}
+
+
+def config_from_opt(opt: dict) -> WaveMambaConfig:
+    """A `network_g` dict -> the config, by the module docstring's rule."""
     opt = dict(opt)
     name = opt.pop("type")
+    if name == "ART":
+        raise NotImplementedError("the ART network waits for ROADMAP queue 1, item 11")
     if name != "WaveMamba":
         raise KeyError(f"unknown arch type {name!r}; the port builds 'WaveMamba' only")
     known = {f.name for f in dataclasses.fields(WaveMambaConfig)}
-    return WaveMambaConfig(**{k: tuple(v) if isinstance(v, list) else v
-                              for k, v in opt.items() if k in known})
+    kw = {}
+    for key, value in opt.items():
+        if key in known:
+            kw[key] = tuple(value) if isinstance(value, list) else value
+        elif key in _NOT_PORTED:
+            accepted, where = _NOT_PORTED[key]
+            if value not in accepted:
+                raise NotImplementedError(f"network_g.{key}={value!r} is not ported: it waits "
+                                          f"for ROADMAP {where}; the port runs {accepted[0]!r}")
+        else:
+            raise KeyError(f"unknown network_g key {key!r}")
+    return WaveMambaConfig(**kw)
 
 
 def build_network(opt: dict, state_dict: dict, device="cuda") -> WaveMamba:
-    """opt: {'type': 'WaveMamba', **architecture fields} (keys that are not
-    fields of `WaveMambaConfig`, such as the JAX package's other execution
-    knobs, are ignored) -> the model with `state_dict` loaded strictly, in eval
-    mode on `device`."""
-    cfg = _config(opt)
+    """opt: {'type': 'WaveMamba', **fields} (see the module docstring for the
+    keys) -> the model with `state_dict` loaded strictly, in eval mode on
+    `device`."""
+    cfg = config_from_opt(opt)
     dev = resolve_device(device)
     with torch.device("meta"):
         model = WaveMamba(cfg)
@@ -46,8 +81,8 @@ def init_network(opt: dict, generator: torch.Generator, device="cuda") -> WaveMa
     """A fresh model for training: built on the CPU, filled from `generator`
     by `init_wavemamba`, moved to `device`, in train mode."""
     dev = resolve_device(device)
-    return init_wavemamba(WaveMamba(_config(opt)), generator).to(dev).train()
+    return init_wavemamba(WaveMamba(config_from_opt(opt)), generator).to(dev).train()
 
 
-__all__ = ["WaveMamba", "WaveMambaConfig", "build_network", "init_network", "init_wavemamba",
-           "param_count", "wavemamba_apply", "wavemamba_forward"]
+__all__ = ["WaveMamba", "WaveMambaConfig", "build_network", "config_from_opt", "init_network",
+           "init_wavemamba", "param_count", "wavemamba_apply", "wavemamba_forward"]

@@ -8,10 +8,13 @@ as they are. `wavemamba_apply` (inference, no gradient) and
 the boundary. `init_wavemamba` fills a model from a `torch.Generator` with
 the JAX package's `init_*` distributions.
 
-SS2D runs its four directional scans as two direction pairs (rows:
-directions 0 and 2, columns: 1 and 3) through `ops/scan_cuda.py:
-ss2d_scan_pair`: kernel K1, and under autograd K2 as its backward, on a CUDA
-tensor; their plain versions on a CPU tensor.
+With `scan_impl='pallas_fused'` (the default) SS2D runs its four directional
+scans as two direction pairs (rows: directions 0 and 2, columns: 1 and 3)
+through `ops/scan_cuda.py:ss2d_scan_pair`: kernel K1, and under autograd K2 as
+its backward, on a CUDA tensor; their plain versions on a CPU tensor. Every
+other `scan_impl` takes the unfused route: four materialised direction
+streams, the stacked x_proj / dt_proj einsums, then `ops/scan.py:
+selective_scan`, whose 'pallas' route is kernels K3 / K4.
 
 With `cfg.remat` every LFSS and HFE block runs under
 `torch.utils.checkpoint`: the backward pass recomputes the block's forward
@@ -40,14 +43,22 @@ from wavemamba_torch.ops.nn import (
     init_linear,
     l2_normalize,
 )
+from wavemamba_torch.ops.scan import selective_scan
 from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair
 
 _ROWS, _COLS = [0, 2], [1, 3]  # direction pairs: row-major and column-major fwd/rev
+SCAN_IMPLS = ("pallas_fused", "pallas", "chunked", "par", "ref")
 
 
 @dataclasses.dataclass(frozen=True)
 class WaveMambaConfig:
-    """Architecture of the shipped model (`wavemamba_tpu` defaults)."""
+    """Architecture of the shipped model (`wavemamba_tpu` defaults).
+
+    `scan_impl` keeps the JAX package's names, so its option files select the
+    same routes here: 'pallas_fused' is kernels K1 / K2, 'pallas' kernels K3 /
+    K4, 'chunked' | 'par' | 'ref' plain torch ops. The default is
+    'pallas_fused', not the JAX package's 'chunked': on the card the entry
+    points launch a kernel by default, and every `options/*.yml` sets it."""
 
     in_chn: int = 3
     wf: int = 32
@@ -57,9 +68,22 @@ class WaveMambaConfig:
     d_state: int = 16
     d_conv: int = 3
     ffn_restormer: bool = False
-    # Execution knob, not part of the checkpoint: recompute every LFSS and HFE
-    # block in the backward pass instead of keeping its activations.
+    # Execution knobs, not part of the checkpoint. The scan's route, the chunk
+    # of 'chunked' and the subsegment of 'par' (the kernels have their own
+    # chunk, `scan_cuda.CHUNK`).
+    scan_impl: str = "pallas_fused"
+    scan_chunk: int = 256
+    scan_sub: int = 32
+    # Recompute every LFSS and HFE block in the backward pass instead of
+    # keeping its activations.
     remat: bool = True
+
+    def __post_init__(self):
+        if self.scan_impl == "seq_sharded":
+            raise NotImplementedError("scan_impl='seq_sharded' (the sequence-sharded scan) "
+                                      "waits for multi-GPU, ROADMAP queue 1, item 9")
+        if self.scan_impl not in SCAN_IMPLS:
+            raise ValueError(f"unknown scan_impl {self.scan_impl!r}; known: {SCAN_IMPLS}")
 
     @property
     def d_inner(self) -> int:
@@ -70,11 +94,29 @@ class WaveMambaConfig:
         return math.ceil(self.wf / 16)
 
 
+def _scan_directions(x):
+    """x: (B, H, W, D) -> (B, 4, L, D): row-major, column-major, then both
+    reversed (the reference's direction order)."""
+    b, h, w, d = x.shape
+    k0 = x.reshape(b, h * w, d)
+    k1 = x.transpose(1, 2).reshape(b, h * w, d)
+    return torch.stack([k0, k1, k0.flip(1), k1.flip(1)], 1)
+
+
+def _merge_directions(y, h, w):
+    """y: (B, 4, L, D) scan outputs -> (B, H, W, D): the sum of the four,
+    each brought back to row-major token order."""
+    b, _, _, d = y.shape
+    cols = lambda t: t.view(b, w, h, d).transpose(1, 2)
+    return (y[:, 0] + y[:, 2].flip(1)).view(b, h, w, d) + cols(y[:, 1]) + cols(y[:, 3].flip(1))
+
+
 class SS2D(nn.Module):
     """2-D selective scan: four directional 1-D scans over the token grid."""
 
     def __init__(self, cfg: WaveMambaConfig):
         super().__init__()
+        self.scan_impl, self.scan_chunk, self.scan_sub = cfg.scan_impl, cfg.scan_chunk, cfg.scan_sub
         c, d, n, r = cfg.wf, cfg.d_inner, cfg.d_state, cfg.dt_rank
         self.in_proj = nn.Linear(c, 2 * d, bias=False)
         self.conv2d = nn.Conv2d(d, d, cfg.d_conv, padding=(cfg.d_conv - 1) // 2, groups=d)
@@ -85,7 +127,8 @@ class SS2D(nn.Module):
         self.Ds = nn.Parameter(torch.ones(4 * d))
         self.out_norm = LayerNorm(d, eps=1e-5, dim=-1)
         self.out_proj = nn.Linear(d, c, bias=False)
-        self.scan = ss2d_scan_pair
+        self.scan = ss2d_scan_pair  # the fused route's scan, see `set_scan`
+        self.unfused_scan = None  # the unfused route's, see `set_unfused_scan`
 
     def forward(self, x):
         """x: (B, C, H, W) -> (B, C, H, W)."""
@@ -93,6 +136,32 @@ class SS2D(nn.Module):
         d = self.conv2d.in_channels
         xx, z = self.in_proj(x.permute(0, 2, 3, 1)).chunk(2, dim=-1)  # (B, H, W, D)
         xx = F.silu(self.conv2d(xx.permute(0, 3, 1, 2)))  # (B, D, H, W)
+        y = self._fused(xx) if self.scan_impl == "pallas_fused" else self._unfused(xx)
+        y = self.out_norm(y) * F.silu(z)
+        return self.out_proj(y).permute(0, 3, 1, 2)
+
+    def _unfused(self, xx):
+        """xx: (B, D, H, W) -> (B, H, W, D): the four direction streams and
+        their projections in memory, then `selective_scan`."""
+        b, d, h, w = xx.shape
+        r, n = self.dt_projs_weight.shape[2], self.A_logs.shape[1]
+        xs = _scan_directions(xx.permute(0, 2, 3, 1))  # (B, 4, L, D)
+        x_dbl = torch.einsum("bkld,kcd->bklc", xs, self.x_proj_weight)
+        dts = torch.einsum("bklr,kdr->bkld", x_dbl[..., :r], self.dt_projs_weight)
+        args = (xs, dts.contiguous(), -torch.exp(self.A_logs.float()).view(4, d, n),
+                x_dbl[..., r:r + n].contiguous(), x_dbl[..., r + n:].contiguous(),
+                self.Ds.view(4, d), self.dt_projs_bias)
+        if self.unfused_scan is not None:
+            y = self.unfused_scan(*args)
+        else:
+            y = selective_scan(*args, impl=self.scan_impl, chunk=self.scan_chunk,
+                               sub=self.scan_sub)
+        return _merge_directions(y, h, w)
+
+    def _fused(self, xx):
+        """xx: (B, D, H, W) -> (B, H, W, D): two direction pairs through
+        `ss2d_scan_pair`, which projects inside the kernel."""
+        b, d, h, w = xx.shape
         A = -torch.exp(self.A_logs.float()).view(4, d, -1).transpose(1, 2)  # (4, N, D)
         wx = self.x_proj_weight.transpose(1, 2)  # (4, D, R+2N)
         dtw = self.dt_projs_weight.transpose(1, 2)  # (4, R, D)
@@ -105,10 +174,8 @@ class SS2D(nn.Module):
 
         pr = pair(xx.permute(0, 2, 3, 1).reshape(b, h * w, d).contiguous(), _ROWS)
         pc = pair(xx.permute(0, 3, 2, 1).reshape(b, w * h, d).contiguous(), _COLS)
-        y = (pr[:, 0] + pr[:, 1]).view(b, h, w, d) \
+        return (pr[:, 0] + pr[:, 1]).view(b, h, w, d) \
             + (pc[:, 0] + pc[:, 1]).view(b, w, h, d).transpose(1, 2)
-        y = self.out_norm(y) * F.silu(z)
-        return self.out_proj(y).permute(0, 3, 1, 2)
 
 
 class FFN(nn.Module):
@@ -346,11 +413,21 @@ class WaveMamba(nn.Module):
 
 
 def set_scan(model: nn.Module, scan) -> None:
-    """Route every SS2D of `model` through `scan` (same signature as
-    `ss2d_scan_pair`); used to run the plain scan on the card."""
+    """Route the fused scan of every SS2D of `model` through `scan` (same
+    signature as `ss2d_scan_pair`); used to run the plain scan on the card."""
     for m in model.modules():
         if isinstance(m, SS2D):
             m.scan = scan
+
+
+def set_unfused_scan(model: nn.Module, scan) -> None:
+    """Route the unfused scan of every SS2D of `model` (any `scan_impl` but
+    'pallas_fused') through `scan(u, delta, A, Bs, Cs, D_skip, delta_bias)`
+    instead of the `selective_scan` dispatcher; None restores the dispatcher.
+    Used to run the plain scan on the card."""
+    for m in model.modules():
+        if isinstance(m, SS2D):
+            m.unfused_scan = scan
 
 
 def init_ss2d(m: SS2D, generator, dt_min=0.001, dt_max=0.1, dt_init_floor=1e-4):

@@ -15,11 +15,21 @@ Layouts (K = number of direction streams):
     D_skip, delta_bias : (K, D)
     returns y          : (B, K, L, D)
 
-`ss2d_scan_pair_plain` is the plain version of kernel K1
-(`ops/scan_cuda.py:ss2d_scan_pair`) and `ss2d_scan_pair_plain_bwd` the plain
-version of kernel K2 (`ops/scan_cuda.py:ss2d_scan_pair_bwd`), K1's backward:
-they run on CPU tensors and are the kernels' oracles on the card. Both work
-in float32, or in float64 when every input is float64 (for `gradcheck`).
+Implementations behind the `selective_scan` dispatcher:
+  * ``ref``     step by step; exact, small L only. The tests' anchor.
+  * ``chunked`` sequential over chunks, a log-depth scan inside each.
+  * ``par``     no sequential chunk loop: subsegment transitions, a doubling
+                scan over them, a replay.
+  * ``pallas``  the kernel pair K3 / K4 (`ops/scan_cuda.py:selective_scan_cuda`,
+                hand-written CUDA) behind `SelectiveScan`; the name is the
+                JAX package's, whose option files select it.
+The first three are plain torch ops on either device.
+
+`selective_scan_plain` / `selective_scan_plain_bwd` are the plain versions of
+kernels K3 / K4, and `ss2d_scan_pair_plain` / `ss2d_scan_pair_plain_bwd` of
+K1 / K2 (`ops/scan_cuda.py`): they run on CPU tensors and are the kernels'
+oracles on the card. All four work in float32, or in float64 when every input
+is float64 (for `gradcheck`).
 """
 
 from __future__ import annotations
@@ -61,14 +71,19 @@ def _linscan(a, b, h0):
     return a * h0[:, :, None] + b
 
 
-def selective_scan_chunked(u, delta, A, Bs, Cs, D_skip, delta_bias, chunk=64):
+def selective_scan_chunked(u, delta, A, Bs, Cs, D_skip, delta_bias, chunk=64,
+                           h0=None, return_final=False):
     """Sequential over chunks of `chunk` tokens; inside a chunk, `_linscan`,
-    vectorised over (B, K, T, D, N)."""
+    vectorised over (B, K, T, D, N).
+
+    h0: optional entry state (B, K, D, N), for a scan that continues another.
+    With `return_final` also the exit state (B, K, D, N). The last chunk may
+    be short: that equals padding it with identity transitions."""
     u = _f32(u)
     da = F.softplus(_f32(delta) + delta_bias[None, :, None, :])
     dau = da * u
     b, k, length, d = u.shape
-    h = u.new_zeros(b, k, d, A.shape[-1])
+    h = u.new_zeros(b, k, d, A.shape[-1]) if h0 is None else h0.to(u.dtype)
     ys = []
     for l0 in range(0, length, chunk):
         sl = slice(l0, l0 + chunk)
@@ -76,7 +91,166 @@ def selective_scan_chunked(u, delta, A, Bs, Cs, D_skip, delta_bias, chunk=64):
         hs = _linscan(a, dau[:, :, sl, :, None] * Bs[:, :, sl, None, :], h)
         ys.append(torch.einsum("bktdn,bktn->bktd", hs, Cs[:, :, sl]))
         h = hs[:, :, -1]
-    return torch.cat(ys, 2) + D_skip[None, :, None, :] * u
+    y = torch.cat(ys, 2) + D_skip[None, :, None, :] * u
+    return (y, h) if return_final else y
+
+
+def selective_scan_par(u, delta, A, Bs, Cs, D_skip, delta_bias, sub=16):
+    """No sequential chunk loop. The sequence is cut into R = ceil(L / sub)
+    subsegments: `sub` steps vectorised over (B, K, R, N, D) give every
+    subsegment's transition, a doubling scan over R the entering states, and
+    `sub` more steps replay them and emit y. L is padded to whole subsegments
+    with identity transitions (da = 0, u = 0)."""
+    u = _f32(u)
+    da = F.softplus(_f32(delta) + delta_bias[None, :, None, :])
+    b, k, length, d = u.shape
+    n = A.shape[-1]
+    pad = (-length) % sub
+    if pad:
+        u, da, Bs, Cs = (F.pad(t, (0, 0, 0, pad)) for t in (u, da, Bs, Cs))
+    r = (length + pad) // sub
+    u5, da5 = u.view(b, k, r, sub, d), da.view(b, k, r, sub, d)
+    b5, c5 = Bs.reshape(b, k, r, sub, n), Cs.reshape(b, k, r, sub, n)
+    At = A.transpose(1, 2)[None, :, None]  # (1, K, 1, N, D)
+
+    def step_ab(i):
+        dai = da5[:, :, :, i, None, :]  # (B, K, R, 1, D)
+        return torch.exp(dai * At), (dai * u5[:, :, :, i, None, :]) * b5[:, :, :, i, :, None]
+
+    pa, pb = step_ab(0)
+    for i in range(1, sub):
+        ai, bi = step_ab(i)
+        pa, pb = pa * ai, ai * pb + bi
+    # Inclusive doubling scan over R; h_0 = 0, so only the b part matters.
+    s = 1
+    while s < r:
+        pb = torch.cat([pb[:, :, :s], pb[:, :, s:] + pa[:, :, s:] * pb[:, :, :-s]], 2)
+        pa = torch.cat([pa[:, :, :s], pa[:, :, s:] * pa[:, :, :-s]], 2)
+        s *= 2
+    h = torch.cat([torch.zeros_like(pb[:, :, :1]), pb[:, :, :-1]], 2)
+    ys = []
+    for i in range(sub):
+        ai, bi = step_ab(i)
+        h = ai * h + bi
+        ys.append(torch.einsum("bkrnd,bkrn->bkrd", h, c5[:, :, :, i])
+                  + D_skip[None, :, None, :] * u5[:, :, :, i])
+    return torch.stack(ys, 3).reshape(b, k, r * sub, d)[:, :, :length]
+
+
+def _padded_streams(u, delta, delta_bias, Bs, Cs, chunk):
+    """The streams zero-padded to whole chunks, as kernels K3 / K4 see a
+    ragged last chunk: u, z = delta + bias, da = softplus(z) (0 on the padding,
+    so a padded token passes the state through), the validity mask, Bs, Cs."""
+    u = _f32(u)
+    length = u.shape[2]
+    pad = (-length) % chunk
+    z = _f32(delta) + delta_bias[None, :, None, :]
+    if pad:
+        u, z, Bs, Cs = (F.pad(t, (0, 0, 0, pad)) for t in (u, z, _f32(Bs), _f32(Cs)))
+    valid = (torch.arange(length + pad, device=u.device) < length).to(u.dtype)[None, None, :, None]
+    return u, z, F.softplus(z) * valid, valid, Bs, Cs
+
+
+def selective_scan_plain(u, delta, A, Bs, Cs, D_skip, delta_bias, chunk=64,
+                         return_carries=False):
+    """The selective scan on the chunking of kernel K3 (its plain version).
+
+    Layouts as the module docstring. With `return_carries`, also what the
+    backward needs: `state` (B, K, nc, N, D), the state entering each chunk of
+    `chunk` tokens, and `sumda` (B, K, nc, D), each chunk's sum of da (its
+    decay is exp(A * sumda)).
+    """
+    length = u.shape[2]
+    u, _, da, _, Bs, Cs = _padded_streams(u, delta, delta_bias, Bs, Cs, chunk)
+    dau = da * u
+    At = A.transpose(1, 2)  # (K, N, D): the kernels' state layout
+    h = u.new_zeros(u.shape[0], u.shape[1], At.shape[1], u.shape[-1])
+    ys, states = [], []
+    for l0 in range(0, u.shape[2], chunk):
+        sl = slice(l0, l0 + chunk)
+        a = torch.exp(da[:, :, sl, None, :] * At[None, :, None])  # (B, K, T, N, D)
+        hs = _linscan(a, dau[:, :, sl, None, :] * Bs[:, :, sl, :, None], h)
+        ys.append(torch.einsum("bktnd,bktn->bktd", hs, Cs[:, :, sl]))
+        states.append(h)
+        h = hs[:, :, -1]
+    y = (torch.cat(ys, 2) + D_skip[None, :, None, :] * u)[:, :, :length]
+    if not return_carries:
+        return y
+    sumda = da.view(da.shape[0], da.shape[1], -1, chunk, da.shape[-1]).sum(3)
+    return y, torch.stack(states, 2), sumda
+
+
+def selective_scan_plain_bwd(u, delta, A, Bs, Cs, D_skip, delta_bias, state, dy, chunk=64):
+    """Backward of `selective_scan_plain` (the plain version of K4), written
+    out by hand in the kernel's arithmetic, not `torch.autograd`.
+
+    `state`: the forward's chunk-entry states at the same `chunk`; dy:
+    (B, K, L, D). Per chunk, from the last to the first: recompute h from the
+    entering state, run the adjoint g_t = a_{t+1} g_{t+1} + C_t dy_t in
+    reverse (it crosses a chunk boundary multiplied by the later chunk's first
+    a), then
+        common = g_t a_t h_{t-1},  gB = sum_n g_t B_t
+        du = da gB + D_skip dy,  ddelta = (sum_n common A + gB u) sigmoid(z)
+        dB_t = sum_d g_t da_t u_t,  dC_t = sum_d dy_t h_t
+        dA = sum common da,  dD_skip = sum dy u,  ddelta_bias = sum ddelta.
+    Returns (du, ddelta, dA, dBs, dCs, dD_skip, ddelta_bias) in the inputs'
+    layouts; ddelta is the gradient before the softplus.
+    """
+    length = u.shape[2]
+    u, z, da, valid, Bs, Cs = _padded_streams(u, delta, delta_bias, Bs, Cs, chunk)
+    dyp = F.pad(_f32(dy), (0, 0, 0, u.shape[2] - length))
+    sig = torch.sigmoid(z) * valid
+    dau = da * u
+    At = A.transpose(1, 2)  # (K, N, D)
+    g_carry = torch.zeros_like(state[:, :, 0], dtype=u.dtype)
+    dA = torch.zeros_like(At, dtype=u.dtype)
+    dD, dbias = torch.zeros_like(D_skip, dtype=u.dtype), torch.zeros_like(D_skip, dtype=u.dtype)
+    dus, ddeltas, dBs, dCs = [], [], [], []
+    for p in reversed(range(u.shape[2] // chunk)):
+        sl = slice(p * chunk, (p + 1) * chunk)
+        uc, dac, dyc, Bc = u[:, :, sl], da[:, :, sl], dyp[:, :, sl], Bs[:, :, sl, :, None]
+        a = torch.exp(dac[:, :, :, None, :] * At[None, :, None])  # (B, K, T, N, D)
+        h = _linscan(a, dau[:, :, sl, None, :] * Bc, state[:, :, p])
+        a_next = torch.cat([a[:, :, 1:], torch.ones_like(a[:, :, :1])], 2)
+        q = Cs[:, :, sl, :, None] * dyc[:, :, :, None, :]
+        g = _linscan(a_next.flip(2), q.flip(2), g_carry).flip(2)
+        g_carry = a[:, :, 0] * g[:, :, 0]
+
+        gdau = g * dau[:, :, sl, None, :]
+        common = g * h - gdau * Bc  # g * a_t * h_{t-1}
+        gB = (g * Bc).sum(3)
+        ddelta = ((common * At[None, :, None]).sum(3) + gB * uc) * sig[:, :, sl]
+        dus.append(dac * gB + D_skip[None, :, None, :] * dyc)
+        ddeltas.append(ddelta)
+        dBs.append(gdau.sum(4))
+        dCs.append((dyc[:, :, :, None, :] * h).sum(4))
+        dA += (common * dac[:, :, :, None, :]).sum((0, 2))
+        dD += (dyc * uc).sum((0, 2))
+        dbias += ddelta.sum((0, 2))
+    du, ddelta, dB, dC = (torch.cat(t[::-1], 2)[:, :, :length] for t in (dus, ddeltas, dBs, dCs))
+    return du, ddelta, dA.transpose(1, 2), dB, dC, dD, dbias
+
+
+def selective_scan(u, delta, A, Bs, Cs, D_skip, delta_bias, impl="chunked",
+                   chunk=256, sub=16, scan_dtype=torch.float32):
+    """Dispatch to an implementation; layouts as the module docstring.
+    `chunk` serves 'chunked' and `sub` serves 'par'; 'pallas' (kernels K3 / K4)
+    has its own chunk, `scan_cuda.CHUNK`. Differentiable on every route."""
+    if scan_dtype not in (torch.float32, "float32"):
+        raise NotImplementedError(f"scan_dtype={scan_dtype}: the port scans in float32; the "
+                                  "bf16 fast preset is ROADMAP queue 1, item 4")
+    args = (u, delta, A, Bs, Cs, D_skip, delta_bias)
+    if impl == "ref":
+        return selective_scan_ref(*args)
+    if impl == "chunked":
+        return selective_scan_chunked(*args, chunk=chunk)
+    if impl == "par":
+        return selective_scan_par(*args, sub=sub)
+    if impl == "pallas":
+        from wavemamba_torch.ops.scan_cuda import selective_scan_cuda
+
+        return selective_scan_cuda(*args)
+    raise ValueError(f"unknown selective_scan impl: {impl!r}")
 
 
 def _flip1(t, axis):

@@ -1,7 +1,8 @@
 """Image IO and conversion, NHWC. The counterpart of
 `wavemamba_tpu/utils/img_util.py`: disk IO is BGR uint8 through OpenCV,
-the model sees (1, H, W, 3) RGB float32. `cv2` is imported by the two IO
-functions only, so the rest of the port runs where OpenCV is missing."""
+the model sees (1, H, W, 3) RGB float32. `cv2` is imported by the functions
+that decode, encode or pad with it only, so the rest of the port runs where
+OpenCV is missing."""
 
 from __future__ import annotations
 
@@ -10,17 +11,22 @@ import os
 import numpy as np
 
 
-def imread(path, flag="color", float32=False):
-    """Read an image file -> BGR HWC uint8 (or float32 in [0, 1])."""
+def imfrombytes(content: bytes, flag="color", float32=False):
+    """Decode an image file's bytes -> BGR HWC uint8 (or float32 in [0, 1])."""
     import cv2
 
     flags = {"color": cv2.IMREAD_COLOR, "grayscale": cv2.IMREAD_GRAYSCALE,
              "unchanged": cv2.IMREAD_UNCHANGED}
-    with open(path, "rb") as f:
-        img = cv2.imdecode(np.frombuffer(f.read(), np.uint8), flags[flag])
+    img = cv2.imdecode(np.frombuffer(content, np.uint8), flags[flag])
     if float32:
         img = img.astype(np.float32) / 255.0
     return img
+
+
+def imread(path, flag="color", float32=False):
+    """Read an image file -> BGR HWC uint8 (or float32 in [0, 1])."""
+    with open(path, "rb") as f:
+        return imfrombytes(f.read(), flag=flag, float32=float32)
 
 
 def imwrite(img, file_path, params=None, auto_mkdir=True):
@@ -57,3 +63,22 @@ def batch2img(batch, rgb2bgr=True, min_max=(0, 1)):
     if rgb2bgr and img.ndim == 3 and img.shape[2] == 3:
         img = img[..., ::-1]
     return (img * 255.0).round().astype(np.uint8)
+
+
+def padding(img_lq, img_gt, gt_size):
+    """Reflect-pad a pair bottom/right up to gt_size (OpenCV's BORDER_REFLECT,
+    which repeats the edge pixel)."""
+    import cv2
+
+    h, w = img_lq.shape[:2]
+    h_pad = max(0, gt_size - h)
+    w_pad = max(0, gt_size - w)
+    if h_pad == 0 and w_pad == 0:
+        return img_lq, img_gt
+    img_lq = cv2.copyMakeBorder(img_lq, 0, h_pad, 0, w_pad, cv2.BORDER_REFLECT)
+    img_gt = cv2.copyMakeBorder(img_gt, 0, h_pad, 0, w_pad, cv2.BORDER_REFLECT)
+    if img_lq.ndim == 2:
+        img_lq = img_lq[..., None]
+    if img_gt.ndim == 2:
+        img_gt = img_gt[..., None]
+    return img_lq, img_gt
