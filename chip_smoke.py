@@ -22,10 +22,29 @@ and prints one JSON line per phase:
   3c. k4     kernel K4 (`selective_scan_cuda_bwd`, K3's backward) against
              `selective_scan_plain_bwd` at the three training shapes and the
              ragged one, all seven outputs, the same bits twice; times, bounds.
+  3d. k5     kernel K5 (`ss2d_scan_pair(..., variant='ssd')`, K1's function in
+             the segment-local form) against its plain version and against K1,
+             y and carries, at the three scan lengths of a 1080p forward, a
+             ragged length and a column stream, the same bits twice; times and
+             bounds.
+  3e. chain  the conv-chain kernel (`csrc/conv_chain.cu`) from both entry
+             points, K6 (`fused_chain`, 2-D tiles) and K7 (`fused_chain_band`,
+             row bands), against `fused_chain_plain`, for each of the nine
+             wrappers with the shipped checkpoint's modules at the 1080p shape
+             where each runs and at 17x130, the same bits twice and from both
+             entry points; times beside the bound, the plain version, the stock
+             modules the chain replaces and, for a single conv, `F.conv2d`.
   4. serve   `ckpt/WaveMamba_ProcLLIE_BSRGAN_XXL4.pth` through the CLI's
              load -> bucket pad -> forward -> crop path, two seeded
              low-light requests (1080x1920, 720x1280); launches of K1,
              latency, peak memory, outputs finite and brighter.
+  4b. serve_fused the same requests with `conv_impl: fused`: 76 K7 launches
+             and 28 K1 a forward, latency, forward time, peak memory; the output
+             against the same model with plain chains on the card and against
+             the stock float32 route; one forward through K6 (`chain_route`).
+  4c. tile   a 2160x3840 request through `--tile`'s path at 240 / 16: tiles,
+             forwards, latency, peak memory, and its difference from the
+             whole-frame forward.
   5. model   the full model with K1 against the same model with the plain
              scan at 256x384, the card against the CPU at 64x96, and the
              unfused route: K3 against the plain scan, and against K1.
@@ -51,8 +70,8 @@ and prints one JSON line per phase:
              step that repeats; one 1080x1920 request through
              `RestorationModel.test`. 14 K3 and 14 K4 launches a step, no K1/K2.
  10. profile device time by kernel (torch.profiler) over one 1152x1920
-             forward, one training step of the fused route and one of the
-             unfused route, and the card's idle share.
+             forward of each conv route, one training step of the fused scan
+             route and one of the unfused route, and the card's idle share.
 
 Then the `kernels` line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, and the script exits non-zero without the last line. It needs
@@ -119,6 +138,25 @@ RESUME_MOMENT_RTOL = 1e-4
 # direction) are taken in another order.
 K3_ATOL = 1e-4
 K4_RTOL = 1e-5
+# K5 against its plain version and against K1: max abs difference, as K1's
+# (the same inputs; the segment-local form sums in another order again).
+K5_ATOL = 1e-4
+# The chain kernel against its plain version, of each output's max abs value.
+# Both round the same operands to bf16 and sum in f32, in other orders. Where
+# a last-bit difference of an f32 stage (LayerNorm, GELU, the depthwise sum)
+# moves a value across a bf16 rounding boundary ahead of a 1x1 or dense 3x3,
+# one product moves by a bf16 step: 1e-5 on at least 99.5% of the elements,
+# 1e-2 on every one.
+CHAIN_TIGHT_REL, CHAIN_TIGHT_SHARE, CHAIN_LOOSE_REL = 1e-5, 0.995, 1e-2
+# The fused-route model, chain kernels against plain chains on the card: the
+# same rounding flips, spread over the image by the scans. Max and mean abs.
+FUSED_MODEL_ATOL, FUSED_MODEL_MEAN = 5e-3, 5e-4
+# The fused route against the stock float32 route on the same weights: bf16
+# operands and the tanh GELU. Max abs and the PSNR between the two outputs.
+FUSED_VS_STOCK_ATOL, FUSED_VS_STOCK_PSNR = 1e-2, 55.0
+# Dense bf16 tensor-core peak of an H100 SXM (NVIDIA data sheet): the chains'
+# bf16 products could run there.
+TENSOR_BF16_OPS_S = 989e12
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS, EMA_DECAY = 8, 512, 6, 0.999
 PIPELINE_STEPS = 4
 TRAIN_LENGTHS = [65536, 16384, 4096]  # tokens per image at the three LFSS levels of 512x512
@@ -153,10 +191,10 @@ def cuda_ms(fn, reps, warmup=True):
     return float(np.median(times))
 
 
-def _bound(nbytes, fma_ops, sfu_ops):
-    """(ms, "bytes" or "operations", unit) of the slowest of the three units."""
+def _bound(nbytes, fma_ops, sfu_ops, tensor_ops=0):
+    """(ms, "bytes" or "operations", unit) of the slowest of the units."""
     times = {"hbm": nbytes / HBM_BYTES_S * 1e3, "fma": fma_ops / F32_OPS_S * 1e3,
-             "sfu": sfu_ops / SFU_OPS_S * 1e3}
+             "sfu": sfu_ops / SFU_OPS_S * 1e3, "tensor": tensor_ops / TENSOR_BF16_OPS_S * 1e3}
     unit = max(times, key=times.get)
     return times[unit], ("bytes" if unit == "hbm" else "operations"), unit
 
@@ -178,6 +216,53 @@ def k1_bound(B, L, D, N, R):
     fma_ops = 2 * B * L * (2 * D * (R + 2 * N) + 2 * R * D + D + 6 * N * D + D + 2 * D)
     sfu_ops = 2 * B * L * (N * D + D)
     return _bound(nbytes, fma_ops, sfu_ops)
+
+
+def k5_bound(B, L, D, N, R):
+    """Least time (ms) the card could take for one K5 call; as `k1_bound`, the
+    same bytes. Per (token, direction), each computed once: on the FMA pipe the
+    projection 2D(R+2N), dt 2RD, log1p of the softplus D, the segment sum of da
+    D, per (n, d) 8 (cl*A, w*B, the divide's refinement 2, the cumsum, H +
+    cums, G times it, the FMA of C.h counted once), du D and the output FMA 2D;
+    on the SFU one exp and one reciprocal (inside the divide) per (n, d) and
+    one exp per d for the softplus."""
+    weights = 2 * D * (R + 2 * N) + 2 * R * D + 2 * D + 2 * N * D + 2 * D
+    nbytes = 4 * (B * L * D + 2 * B * L * D + weights)
+    fma_ops = 2 * B * L * (2 * D * (R + 2 * N) + 2 * R * D + 2 * D + 8 * N * D + D + 2 * D)
+    sfu_ops = 2 * B * L * (2 * N * D + D)
+    return _bound(nbytes, fma_ops, sfu_ops)
+
+
+def chain_bound(c0, specs, pixels):
+    """Least time (ms) the card could take for one chain over `pixels` pixels
+    of one image, and what bounds it. Bytes: the input read once, the output
+    written once, the weights read once. Per pixel: the bf16 products of the
+    1x1, dense 3x3 and gate stages (2 per multiply-add) on the tensor cores;
+    on the FMA pipe the depthwise taps (2 each), a bias 1, LayerNorm 6, the
+    tanh GELU 8 and silu / sigmoid 3 per element, the gate 3, the residual 2;
+    on the SFU a tanh per GELU, an exp and a reciprocal per silu or sigmoid,
+    a reciprocal square root per LayerNorm."""
+    weights = sum(t.numel() for s in specs for t in s[4:6] if t is not None)
+    nbytes = 4 * (pixels * (c0 + specs[-1][2]) + weights)
+    tensor, fma, sfu = 0, 0, 0
+    for kind, cin, cout, act, w, b, eps in specs:
+        fma += cout if b is not None and kind != "ln" else 0
+        if kind in ("pw", "mulsig0"):
+            tensor += 2 * cin * cout
+        if kind == "dense":
+            tensor += 18 * cin * cout
+        if kind == "dw":
+            fma += 18 * cin
+        if kind in ("act", "glu"):
+            fma += (8 if act == "gelu" else 3) * cout + (cout if kind == "glu" else 0)
+            sfu += (1 if act == "gelu" else 2) * cout
+        if kind == "mulsig0":
+            fma, sfu = fma + 3 * cout, sfu + 2 * cout
+        if kind == "ln":
+            fma, sfu = fma + 6 * cin, sfu + 1
+        if kind == "res0":
+            fma += 2 * cin
+    return _bound(nbytes, fma * pixels, sfu * pixels, tensor * pixels)
 
 
 def k2_bound(B, L, D, N, R, T=64):
@@ -275,7 +360,9 @@ def phase_device():
           "k1_ptxas": ptxas(libs[0], ["chunk_scan", "chunk_prefix"]),
           "k2_ptxas": ptxas(libs[1], ["bwd_local", "bwd_prefix", "bwd_main", "bwd_reduce"]),
           "k3_ptxas": ptxas(libs[2], ["scan_chunk", "chunk_prefix"]),
-          "k4_ptxas": ptxas(libs[3], ["bwd_local", "chunk_prefix", "bwd_main", "bwd_reduce"])})
+          "k4_ptxas": ptxas(libs[3], ["bwd_local", "chunk_prefix", "bwd_main", "bwd_reduce"]),
+          "k5_ptxas": ptxas(libs[4], ["chunk_scan_ssd", "chunk_prefix"]),
+          "chain_ptxas": ptxas(libs[5], ["chain_kernel"])})
     return smi
 
 
@@ -448,6 +535,304 @@ def phase_k3_k4():
         del args, state, sumda, state_plain
         torch.cuda.empty_cache()
     return k3_rows, k4_rows
+
+
+def phase_k5():
+    """K5 at K1's shapes: against its plain version (y, carries; the level-1
+    plain run, timed, is the one compared) and against K1 on the same inputs."""
+    from wavemamba_torch.ops.scan import ss2d_scan_pair_plain
+    from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair, ss2d_scan_pair_ssd
+
+    rs = np.random.RandomState(5)
+    rows = []
+    ss2d_scan_pair_ssd.launches = 0
+    cases = [("level%d" % (i + 1), h, w, False) for i, (h, w) in enumerate(LEVELS_1080P)]
+    cases += [("ragged", 1, 34560 + 37, False), ("columns", 144, 240, True)]
+    for name, h, w, columns in cases:
+        args = pair_inputs(rs, 1, h * w)
+        if columns:
+            x = args[0].view(1, h, w, -1).transpose(1, 2).reshape(1, h * w, -1).contiguous()
+            args = (x,) + args[1:]
+        got = ss2d_scan_pair(*args, variant="ssd", return_carries=True)
+        again = ss2d_scan_pair(*args, variant="ssd", return_carries=True)
+        k1 = ss2d_scan_pair(*args, return_carries=True)
+        torch.cuda.synchronize()
+        plain, plain_ms = timed_once(lambda: ss2d_scan_pair_plain(*args, return_carries=True,
+                                                                  variant="ssd", sub=8))
+        keys = ("y", "state", "sumda")
+        err = {k: float((g - p_).abs().max()) for k, g, p_ in zip(keys, got, plain)}
+        vs_k1 = {k: float((g - p_).abs().max()) for k, g, p_ in zip(keys, got, k1)}
+        check(all(bool(torch.isfinite(g).all()) for g in got), f"K5 {name}: finite")
+        check(all(torch.equal(g, g2) for g, g2 in zip(got, again)), f"K5 {name}: the same bits twice")
+        check(max(err.values()) <= K5_ATOL, f"K5 {name}: against its plain version {err}")
+        check(max(vs_k1.values()) <= K5_ATOL, f"K5 {name}: against K1 {vs_k1}")
+        row = {"phase": "k5", "case": name, "B": 1, "L": h * w, "D": 64, "N": 16, "R": 2, "sub": 8,
+               "max_abs_err": err["y"], "carries_err": err, "vs_k1_err": vs_k1, "tol": K5_ATOL,
+               "y_max_abs": float(plain[0].abs().max())}
+        if name == "level1":  # the one plain run timed, as K1's
+            row["plain_ms"] = plain_ms
+        if not columns and name != "ragged":
+            row["ms"] = cuda_ms(lambda: ss2d_scan_pair(*args, variant="ssd"), 20)
+            row["k1_ms"] = cuda_ms(lambda: ss2d_scan_pair(*args), 20)
+            row["bound_ms"], row["bound_by"], row["bound_unit"] = k5_bound(1, h * w, 64, 16, 2)
+            row["k1_bound_ms"] = k1_bound(1, h * w, 64, 16, 2)[0]
+        row["launches"] = ss2d_scan_pair_ssd.launches
+        emit(row)
+        rows.append(row)
+        del got, again, k1, plain, args
+    return rows
+
+
+def chain_stages(call, x):
+    """The stage list a chain wrapper hands to `_run`, without running it."""
+    from wavemamba_torch.experimental import conv_fused as cf
+
+    real = cf._run
+    cf._run = lambda x_, stages, *rest: stages
+    try:
+        return call(x)
+    finally:
+        cf._run = real
+
+
+def chain_cases(stock):
+    """(wrapper, call, stock call, input channels, (H, W) at 1080p) for the
+    nine wrappers, with the shipped checkpoint's modules (`stock`: the model
+    with stock convs); the Restormer FFN, which the shipped model lacks, from a
+    seeded init. Shapes: where each runs in a 1080p forward, level 1 for the
+    LFSS / HFE chains."""
+    import torch.nn.functional as F
+
+    from wavemamba_torch.experimental import conv_fused as cf
+    from wavemamba_torch.models.wavemamba import FeedForwardRestormer
+    from wavemamba_torch.ops.nn import init_conv2d
+
+    net = stock.restoration_network
+    d1, u1 = net.down_group1, net.up_group1
+    lfss, hfe = d1.l_blk[0], d1.h_blk[0]
+    rest = FeedForwardRestormer(32)
+    gen = torch.Generator().manual_seed(41)
+    for m in rest.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            init_conv2d(m, gen)
+    rest = rest.cuda().eval()
+    full, level1 = (1152, 1920), LEVELS_1080P[0]
+    pac = hfe.attn.matching_transformation.paconv
+    return [
+        ("dense3x3 conv_01", lambda x: cf.dense3x3(net.conv_01, x), net.conv_01, 3, full),
+        ("dense3x3 last", lambda x: cf.dense3x3(net.last, x), net.last, 32, full),
+        ("dense3x3 l_conv", lambda x: cf.dense3x3(d1.l_conv, x), d1.l_conv, 64, level1),
+        ("dense3x3 h_out_conv", lambda x: cf.dense3x3(u1.h_out_conv, x), u1.h_out_conv, 32, level1),
+        ("dw_act", lambda x: cf.dw_act(lfss.self_attention.conv2d, x),
+         lambda x: F.silu(lfss.self_attention.conv2d(x)), 64, level1),
+        ("lfss_ffn_block", lambda x: cf.lfss_ffn_block(lfss.ln_2, lfss.conv_blk, lfss.skip_scale2, x),
+         lambda x: x * lfss.skip_scale2.view(1, -1, 1, 1) + lfss.conv_blk(lfss.ln_2(x)), 32, level1),
+        ("qkv_chain", lambda x: cf.qkv_chain(hfe.attn, x, ln=hfe.norm1),
+         lambda x: hfe.attn.qkv_dwconv(hfe.attn.qkv(hfe.norm1(x))), 32, level1),
+        ("paconv_chain", lambda x: cf.paconv_chain(pac, x), pac, 64, level1),
+        ("ff_in_chain", lambda x: cf.ff_in_chain(hfe.ffn.project_in, x, ln=hfe.norm2),
+         lambda x: hfe.ffn.project_in(hfe.norm2(x)), 32, level1),
+        ("ff_out_chain", lambda x: cf.ff_out_chain(hfe.ffn.project_out, x), hfe.ffn.project_out,
+         32, level1),
+        ("ffn_chain", lambda x: cf.ffn_chain(lfss.conv_blk, x), lfss.conv_blk, 32, level1),
+        ("restormer_chain", lambda x: cf.restormer_chain(rest, x, ln=hfe.norm2, residual=True),
+         lambda x: x + rest(hfe.norm2(x)), 32, level1),
+    ]
+
+
+def chain_errors(got, want):
+    """Max abs and max relative difference and the share of elements beyond
+    the tight bound, of `want`'s max abs value."""
+    d = (got - want).abs()
+    scale = float(want.abs().max())
+    return {"max_abs_err": float(d.max()), "max_rel_err": float(d.max()) / scale,
+            "share_beyond_tight": float((d > CHAIN_TIGHT_REL * scale).float().mean())}
+
+
+def check_chain(name, err):
+    check(1.0 - err["share_beyond_tight"] >= CHAIN_TIGHT_SHARE,
+          f"{name}: {err['share_beyond_tight']} of the elements beyond {CHAIN_TIGHT_REL} of the max")
+    check(err["max_rel_err"] <= CHAIN_LOOSE_REL, f"{name}: max rel err {err['max_rel_err']}")
+
+
+@torch.no_grad()
+def phase_chain(stock, per_forward):
+    """The chain kernel from both entry points against the plain version, for
+    every wrapper; `per_forward`: each wrapper's launches in a forward of the
+    serve path (`serve_fused`)."""
+    import torch.nn.functional as F
+
+    from wavemamba_torch.experimental import conv_fused as cf
+    from wavemamba_torch.ops.conv_fused_cuda import chain_plan
+
+    rs = np.random.RandomState(6)
+    rows = []
+    for name, call, stock_call, c, (h, w) in chain_cases(stock):
+        wrapper = name.split()[0]
+        row = {"phase": "chain", "chain": name, "shape": [1, c, h, w],
+               "launches_per_forward": per_forward.get(wrapper, 0)}
+        for shape in ((h, w), (17, 130)):  # the 1080p shape, then an odd one for the borders
+            x = torch.from_numpy((rs.randn(1, c, *shape) * 0.5).astype(np.float32)).cuda()
+            stages = chain_stages(call, x)
+            specs = cf._specs(c, stages)
+            band = cf.fused_chain_band(x, stages)
+            band2 = cf.fused_chain_band(x, stages)
+            tile = cf.fused_chain(x, stages)
+            tile2 = cf.fused_chain(x, stages)
+            torch.cuda.synchronize()
+            plain, plain_ms = timed_once(lambda: cf.fused_chain_plain(x, stages))
+            check(bool(torch.isfinite(band).all()), f"{name} {shape}: finite")
+            check(torch.equal(band, band2) and torch.equal(tile, tile2),
+                  f"{name} {shape}: the same bits twice")
+            check(torch.equal(band, tile), f"{name} {shape}: K7 and K6 compute the same bits")
+            err = chain_errors(band, plain)
+            check_chain(f"{name} {shape}", err)
+            key = "odd" if shape == (17, 130) else "main"
+            row[key] = err
+            if key == "main":
+                row["tile_K7"], row["smem_K7"] = chain_plan(c, specs, 16, w)
+                row["tile_K6"], row["smem_K6"] = chain_plan(c, specs, 8, 128)
+                row["ms"] = cuda_ms(lambda: cf.fused_chain_band(x, stages), 10)
+                row["k6_ms"] = cuda_ms(lambda: cf.fused_chain(x, stages), 10)
+                row["plain_ms"] = plain_ms
+                row["stock_ms"] = cuda_ms(lambda: stock_call(x), 10)
+                row["library_ms"] = None
+                if wrapper == "dense3x3":  # one library call computes a single conv
+                    conv = stages[0]
+                    row["library_ms"] = cuda_ms(lambda: F.conv2d(x, conv[1], conv[2], padding=1), 10)
+                row["bound_ms"], row["bound_by"], row["bound_unit"] = chain_bound(c, specs, h * w)
+            del band, band2, tile, tile2, plain, x
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def phase_serve_fused(fused, stock):
+    """The serve path of `phase_serve` with `conv_impl: fused`; then the same
+    frame through plain chains, through the stock route, and through K6."""
+    from wavemamba_torch.experimental import conv_fused as cf
+    from wavemamba_torch.inference import enhance
+    from wavemamba_torch.models.buckets import BucketLadder
+    from wavemamba_torch.models.wavemamba import wavemamba_apply
+    from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair
+
+    chains = 2 * sum(fused.cfg.n_l_blocks) * 2 + 2 * sum(fused.cfg.n_h_blocks) * 5 + 8
+    check(chains == 76, "the shipped config runs 76 chains a forward")
+    rs = np.random.RandomState(0)
+    shapes = [(1080, 1920), (720, 1280)]
+    images = [(rs.rand(1, h, w, 3) * 0.12).astype(np.float32) for h, w in shapes]
+    ladder = BucketLadder()
+    enhance(fused, images[0], ladder)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    counts = lambda: (cf.fused_chain_band.launches, cf.fused_chain.launches, ss2d_scan_pair.launches)
+    cf.fused_chain_band.launches = cf.fused_chain.launches = ss2d_scan_pair.launches = 0  # the main path
+    results = []
+    for img in images:
+        before = counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = enhance(fused, img, ladder)
+        end.record()
+        end.synchronize()
+        results.append((img, out, start.elapsed_time(end), time.perf_counter() - t0,
+                        tuple(a - b for a, b in zip(counts(), before))))
+    launches = counts()  # read just after the main path
+    peak = torch.cuda.max_memory_allocated()
+    for (img, out, ms, host_s, n), (h, w) in zip(results, shapes):
+        check(out.shape == img.shape and bool(np.isfinite(out).all()), "outputs finite")
+        check(float(out.mean()) > float(img.mean()), "outputs brighter than inputs")
+        check(n == (chains, 0, 28), f"{n} K7 / K6 / K1 launches in a forward, expected ({chains}, 0, 28)")
+        emit({"phase": "serve_fused", "image": [h, w], "bucket": list(ladder.shape_for(h, w)),
+              "latency_ms": ms, "host_s": host_s, "k7_launches": n[0], "k1_launches": n[2]})
+
+    x = torch.from_numpy(np.ascontiguousarray(np.pad(
+        images[0], ((0, 0), (0, 72), (0, 0), (0, 0)), mode="reflect"))).cuda()
+    forward_ms = cuda_ms(lambda: wavemamba_apply(fused, x), 3)
+    y = wavemamba_apply(fused, x)
+    with cf.chain_route("plain"):
+        y_plain = wavemamba_apply(fused, x)
+    y_stock = wavemamba_apply(stock, x)
+    before = cf.fused_chain.launches
+    with cf.chain_route("tile"):
+        y_tile = wavemamba_apply(fused, x)
+    k6_launches = cf.fused_chain.launches - before
+
+    # Each wrapper's calls in one forward.
+    per_forward = {}
+    names = ("dw_act", "lfss_ffn_block", "qkv_chain", "paconv_chain", "ff_in_chain", "ff_out_chain",
+             "dense3x3", "ffn_chain", "restormer_chain")
+    real = {n: getattr(cf, n) for n in names}
+    for n in names:
+        setattr(cf, n, lambda *a, _n=n, **k: per_forward.__setitem__(_n, per_forward.get(_n, 0) + 1)
+                or real[_n](*a, **k))
+    try:
+        wavemamba_apply(fused, x)
+    finally:
+        for n in names:
+            setattr(cf, n, real[n])
+
+    d = (y - y_plain).abs()
+    ds = (y - y_stock).abs()
+    psnr = float(10 * torch.log10(1.0 / (ds ** 2).mean()))
+    row = {"phase": "serve_fused", "requests": len(images), "k7_launches": launches[0],
+           "k6_launches": launches[1], "k1_launches": launches[2],
+           "forward_ms_1152x1920": forward_ms, "peak_memory_bytes": peak,
+           "kernel_vs_plain_chains": {"max_abs_err": float(d.max()), "mean_abs_err": float(d.mean()),
+                                      "tol_max": FUSED_MODEL_ATOL, "tol_mean": FUSED_MODEL_MEAN},
+           "fused_vs_stock": {"max_abs_err": float(ds.max()), "mean_abs_err": float(ds.mean()),
+                              "psnr_db": psnr, "tol_max": FUSED_VS_STOCK_ATOL,
+                              "tol_psnr_db": FUSED_VS_STOCK_PSNR},
+           "k6_route": {"launches": k6_launches, "same_bits_as_k7": bool(torch.equal(y, y_tile))},
+           "per_forward": per_forward}
+    emit(row)
+    check(launches == (chains * len(images), 0, 28 * len(images)), f"{launches} launches on the main path")
+    check(float(d.max()) <= FUSED_MODEL_ATOL and float(d.mean()) <= FUSED_MODEL_MEAN,
+          f"fused model, chain kernels vs plain chains {row['kernel_vs_plain_chains']}")
+    check(float(ds.max()) <= FUSED_VS_STOCK_ATOL and psnr >= FUSED_VS_STOCK_PSNR,
+          f"fused vs stock route {row['fused_vs_stock']}")
+    check(k6_launches == chains and torch.equal(y, y_tile), "the K6 route: 76 launches, K7's bits")
+    check(sum(per_forward.values()) == chains, f"wrapper calls in a forward {per_forward}")
+    return dict(launches=launches[0], k6_launches=k6_launches, x=x, forward_ms=forward_ms,
+                per_forward=per_forward)
+
+
+def phase_tile(stock):
+    """A 2160x3840 request through the CLI's `--tile 240` path (16 pixels of
+    context, tiles padded to x8, batches of 8 tiles), on the stock route."""
+    from wavemamba_torch.inference import enhance
+    from wavemamba_torch.models.wavemamba import wavemamba_apply
+    from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair
+
+    rs = np.random.RandomState(7)
+    img = (rs.rand(1, 2160, 3840, 3) * 0.12).astype(np.float32)
+    enhance(stock, img[:, :240, :240], None, tile=240)  # warm-up: one batch at the tile shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = ss2d_scan_pair.launches
+    t0 = time.perf_counter()
+    out = enhance(stock, img, None, tile=240)
+    torch.cuda.synchronize()
+    latency_ms = (time.perf_counter() - t0) * 1e3
+    forwards = (ss2d_scan_pair.launches - before) // 28
+    peak = torch.cuda.max_memory_allocated()
+    tiles = -(-2160 // 240) * -(-3840 // 240)
+    check(out.shape == img.shape and bool(np.isfinite(out).all()), "the tiled output")
+    check(forwards == -(-tiles // 8), f"{forwards} forwards for {tiles} tiles in batches of 8")
+    torch.cuda.reset_peak_memory_stats()
+    whole = wavemamba_apply(stock, torch.from_numpy(img).cuda()).cpu().numpy()
+    whole_peak = torch.cuda.max_memory_allocated()
+    d = np.abs(out - whole)
+    emit({"phase": "tile", "image": [2160, 3840], "tile_size": 240, "tile_pad": 16,
+          "tile_shape": [8, 272, 272, 3], "tiles": tiles, "forwards": forwards,
+          "latency_ms": latency_ms, "peak_memory_bytes": peak, "whole_frame_peak_memory_bytes": whole_peak,
+          "in_mean": float(img.mean()), "out_mean": float(out.mean()), "whole_frame_out_mean": float(whole.mean()),
+          "vs_whole_frame": {"max_abs_err": float(d.max()), "mean_abs_err": float(d.mean()),
+                             "psnr_db": float(10 * np.log10(1.0 / np.mean(d.astype(np.float64) ** 2)))}})
+    del whole, out
+    torch.cuda.empty_cache()
 
 
 def phase_serve(model):
@@ -977,11 +1362,12 @@ def profile_rows(fn):
     return wall_ms, sorted(((us, n, name) for name, (us, n) in by_name.items()), reverse=True)
 
 
-def phase_profile(model, x, forward_ms, run, pipe):
-    """Device time by kernel over one 1152x1920 forward, one training step of
-    the fused route (K1 + K2) and one of the unfused route (K3 + K4, through
-    the runner), and the share of each one's wall time in which the card ran
-    no kernel."""
+def phase_profile(model, x, forward_ms, run, pipe, fused):
+    """Device time by kernel over one 1152x1920 forward of each conv route
+    (stock convs, and the fused chains: K7), one training step of the fused
+    scan route (K1 + K2) and one of the unfused route (K3 + K4, through the
+    runner), and the share of each one's wall time in which the card ran no
+    kernel."""
     from wavemamba_torch.models.wavemamba import wavemamba_apply
 
     def report(what, wall_ms, rows, unprofiled_ms, **extra):
@@ -999,14 +1385,18 @@ def phase_profile(model, x, forward_ms, run, pipe):
               "k3_ms": named("scan_chunk", "chunk_prefix<false>"),
               "k4_ms": adjoint if what == "train_step_unfused" else 0.0,
               "flip_ms": named("flip"),
-              "conv_ms": sum(r[0] for r in rows
-                             if "conv" in r[2].lower() or "xmma" in r[2] or "wgrad" in r[2]
-                             or "dgrad" in r[2]) / 1e3,
+              "chain_ms": named("chain_kernel"), "chain_launches": sum(
+                  r[1] for r in rows if "chain_kernel" in r[2]),
+              "conv_ms": sum(r[0] for r in rows if "chain_kernel" not in r[2] and (
+                  "conv" in r[2].lower() or "xmma" in r[2] or "wgrad" in r[2]
+                  or "dgrad" in r[2])) / 1e3,
               "kernels": len(rows), "launches": sum(r[1] for r in rows),
               "top": [{"us": us, "calls": n, "name": name[:90]} for us, n, name in rows[:20]]})
 
     report("forward", *profile_rows(lambda: wavemamba_apply(model, x)), forward_ms,
            image=[1152, 1920])
+    report("forward_fused", *profile_rows(lambda: wavemamba_apply(fused["model"], x)),
+           fused["forward_ms"], image=[1152, 1920])
     report("train_step", *profile_rows(lambda: run["step"](run["state"], run["lq"], run["gt"])),
            run["ms_per_step"], batch=run["lq"].shape[0], size=[TRAIN_SIZE, TRAIN_SIZE], remat=run["remat"])
     batch = {"lq": run["lq"], "gt": run["gt"]}
@@ -1032,27 +1422,40 @@ def main():
     k1_rows = phase_k1()
     k2_rows = phase_k2()
     k3_rows, k4_rows = phase_k3_k4()
+    k5_rows = phase_k5()
     t0 = time.perf_counter()
     model = build_network({"type": "WaveMamba"}, load_network(CKPT, device="cuda"), device="cuda")
     emit({"phase": "load", "checkpoint": os.path.relpath(CKPT, ROOT),
           "load_s": time.perf_counter() - t0})
     launches, x1080, forward_ms = phase_serve(model)
+    fused_model = build_network({"type": "WaveMamba", "conv_impl": "fused"},
+                                load_network(CKPT, device="cuda"), device="cuda")
+    fused = phase_serve_fused(fused_model, model)
+    fused["model"] = fused_model
+    chain_rows = phase_chain(model, fused["per_forward"])
+    phase_tile(model)
     phase_model(model)
     phase_grad("fused")
     phase_grad("unfused")
     run = phase_train(args.remat)
     phase_resume(run)
     pipe = phase_pipeline(run["ms_per_step"])
-    phase_profile(model, x1080, forward_ms, run, pipe)
+    phase_profile(model, x1080, forward_ms, run, pipe, fused)
 
-    # K1 at level 1 of the 1080p forward; K2, K3 and K4 at level 1 of the
-    # training step. Launches: each path's own, counted from 0 just before it:
-    # K1 the serve path's and the fused training path's, K2 the latter's, K3
-    # and K4 the pipeline path's (steps, validation, the request).
+    # K1 and K5 at level 1 of the 1080p forward; K2, K3 and K4 at level 1 of
+    # the training step. Launches: each path's own, counted from 0 just before
+    # it: K1 the serve path's and the fused training path's, K2 the latter's, K3
+    # and K4 the pipeline path's (steps, validation, the request), K7 the fused
+    # serve path's.
     level1 = k1_rows[0]
     k2_level1 = k2_rows[0]
     k3_level1 = next(r for r in k3_rows if r["case"] == "train_level1")
     k4_level1 = next(r for r in k4_rows if r["case"] == "train_level1")
+    k5_level1 = k5_rows[0]
+    # K6 / K7: one call of the slowest chain of a 1080p forward, paconv_chain
+    # at level 1; the `chain` lines hold every wrapper's.
+    pac = next(r for r in chain_rows if r["chain"] == "paconv_chain")
+    chain_err = lambda key: max(max(r[k][key] for k in ("main", "odd")) for r in chain_rows)
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "ss2d_scan_pair (K1)", "route": "cuda", "source": "wavemamba_torch/csrc/ss2d_scan.cu",
@@ -1084,7 +1487,30 @@ def main():
         "max_rel_err": max(max(r["max_rel_err"].values()) for r in k4_rows),
         "ms": k4_level1["ms"], "plain_ms": k4_level1["plain_ms"],
         "bound_ms": k4_level1["bound_ms"], "bound_by": k4_level1["bound_by"],
-        "library_ms": None}]})
+        "library_ms": None}, {
+        "name": "ss2d_scan_pair_ssd (K5)", "route": "cuda",
+        "source": "wavemamba_torch/csrc/ss2d_scan_ssd.cu",
+        "replaces": "wavemamba_tpu/ops/scan_pallas.py:578", "launches": k5_rows[-1]["launches"],
+        "launches_note": "every launch of the k5 phase (comparisons and timing): no configuration "
+                         "selects K5, so no model path runs it",
+        "max_abs_err": max(max(r["carries_err"].values()) for r in k5_rows),
+        "max_abs_err_vs_k1": max(max(r["vs_k1_err"].values()) for r in k5_rows),
+        "ms": k5_level1["ms"], "plain_ms": k5_level1["plain_ms"],
+        "bound_ms": k5_level1["bound_ms"], "bound_by": k5_level1["bound_by"],
+        "library_ms": None}, {
+        "name": "fused_chain (K6)", "route": "cuda", "source": "wavemamba_torch/csrc/conv_chain.cu",
+        "replaces": "wavemamba_tpu/experimental/conv_fused.py:96", "launches": fused["k6_launches"],
+        "launches_note": "one 1152x1920 forward of the fused route under chain_route('tile')",
+        "shape": "paconv_chain " + "x".join(map(str, pac["shape"])),
+        "max_abs_err": chain_err("max_abs_err"), "max_rel_err": chain_err("max_rel_err"),
+        "ms": pac["k6_ms"], "plain_ms": pac["plain_ms"], "bound_ms": pac["bound_ms"],
+        "bound_by": pac["bound_by"], "library_ms": pac["library_ms"], "stock_ms": pac["stock_ms"]}, {
+        "name": "fused_chain_band (K7)", "route": "cuda", "source": "wavemamba_torch/csrc/conv_chain.cu",
+        "replaces": "wavemamba_tpu/experimental/conv_fused.py:403", "launches": fused["launches"],
+        "shape": "paconv_chain " + "x".join(map(str, pac["shape"])),
+        "max_abs_err": chain_err("max_abs_err"), "max_rel_err": chain_err("max_rel_err"),
+        "ms": pac["ms"], "plain_ms": pac["plain_ms"], "bound_ms": pac["bound_ms"],
+        "bound_by": pac["bound_by"], "library_ms": pac["library_ms"], "stock_ms": pac["stock_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

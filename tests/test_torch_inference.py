@@ -90,7 +90,7 @@ def test_cli_matches_jax_cli(tmp_path, capsys):
     assert jb and tb and jb[1] == tb[1] == "1", (jax_out, port_out)
 
 
-@pytest.mark.parametrize("flag", [["--tile", "256"], ["--fast"], ["--lpips_weights", "x.pth"],
+@pytest.mark.parametrize("flag", [["-w", "model.wmx"], ["--fast"], ["--lpips_weights", "x.pth"],
                                   ["--compile_cache", "cache"]])
 def test_cli_refuses_what_is_not_ported(flag, tmp_path):
     with pytest.raises(SystemExit) as e:

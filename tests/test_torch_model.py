@@ -245,9 +245,10 @@ def test_network_g_keys_are_honoured_or_refused():
     assert (cfg.scan_impl, cfg.scan_chunk, cfg.scan_sub) == ("pallas", 128, 8)
     assert cfg.n_l_blocks == (1, 1, 1)
     assert config_from_opt(base).scan_impl == "pallas_fused"  # the port's default
+    assert config_from_opt({**base, "conv_impl": "fused"}).conv_impl == "fused"  # inference only
     for key, value, match in [("compute_dtype", "bfloat16", "item 4"),
                               ("scan_dtype", "bfloat16", "item 4"),
-                              ("conv_impl", "fused", "item 12"),
+                              ("conv1x1_as_conv", ["ffn"], "item 4"),
                               ("remat_policy", "save_scan", "item 6"),
                               ("scan_impl", "seq_sharded", "item 9")]:
         with pytest.raises(NotImplementedError, match=match):

@@ -4,8 +4,10 @@ The counterpart of the JAX package's `inference.py`, with the same flags:
 enhance a folder of low-light images, optionally score PSNR/SSIM (Y channel,
 crop_border=1) against a GT folder, save the outputs and print the averages.
 Each image is reflect-padded to a x128 bucket (`models/buckets.py`), run
-through the model and cropped back. Runs in float32 parity mode: TF32 is off
-for cuDNN convolutions and cuBLAS matmuls.
+through the model and cropped back; with `--tile N` it goes through the model
+in N x N tiles instead (`models/tiling.py`, 16 pixels of context, tiles padded
+to a multiple of 8). Runs in float32 parity mode: TF32 is off for cuDNN
+convolutions and cuBLAS matmuls.
 """
 
 from __future__ import annotations
@@ -23,13 +25,13 @@ from wavemamba_torch.device import resolve_device
 from wavemamba_torch.metrics import build_metric
 from wavemamba_torch.models import build_network
 from wavemamba_torch.models.buckets import BucketLadder, pad_to_shape
+from wavemamba_torch.models.tiling import tiled_apply
 from wavemamba_torch.models.wavemamba import pad_to_multiple, wavemamba_apply
 from wavemamba_torch.utils.img_util import batch2img, img2batch, imread, imwrite
 from wavemamba_torch.utils.misc import scandir
 
 # Flags of the JAX CLI that the port does not serve yet, and where they wait.
 NOT_PORTED = {
-    "tile": "--tile waits for ROADMAP queue 1, item 5 (models/tiling.py)",
     "fast": "--fast waits for ROADMAP queue 1, item 4 (bf16 fast preset)",
     "lpips_weights": "--lpips_weights waits for ROADMAP queue 1, item 11 (metrics/lpips.py)",
     "compile_cache": "--compile_cache waits for ROADMAP queue 1, item 10 (deployment)",
@@ -42,18 +44,21 @@ def set_parity_mode():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def enhance(model, batch: np.ndarray, ladder: BucketLadder | None) -> np.ndarray:
+def enhance(model, batch: np.ndarray, ladder: BucketLadder | None, tile=0) -> np.ndarray:
     """(1, h, w, 3) RGB float32 -> the model's output cropped to (1, h, w, 3).
     Pads to the ladder's bucket, or to the image's own x128 multiple when
-    `ladder` is None."""
+    `ladder` is None; with `tile` > 0, runs `tile` x `tile` tiles instead
+    (tiles only need the model's x8 divisibility)."""
+    dev = next(model.parameters()).device
+    fwd = lambda x: wavemamba_apply(model, torch.from_numpy(np.ascontiguousarray(x)).to(dev))
+    if tile:
+        return tiled_apply(lambda t: fwd(t).cpu().numpy(), batch, tile_size=tile, pad_multiple=8)
     h, w = batch.shape[1:3]
     if ladder is None:
         x, _, _ = pad_to_multiple(batch, 128)
     else:
         x = pad_to_shape(batch, *ladder.shape_for(h, w))
-    dev = next(model.parameters()).device
-    out = wavemamba_apply(model, torch.from_numpy(np.ascontiguousarray(x)).to(dev))
-    return out[:, :h, :w].cpu().numpy()
+    return fwd(x)[:, :h, :w].cpu().numpy()
 
 
 def parse_args(argv=None):
@@ -66,7 +71,8 @@ def parse_args(argv=None):
     parser.add_argument("--suffix", type=str, default="", help="output filename suffix")
     parser.add_argument("--max_size", type=int, default=600 * 800,
                         help="max size before splitting (reference parity; unused)")
-    parser.add_argument("--tile", type=int, default=0, help="tile size (not ported yet)")
+    parser.add_argument("--tile", type=int, default=0,
+                        help="tile size; 0 (default) runs the whole image")
     parser.add_argument("--lpips_weights", type=str, default=None, help="(not ported yet)")
     parser.add_argument("--compile_cache", type=str, default=None, help="(not ported yet)")
     parser.add_argument("--no_bucket", action="store_true",
@@ -107,7 +113,7 @@ def main(argv=None):
         name = os.path.basename(path)
         img = imread(path)  # BGR uint8
         t0 = time.time()
-        out = enhance(model, img2batch(img), ladder)
+        out = enhance(model, img2batch(img), ladder, tile=args.tile)
         line = f"{name}: {time.time() - t0:.3f}s"
         sr = batch2img(out)  # BGR uint8
         if args.gt:

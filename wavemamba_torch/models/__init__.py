@@ -1,15 +1,21 @@
 """Model factory (`type: WaveMamba` only): `build_network` for weights that
-exist, `init_network` for a fresh model to train.
+exist, `init_network` for a fresh model to train (or, with train=False, to
+evaluate).
 
 One rule for every key of a `network_g` dict, whoever passes it (the inference
 CLI, the trainer, the yml pipelines): a field of `WaveMambaConfig` is honoured
-(the architecture, `scan_impl`, `scan_chunk`, `scan_sub`, `remat`); an
+(the architecture, `scan_impl`, `scan_chunk`, `scan_sub`, `remat`,
+`conv_impl`); an
 execution knob of the JAX package that the port does not run yet is accepted
 at the value of the float32 path the port does run and raises
 `NotImplementedError`, naming where it waits in ROADMAP.md, at any other; any
 other key raises `KeyError`. Nothing is dropped silently: a shipped yml that
 asks for `compute_dtype: bfloat16` runs after `--force_yml
-network_g:compute_dtype=float32`."""
+network_g:compute_dtype=float32`.
+
+`conv_impl: fused` is inference only, as in the JAX package (its chains have no
+VJP): `build_network` and `init_network(..., train=False)` build it, and a
+model to train (`init_network`, the trainer, `pipelines.train`) refuses it."""
 
 from __future__ import annotations
 
@@ -34,8 +40,7 @@ _NOT_PORTED = {
     "compute_dtype": (("float32",), "queue 1, item 4 (the bf16 fast preset)"),
     "scan_dtype": (("float32",), "queue 1, item 4 (the bf16 fast preset)"),
     "remat_policy": (("full",), "queue 1, item 6 (the save_scan policy)"),
-    "conv_impl": (("xla",), "queue 1, item 12 (kernels K6 / K7)"),
-    "conv1x1_as_conv": (((), []), "queue 1, item 12 (kernels K6 / K7)"),
+    "conv1x1_as_conv": (((), []), "queue 1, item 4 (the fast preset's 1x1 layout policy)"),
     "scan_mesh": ((None,), "queue 1, item 9 (multi-GPU)"),
     "scan_mesh_axis": (("data",), "queue 1, item 9 (multi-GPU)"),
 }
@@ -77,12 +82,25 @@ def build_network(opt: dict, state_dict: dict, device="cuda") -> WaveMamba:
     return model
 
 
-def init_network(opt: dict, generator: torch.Generator, device="cuda") -> WaveMamba:
-    """A fresh model for training: built on the CPU, filled from `generator`
-    by `init_wavemamba`, moved to `device`, in train mode."""
+def refuse_training(cfg: WaveMambaConfig) -> None:
+    """Raise for a config that cannot train: `conv_impl='fused'`."""
+    if cfg.conv_impl == "fused":
+        raise NotImplementedError("conv_impl='fused' is inference only: the fused conv chains have "
+                                  "no backward, as in the JAX package; train with conv_impl='xla' "
+                                  "(the same weights serve both)")
+
+
+def init_network(opt: dict, generator: torch.Generator, device="cuda", train=True) -> WaveMamba:
+    """A fresh model: built on the CPU, filled from `generator` by
+    `init_wavemamba`, moved to `device`, in train mode, or in eval mode with
+    `train=False` (which alone takes `conv_impl: fused`)."""
     dev = resolve_device(device)
-    return init_wavemamba(WaveMamba(config_from_opt(opt)), generator).to(dev).train()
+    cfg = config_from_opt(opt)
+    if train:
+        refuse_training(cfg)
+    return init_wavemamba(WaveMamba(cfg), generator).to(dev).train(train)
 
 
 __all__ = ["WaveMamba", "WaveMambaConfig", "build_network", "config_from_opt", "init_network",
-           "init_wavemamba", "param_count", "wavemamba_apply", "wavemamba_forward"]
+           "init_wavemamba", "param_count", "refuse_training", "wavemamba_apply",
+           "wavemamba_forward"]

@@ -16,6 +16,14 @@ other `scan_impl` takes the unfused route: four materialised direction
 streams, the stacked x_proj / dt_proj einsums, then `ops/scan.py:
 selective_scan`, whose 'pallas' route is kernels K3 / K4.
 
+With `conv_impl='fused'` (inference only) the model's conv chains run as
+the JAX package's fused chains do (`experimental/conv_fused.py`): SS2D's
+depthwise conv + silu, LFSS's whole second half-block, HFE's qkv, PAConv and
+FeedForward chains (the block's norm1 / norm2 folded into the first chain of
+each half-block) and the eight single dense 3x3 convs, 76 chains a forward at
+the shipped depth, each one launch of kernel K7 on a CUDA tensor. The chains'
+GELU is the tanh form; the stock route keeps the exact erf.
+
 With `cfg.remat` every LFSS and HFE block runs under
 `torch.utils.checkpoint`: the backward pass recomputes the block's forward
 (the scan included) instead of keeping its activations, the JAX package's
@@ -34,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from wavemamba_torch.experimental import conv_fused as cf
 from wavemamba_torch.ops.haar import dwt2, iwt2_cat
 from wavemamba_torch.ops.nn import (
     LayerNorm,
@@ -48,6 +57,7 @@ from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair
 
 _ROWS, _COLS = [0, 2], [1, 3]  # direction pairs: row-major and column-major fwd/rev
 SCAN_IMPLS = ("pallas_fused", "pallas", "chunked", "par", "ref")
+CONV_IMPLS = ("xla", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +87,9 @@ class WaveMambaConfig:
     # Recompute every LFSS and HFE block in the backward pass instead of
     # keeping its activations.
     remat: bool = True
+    # 'fused' runs the conv chains as fused chain kernels (K7), inference
+    # only; 'xla' (the JAX package's name) is the stock, differentiable route.
+    conv_impl: str = "xla"
 
     def __post_init__(self):
         if self.scan_impl == "seq_sharded":
@@ -84,6 +97,8 @@ class WaveMambaConfig:
                                       "waits for multi-GPU, ROADMAP queue 1, item 9")
         if self.scan_impl not in SCAN_IMPLS:
             raise ValueError(f"unknown scan_impl {self.scan_impl!r}; known: {SCAN_IMPLS}")
+        if self.conv_impl not in CONV_IMPLS:
+            raise ValueError(f"unknown conv_impl {self.conv_impl!r}; known: {CONV_IMPLS}")
 
     @property
     def d_inner(self) -> int:
@@ -117,6 +132,7 @@ class SS2D(nn.Module):
     def __init__(self, cfg: WaveMambaConfig):
         super().__init__()
         self.scan_impl, self.scan_chunk, self.scan_sub = cfg.scan_impl, cfg.scan_chunk, cfg.scan_sub
+        self.conv_fused = cfg.conv_impl == "fused" and cfg.d_conv == 3
         c, d, n, r = cfg.wf, cfg.d_inner, cfg.d_state, cfg.dt_rank
         self.in_proj = nn.Linear(c, 2 * d, bias=False)
         self.conv2d = nn.Conv2d(d, d, cfg.d_conv, padding=(cfg.d_conv - 1) // 2, groups=d)
@@ -135,7 +151,8 @@ class SS2D(nn.Module):
         b, _, h, w = x.shape
         d = self.conv2d.in_channels
         xx, z = self.in_proj(x.permute(0, 2, 3, 1)).chunk(2, dim=-1)  # (B, H, W, D)
-        xx = F.silu(self.conv2d(xx.permute(0, 3, 1, 2)))  # (B, D, H, W)
+        xx = xx.permute(0, 3, 1, 2)  # (B, D, H, W), a view
+        xx = cf.dw_act(self.conv2d, xx, "silu") if self.conv_fused else F.silu(self.conv2d(xx))
         y = self._fused(xx) if self.scan_impl == "pallas_fused" else self._unfused(xx)
         y = self.out_norm(y) * F.silu(z)
         return self.out_proj(y).permute(0, 3, 1, 2)
@@ -203,9 +220,12 @@ class LFSSBlock(nn.Module):
         self.ln_2 = LayerNorm(c, eps=1e-5)
         self.conv_blk = FFN(c)
         self.skip_scale2 = nn.Parameter(torch.ones(c))
+        self.conv_fused = cfg.conv_impl == "fused"
 
     def forward(self, x):
         x = x * self.skip_scale.view(1, -1, 1, 1) + self.self_attention(self.ln_1(x))
+        if self.conv_fused:  # the whole second half-block in one chain
+            return cf.lfss_ffn_block(self.ln_2, self.conv_blk, self.skip_scale2, x)
         return x * self.skip_scale2.view(1, -1, 1, 1) + self.conv_blk(self.ln_2(x))
 
 
@@ -224,20 +244,23 @@ def matching(x, perc):
 
 
 class PAConv(nn.Module):
-    def __init__(self, nf):
+    def __init__(self, nf, conv_fused=False):
         super().__init__()
         self.k2 = nn.Conv2d(nf, nf, 1)
         self.k3 = nn.Conv2d(nf, nf, 3, padding=1, bias=False)
         self.k4 = nn.Conv2d(nf, nf // 2, 3, padding=1, bias=False)
+        self.conv_fused = conv_fused
 
     def forward(self, x):
+        if self.conv_fused:
+            return cf.paconv_chain(self, x)
         return self.k4(self.k3(x) * torch.sigmoid(self.k2(x)))
 
 
 class MatchingTransformation(nn.Module):
-    def __init__(self, c):
+    def __init__(self, c, conv_fused=False):
         super().__init__()
-        self.paconv = PAConv(2 * c)
+        self.paconv = PAConv(2 * c, conv_fused)
 
     def forward(self, x, perc):
         return self.paconv(torch.cat([x, matching(x, perc)], dim=1))
@@ -246,18 +269,21 @@ class MatchingTransformation(nn.Module):
 class CMTAttention(nn.Module):
     """Transposed (channel) attention with perception-matched queries."""
 
-    def __init__(self, c, num_heads=1):
+    def __init__(self, c, num_heads=1, conv_fused=False):
         super().__init__()
         self.num_heads = num_heads
         self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1))
         self.qkv = nn.Conv2d(c, 3 * c, 1)
         self.qkv_dwconv = nn.Conv2d(3 * c, 3 * c, 3, padding=1, groups=3 * c)
         self.project_out = nn.Conv2d(c, c, 1)
-        self.matching_transformation = MatchingTransformation(c)
+        self.matching_transformation = MatchingTransformation(c, conv_fused)
+        self.conv_fused = conv_fused
 
-    def forward(self, x, perc):
+    def forward(self, x, perc, ln=None):
+        """`ln`, a LayerNorm folded into the fused qkv chain (conv_fused only)."""
         b, c, h, w = x.shape
-        q, k, v = self.qkv_dwconv(self.qkv(x)).chunk(3, dim=1)
+        qkv = cf.qkv_chain(self, x, ln=ln) if self.conv_fused else self.qkv_dwconv(self.qkv(x))
+        q, k, v = qkv.chunk(3, dim=1)
         q = self.matching_transformation(q, perc)
 
         def heads(t):  # (B, C, H, W) -> (B, heads, C/heads, L)
@@ -269,41 +295,55 @@ class CMTAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, c):
+    def __init__(self, c, conv_fused=False):
         super().__init__()
         self.project_in = nn.Sequential(nn.Conv2d(c, c, 1), nn.Conv2d(c, c, 3, padding=1, groups=c))
-        self.matching_transformation = MatchingTransformation(c)
+        self.matching_transformation = MatchingTransformation(c, conv_fused)
         self.project_out = nn.Sequential(nn.Conv2d(c, c, 3, padding=1, groups=c), nn.GELU(),
                                          nn.Conv2d(c, c, 1))
+        self.conv_fused = conv_fused
 
-    def forward(self, x, perc):
+    def forward(self, x, perc, ln=None):
+        """`ln`, a LayerNorm folded into the fused project_in chain (conv_fused only)."""
+        if self.conv_fused:
+            y = self.matching_transformation(cf.ff_in_chain(self.project_in, x, ln=ln), perc)
+            return cf.ff_out_chain(self.project_out, y)
         return self.project_out(self.matching_transformation(self.project_in(x), perc))
 
 
 class FeedForwardRestormer(nn.Module):
-    def __init__(self, c, expand=1):
+    def __init__(self, c, expand=1, conv_fused=False):
         super().__init__()
         hidden = int(c * expand)
         self.project_in = nn.Conv2d(c, 2 * hidden, 1)
         self.dwconv = nn.Conv2d(2 * hidden, 2 * hidden, 3, padding=1, groups=2 * hidden)
         self.project_out = nn.Conv2d(hidden, c, 1)
+        self.conv_fused = conv_fused
 
     def forward(self, x, perc=None):
+        if self.conv_fused:
+            return cf.restormer_chain(self, x)
         y1, y2 = self.dwconv(self.project_in(x)).chunk(2, dim=1)
         return self.project_out(F.gelu(y1) * y2)
 
 
 class HFEBlock(nn.Module):
-    def __init__(self, c, ffn_restormer=False):
+    def __init__(self, c, ffn_restormer=False, conv_fused=False):
         super().__init__()
         self.norm1 = LayerNorm(c, eps=1e-6)
-        self.attn = CMTAttention(c)
+        self.attn = CMTAttention(c, conv_fused=conv_fused)
         self.norm2 = LayerNorm(c, eps=1e-6)
         self.LayerNorm = LayerNorm(c, eps=1e-6)
-        self.ffn = FeedForwardRestormer(c) if ffn_restormer else FeedForward(c)
+        self.ffn = FeedForwardRestormer(c, conv_fused=conv_fused) if ffn_restormer else FeedForward(c, conv_fused)
+        self.conv_fused = conv_fused
 
     def forward(self, x, perc):
         perc = self.LayerNorm(perc)
+        if self.conv_fused:  # norm1 / norm2 fold into the first chain of each half-block
+            x = x + self.attn(x, perc, ln=self.norm1)
+            if isinstance(self.ffn, FeedForwardRestormer):
+                return cf.restormer_chain(self.ffn, x, ln=self.norm2, residual=True)
+            return x + self.ffn(x, perc, ln=self.norm2)
         x = x + self.attn(self.norm1(x), perc)
         return x + self.ffn(self.norm2(x), perc)
 
@@ -329,6 +369,11 @@ class SKFF(nn.Module):
         return out
 
 
+def _conv3x3(conv, x, conv_fused):
+    """A dense 3x3 conv: the fused chain route's single-stage chain, or the module."""
+    return cf.dense3x3(conv, x) if conv_fused else conv(x)
+
+
 def _run_block(blk, remat, *args):
     """`blk(*args)`, recomputed in the backward pass when `remat` is on."""
     if remat and torch.is_grad_enabled():
@@ -344,11 +389,12 @@ class DownFRG(nn.Module):
         self.l_conv = nn.Conv2d(2 * c, c, 3, padding=1)
         self.l_blk = nn.ModuleList(LFSSBlock(cfg) for _ in range(n_l))
         self.h_fusion = SKFF(c)
-        self.h_blk = nn.ModuleList(HFEBlock(c, cfg.ffn_restormer) for _ in range(n_h))
+        self.conv_fused = cfg.conv_impl == "fused"
+        self.h_blk = nn.ModuleList(HFEBlock(c, cfg.ffn_restormer, self.conv_fused) for _ in range(n_h))
 
     def forward(self, x, x_d):
         ll, hl, lh, hh = dwt2(x)
-        ll = self.l_conv(torch.cat([ll, x_d], dim=1))
+        ll = _conv3x3(self.l_conv, torch.cat([ll, x_d], dim=1), self.conv_fused)
         for blk in self.l_blk:
             ll = _run_block(blk, self.remat, ll)
         xh = self.h_fusion([hl, lh, hh])
@@ -364,14 +410,15 @@ class UpFRG(nn.Module):
         self.remat = cfg.remat
         self.l_blk = nn.ModuleList(LFSSBlock(cfg) for _ in range(n_l))
         self.h_out_conv = nn.Conv2d(c, 3 * c, 3, padding=1)
-        self.h_blk = nn.ModuleList(HFEBlock(c, cfg.ffn_restormer) for _ in range(n_h))
+        self.conv_fused = cfg.conv_impl == "fused"
+        self.h_blk = nn.ModuleList(HFEBlock(c, cfg.ffn_restormer, self.conv_fused) for _ in range(n_h))
 
     def forward(self, x_l, x_h):
         for blk in self.l_blk:
             x_l = _run_block(blk, self.remat, x_l)
         for blk in self.h_blk:
             x_h = _run_block(blk, self.remat, x_h, x_l)
-        return iwt2_cat(torch.cat([x_l, self.h_out_conv(x_h)], dim=1))
+        return iwt2_cat(torch.cat([x_l, _conv3x3(self.h_out_conv, x_h, self.conv_fused)], dim=1))
 
 
 class UNet(nn.Module):
@@ -390,16 +437,17 @@ class UNet(nn.Module):
         self.up_group2 = UpFRG(cfg, nl[1], nh[1])
         self.up_group1 = UpFRG(cfg, nl[0], nh[0])
         self.last = nn.Conv2d(c, ic, 3, padding=1)
+        self.conv_fused = cfg.conv_impl == "fused"
 
     def forward(self, x):
         """x: (B, in_chn, H, W), H and W multiples of 8. Global residual."""
-        x_l, xh1 = self.down_group1(self.conv_01(x), self.ps_down1(x))
+        x_l, xh1 = self.down_group1(_conv3x3(self.conv_01, x, self.conv_fused), self.ps_down1(x))
         x_l, xh2 = self.down_group2(x_l, self.ps_down2(x))
         x_l, xh3 = self.down_group3(x_l, self.ps_down3(x))
         x_l = self.up_group3(x_l, xh3)
         x_l = self.up_group2(x_l, xh2)
         x_l = self.up_group1(x_l, xh1)
-        return self.last(x_l) + x
+        return _conv3x3(self.last, x_l, self.conv_fused) + x
 
 
 class WaveMamba(nn.Module):

@@ -278,8 +278,10 @@ def _pair_streams(x, wx, dtw, bias, chunk):
     return tuple(_flip1(t, 2) for t in (u, z, da, xd))
 
 
-def ss2d_scan_pair_plain(x, wx, dtw, bias, A, dsk, chunk=64, return_carries=False):
-    """Projection + scan of one SS2D direction pair (the plain version of K1).
+def ss2d_scan_pair_plain(x, wx, dtw, bias, A, dsk, chunk=64, return_carries=False,
+                         variant="twopass", sub=8):
+    """Projection + scan of one SS2D direction pair (the plain version of K1,
+    and with variant='ssd' of K5).
 
     x: (B, L, D) token stream; wx: (2, D, R+2N) projection weights of
     [forward, reverse]; dtw: (2, R, D); bias, dsk: (2, D); A: (2, N, D),
@@ -291,7 +293,14 @@ def ss2d_scan_pair_plain(x, wx, dtw, bias, A, dsk, chunk=64, return_carries=Fals
     by the chunk's place in the stream for both members (member 1 enters chunk
     c after chunks nc-1 .. c+1), and `sumda` (B, 2, nc, D), each chunk's sum of
     da (its decay is exp(A * sumda)).
+
+    variant='ssd' evaluates the same recurrence in segments of `sub` tokens by
+    K5's factorization (`_scan_pair_ssd`); 'twopass' is K1's step by step.
     """
+    if variant == "ssd":
+        return _scan_pair_ssd(x, wx, dtw, bias, A, dsk, chunk, sub, return_carries)
+    if variant != "twopass":
+        raise ValueError(f"unknown variant {variant!r}; known: 'twopass', 'ssd'")
     r, n = dtw.shape[1], A.shape[1]
     length = x.shape[1]
     u, _, da, xd = _pair_streams(x, wx, dtw, bias, chunk)
@@ -310,6 +319,57 @@ def ss2d_scan_pair_plain(x, wx, dtw, bias, A, dsk, chunk=64, return_carries=Fals
     if not return_carries:
         return y
     sumda = da.view(da.shape[0], 2, -1, chunk, da.shape[-1]).sum(3)
+    return y, _flip1(torch.stack(states, 2), 2).contiguous(), _flip1(sumda, 2).contiguous()
+
+
+def _scan_pair_ssd(x, wx, dtw, bias, A, dsk, chunk, sub, return_carries):
+    """`ss2d_scan_pair_plain(..., variant='ssd')`: K5's segment-local form.
+
+    Per chunk of `chunk` tokens in processing order, per segment of `sub`:
+    clocal the inclusive cumsum of da, G = exp(clocal * A), bhat = da*u*B / G,
+    cums the inclusive cumsum of bhat, h_t = G_t * (H + cums_t) with H the
+    state entering the segment; a segment acts on H as H -> G_last * H +
+    G_last * cums_last, and `_linscan` chains the segments of a chunk.
+    Segments start at a chunk's first processed token, as in the kernel: the
+    padding of member 1's first chunk (which `_pair_streams` puts before its
+    tokens) is moved behind them, where, as identity steps, it changes nothing.
+    """
+    if chunk % sub:
+        raise ValueError(f"sub={sub} must divide chunk={chunk}")
+    r, n = dtw.shape[1], A.shape[1]
+    length = x.shape[1]
+    pad = (-length) % chunk
+    u, _, da, xd = _pair_streams(x, wx, dtw, bias, chunk)
+    if pad:  # member 1: [pad | tc tokens] -> [tc tokens | pad] in its first chunk
+        head = lambda t: torch.cat([t[:, 1:, pad:chunk], t[:, 1:, :pad], t[:, 1:, chunk:]], 2)
+        u, da, xd = (torch.cat([t[:, :1], head(t)], 1) for t in (u, da, xd))
+    b_, _, lp, d = u.shape
+    seg = lambda t: t.reshape(b_, 2, lp // sub, sub, *t.shape[3:])  # (B, 2, nseg, sub, ...)
+    w = seg(da * u)
+    Bs, Cs = seg(xd[..., r:r + n]), seg(xd[..., r + n:])
+    clocal = torch.cumsum(seg(da), 3)
+    per = chunk // sub  # segments per chunk
+    H = u.new_zeros(b_, 2, n, d)
+    ys, states = [], []
+    for g0 in range(0, lp // sub, per):
+        sl = slice(g0, g0 + per)
+        G = torch.exp(clocal[:, :, sl, :, None, :] * A[None, :, None, None])  # (B, 2, per, sub, N, D)
+        cums = torch.cumsum(w[:, :, sl, :, None, :] * Bs[:, :, sl, :, :, None] / G, 3)
+        states.append(H)
+        g_last = G[:, :, :, -1]
+        exits = _linscan(g_last, g_last * cums[:, :, :, -1], H)  # (B, 2, per, N, D)
+        enter = torch.cat([H[:, :, None], exits[:, :, :-1]], 2)
+        hs = G * (enter[:, :, :, None] + cums)  # (B, 2, per, sub, N, D)
+        ys.append(torch.einsum("bkjtnd,bkjtn->bkjtd", hs, Cs[:, :, sl]))
+        H = exits[:, :, -1]
+    y = torch.cat(ys, 2).reshape(b_, 2, lp, d) + dsk[None, :, None, :] * u
+    if pad:  # undo the move of member 1's padding, then as K1's plain version
+        y = torch.cat([y[:, :1], torch.cat([y[:, 1:, chunk - pad:chunk], y[:, 1:, :chunk - pad],
+                                            y[:, 1:, chunk:]], 2)], 1)
+    y = _flip1(y, 2)[:, :, :length]
+    if not return_carries:
+        return y
+    sumda = da.view(b_, 2, -1, chunk, d).sum(3)
     return y, _flip1(torch.stack(states, 2), 2).contiguous(), _flip1(sumda, 2).contiguous()
 
 

@@ -1,6 +1,7 @@
-"""Kernels K1-K4 on the card: the fused SS2D projection + selective scan and
-its backward (K1, K2), and the unfused selective scan over pre-projected
-inputs and its backward (K3, K4).
+"""Kernels K1-K5 on the card: the fused SS2D projection + selective scan and
+its backward (K1, K2), the unfused selective scan over pre-projected inputs
+and its backward (K3, K4), and K1's function in the segment-local (SSD) form
+(K5).
 
 `ss2d_scan_pair` replaces the TPU kernel
 `wavemamba_tpu/ops/scan_pallas.py:ss2d_scan_fused` (`_fused_kernel`), source
@@ -12,7 +13,11 @@ inputs and its backward (K3, K4).
 `csrc/selective_scan.cu`; `selective_scan_cuda_bwd` replaces
 `selective_scan_pallas_bwd` (`_scan_bwd_kernel`), source
 `csrc/selective_scan_bwd.cu`; `SelectiveScan` joins them as the counterpart of
-`wavemamba_tpu/ops/scan.py:_scan_pallas_diff`. The note at the top of each
+`wavemamba_tpu/ops/scan.py:_scan_pallas_diff`. `ss2d_scan_pair_ssd` replaces
+`ss2d_scan_fused(variant='ssd')` (`_fused_kernel_ssd`), source
+`csrc/ss2d_scan_ssd.cu`; it has no backward, as on the TPU. `build_all` also
+builds `csrc/conv_chain.cu`, the conv-chain kernel of
+`ops/conv_fused_cuda.py` (K6 / K7). The note at the top of each
 source says what bounds the kernel and how it is laid out. A source is
 compiled for sm_90a with `nvcc` at the first launch, into
 `build/wavemamba_torch/` keyed by a hash of the source, the headers beside it
@@ -21,7 +26,8 @@ no `nvcc`.
 
 A CPU tensor takes the plain versions (`ops/scan.py:ss2d_scan_pair_plain`,
 `ss2d_scan_pair_plain_bwd`, `selective_scan_plain`,
-`selective_scan_plain_bwd`); a CUDA tensor launches the kernel or raises.
+`selective_scan_plain_bwd`, and `ss2d_scan_pair_plain(..., variant='ssd')`
+for K5); a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -49,6 +55,9 @@ SOURCE = CSRC / "ss2d_scan.cu"
 SOURCE_BWD = CSRC / "ss2d_scan_bwd.cu"
 SOURCE_K3 = CSRC / "selective_scan.cu"
 SOURCE_K4 = CSRC / "selective_scan_bwd.cu"
+SOURCE_K5 = CSRC / "ss2d_scan_ssd.cu"
+SOURCE_CHAIN = CSRC / "conv_chain.cu"
+SOURCES = (SOURCE, SOURCE_BWD, SOURCE_K3, SOURCE_K4, SOURCE_K5, SOURCE_CHAIN)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "wavemamba_torch"
 D_STATE = 16  # the one state width the kernels are compiled for
 MAX_DT_RANK = 4
@@ -95,9 +104,10 @@ def build(source: Path = SOURCE) -> Path:
 
 
 def build_all() -> list[Path]:
-    """The four libraries (K1-K4), one `nvcc` each, started together."""
-    with ThreadPoolExecutor(4) as pool:
-        return list(pool.map(build, (SOURCE, SOURCE_BWD, SOURCE_K3, SOURCE_K4)))
+    """Every library of `SOURCES` (K1-K5, and K6 / K7's), one `nvcc` each,
+    started together."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        return list(pool.map(build, SOURCES))
 
 
 def _need_cuda(kernel: str) -> None:
@@ -151,6 +161,18 @@ def _library_k4() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.selective_scan_bwd_error_string.argtypes = [ctypes.c_int]
     lib.selective_scan_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _library_k5() -> ctypes.CDLL:
+    _need_cuda("K5")
+    lib = ctypes.CDLL(str(build(SOURCE_K5)))
+    fn = lib.ss2d_scan_pair_ssd_f32
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.ss2d_scan_ssd_error_string.argtypes = [ctypes.c_int]
+    lib.ss2d_scan_ssd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -218,7 +240,7 @@ def _forward(x, wx, dtw, bias, A, dsk):
     return _launch_k1(x, wx, dtw, bias, A, dsk)
 
 
-def ss2d_scan_pair(x, wx, dtw, bias, A, dsk, return_carries=False):
+def ss2d_scan_pair(x, wx, dtw, bias, A, dsk, return_carries=False, variant="twopass", sub=8):
     """Fused projection + scan of one SS2D direction pair.
 
     x: (B, L, D) token stream; wx: (2, D, R+2N); dtw: (2, R, D); bias, dsk:
@@ -229,8 +251,15 @@ def ss2d_scan_pair(x, wx, dtw, bias, A, dsk, return_carries=False):
     chunks' sums of da (B, 2, nc, D), detached. Differentiable: when an input
     requires grad the call goes through `SS2DScanPair`, whose backward is K2.
     Counts its kernel launches in `ss2d_scan_pair.launches`.
+
+    variant='ssd' computes the same function by K5 (`ss2d_scan_pair_ssd`),
+    segments of `sub` tokens; 'twopass' is K1.
     """
     args = (x, wx, dtw, bias, A, dsk)
+    if variant == "ssd":
+        return ss2d_scan_pair_ssd(*args, sub=sub, return_carries=return_carries)
+    if variant != "twopass":
+        raise ValueError(f"unknown variant {variant!r}; known: 'twopass', 'ssd'")
     if return_carries:
         return _forward(*args)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
@@ -239,6 +268,48 @@ def ss2d_scan_pair(x, wx, dtw, bias, A, dsk, return_carries=False):
 
 
 ss2d_scan_pair.launches = 0
+
+
+def ss2d_scan_pair_ssd(x, wx, dtw, bias, A, dsk, sub=8, return_carries=False):
+    """K1's function by kernel K5, the segment-local (SSD) factorization in
+    segments of `sub` tokens (dividing `CHUNK`). Arguments, y and carries as
+    `ss2d_scan_pair`'s. f32 bounds the form: max |A| times the sum of da over a
+    segment must stay below ~88. No backward, as on the TPU: a call that would
+    need one raises. Counts its kernel launches in `ss2d_scan_pair_ssd.launches`.
+    """
+    args = (x, wx, dtw, bias, A, dsk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        raise NotImplementedError("ss2d_scan_pair_ssd (K5) has no backward; the TPU kernel has "
+                                  "none either. Use variant='twopass' (K1 + K2) to train")
+    if not 1 <= sub <= CHUNK or CHUNK % sub:
+        raise ValueError(f"ss2d_scan_pair_ssd: sub={sub} must divide {CHUNK}")
+    if x.device.type == "cpu":
+        out = ss2d_scan_pair_plain(*args, chunk=CHUNK, return_carries=True, variant="ssd", sub=sub)
+        return out if return_carries else out[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"ss2d_scan_pair_ssd: unsupported device {x.device}")
+    _check_inputs("ss2d_scan_pair_ssd", x, _pair_shapes(*args), MAX_D)
+    b, length, d = x.shape
+    r, n = dtw.shape[1], A.shape[1]
+    lib = _library_k5()
+    nc = -(-length // CHUNK)
+    y = torch.empty((b, 2, length, d), device=x.device, dtype=torch.float32)
+    state = torch.empty((b, 2, nc, n, d), device=x.device, dtype=torch.float32)
+    sumda = torch.empty((b, 2, nc, d), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ss2d_scan_pair_ssd_f32(
+            x.data_ptr(), wx.data_ptr(), dtw.data_ptr(), bias.data_ptr(), A.data_ptr(),
+            dsk.data_ptr(), y.data_ptr(), state.data_ptr(), sumda.data_ptr(),
+            b, length, d, n, r, CHUNK, sub, stream)
+    if err != 0:
+        raise RuntimeError("ss2d_scan_pair_ssd launch failed: "
+                           f"{lib.ss2d_scan_ssd_error_string(err).decode()}")
+    ss2d_scan_pair_ssd.launches += 1
+    return (y, state, sumda) if return_carries else y
+
+
+ss2d_scan_pair_ssd.launches = 0
 
 
 def ss2d_scan_pair_bwd(x, wx, dtw, bias, A, dsk, state, sumda, dy):

@@ -32,6 +32,7 @@ from wavemamba_torch.device import resolve_device
 from wavemamba_torch.metrics import METRIC_DIRECTION, build_metric
 from wavemamba_torch.models import init_network
 from wavemamba_torch.models.buckets import BucketLadder
+from wavemamba_torch.models.tiling import tiled_apply
 from wavemamba_torch.train.trainer import (
     TrainConfig,
     create_train_state,
@@ -95,7 +96,7 @@ class RestorationModel:
 
         seed = opt.get("manual_seed", 0) or 0
         self.model = init_network(opt["network_g"], torch.Generator().manual_seed(seed),
-                                  device=self.device)
+                                  device=self.device, train=self.is_train)
         self.cfg = self.model.cfg
         pretrain = opt.get("path", {}).get("pretrain_network_g")
         if pretrain:
@@ -143,29 +144,42 @@ class RestorationModel:
         return float(self._lr(s)) if callable(self._lr) else float(self._lr)
 
     # ------------------------------------------------------------------- eval
+    def _forward(self, x):
+        """The network on x (B, H, W, 3) on the device, NHWC in and out, with
+        `current_params()`, in eval mode."""
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            out = torch.func.functional_call(self.model, self.current_params(),
+                                             (x.permute(0, 3, 1, 2),))
+        finally:
+            self.model.train(was_training)
+        if isinstance(out, (tuple, list)):  # two-output nets (UHDModel): the full-size output
+            out = out[0]
+        return out.permute(0, 2, 3, 1)
+
     @torch.no_grad()
     def test(self, lq, pad_multiple=8, tile=None):
-        """Whole-image restoration. lq: (1, H, W, 3) float32 RGB, a numpy array
-        or a tensor. Returns a numpy array of the same shape."""
+        """Whole-image (or tiled) restoration. lq: (1, H, W, 3) float32 RGB, a
+        numpy array or a tensor. Returns a numpy array of the same shape.
+
+        Tiled (`models/tiling.py`) when `tile` is given, a dict with
+        `tile_size` (240) and `tile_pad` (16), or for a frame of 8000 x 8000
+        pixels or more, as the JAX runner does."""
         h, w = lq.shape[1:3]
         if tile or h * w >= 8000 * 8000:
-            raise NotImplementedError("tiled restoration (models/tiling.py, --tile) is not "
-                                      "ported: it waits for ROADMAP queue 1, item 5")
+            tile = tile or {}
+            lq_np = lq.cpu().numpy() if isinstance(lq, torch.Tensor) else np.asarray(lq)
+            return tiled_apply(
+                lambda t: self._forward(self._to_device(t).float()).cpu().numpy(), lq_np,
+                tile_size=tile.get("tile_size", 240), tile_pad=tile.get("tile_pad", 16),
+                pad_multiple=pad_multiple)
         x = self._to_device(lq).float()
         if self._bucket_ladder is not None:
             H, W = self._bucket_ladder.shape_for(h, w)
         else:
             H, W = h + (-h) % pad_multiple, w + (-w) % pad_multiple
-        x = _reflect_pad(x, H, W).permute(0, 3, 1, 2)
-        was_training = self.model.training
-        self.model.eval()
-        try:
-            out = torch.func.functional_call(self.model, self.current_params(), (x,))
-        finally:
-            self.model.train(was_training)
-        if isinstance(out, (tuple, list)):  # two-output nets (UHDModel): the full-size output
-            out = out[0]
-        return out.permute(0, 2, 3, 1)[:, :h, :w].cpu().numpy()
+        return self._forward(_reflect_pad(x, H, W))[:, :h, :w].cpu().numpy()
 
     def validation(self, dataloader, current_iter, save_img=False, num_shards=None,
                    shard_id=None):

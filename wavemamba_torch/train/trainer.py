@@ -20,6 +20,7 @@ from typing import Callable, Sequence
 import torch
 
 from wavemamba_torch.losses import fft_loss, l1_loss, uhd_loss
+from wavemamba_torch.models import refuse_training
 from wavemamba_torch.models.wavemamba import wavemamba_forward
 from wavemamba_torch.train.schedules import build_scheduler, with_warmup
 
@@ -111,7 +112,8 @@ class TrainState:
 
 def create_train_state(model, tcfg: TrainConfig) -> TrainState:
     """`model` trains where it lies: move it to the card first
-    (`models.init_network` does)."""
+    (`models.init_network` does). A `conv_impl='fused'` model raises."""
+    refuse_training(model.cfg)
     opt, _ = make_optimizer(model.parameters(), tcfg)
     ema = None
     if tcfg.ema_decay > 0:
