@@ -69,11 +69,33 @@ and prints one JSON line per phase:
              `save`, `resume` into a fresh `RestorationModel` and one more
              step that repeats; one 1080x1920 request through
              `RestorationModel.test`. 14 K3 and 14 K4 launches a step, no K1/K2.
- 10. profile device time by kernel (torch.profiler) over one 1152x1920
-             forward of each conv route, one training step of the fused scan
-             route and one of the unfused route, and the card's idle share.
+ 10. probe   the probes P1-P5 (`wavemamba_torch/scripts/gpu_probe.py`,
+             `csrc/gpu_probe.cu`) at the TPU probes' K and at a K that makes
+             each compute-bound, against their plain versions, the same bits
+             twice: Gop/s, ms, bound, plain and library times.
+ 11. serve_fast the same two requests with `WaveMambaConfig.fast()` (bf16,
+             K1 on bf16 token streams): 28 K1 launches a forward, each on
+             bf16 x and y, latency, forward time, peak memory, PSNR against
+             the float32 route's output; the whole model with K1 against the
+             plain scan at 256x384.
+ 12. train_fast the xxl4 yml's `network_g` (bf16) and `train` sections
+             through `build_model` and the loader on a seeded uint8 dataset,
+             1 + 6 steps on one batch of 8 x 512x512: 28 K1 + 28 K2 a step
+             on bf16 streams, ms a step, images/s, peak memory, the loss
+             falls; loss and gradients with K1 + K2 against the plain scan
+             and backward at 128x128, both read against the float32 plain
+             route's gradients as bf16 noise, and a planted K2 fault that the
+             check must catch.
+ 13. profile device time by kernel (torch.profiler) over one 1152x1920
+             forward of each conv route and of `fast()`, one training step of
+             the fused scan route, of the unfused route and of the bf16 yml,
+             and the card's idle share.
+ 14. bench   `wavemamba_torch.bench` in `fast` and `parity` modes.
 
-Then the `kernels` line and, last, {"ok": true, "device": {...}}. Any failed
+The k1 and k2 phases also hold the kernels on bf16 streams (x and y, or x,
+dy and dx) against their plain versions, within one bf16 rounding step, at
+every shape the fast paths give them. Then
+the `kernels` line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, and the script exits non-zero without the last line. It needs
 one card and exits non-zero where CUDA is missing. `--remat` trains with
 block recompute, to measure it; the step fits an 80 GB card without.
@@ -82,6 +104,7 @@ block recompute, to measure it; the step fits an 80 GB card without.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -157,6 +180,36 @@ FUSED_VS_STOCK_ATOL, FUSED_VS_STOCK_PSNR = 1e-2, 55.0
 # Dense bf16 tensor-core peak of an H100 SXM (NVIDIA data sheet): the chains'
 # bf16 products could run there.
 TENSOR_BF16_OPS_S = 989e12
+# K1 / K2 on bf16 streams against their plain versions on the same bf16
+# inputs: both compute in float32 and round y once (dx once per member, then
+# the pair's sum), so an element differs only where the float32 values
+# (within K1_ATOL / K2_RTOL of each other) fall on two sides of a bf16
+# rounding boundary: by one bf16 step (8 significant bits: at most 2^-7 of
+# its magnitude; for dx, of the sum's or of either member's), plus the
+# float32 difference.
+BF16_STEP = 2.0 ** -7
+# The bf16 model (`fast()`): K1 against the plain scan on the card, both on
+# bf16 streams; one-step flips of y travel through the bf16 network. Max abs
+# and PSNR between the two outputs.
+FAST_MODEL_ATOL, FAST_MODEL_PSNR = 5e-2, 45.0
+# The fast route's 1080p request against the float32 route's, same weights.
+FAST_VS_F32_PSNR = 40.0
+# bf16 training, K1 + K2 against the plain scan and backward, both on bf16
+# streams: the loss relative. The gradients against bf16 noise, which the
+# float32 plain route's gradients measure: the kernels may be no farther from
+# the plain bf16 route, over all gradients as one vector and at the median
+# leaf, than the plain bf16 route is from float32; and each gradient that
+# K2's sums give (the scan parameters of every SS2D, 70 leaves) within
+# GRAD_FAST_SCAN_RTOL of its float32 norm, about twice the largest reading of
+# either distance on those leaves (PERF.md). Other single leaves are not held: one
+# flip of a bf16 y changes the rounding downstream, and some leaves (an
+# attention temperature's, a LayerNorm's in the HFE attention) move by 30% to
+# 100% between two bf16 runs that both sit within 2% of float32 over all.
+# A planted fault, K2's dA 25% off, must fail the check (it moves only the
+# A_logs leaves, which the norm and the median do not see).
+GRAD_FAST_LOSS_RTOL = 1e-3
+GRAD_FAST_SCAN_RTOL = 0.1
+GRAD_FAST_PLANT = 0.25
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS, EMA_DECAY = 8, 512, 6, 0.999
 PIPELINE_STEPS = 4
 TRAIN_LENGTHS = [65536, 16384, 4096]  # tokens per image at the three LFSS levels of 512x512
@@ -199,12 +252,13 @@ def _bound(nbytes, fma_ops, sfu_ops, tensor_ops=0):
     return times[unit], ("bytes" if unit == "hbm" else "operations"), unit
 
 
-def k1_bound(B, L, D, N, R):
+def k1_bound(B, L, D, N, R, stream_bytes=4):
     """Least time (ms) the card could take for one K1 call, what bounds it
     ("bytes" or "operations"), and the unit that bounds it ("hbm", "fma" or
     "sfu").
 
-    Bytes: x read once, y written once, the weights read once. Per (token,
+    Bytes: x read once, y written once (`stream_bytes` each: 2 in bf16), the
+    weights read once. Per (token,
     direction), each computed once: on the FMA pipe, an FMA counted as two,
     the projection 2D(R+2N), dt 2RD, log1p of the softplus D (one operation,
     though it is a polynomial), the recurrence 6 per (n, d) (da*A, the FMA of
@@ -212,7 +266,7 @@ def k1_bound(B, L, D, N, R):
     per (n, d) and one per d for the softplus (`expf` is one ex2 there plus
     FMA-pipe range reduction, not counted)."""
     weights = 2 * D * (R + 2 * N) + 2 * R * D + 2 * D + 2 * N * D + 2 * D
-    nbytes = 4 * (B * L * D + 2 * B * L * D + weights)
+    nbytes = stream_bytes * (B * L * D + 2 * B * L * D) + 4 * weights
     fma_ops = 2 * B * L * (2 * D * (R + 2 * N) + 2 * R * D + D + 6 * N * D + D + 2 * D)
     sfu_ops = 2 * B * L * (N * D + D)
     return _bound(nbytes, fma_ops, sfu_ops)
@@ -265,10 +319,11 @@ def chain_bound(c0, specs, pixels):
     return _bound(nbytes, fma * pixels, sfu * pixels, tensor * pixels)
 
 
-def k2_bound(B, L, D, N, R, T=64):
+def k2_bound(B, L, D, N, R, T=64, stream_bytes=4):
     """Least time (ms) the card could take for one K2 call; as `k1_bound`.
 
-    Bytes: x and dy read once, dx written once, the chunk-entry states and
+    Bytes: x and dy read once, dx written once (`stream_bytes` each), the
+    chunk-entry states and
     chunk decays read once, the weights read and their gradients written.
     Per (token, direction), each computed once: on the FMA pipe, the
     projection 2DJ (J = R+2N) and dt 2RD; per (n, d) the state's recompute 4
@@ -280,7 +335,7 @@ def k2_bound(B, L, D, N, R, T=64):
     J = R + 2 * N
     nc = -(-L // T)
     weights = 2 * D * J + 2 * R * D + 2 * D + 2 * N * D + 2 * D
-    nbytes = 4 * (B * L * D * (1 + 2 + 1) + B * 2 * nc * (N * D + D) + 2 * weights)
+    nbytes = stream_bytes * B * L * D * (1 + 2 + 1) + 4 * (B * 2 * nc * (N * D + D) + 2 * weights)
     fma_ops = 2 * B * L * (3 * 2 * D * J + 3 * 2 * R * D + (4 + 13 + 3) * N * D + 10 * D)
     sfu_ops = 2 * B * L * (N * D + 3 * D)
     return _bound(nbytes, fma_ops, sfu_ops)
@@ -362,7 +417,8 @@ def phase_device():
           "k3_ptxas": ptxas(libs[2], ["scan_chunk", "chunk_prefix"]),
           "k4_ptxas": ptxas(libs[3], ["bwd_local", "chunk_prefix", "bwd_main", "bwd_reduce"]),
           "k5_ptxas": ptxas(libs[4], ["chunk_scan_ssd", "chunk_prefix"]),
-          "chain_ptxas": ptxas(libs[5], ["chain_kernel"])})
+          "chain_ptxas": ptxas(libs[5], ["chain_kernel"]),
+          "probe_ptxas": ptxas(libs[6], ["flat", "shaped", "expchain", "nsum", "mxu_seg"])})
     return smi
 
 
@@ -395,6 +451,60 @@ def phase_k1():
         emit(row)
         rows.append(row)
         del y, y_plain, args
+    return rows
+
+
+def bf16_excess(got, want, atol):
+    """How far `got` (bf16) lies beyond one bf16 step of `want` (the plain
+    version's bf16) plus `atol` (a number, or a tensor of `want`'s shape), at
+    its worst element: <= 0 passes; and the share of elements that differ at
+    all."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    return float((d - BF16_STEP * w.abs() - atol).max()), float((d > 0).float().mean())
+
+
+def phase_k1_bf16():
+    """K1 on bf16 streams, x and y (the fast presets), against its plain
+    version on the same bf16 x, at every level of a 1080p forward (B=1, as
+    `phase_k1`), a ragged length and a column stream; times and bounds. K1 at
+    the training shapes on bf16 streams is held in `phase_k2_bf16`."""
+    from wavemamba_torch.ops.scan import ss2d_scan_pair_plain
+    from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair
+
+    rs = np.random.RandomState(8)
+    rows = []
+    bf16 = torch.bfloat16
+    cases = [("level%d_bf16" % (i + 1), h, w, False) for i, (h, w) in enumerate(LEVELS_1080P)]
+    cases += [("ragged_bf16", 1, 34560 + 37, False), ("columns_bf16", 144, 240, True)]
+    for name, h, w, columns in cases:
+        args = pair_inputs(rs, 1, h * w)
+        x = args[0].to(bf16)
+        if columns:
+            x = x.view(1, h, w, -1).transpose(1, 2).reshape(1, h * w, -1).contiguous()
+        args = (x,) + args[1:]
+        y = ss2d_scan_pair(*args, out_dtype=bf16)
+        again = ss2d_scan_pair(*args, out_dtype=bf16)
+        torch.cuda.synchronize()
+        y_plain, plain_ms = timed_once(lambda: ss2d_scan_pair_plain(*args, out_dtype=bf16))
+        excess, share = bf16_excess(y, y_plain, K1_ATOL)
+        check(y.dtype == bf16 and bool(torch.isfinite(y.float()).all()), f"K1 {name}: bf16, finite")
+        check(torch.equal(y, again), f"K1 {name}: the same bits twice")
+        check(excess <= 0, f"K1 {name}: beyond one bf16 step of the plain version by {excess}")
+        row = {"phase": "k1", "case": name, "B": 1, "L": h * w, "D": 64, "N": 16, "R": 2,
+               "x": "bfloat16", "y": "bfloat16", "max_abs_err": float((y.float() - y_plain.float()).abs().max()),
+               "share_differing": share, "tol": f"one bf16 step + {K1_ATOL}",
+               "y_max_abs": float(y_plain.float().abs().max())}
+        if not columns and not name.startswith("ragged"):
+            x32 = args[0].float()
+            row["ms"] = cuda_ms(lambda: ss2d_scan_pair(*args, out_dtype=bf16), 20)
+            row["f32_ms"] = cuda_ms(lambda: ss2d_scan_pair(x32, *args[1:]), 20)
+            row["plain_ms"] = plain_ms
+            row["bound_ms"], row["bound_by"], row["bound_unit"] = k1_bound(1, h * w, 64, 16, 2, 2)
+        row["launches"] = ss2d_scan_pair.launches
+        emit(row)
+        rows.append(row)
+        del y, again, y_plain, args
     return rows
 
 
@@ -457,6 +567,75 @@ def phase_k2():
         emit(row)
         rows.append(row)
         del state, sumda, args, dy
+    return rows
+
+
+def phase_k2_bf16():
+    """K2 on bf16 streams, x, dy and dx (the fast training preset), against
+    its plain version on the same inputs, at the three LFSS levels of a
+    training step (batch 8, as `phase_k2`), a ragged length and a column
+    stream; K1's bf16 y and carries at the same shapes; times and bounds.
+    Both versions round each member's dx to bf16 and add the two in bf16, so
+    an element may differ by one bf16 step of either member's dx: the plain
+    version's members (from dy with the other member's half zeroed) set that
+    step."""
+    from wavemamba_torch.ops.scan import ss2d_scan_pair_plain, ss2d_scan_pair_plain_bwd
+    from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair, ss2d_scan_pair_bwd
+
+    rs = np.random.RandomState(9)
+    rows = []
+    bf16 = torch.bfloat16
+    cases = [("level%d_bf16" % (i + 1), TRAIN_BATCH, L, 1, False) for i, L in enumerate(TRAIN_LENGTHS)]
+    cases += [("ragged_bf16", 1, 1000, 1, False), ("columns_bf16", 1, 48 * 80, 48, True)]
+    for name, B, L, h, columns in cases:
+        args = pair_inputs(rs, B, L)
+        x = args[0].to(bf16)
+        if columns:
+            x = x.view(B, h, L // h, -1).transpose(1, 2).reshape(B, L, -1).contiguous()
+        args = (x,) + args[1:]
+        dy = torch.from_numpy(rs.randn(B, 2, L, 64).astype(np.float32)).cuda().to(bf16)
+        y, state, sumda = ss2d_scan_pair(*args, return_carries=True, out_dtype=bf16)
+        got = ss2d_scan_pair_bwd(*args, state, sumda, dy)
+        again = ss2d_scan_pair_bwd(*args, state, sumda, dy)
+        torch.cuda.synchronize()
+        y_plain, state_plain, sumda_plain = ss2d_scan_pair_plain(*args, return_carries=True, out_dtype=bf16)
+        y_excess, y_share = bf16_excess(y, y_plain, K1_ATOL)
+        fwd_err = {"y": float((y.float() - y_plain.float()).abs().max()), "y_share_differing": y_share,
+                   "state": float((state - state_plain).abs().max()),
+                   "sumda": float((sumda - sumda_plain).abs().max())}
+        check(y.dtype == bf16 and y_excess <= 0, f"K1 {name} B={B}: y beyond one bf16 step by {y_excess}")
+        check(max(fwd_err["state"], fwd_err["sumda"]) <= K1_ATOL, f"K1 {name} B={B}: carries {fwd_err}")
+        del y, y_plain, sumda_plain
+        want, plain_ms = timed_once(lambda: ss2d_scan_pair_plain_bwd(*args, state_plain, dy))
+        member = None
+        for k in (0, 1):  # each member's dx: dy of the other member zeroed
+            dyk = dy.clone()
+            dyk[:, 1 - k] = 0
+            mk = ss2d_scan_pair_plain_bwd(*args, state_plain, dyk)[0].float().abs()
+            member = mk if member is None else torch.maximum(member, mk)
+            del dyk, mk
+        check(got[0].dtype == bf16 and all(g.dtype == torch.float32 for g in got[1:]),
+              f"K2 {name}: dx in bf16, the weights' gradients in float32")
+        check(all(torch.equal(g, g2) for g, g2 in zip(got, again)), f"K2 {name}: the same bits twice")
+        excess, share = bf16_excess(got[0], want[0], BF16_STEP * member
+                                    + K2_RTOL * float(want[0].float().abs().max()))
+        check(excess <= 0, f"K2 {name}: dx beyond one bf16 step of the plain version by {excess}")
+        rel = {k: float((g - w_).abs().max()) / float(w_.abs().max())
+               for k, g, w_ in zip(OUTPUTS[1:], got[1:], want[1:])}
+        check(max(rel.values()) <= K2_RTOL, f"K2 {name}: weight gradients {rel}")
+        row = {"phase": "k2", "case": name, "B": B, "L": L, "D": 64, "N": 16, "R": 2,
+               "x": "bfloat16", "dy": "bfloat16", "dx": "bfloat16", "k1": fwd_err,
+               "max_abs_err": {"dx": float((got[0].float() - want[0].float()).abs().max())},
+               "dx_share_differing": share, "max_rel_err": rel,
+               "tol": f"dx one bf16 step of it and of each member's dx; {K2_RTOL}"}
+        if B == TRAIN_BATCH:
+            row["ms"] = cuda_ms(lambda: ss2d_scan_pair_bwd(*args, state, sumda, dy), 10)
+            row["plain_ms"] = plain_ms
+            row["bound_ms"], row["bound_by"], row["bound_unit"] = k2_bound(B, L, 64, 16, 2, stream_bytes=2)
+        row["launches"] = ss2d_scan_pair_bwd.launches
+        emit(row)
+        rows.append(row)
+        del got, again, want, member, state, sumda, state_plain, args, dy
     return rows
 
 
@@ -944,10 +1123,11 @@ class PlainScanPair(torch.autograd.Function):
     K2 (`scan_cuda.SS2DScanPair`) are held against in the `grad` phase."""
 
     @staticmethod
-    def forward(ctx, x, wx, dtw, bias, A, dsk):
+    def forward(ctx, x, wx, dtw, bias, A, dsk, out_dtype):
         from wavemamba_torch.ops.scan import ss2d_scan_pair_plain
 
-        y, state, _ = ss2d_scan_pair_plain(x, wx, dtw, bias, A, dsk, return_carries=True)
+        y, state, _ = ss2d_scan_pair_plain(x, wx, dtw, bias, A, dsk, return_carries=True,
+                                           out_dtype=out_dtype)
         ctx.save_for_backward(x, wx, dtw, bias, A, dsk, state)
         return y
 
@@ -955,7 +1135,12 @@ class PlainScanPair(torch.autograd.Function):
     def backward(ctx, dy):
         from wavemamba_torch.ops.scan import ss2d_scan_pair_plain_bwd
 
-        return ss2d_scan_pair_plain_bwd(*ctx.saved_tensors, dy)
+        return ss2d_scan_pair_plain_bwd(*ctx.saved_tensors, dy) + (None,)
+
+
+def plain_scan_pair(x, wx, dtw, bias, A, dsk, out_dtype=None):
+    """`PlainScanPair` with `ss2d_scan_pair`'s signature, for `set_scan`."""
+    return PlainScanPair.apply(x, wx, dtw, bias, A, dsk, out_dtype)
 
 
 def synthetic_batch(seed, batch, size):
@@ -986,32 +1171,73 @@ class PlainSelectiveScan(torch.autograd.Function):
         return selective_scan_plain_bwd(*ctx.saved_tensors, dy)
 
 
+def model_grads(model, tcfg, lq, gt):
+    """Loss and every parameter's gradient of one forward and backward."""
+    from wavemamba_torch.train.trainer import loss_fn
+
+    model.zero_grad(set_to_none=True)
+    total, _ = loss_fn(model, tcfg, lq, gt)
+    total.backward()
+    return float(total.detach()), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
+SCAN_LEAVES = ("x_proj_weight", "dt_projs_weight", "dt_projs_bias", "A_logs", "Ds")  # K2's sums
+
+
+def fast_grad_readings(grads_k, grads_p, grads_32):
+    """The bf16 route's gradients with K1 + K2 (`grads_k`) against those with
+    the plain scan and backward (`grads_p`), both on bf16 streams, with the
+    float32 plain route's (`grads_32`) as the measure of bf16 noise. Per leaf:
+    |k - p|, |p - f32| and |f32| (2-norms). Returns the readings and the list
+    of what fails (see GRAD_FAST_SCAN_RTOL)."""
+    norm = lambda t: float(t.double().norm())
+    leaves = {n: (norm(grads_k[n] - grads_p[n]), norm(grads_p[n] - g), norm(g))
+              for n, g in grads_32.items()}
+    live = {n: v for n, v in leaves.items() if v[2] > 0}
+    scan = {n: v for n, v in live.items() if n.endswith(SCAN_LEAVES)}
+    total = lambda i: float(np.sqrt(sum(v[i] ** 2 for v in leaves.values())))
+    worst = max(scan, key=lambda n: scan[n][0] / scan[n][2])
+    r = {"norm_kernel_vs_plain": total(0) / total(2), "norm_plain_vs_float32": total(1) / total(2),
+         "median_leaf_kernel_vs_plain": float(np.median([v[0] / v[2] for v in live.values()])),
+         "median_leaf_plain_vs_float32": float(np.median([v[1] / v[2] for v in live.values()])),
+         "leaves": len(leaves), "scan_leaves": len(scan), "worst_scan_leaf": worst,
+         "worst_scan_leaf_rel_err": scan[worst][0] / scan[worst][2],
+         "worst_scan_leaf_plain_vs_float32": max(v[1] / v[2] for v in scan.values())}
+    failures = [k for k, bad in (
+        ("norm", r["norm_kernel_vs_plain"] > r["norm_plain_vs_float32"]),
+        ("median leaf", r["median_leaf_kernel_vs_plain"] > r["median_leaf_plain_vs_float32"]),
+        ("scan leaf", r["worst_scan_leaf_rel_err"] > GRAD_FAST_SCAN_RTOL)) if bad]
+    return r, failures
+
+
 def phase_grad(route):
     """Loss and gradients of the whole model, the route's kernels against its
     plain scan with the plain backward: 'fused' is K1 + K2 (28 + 28 launches),
-    'unfused' (`scan_impl: pallas`) K3 + K4 (14 + 14)."""
+    'fast' the same on bf16 streams (`fast_train()`'s dtypes), 'unfused'
+    (`scan_impl: pallas`) K3 + K4 (14 + 14). 'fast' also reads both against
+    the float32 plain route's gradients on the same weights, and shows that
+    its check fails on a planted K2 fault (dA off by GRAD_FAST_PLANT)."""
     from wavemamba_torch.models import init_network
     from wavemamba_torch.models.wavemamba import set_scan, set_unfused_scan
     from wavemamba_torch.ops import scan_cuda
-    from wavemamba_torch.train.trainer import TrainConfig, loss_fn
+    from wavemamba_torch.train.trainer import TrainConfig
 
-    fused = route == "fused"
-    model = init_network({"type": "WaveMamba", "remat": False,
-                          "scan_impl": "pallas_fused" if fused else "pallas"},
-                         torch.Generator().manual_seed(11), device="cuda")
+    fused = route in ("fused", "fast")
+    net = {"type": "WaveMamba", "remat": False, "scan_impl": "pallas_fused" if fused else "pallas"}
+    if route == "fast":
+        net.update(compute_dtype="bfloat16", scan_dtype="bfloat16")
+    loss_tol = GRAD_FAST_LOSS_RTOL if route == "fast" else GRAD_LOSS_RTOL
+    model = init_network(net, torch.Generator().manual_seed(11), device="cuda")
     lq, gt = synthetic_batch(12, 2, 128)
     tcfg = TrainConfig()
     results = []
     wrappers = (scan_cuda.ss2d_scan_pair, scan_cuda.ss2d_scan_pair_bwd,
                 scan_cuda.selective_scan_cuda, scan_cuda.selective_scan_cuda_bwd)
     before = [w.launches for w in wrappers]
-    scans = (scan_cuda.ss2d_scan_pair, PlainScanPair.apply) if fused else (None, PlainSelectiveScan.apply)
+    scans = (scan_cuda.ss2d_scan_pair, plain_scan_pair) if fused else (None, PlainSelectiveScan.apply)
     for scan in scans:
         (set_scan if fused else set_unfused_scan)(model, scan)
-        model.zero_grad(set_to_none=True)
-        total, _ = loss_fn(model, tcfg, lq, gt)
-        total.backward()
-        results.append((float(total.detach()), {n: p.grad.clone() for n, p in model.named_parameters()}))
+        results.append(model_grads(model, tcfg, lq, gt))
     launched = tuple(w.launches - b for w, b in zip(wrappers, before))
     check(launched == ((28, 28, 0, 0) if fused else (0, 0, 14, 14)),
           f"{launched} K1/K2/K3/K4 launches in one forward and backward of the {route} route")
@@ -1020,13 +1246,47 @@ def phase_grad(route):
     worst = max(((float((grads_k[n] - g).abs().max()) / (float(g.abs().max()) + 1e-30), n)
                  for n, g in grads_p.items()))
     check(all(bool(torch.isfinite(g).all()) for g in grads_k.values()), "gradients finite")
-    emit({"phase": "grad", "route": route, "image": [128, 128], "batch": 2, "loss_kernel": loss_k,
-          "loss_plain": loss_p, "loss_rel_err": loss_rel, "loss_tol": GRAD_LOSS_RTOL,
-          "parameters": len(grads_p), "worst_grad_rel_err": worst[0], "worst_grad": worst[1],
-          "grad_tol": GRAD_RTOL,
-          "max_grad_abs_err": max(float((grads_k[n] - g).abs().max()) for n, g in grads_p.items())})
-    check(loss_rel <= GRAD_LOSS_RTOL, f"loss kernel vs plain {loss_rel} <= {GRAD_LOSS_RTOL}")
-    check(worst[0] <= GRAD_RTOL, f"gradient of {worst[1]}: {worst[0]} <= {GRAD_RTOL}")
+    row = {"phase": "grad", "route": route, "image": [128, 128], "batch": 2, "loss_kernel": loss_k,
+           "loss_plain": loss_p, "loss_rel_err": loss_rel, "loss_tol": loss_tol,
+           "parameters": len(grads_p), "worst_grad_rel_err": worst[0], "worst_grad": worst[1],
+           "max_grad_abs_err": max(float((grads_k[n] - g).abs().max()) for n, g in grads_p.items())}
+    check(loss_rel <= loss_tol, f"loss kernel vs plain {loss_rel} <= {loss_tol}")
+    if route != "fast":
+        emit({**row, "grad_tol": GRAD_RTOL, "grad_tol_of": "each gradient's max"})
+        check(worst[0] <= GRAD_RTOL, f"gradient of {worst[1]}: {worst[0]} <= {GRAD_RTOL}")
+        return
+
+    ref = init_network({"type": "WaveMamba", "remat": False}, torch.Generator().manual_seed(11),
+                       device="cuda")
+    ref.load_state_dict(model.state_dict())
+    set_scan(ref, plain_scan_pair)
+    loss_32, grads_32 = model_grads(ref, tcfg, lq, gt)
+    del ref
+    readings, failures = fast_grad_readings(grads_k, grads_p, grads_32)
+    leaf = lambda g: g[worst[1]].flatten()[:8].tolist()
+    row.update(readings, loss_float32=loss_32, grad_scan_leaf_tol=GRAD_FAST_SCAN_RTOL,
+               worst_grad_values={"kernel": leaf(grads_k), "plain": leaf(grads_p),
+                                  "float32": leaf(grads_32)})
+
+    # The check against a planted fault: K2's dA off by GRAD_FAST_PLANT.
+    real = scan_cuda.ss2d_scan_pair_bwd
+
+    def planted(*args):
+        out = real(*args)
+        return out[:4] + (out[4] * (1 + GRAD_FAST_PLANT),) + out[5:]
+
+    planted.launches = 0  # the wrapper counts under its module-level name
+    set_scan(model, scan_cuda.ss2d_scan_pair)
+    scan_cuda.ss2d_scan_pair_bwd = planted
+    try:
+        _, grads_f = model_grads(model, tcfg, lq, gt)
+    finally:
+        scan_cuda.ss2d_scan_pair_bwd = real
+    planted_readings, planted_failures = fast_grad_readings(grads_f, grads_p, grads_32)
+    row["planted_fault"] = {"dA_scale": 1 + GRAD_FAST_PLANT, "fails": planted_failures, **planted_readings}
+    emit(row)
+    check(not failures, f"bf16 gradients, kernels vs plain against bf16 noise: {failures}")
+    check(bool(planted_failures), f"the check misses K2's dA off by {GRAD_FAST_PLANT}")
 
 
 def train_setup(remat, seed=21):
@@ -1338,6 +1598,216 @@ def phase_pipeline(fused_ms_per_step):
     return dict(model=model, loader=loader, ms_per_step=ms, launches=total)
 
 
+class ScanDtypes:
+    """A `set_scan` route that records the dtypes of each call's token stream
+    and y and passes the call on to K1's wrapper: where a path hands K1 bf16."""
+
+    def __init__(self):
+        from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair
+
+        self.scan, self.calls = ss2d_scan_pair, []
+
+    def __call__(self, x, *args, out_dtype=None):
+        y = self.scan(x, *args, out_dtype=out_dtype)
+        self.calls.append((str(x.dtype), str(y.dtype)))
+        return y
+
+
+def psnr_db(a, b):
+    """PSNR (dB, peak 1) between two arrays or tensors."""
+    a, b = (np.asarray(t.float().cpu() if torch.is_tensor(t) else t, np.float64) for t in (a, b))
+    return float(10 * np.log10(1.0 / np.mean((a - b) ** 2)))
+
+
+def phase_serve_fast(fast, stock):
+    """The serve path of `phase_serve` with `WaveMambaConfig.fast()` on the
+    same weights: the two requests (28 K1 launches a forward), the streams K1
+    sees, the forward's time, the output against the float32 route's for the
+    same request, and the whole model with K1 against the plain scan."""
+    from wavemamba_torch.inference import enhance
+    from wavemamba_torch.models.buckets import BucketLadder
+    from wavemamba_torch.models.wavemamba import set_scan, wavemamba_apply
+    from wavemamba_torch.ops.scan import ss2d_scan_pair_plain
+    from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair
+
+    check((fast.cfg.compute_dtype, fast.cfg.scan_dtype, fast.cfg.scan_impl)
+          == ("bfloat16", "bfloat16", "pallas_fused"), f"the fast preset {fast.cfg}")
+    rs = np.random.RandomState(0)
+    shapes = [(1080, 1920), (720, 1280)]
+    images = [(rs.rand(1, h, w, 3) * 0.12).astype(np.float32) for h, w in shapes]
+    ladder = BucketLadder()
+    for img in images:  # warm-up of each bucket: the first bf16 call of a shape plans its convs
+        enhance(fast, img, ladder)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ss2d_scan_pair.launches = 0  # the main path's count starts here
+    results = []
+    for img in images:
+        before = ss2d_scan_pair.launches
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = enhance(fast, img, ladder)
+        end.record()
+        end.synchronize()
+        results.append((img, out, start.elapsed_time(end), time.perf_counter() - t0,
+                        ss2d_scan_pair.launches - before))
+    launches = ss2d_scan_pair.launches  # read just after the main path
+    peak = torch.cuda.max_memory_allocated()
+    for (img, out, ms, host_s, n), (h, w) in zip(results, shapes):
+        ref = enhance(stock, img, ladder)  # the float32 route, the same request
+        psnr = psnr_db(out, ref)
+        check(out.shape == img.shape and out.dtype == np.float32 and bool(np.isfinite(out).all()),
+              "the fast route's output")
+        check(float(out.mean()) > float(img.mean()), "outputs brighter than inputs")
+        check(n == 28, f"{n} K1 launches in a fast forward, expected 28")
+        emit({"phase": "serve_fast", "image": [h, w], "bucket": list(ladder.shape_for(h, w)),
+              "latency_ms": ms, "host_s": host_s, "k1_launches": n, "psnr_vs_float32_db": psnr,
+              "max_abs_vs_float32": float(np.abs(out - ref).max()), "tol_psnr_db": FAST_VS_F32_PSNR})
+        check(psnr >= FAST_VS_F32_PSNR, f"{h}x{w}: fast vs float32 route {psnr} dB >= {FAST_VS_F32_PSNR}")
+    check(launches == 28 * len(images), f"{launches} K1 launches on the main path")
+
+    x = torch.from_numpy(np.ascontiguousarray(np.pad(
+        images[0], ((0, 0), (0, 72), (0, 0), (0, 0)), mode="reflect"))).cuda()
+    forward_ms = cuda_ms(lambda: wavemamba_apply(fast, x), 3)
+    stock_ms = cuda_ms(lambda: wavemamba_apply(stock, x), 3)
+    streams = ScanDtypes()
+    set_scan(fast, streams)
+    try:
+        wavemamba_apply(fast, x)
+    finally:
+        set_scan(fast, ss2d_scan_pair)
+    check(streams.calls == [("torch.bfloat16", "torch.bfloat16")] * 28,
+          f"K1's streams in a fast forward: {sorted(set(streams.calls))}, {len(streams.calls)} calls")
+
+    # The whole model at a small size: the plain scan takes ~7 s a call at
+    # 1080p level 1 (the k1 rows' plain_ms), so 28 of them would not fit the
+    # run. K1 itself is held on bf16 streams at every shape of this path in
+    # `phase_k1_bf16`, and of the training step in `phase_k2_bf16`.
+    small = x[:, :256, :384].contiguous()
+    y_kernel = wavemamba_apply(fast, small)
+    set_scan(fast, ss2d_scan_pair_plain)
+    try:
+        y_plain = wavemamba_apply(fast, small)
+    finally:
+        set_scan(fast, ss2d_scan_pair)
+    err, psnr = float((y_kernel - y_plain).abs().max()), psnr_db(y_kernel, y_plain)
+    emit({"phase": "serve_fast", "requests": len(images), "k1_launches": launches,
+          "k1_streams": "bfloat16 x, bfloat16 y (28 calls a forward)",
+          "forward_ms_1152x1920": forward_ms, "float32_forward_ms_1152x1920": stock_ms,
+          "peak_memory_bytes": peak,
+          "kernel_vs_plain_256x384": {"max_abs_err": err, "psnr_db": psnr, "tol_max": FAST_MODEL_ATOL,
+                                      "tol_psnr_db": FAST_MODEL_PSNR}})
+    check(err <= FAST_MODEL_ATOL and psnr >= FAST_MODEL_PSNR, f"fast model, K1 vs plain: {err}, {psnr} dB")
+    return dict(launches=launches, forward_ms=forward_ms, x=x)
+
+
+def fast_train_opt(seed):
+    """The `network_g` and `train` sections of
+    `options/train_wavemamba_proc_bsrgan_xxl4.yml` as `parse_options` hands
+    them on (bf16 compute and scan streams), without block recompute, from a
+    seeded init."""
+    root = os.path.join(ROOT, "build", "chip_smoke", "experiments", "train_fast")
+    return {
+        "name": "train_fast", "model_type": "FeMaSRModel", "scale": 1, "manual_seed": seed,
+        "is_train": True, "device": "cuda",
+        "network_g": {"type": "WaveMamba", "in_chn": 3, "wf": 32, "n_l_blocks": [1, 2, 4],
+                      "n_h_blocks": [1, 1, 2], "ffn_scale": 2.0, "scan_impl": "pallas_fused",
+                      "scan_chunk": 128, "compute_dtype": "bfloat16", "scan_dtype": "bfloat16",
+                      "remat": False},
+        "path": {"pretrain_network_g": None, "resume_state": None, "experiments_root": root,
+                 "models": os.path.join(root, "models"),
+                 "training_states": os.path.join(root, "training_states"),
+                 "visualization": os.path.join(root, "visualization")},
+        "train": {"ema_decay": 0.999,
+                  "optim_g": {"type": "AdamW", "lr": 1e-4, "weight_decay": 1e-3, "betas": [0.9, 0.99]},
+                  "scheduler": {"type": "CosineAnnealingRestartCyclicLR", "periods": [600, 5400],
+                                "restart_weights": [1, 1], "eta_mins": [0.0001, 0.0000001]},
+                  "total_iter": 6000, "warmup_iter": -1,
+                  "pixel_opt": {"type": "L1Loss", "loss_weight": 1.0, "reduction": "mean"},
+                  "fft_opt": {"type": "FFTLoss", "loss_weight": 0.1, "reduction": "mean"}},
+    }
+
+
+def phase_train_fast():
+    """bf16 training through the yml path: `build_model` on the xxl4 yml's
+    sections, a seeded uint8 dataset through the sampler, `ThreadedLoader` and
+    `device_prefetch`, then one warm-up step and TRAIN_STEPS steps on the
+    first batch, repeated."""
+    from wavemamba_torch.data import EnlargedSampler, ThreadedLoader, device_prefetch
+    from wavemamba_torch.models.wavemamba import set_scan
+    from wavemamba_torch.ops import scan_cuda
+    from wavemamba_torch.runner import build_model
+
+    model = build_model(fast_train_opt(seed=41))
+    check(all(p.dtype == torch.float32 for p in model.model.parameters()), "float32 parameters")
+    train_set = SyntheticPairs(16, TRAIN_SIZE, seed=42, uint8=True)
+    loader = ThreadedLoader(train_set, batch_size=TRAIN_BATCH,
+                            sampler=EnlargedSampler(len(train_set), 1, 0, ratio=1), num_workers=4,
+                            drop_last=True, seed=41)
+    loader.set_epoch(0)
+    batches = device_prefetch(loader, "cuda")
+    batch = next(batches)
+    batches.close()
+    check(batch["lq"].dtype == torch.uint8 and batch["lq"].is_cuda, "uint8 batches on the card")
+    streams = ScanDtypes()
+    set_scan(model.model, streams)
+    torch.cuda.reset_peak_memory_stats()
+    warm_loss = float(model.optimize_parameters(batch)["total"])  # warm-up
+    check(streams.calls == [("torch.bfloat16", "torch.bfloat16")] * 28,
+          f"K1's streams in a fast training step: {sorted(set(streams.calls))}")
+    set_scan(model.model, scan_cuda.ss2d_scan_pair)
+    wrappers = (scan_cuda.ss2d_scan_pair, scan_cuda.ss2d_scan_pair_bwd)
+    for w in wrappers:  # the main path's counts start here
+        w.launches = 0
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = model.optimize_parameters(batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(metrics["total"]))
+    k1, k2 = (w.launches for w in wrappers)  # read just after
+    peak = torch.cuda.max_memory_allocated()
+    ms = float(np.median(times))
+    emit({"phase": "train_fast", "yml": "options/train_wavemamba_proc_bsrgan_xxl4.yml",
+          "compute_dtype": "bfloat16", "scan_dtype": "bfloat16", "batch": TRAIN_BATCH,
+          "size": [TRAIN_SIZE, TRAIN_SIZE], "steps": TRAIN_STEPS, "loss_first": warm_loss,
+          "losses": losses, "step_ms": times, "ms_per_step": ms, "images_per_s": TRAIN_BATCH / ms * 1e3,
+          "peak_memory_bytes": peak, "k1_launches": k1, "k2_launches": k2,
+          "k1_streams": "bfloat16 x, bfloat16 y; K2 bfloat16 x and dy, dx bfloat16"})
+    check(all(np.isfinite(losses)) and np.isfinite(warm_loss), "losses finite")
+    check(losses[-1] < warm_loss, f"the loss fell on the repeated batch: {warm_loss} -> {losses[-1]}")
+    check((k1, k2) == (28 * TRAIN_STEPS, 28 * TRAIN_STEPS), f"{k1} K1 / {k2} K2 launches in {TRAIN_STEPS} steps")
+    return dict(k1_launches=k1, k2_launches=k2, ms_per_step=ms, model=model, batch=batch)
+
+
+def phase_probe():
+    """P1-P5 (`wavemamba_torch.scripts.gpu_probe.run_all`): each at the TPU
+    probe's K and at `K_COMPUTE`. Its launches: the timed ones (the
+    comparison's are left out)."""
+    from wavemamba_torch.scripts import gpu_probe
+
+    rows = gpu_probe.run_all()
+    for row in rows:
+        emit({"phase": "probe", **row})
+        check(row["launches"] > 0, f"probe {row['probe']} K={row['K']} launched")
+    return rows
+
+
+def phase_bench():
+    """`wavemamba_torch.bench`'s measurement in `fast` and `parity` modes."""
+    from wavemamba_torch import bench
+
+    rows = {}
+    for mode in ("fast", "parity"):
+        rows[mode] = bench.run(mode)
+        emit({"phase": "bench", **rows[mode]})
+    return rows
+
+
 def profile_rows(fn):
     """Run `fn` under torch.profiler: (wall ms, [(device us, calls, kernel name)])."""
     from torch.autograd import DeviceType
@@ -1362,12 +1832,12 @@ def profile_rows(fn):
     return wall_ms, sorted(((us, n, name) for name, (us, n) in by_name.items()), reverse=True)
 
 
-def phase_profile(model, x, forward_ms, run, pipe, fused):
+def phase_profile(model, x, forward_ms, run, pipe, fused, fast, train_fast):
     """Device time by kernel over one 1152x1920 forward of each conv route
-    (stock convs, and the fused chains: K7), one training step of the fused
-    scan route (K1 + K2) and one of the unfused route (K3 + K4, through the
-    runner), and the share of each one's wall time in which the card ran no
-    kernel."""
+    (stock convs, and the fused chains: K7) and of `fast()`, one training step
+    of the fused scan route (K1 + K2), of the unfused route (K3 + K4, through
+    the runner) and of the bf16 yml (`train_fast`), and the share of each
+    one's wall time in which the card ran no kernel."""
     from wavemamba_torch.models.wavemamba import wavemamba_apply
 
     def report(what, wall_ms, rows, unprofiled_ms, **extra):
@@ -1385,6 +1855,8 @@ def phase_profile(model, x, forward_ms, run, pipe, fused):
               "k3_ms": named("scan_chunk", "chunk_prefix<false>"),
               "k4_ms": adjoint if what == "train_step_unfused" else 0.0,
               "flip_ms": named("flip"),
+              # dtype casts and other copies (the bf16 path casts each weight where it is used)
+              "copy_ms": named("copy"), "copy_launches": sum(r[1] for r in rows if "copy" in r[2]),
               "chain_ms": named("chain_kernel"), "chain_launches": sum(
                   r[1] for r in rows if "chain_kernel" in r[2]),
               "conv_ms": sum(r[0] for r in rows if "chain_kernel" not in r[2] and (
@@ -1402,6 +1874,11 @@ def phase_profile(model, x, forward_ms, run, pipe, fused):
     batch = {"lq": run["lq"], "gt": run["gt"]}
     report("train_step_unfused", *profile_rows(lambda: pipe["model"].optimize_parameters(batch)),
            pipe["ms_per_step"], batch=run["lq"].shape[0], size=[TRAIN_SIZE, TRAIN_SIZE], remat=False)
+    report("forward_fast", *profile_rows(lambda: wavemamba_apply(fast["model"], x)), fast["forward_ms"],
+           image=[1152, 1920])
+    report("train_step_fast", *profile_rows(lambda: train_fast["model"].optimize_parameters(
+        train_fast["batch"])), train_fast["ms_per_step"], batch=TRAIN_BATCH, size=[TRAIN_SIZE, TRAIN_SIZE],
+        remat=False)
 
 
 def main():
@@ -1420,7 +1897,9 @@ def main():
     set_parity_mode()
     smi = phase_device()
     k1_rows = phase_k1()
+    k1_bf16_rows = phase_k1_bf16()
     k2_rows = phase_k2()
+    k2_bf16_rows = phase_k2_bf16()
     k3_rows, k4_rows = phase_k3_k4()
     k5_rows = phase_k5()
     t0 = time.perf_counter()
@@ -1440,13 +1919,24 @@ def main():
     run = phase_train(args.remat)
     phase_resume(run)
     pipe = phase_pipeline(run["ms_per_step"])
-    phase_profile(model, x1080, forward_ms, run, pipe, fused)
+    probe_rows = phase_probe()
+    from wavemamba_torch.models.wavemamba import WaveMambaConfig
+
+    fast_model = build_network({"type": "WaveMamba", **dataclasses.asdict(WaveMambaConfig.fast())},
+                               load_network(CKPT, device="cuda"), device="cuda")
+    fast = phase_serve_fast(fast_model, model)
+    fast["model"] = fast_model
+    phase_grad("fast")
+    train_fast = phase_train_fast()
+    phase_profile(model, x1080, forward_ms, run, pipe, fused, fast, train_fast)
+    bench = phase_bench()
 
     # K1 and K5 at level 1 of the 1080p forward; K2, K3 and K4 at level 1 of
     # the training step. Launches: each path's own, counted from 0 just before
-    # it: K1 the serve path's and the fused training path's, K2 the latter's, K3
-    # and K4 the pipeline path's (steps, validation, the request), K7 the fused
-    # serve path's.
+    # it: K1 the serve paths' (float32 and fast) and the training paths'
+    # (fused and fast), K2 the training paths', K3 and K4 the pipeline path's
+    # (steps, validation, the request), K7 the fused serve path's, P1-P5 the
+    # probe path's timed calls.
     level1 = k1_rows[0]
     k2_level1 = k2_rows[0]
     k3_level1 = next(r for r in k3_rows if r["case"] == "train_level1")
@@ -1456,23 +1946,51 @@ def main():
     # at level 1; the `chain` lines hold every wrapper's.
     pac = next(r for r in chain_rows if r["chain"] == "paconv_chain")
     chain_err = lambda key: max(max(r[k][key] for k in ("main", "odd")) for r in chain_rows)
+    k1_bf16, k2_bf16 = k1_bf16_rows[0], k2_bf16_rows[0]
+    from wavemamba_torch.scripts.gpu_probe import NAMES as PROBES
+
+    probes = []
+    for name, tag in zip(PROBES, ("P1", "P2", "P3", "P4", "P5")):
+        rows = [r for r in probe_rows if r["probe"] == name]
+        first = rows[0]  # at the TPU probe's K
+        probes.append({
+            "name": f"probe_{name} ({tag})", "route": "cuda", "source": "wavemamba_torch/csrc/gpu_probe.cu",
+            "replaces": first["replaces"], "launches": sum(r["launches"] for r in rows),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_rel_err": max(r["max_rel_err"] for r in rows), "K": first["K"], "ms": first["ms"],
+            "gops": first["gops"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+            "at_compute_K": None if len(rows) == 1 else {
+                k: rows[1][k] for k in ("K", "ms", "gops", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")}})
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "ss2d_scan_pair (K1)", "route": "cuda", "source": "wavemamba_torch/csrc/ss2d_scan.cu",
         "replaces": "wavemamba_tpu/ops/scan_pallas.py:705",
-        "launches": launches + run["k1_launches"], "launches_serve": launches,
-        "launches_train": run["k1_launches"],
-        "max_abs_err": max([r["max_abs_err"] for r in k1_rows] + [max(r["k1"].values()) for r in k2_rows]),
+        "launches": launches + run["k1_launches"] + fast["launches"] + train_fast["k1_launches"],
+        "launches_serve": launches, "launches_train": run["k1_launches"],
+        "launches_serve_fast": fast["launches"], "launches_train_fast": train_fast["k1_launches"],
+        "variants": "x and y float32, or bfloat16 on the fast paths",
+        "max_abs_err": max([r["max_abs_err"] for r in k1_rows + k1_bf16_rows]
+                           + [max(r["k1"].values()) for r in k2_rows]
+                           + [r["k1"]["y"] for r in k2_bf16_rows]),
         "ms": level1["ms"], "plain_ms": level1["plain_ms"], "bound_ms": level1["bound_ms"],
-        "bound_by": level1["bound_by"], "library_ms": None}, {
+        "bound_by": level1["bound_by"], "library_ms": None,
+        "bf16": {k: k1_bf16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                                         "share_differing")}}, {
         "name": "ss2d_scan_pair_bwd (K2)", "route": "cuda",
         "source": "wavemamba_torch/csrc/ss2d_scan_bwd.cu",
-        "replaces": "wavemamba_tpu/ops/scan_pallas.py:952", "launches": run["k2_launches"],
-        "max_abs_err": max(max(r["max_abs_err"].values()) for r in k2_rows),
-        "max_rel_err": max(max(r["max_rel_err"].values()) for r in k2_rows),
+        "replaces": "wavemamba_tpu/ops/scan_pallas.py:952",
+        "launches": run["k2_launches"] + train_fast["k2_launches"],
+        "launches_train": run["k2_launches"], "launches_train_fast": train_fast["k2_launches"],
+        "variants": "x, dy and dx float32, or bfloat16 on the fast training path",
+        "max_abs_err": max(max(r["max_abs_err"].values()) for r in k2_rows + k2_bf16_rows),
+        "max_rel_err": max(max(r["max_rel_err"].values()) for r in k2_rows + k2_bf16_rows),
         "ms": k2_level1["ms"], "plain_ms": k2_level1["plain_ms"],
         "bound_ms": k2_level1["bound_ms"], "bound_by": k2_level1["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None,
+        "bf16": {k: k2_bf16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                                         "dx_share_differing")}}, {
         "name": "selective_scan_cuda (K3)", "route": "cuda",
         "source": "wavemamba_torch/csrc/selective_scan.cu",
         "replaces": "wavemamba_tpu/ops/scan_pallas.py:134", "launches": pipe["launches"]["k3"],
@@ -1510,7 +2028,9 @@ def main():
         "shape": "paconv_chain " + "x".join(map(str, pac["shape"])),
         "max_abs_err": chain_err("max_abs_err"), "max_rel_err": chain_err("max_rel_err"),
         "ms": pac["ms"], "plain_ms": pac["plain_ms"], "bound_ms": pac["bound_ms"],
-        "bound_by": pac["bound_by"], "library_ms": pac["library_ms"], "stock_ms": pac["stock_ms"]}]})
+        "bound_by": pac["bound_by"], "library_ms": pac["library_ms"], "stock_ms": pac["stock_ms"]}]
+        + probes, "bench": {m: {k: r[k] for k in ("value", "device_ms", "vs_baseline")}
+                            for m, r in bench.items()}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

@@ -168,7 +168,7 @@ def test_chain_refuses_what_it_does_not_run():
     with pytest.raises(RuntimeError, match="inference only"):  # no backward: the weights need one
         tcf.dw_act(conv, x)
     with torch.no_grad():
-        with pytest.raises(NotImplementedError, match="item 4"):
+        with pytest.raises(NotImplementedError, match="item 13"):
             tcf.dw_act(conv, x.bfloat16())
         with pytest.raises(ValueError, match="unknown stage"):
             tcf.fused_chain(x, (("conv", conv.weight, None),))

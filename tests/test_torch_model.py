@@ -234,9 +234,10 @@ def test_unfused_scan_can_be_rerouted():
 
 
 def test_network_g_keys_are_honoured_or_refused():
-    """The factory's one rule: config fields are honoured, the JAX package's
-    other execution knobs pass at their float32 values and raise naming their
-    ROADMAP item otherwise, anything else is a KeyError."""
+    """The factory's one rule: config fields are honoured (the bf16 dtypes
+    among them), the JAX package's other execution knobs pass at the values
+    the port runs and raise naming their ROADMAP item otherwise, anything else
+    is a KeyError."""
     from wavemamba_torch.models import config_from_opt
 
     base = {"type": "WaveMamba", "wf": 16, "n_l_blocks": [1, 1, 1], "n_h_blocks": [1, 1, 1]}
@@ -246,13 +247,17 @@ def test_network_g_keys_are_honoured_or_refused():
     assert cfg.n_l_blocks == (1, 1, 1)
     assert config_from_opt(base).scan_impl == "pallas_fused"  # the port's default
     assert config_from_opt({**base, "conv_impl": "fused"}).conv_impl == "fused"  # inference only
-    for key, value, match in [("compute_dtype", "bfloat16", "item 4"),
-                              ("scan_dtype", "bfloat16", "item 4"),
-                              ("conv1x1_as_conv", ["ffn"], "item 4"),
+    bf16 = config_from_opt({**base, "compute_dtype": "bfloat16", "scan_dtype": "bfloat16"})
+    assert (bf16.compute_dtype, bf16.scan_dtype) == ("bfloat16", "bfloat16")
+    for key, value, match in [("conv1x1_as_conv", ["ffn"], "item 15"),
                               ("remat_policy", "save_scan", "item 6"),
                               ("scan_impl", "seq_sharded", "item 9")]:
         with pytest.raises(NotImplementedError, match=match):
             config_from_opt({**base, key: value})
+    with pytest.raises(NotImplementedError, match="item 13"):  # the chains take float32
+        config_from_opt({**base, "conv_impl": "fused", "compute_dtype": "bfloat16"})
+    with pytest.raises(ValueError, match="unknown scan_dtype"):
+        config_from_opt({**base, "scan_dtype": "float16"})
     with pytest.raises(KeyError, match="unknown network_g key"):
         config_from_opt({**base, "widht": 3})
     with pytest.raises(ValueError, match="unknown scan_impl"):

@@ -97,18 +97,35 @@ def test_train_config_from_opt_matches(path):
     assert train_config_from_opt({}).fft_weight == 0.0 and train_config_from_opt({}).lr == 5e-4
 
 
-def test_shipped_ymls_ask_for_the_float32_path_explicitly():
-    """A yml that asks for bf16 compute is refused, naming where bf16 waits,
-    and runs once the float32 path is forced; nothing is dropped silently."""
+def test_shipped_ymls_ask_for_the_float32_path_explicitly(tmp_path):
+    """Every shipped yml builds as it is: the nine that ask for bf16 compute
+    get it (no `--force_yml`), the float32 path is still one force away, and
+    the xxl4 yml's bf16 network and train sections take a training step and
+    serve a request on the CPU (the kernels' plain versions)."""
     from wavemamba_torch.models import config_from_opt
 
+    dtypes = {}
+    for path in YMLS:
+        cfg = config_from_opt(toptions.yaml_load(path)["network_g"])
+        dtypes[os.path.basename(path)] = cfg.compute_dtype
+    assert sorted(dtypes.values()).count("bfloat16") == 9 and len(dtypes) == 11, dtypes
     opt = toptions.yaml_load(os.path.join(REPO, "options", "train_wavemamba_proc_bsrgan_xxl4.yml"))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        config_from_opt(opt["network_g"])
-    toptions.apply_force_yml(opt, ["network_g:compute_dtype=float32", "network_g:scan_dtype=float32"])
-    assert config_from_opt(opt["network_g"]).scan_impl == "pallas_fused"
+    cfg = config_from_opt(opt["network_g"])
+    assert (cfg.compute_dtype, cfg.scan_dtype, cfg.scan_impl) == ("bfloat16", "bfloat16", "pallas_fused")
+    forced = toptions.yaml_load(os.path.join(REPO, "options", "train_wavemamba_proc_bsrgan_xxl4.yml"))
+    toptions.apply_force_yml(forced, ["network_g:compute_dtype=float32", "network_g:scan_dtype=float32"])
+    assert config_from_opt(forced["network_g"]).compute_dtype == "float32"
     uhdll = toptions.yaml_load(os.path.join(REPO, "options", "train_wavemamba_uhdll.yml"))
     assert config_from_opt(uhdll["network_g"]).wf == 32
+
+    run = {**_opt(tmp_path, is_train=True), "network_g": opt["network_g"], "train": opt["train"]}
+    model = build_model(run)
+    assert all(p.dtype == torch.float32 for p in model.model.parameters())
+    batch = next(_fake_loader(1, (16, 16)))
+    losses = [float(model.optimize_parameters(batch)["total"]) for _ in range(2)]
+    assert np.isfinite(losses).all() and model.state.step == 2
+    out = model.test(batch["lq"])
+    assert out.dtype == np.float32 and out.shape == batch["lq"].shape and np.isfinite(out).all()
 
 
 def _opt(tmp_path, is_train=False, **net):

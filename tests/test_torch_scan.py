@@ -59,6 +59,35 @@ def test_ss2d_scan_pair_plain_matches_fused_kernel(B, L, D, N, R, chunk):
     assert scan_cuda.ss2d_scan_pair.launches == before
 
 
+BF16_STEP = 2.0 ** -7  # one bf16 step (8 significant bits), at most this share of the value
+
+
+@pytest.mark.parametrize("x_bf16,y_bf16", [(True, True), (True, False), (False, True)])
+@pytest.mark.parametrize("B,L,D,N,R,chunk", [(2, 200, 16, 4, 2, 64), (1, 150, 64, 16, 2, 64)])
+def test_ss2d_scan_pair_plain_matches_fused_kernel_on_bf16_streams(B, L, D, N, R, chunk,
+                                                                    x_bf16, y_bf16):
+    """K1's plain version on the bf16 presets' streams (bf16 x, y in bf16 or
+    float32, and float32 x with bf16 y: `compute_dtype` and `scan_dtype` set
+    apart) against the TPU kernel with `out_dtype`: both widen x and compute in
+    float32, and round y once, so they differ by at most one bf16 step beyond
+    TOL (measured: the same bits in bf16)."""
+    args = _pair_inputs(0, B, L, D, N, R)
+    x = torch.from_numpy(args[0])
+    x = x.bfloat16() if x_bf16 else x
+    jx = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16 if x_bf16 else jnp.float32)
+    want = ss2d_scan_fused(jx, *map(jnp.asarray, args[1:]), chunk=chunk, sub=8, interpret=True,
+                           out_dtype=jnp.bfloat16 if y_bf16 else None)
+    out_dtype = torch.bfloat16 if y_bf16 else None
+    got = tscan.ss2d_scan_pair_plain(x, *map(torch.from_numpy, args[1:]), chunk=chunk,
+                                     out_dtype=out_dtype)
+    assert got.dtype == (torch.bfloat16 if y_bf16 else torch.float32) and got.shape == (B, 2, L, D)
+    want = np.asarray(want.astype(jnp.float32))
+    assert (np.abs(got.float().numpy() - want) <= BF16_STEP * np.abs(want) + TOL).all()
+    # The wrapper takes the same streams on a CPU tensor.
+    wrapped = scan_cuda.ss2d_scan_pair(x, *map(torch.from_numpy, args[1:]), out_dtype=out_dtype)
+    assert wrapped.dtype == got.dtype
+
+
 def _scan_inputs(seed, B=2, K=4, L=45, D=8, N=4):
     rs = np.random.RandomState(seed)
     return (
@@ -122,6 +151,19 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     x64 = FakeCuda(x.t.double())
     with pytest.raises(ValueError, match="float32"):
         scan_cuda.ss2d_scan_pair(x64, wx, dtw, bias, A, dsk)
+
+
+@pytest.mark.parametrize("x_dtype,out_dtype", [(torch.bfloat16, None), (torch.float32, torch.bfloat16)])
+def test_kernel_wrapper_refuses_mixed_stream_dtypes(monkeypatch, x_dtype, out_dtype):
+    """K1 is built for x and y of one dtype: a CUDA tensor with another mix
+    raises naming the ROADMAP item, before any build; no launch is counted."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = [FakeCuda(torch.from_numpy(a)) for a in _pair_inputs(3, 1, 70, 64, 16, 2)]
+    args[0] = FakeCuda(args[0].t.to(x_dtype))
+    before = scan_cuda.ss2d_scan_pair.launches
+    with pytest.raises(NotImplementedError, match="item 16"):
+        scan_cuda.ss2d_scan_pair(*args, out_dtype=out_dtype)
+    assert scan_cuda.ss2d_scan_pair.launches == before
 
 
 def test_kernel_wrapper_raises_without_a_card(monkeypatch):

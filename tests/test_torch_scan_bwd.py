@@ -73,6 +73,32 @@ def test_plain_bwd_matches_fused_bwd_kernel(B, L, D, N, R, chunk):
 
 
 @pytest.mark.parametrize("B,L,D,N,R,chunk", CASES)
+def test_plain_bwd_matches_fused_bwd_kernel_on_bf16_streams(B, L, D, N, R, chunk):
+    """K2's plain version on bf16 x and dy, dx written in bf16, against the
+    TPU kernel on the same bf16 inputs. The weights' gradients are float32 on
+    both sides: REL. dx rounds each member's dx to bf16 and adds the two in
+    bf16, as the TPU kernel does: within one bf16 step of the kernel's own
+    bf16 dx at every element."""
+    args, dy = _pair_inputs(3, B, L, D, N, R)
+    x, dyb = torch.from_numpy(args[0]).bfloat16(), torch.from_numpy(dy).bfloat16()
+    rest = tuple(map(jnp.asarray, args[1:]))
+    jx, jdy = jnp.asarray(x.float().numpy()), jnp.asarray(dyb.float().numpy())
+    _, carries = ss2d_scan_fused(jx.astype(jnp.bfloat16), *rest, chunk=chunk, sub=8, interpret=True,
+                                 return_carries=True, out_dtype=jnp.bfloat16)
+    want = ss2d_scan_fused_bwd(jx.astype(jnp.bfloat16), *rest, carries, jdy.astype(jnp.bfloat16),
+                               chunk=chunk, sub=8, interpret=True)
+    jc = np.asarray(carries)
+    jc = np.stack([jc[:, 0], jc[:, 1, ::-1]], 1)
+    got = tscan.ss2d_scan_pair_plain_bwd(x, *map(torch.from_numpy, args[1:]),
+                                         torch.from_numpy(jc.copy()), dyb, chunk=chunk)
+    assert got[0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in got[1:])
+    for g, w, name in zip(got[1:], want[1:], NAMES[1:]):
+        assert _rel(g.numpy(), np.asarray(w)) < REL, (name, _rel(g.numpy(), np.asarray(w)))
+    dx, wdx = got[0].float().numpy(), np.asarray(want[0].astype(jnp.float32))
+    assert (np.abs(dx - wdx) <= 2.0 ** -7 * np.abs(wdx)).all(), np.abs(dx - wdx).max()
+
+
+@pytest.mark.parametrize("B,L,D,N,R,chunk", CASES)
 def test_plain_bwd_matches_autograd_of_plain_forward(B, L, D, N, R, chunk):
     args, dy = _pair_inputs(5, B, L, D, N, R)
     targs = [torch.from_numpy(a).requires_grad_() for a in args]
@@ -116,6 +142,20 @@ def _fake_bwd_args(seed, B, L, D, N, R):
     nc = -(-L // scan_cuda.CHUNK)
     extra = (np.zeros((B, 2, nc, N, D), np.float32), np.zeros((B, 2, nc, D), np.float32), dy)
     return [FakeCuda(torch.from_numpy(a)) for a in args + extra]
+
+
+@pytest.mark.parametrize("x_bf16", [True, False])
+def test_bwd_wrapper_refuses_mixed_stream_dtypes(monkeypatch, x_bf16):
+    """K2 is built for x and dy of one dtype: a CUDA tensor with another mix
+    raises naming the ROADMAP item, before any build; no launch is counted."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = _fake_bwd_args(9, 1, 70, 64, 16, 2)
+    i = 0 if x_bf16 else -1
+    args[i] = FakeCuda(args[i].t.bfloat16())
+    before = scan_cuda.ss2d_scan_pair_bwd.launches
+    with pytest.raises(NotImplementedError, match="item 16"):
+        scan_cuda.ss2d_scan_pair_bwd(*args)
+    assert scan_cuda.ss2d_scan_pair_bwd.launches == before
 
 
 def test_bwd_wrapper_raises_without_a_card(monkeypatch):

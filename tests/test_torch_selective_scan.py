@@ -118,6 +118,29 @@ def test_par_matches_jax(L, sub):
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("impl,kw,tol", [("par", {"sub": 16}, 1e-6), ("par", {"sub": 32}, 1e-6),
+                                         ("chunked", {"chunk": 16}, 2e-2)])
+def test_bf16_working_arrays_match_jax(impl, kw, tol):
+    """`scan_dtype=bfloat16` (the `fast_xla` preset's 'par'): bf16 working
+    arrays and y, as the JAX functions. 'par' takes the JAX function's steps
+    in its order and gives its bits (measured: equal); 'chunked' scans inside
+    a chunk in another order (log-depth over the chunk, where JAX takes
+    subsegments of 8), so bf16 rounds elsewhere: of the output's max, 2e-2
+    from JAX's (measured 4.3e-3), and both 2e-2 from the float32 reference
+    (measured 8.9e-3 and 5.8e-3)."""
+    args, _ = _inputs(9, 2, 4, 45, 8, 4)
+    jargs = tuple(map(jnp.asarray, args))
+    want = np.asarray(jscan.selective_scan(*jargs, impl=impl, scan_dtype=jnp.bfloat16, **kw)
+                      .astype(jnp.float32))
+    ref = np.asarray(jscan.selective_scan_ref(*jargs))
+    got = tscan.selective_scan(*map(torch.from_numpy, args), impl=impl, scan_dtype=torch.bfloat16, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == args[0].shape
+    got = got.float().numpy()
+    scale = np.abs(ref).max()
+    assert np.abs(got - want).max() <= tol * scale
+    assert np.abs(got - ref).max() <= 2e-2 * scale
+
+
 @pytest.mark.parametrize("L,chunk", [(45, 16), (64, 32)])
 def test_chunked_h0_and_final_state_match_jax(L, chunk):
     """A scan cut in two: the second half entered with the first half's exit
@@ -161,11 +184,18 @@ def test_dispatcher_matches_jax_forward_and_gradient(impl):
 
 
 def test_dispatcher_rejects_unknown_routes_and_bf16():
+    """Unknown routes and dtypes raise; bf16 runs 'chunked' and 'par' on bf16
+    working arrays and returns bf16, 'ref' and 'pallas' compute in float32
+    whatever `scan_dtype` says, as the JAX dispatcher does."""
     targs = tuple(map(torch.from_numpy, _inputs(14, 1, 2, 8, 4, 4)[0]))
     with pytest.raises(ValueError, match="unknown selective_scan impl"):
         tscan.selective_scan(*targs, impl="fast")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tscan.selective_scan(*targs, impl="chunked", scan_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tscan.selective_scan(*targs, impl="chunked", scan_dtype=torch.float16)
+    for impl, want in [("chunked", torch.bfloat16), ("par", torch.bfloat16), ("ref", torch.float32),
+                       ("pallas", torch.float32)]:
+        y = tscan.selective_scan(*targs, impl=impl, chunk=4, sub=4, scan_dtype=torch.bfloat16)
+        assert y.dtype == want and y.shape == targs[0].shape, impl
 
 
 def test_wrapper_is_differentiable_and_counts_nothing_on_the_cpu():

@@ -36,9 +36,19 @@
 // reverse direction is index arithmetic and the last chunk is ragged.
 // The exp() of the recurrence is computed twice (passes 1 and 3); halving
 // that is work for a later version.
+//
+// Token streams in float32 or bf16 (the bf16 presets), x and y alike: x is
+// widened as it is staged; y is written in the streams' dtype, rounded once
+// from the float32 value (the TPU rounds the reverse member's y before it
+// un-reverses it, which moves the same values). Weights, state and every operation stay
+// float32. The tile is staged with coalesced element loads: a warp reads 64
+// contiguous bf16 values (one 128-byte row at D = 64) per pass; the stream is
+// a small share of the bytes next to the SFU's work.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "stream_dtype.cuh"
 
 namespace {
 
@@ -50,12 +60,12 @@ __device__ __forceinline__ float softplus(float v) {
   return v > 20.f ? v : log1pf(expf(v));
 }
 
-template <int N, int R, bool REPLAY>
+template <int N, int R, bool REPLAY, typename TS>
 __global__ void __launch_bounds__(256) chunk_scan(
-    const float* __restrict__ x, const float* __restrict__ wx,
+    const TS* __restrict__ x, const float* __restrict__ wx,
     const float* __restrict__ dtw, const float* __restrict__ bias,
     const float* __restrict__ A, const float* __restrict__ dsk,
-    float* __restrict__ state, float* __restrict__ sumda, float* __restrict__ y,
+    float* __restrict__ state, float* __restrict__ sumda, TS* __restrict__ y,
     int L, int D, int T, int nc) {
   constexpr int J = R + 2 * N;        // projection width
   constexpr int JP = kRPad + 2 * N;   // padded x_dbl row, 16-byte aligned B and C
@@ -68,9 +78,9 @@ __global__ void __launch_bounds__(256) chunk_scan(
   const int l0 = c * T;
   const int tc = min(T, L - l0);
 
-  const float* xb = x + ((size_t)b * L + l0) * D;
+  const TS* xb = x + ((size_t)b * L + l0) * D;
   for (int i = threadIdx.x; i < tc * D; i += blockDim.x) {
-    xs[(i / D) * DP + i % D] = xb[i];
+    xs[(i / D) * DP + i % D] = load_f32(xb + i);
   }
   __syncthreads();
 
@@ -107,7 +117,7 @@ __global__ void __launch_bounds__(256) chunk_scan(
   float* st = state + ci * N * D + d;
 #pragma unroll
   for (int n = 0; n < N; ++n) h[n] = REPLAY ? st[(size_t)n * D] : 0.f;
-  float* yb = y + (((size_t)b * 2 + k) * L + l0) * D + d;
+  TS* yb = y + (((size_t)b * 2 + k) * L + l0) * D + d;
   float sda = 0.f;
 
   for (int s = 0; s < tc; ++s) {
@@ -139,7 +149,7 @@ __global__ void __launch_bounds__(256) chunk_scan(
       }
     }
     if (REPLAY) {
-      yb[(size_t)t * D] = fmaf(dk, u, acc);
+      store_f32(yb + (size_t)t * D, fmaf(dk, u, acc));
     } else {
       sda += da;
     }
@@ -193,23 +203,23 @@ __global__ void __launch_bounds__(32 * kPrefixWorkers) chunk_prefix(
   }
 }
 
-template <int N, int R>
-cudaError_t launch(const float* x, const float* wx, const float* dtw,
+template <int N, int R, typename TS>
+cudaError_t launch(const TS* x, const float* wx, const float* dtw,
                    const float* bias, const float* A, const float* dsk,
-                   float* y, float* state, float* sumda,
+                   TS* y, float* state, float* sumda,
                    int B, int L, int D, int T, cudaStream_t stream) {
   const int nc = (L + T - 1) / T;
   const size_t smem = sizeof(float) * ((size_t)2 * T * (kRPad + 2 * N) + (size_t)T * (D + 1));
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(chunk_scan<N, R, false>,
+    cudaError_t e = cudaFuncSetAttribute(chunk_scan<N, R, false, TS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(chunk_scan<N, R, true>,
+    e = cudaFuncSetAttribute(chunk_scan<N, R, true, TS>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid(nc, B);
-  chunk_scan<N, R, false><<<grid, 2 * D, smem, stream>>>(
+  chunk_scan<N, R, false, TS><<<grid, 2 * D, smem, stream>>>(
       x, wx, dtw, bias, A, dsk, state, sumda, y, L, D, T, nc);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -217,42 +227,45 @@ cudaError_t launch(const float* x, const float* wx, const float* dtw,
   chunk_prefix<<<pgrid, pblock, 0, stream>>>(A, state, sumda, N * D, D, nc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  chunk_scan<N, R, true><<<grid, 2 * D, smem, stream>>>(
+  chunk_scan<N, R, true, TS><<<grid, 2 * D, smem, stream>>>(
       x, wx, dtw, bias, A, dsk, state, sumda, y, L, D, T, nc);
   return cudaGetLastError();
+}
+
+template <typename TS>
+cudaError_t launch_r(const void* x, const void* wx, const void* dtw, const void* bias,
+                     const void* A, const void* dsk, void* y, void* state, void* sumda,
+                     int B, int L, int D, int R, int T, cudaStream_t s) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto m = [](void* p) { return static_cast<float*>(p); };
+  const TS* xt = static_cast<const TS*>(x);
+  TS* yt = static_cast<TS*>(y);
+  switch (R) {
+    case 1: return launch<16, 1>(xt, f(wx), f(dtw), f(bias), f(A), f(dsk), yt, m(state), m(sumda), B, L, D, T, s);
+    case 2: return launch<16, 2>(xt, f(wx), f(dtw), f(bias), f(A), f(dsk), yt, m(state), m(sumda), B, L, D, T, s);
+    case 3: return launch<16, 3>(xt, f(wx), f(dtw), f(bias), f(A), f(dsk), yt, m(state), m(sumda), B, L, D, T, s);
+    case 4: return launch<16, 4>(xt, f(wx), f(dtw), f(bias), f(A), f(dsk), yt, m(state), m(sumda), B, L, D, T, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (B, L, D); wx (2, D, R+2N); dtw (2, R, D); bias, dsk (2, D); A (2, N, D);
-// y (B, 2, L, D); scratch: state (B, 2, nc, N, D), sumda (B, 2, nc, D) with
-// nc = ceil(L / T). All f32, contiguous, on the device of `stream`.
-// Returns a cudaError_t; the caller has checked N == 16, 1 <= R <= 4 and
-// 2 * D <= 256.
-int ss2d_scan_pair_f32(const void* x, const void* wx, const void* dtw,
-                       const void* bias, const void* A, const void* dsk,
-                       void* y, void* state, void* sumda,
-                       int B, int L, int D, int N, int R, int T, void* stream) {
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(wx);
-  const float* tf = static_cast<const float*>(dtw);
-  const float* bf = static_cast<const float*>(bias);
-  const float* af = static_cast<const float*>(A);
-  const float* sf = static_cast<const float*>(dsk);
-  float* yf = static_cast<float*>(y);
-  float* stf = static_cast<float*>(state);
-  float* df = static_cast<float*>(sumda);
+// x (B, L, D) and y (B, 2, L, D), both bf16 if bf16 else both f32; wx (2, D,
+// R+2N); dtw (2, R, D); bias, dsk (2, D); A (2, N, D); scratch:
+// state (B, 2, nc, N, D), sumda (B, 2, nc, D) with nc = ceil(L / T). All but
+// x and y f32; all contiguous, on the device of `stream`. Returns a
+// cudaError_t; the caller has checked N == 16, 1 <= R <= 4 and 2 * D <= 256.
+int ss2d_scan_pair(const void* x, const void* wx, const void* dtw,
+                   const void* bias, const void* A, const void* dsk,
+                   void* y, void* state, void* sumda,
+                   int B, int L, int D, int N, int R, int T, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N != 16) return cudaErrorInvalidValue;
-  switch (R) {
-    case 1: return launch<16, 1>(xf, wf, tf, bf, af, sf, yf, stf, df, B, L, D, T, s);
-    case 2: return launch<16, 2>(xf, wf, tf, bf, af, sf, yf, stf, df, B, L, D, T, s);
-    case 3: return launch<16, 3>(xf, wf, tf, bf, af, sf, yf, stf, df, B, L, D, T, s);
-    case 4: return launch<16, 4>(xf, wf, tf, bf, af, sf, yf, stf, df, B, L, D, T, s);
-    default: return cudaErrorInvalidValue;
-  }
+  if (bf16) return launch_r<__nv_bfloat16>(x, wx, dtw, bias, A, dsk, y, state, sumda, B, L, D, R, T, s);
+  return launch_r<float>(x, wx, dtw, bias, A, dsk, y, state, sumda, B, L, D, R, T, s);
 }
 
 const char* ss2d_scan_error_string(int code) {

@@ -48,9 +48,18 @@
 //      in a fixed order, so the result is the same bits every run.
 // The exp() of the recurrence is computed four times (phase 1, and three
 // passes of phase 3); fewer passes are work for a later version.
+//
+// Token streams in float32 or bf16 (the bf16 presets), x, dy and dx alike: x
+// and dy are widened on load. Each member's dx is rounded to the streams'
+// dtype, the two are added in float32 in shared memory (exact for two bf16
+// values of like size) and the sum is rounded again: the TPU kernel's bf16
+// dx, one rounding per member and a bf16 add. Weights, their gradients and
+// every operation stay float32.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "stream_dtype.cuh"
 
 namespace {
 
@@ -65,15 +74,15 @@ __device__ __forceinline__ float softplus(float v) {
 
 // Stages the chunk's x tile in xs [T][D+1] and x_dbl of both directions in
 // xd [2][T][JP], as K1 does.
-template <int N, int R>
+template <int N, int R, typename TS>
 __device__ __forceinline__ void load_and_project(
-    const float* __restrict__ xb, const float* __restrict__ wx,
+    const TS* __restrict__ xb, const float* __restrict__ wx,
     float* xs, float* xd, int tc, int D, int T) {
   constexpr int J = R + 2 * N;
   constexpr int JP = kRPad + 2 * N;
   const int DP = D + 1;
   for (int i = threadIdx.x; i < tc * D; i += blockDim.x) {
-    xs[(i / D) * DP + i % D] = xb[i];
+    xs[(i / D) * DP + i % D] = load_f32(xb + i);
   }
   __syncthreads();
   for (int p = threadIdx.x; p < 2 * tc; p += blockDim.x) {
@@ -98,11 +107,11 @@ __device__ __forceinline__ void load_and_project(
 }
 
 // Phase 1: what the adjoint carries out of each chunk when nothing enters it.
-template <int N, int R>
+template <int N, int R, typename TS>
 __global__ void __launch_bounds__(128) bwd_local(
-    const float* __restrict__ x, const float* __restrict__ wx,
+    const TS* __restrict__ x, const float* __restrict__ wx,
     const float* __restrict__ dtw, const float* __restrict__ bias,
-    const float* __restrict__ A, const float* __restrict__ dy,
+    const float* __restrict__ A, const TS* __restrict__ dy,
     float* __restrict__ gcar, int L, int D, int T, int nc) {
   constexpr int JP = kRPad + 2 * N;
   extern __shared__ float4 smem4[];
@@ -122,7 +131,7 @@ __global__ void __launch_bounds__(128) bwd_local(
   const float bk = bias[k * D + d];
 #pragma unroll
   for (int n = 0; n < N; ++n) ga[n] = 0.f;  // a_{t+1} g_{t+1}
-  const float* dyb = dy + (((size_t)b * 2 + k) * L + l0) * D + d;
+  const TS* dyb = dy + (((size_t)b * 2 + k) * L + l0) * D + d;
 
   for (int s = tc - 1; s >= 0; --s) {
     const int t = k == 0 ? s : tc - 1 - s;
@@ -131,7 +140,7 @@ __global__ void __launch_bounds__(128) bwd_local(
 #pragma unroll
     for (int r = 0; r < R; ++r) dt = fmaf(q[r], wdt[r], dt);
     const float da = softplus(dt);
-    const float dyv = dyb[(size_t)t * D];
+    const float dyv = load_f32(dyb + (size_t)t * D);
     const float4* cq = reinterpret_cast<const float4*>(q + kRPad + N);
 #pragma unroll
     for (int n4 = 0; n4 < N / 4; ++n4) {
@@ -193,13 +202,13 @@ __global__ void __launch_bounds__(32 * kPrefixWorkers) bwd_prefix(
 
 // Phase 3: the gradients. part: [gridDim.y * gridDim.x][P][2D] partial sums,
 // P = (R+2N) + R + 1 + N + 1 rows: dwx, ddtw, dbias, dA, ddsk.
-template <int N, int R>
+template <int N, int R, typename TS>
 __global__ void __launch_bounds__(128) bwd_main(
-    const float* __restrict__ x, const float* __restrict__ wx,
+    const TS* __restrict__ x, const float* __restrict__ wx,
     const float* __restrict__ dtw, const float* __restrict__ bias,
     const float* __restrict__ A, const float* __restrict__ dsk,
     const float* __restrict__ state, const float* __restrict__ gcar,
-    const float* __restrict__ dy, float* __restrict__ dx,
+    const TS* __restrict__ dy, TS* __restrict__ dx,
     float* __restrict__ part, int L, int D, int T, int nc) {
   constexpr int J = R + 2 * N;
   constexpr int JP = kRPad + 2 * N;
@@ -245,7 +254,7 @@ __global__ void __launch_bounds__(128) bwd_main(
     load_and_project<N, R>(x + ((size_t)b * L + l0) * D, wx, xs, xd, tc, D, T);
 
     const size_t ci = ((size_t)b * 2 + k) * nc + c;
-    const float* dyb = dy + (((size_t)b * 2 + k) * L + l0) * D + d;
+    const TS* dyb = dy + (((size_t)b * 2 + k) * L + l0) * D + d;
     float h[N], ga[N];
 
     // h at the head of every sub-tile, from the chunk's entering state.
@@ -296,7 +305,7 @@ __global__ void __launch_bounds__(128) bwd_main(
           h[n] = fmaf(expf(da * An[n]), h[n], du * q[kRPad + n]);
           o[n * HP] = h[n];
         }
-        dys[si * D2 + tid] = dyb[(size_t)t * D];
+        dys[si * D2 + tid] = load_f32(dyb + (size_t)t * D);
       }
       __syncthreads();
 
@@ -394,13 +403,13 @@ __global__ void __launch_bounds__(128) bwd_main(
           acc = fmaf(row[kRPad + jj], __ldg(wrow + R + jj), acc);
           dwx_acc[R + jj] = fmaf(xv, row[kRPad + jj], dwx_acc[R + jj]);
         }
-        atomicAdd(dxs + t * DP + d, acc);
+        atomicAdd(dxs + t * DP + d, round_like(dx, acc));
       }
       __syncthreads();  // before the next sub-tile reuses hist, dys and dxd
     }
 
-    float* dxb = dx + ((size_t)b * L + l0) * D;
-    for (int i = tid; i < tc * D; i += blockDim.x) dxb[i] = dxs[(i / D) * DP + i % D];
+    TS* dxb = dx + ((size_t)b * L + l0) * D;
+    for (int i = tid; i < tc * D; i += blockDim.x) store_f32(dxb + i, dxs[(i / D) * DP + i % D]);
   }
 
   float* po = part + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * (J + R + N + 2) * D2 + tid;
@@ -432,23 +441,23 @@ size_t main_smem(int N, int D, int T) {
                           3 * (size_t)kSub * D2 + (size_t)kSub * 2 * JP);
 }
 
-template <int N, int R>
-cudaError_t launch(const float* x, const float* wx, const float* dtw,
+template <int N, int R, typename TS>
+cudaError_t launch(const TS* x, const float* wx, const float* dtw,
                    const float* bias, const float* A, const float* dsk,
-                   const float* state, const float* sumda, const float* dy,
-                   float* dx, float* gcar, float* part, float* sums,
+                   const float* state, const float* sumda, const TS* dy,
+                   TS* dx, float* gcar, float* part, float* sums,
                    int B, int L, int D, int T, int gx, cudaStream_t stream) {
   const int nc = (L + T - 1) / T;
   const size_t smem_local = sizeof(float) * ((size_t)2 * T * (kRPad + 2 * N) + (size_t)T * (D + 1));
   const size_t smem_main = main_smem(N, D, T);
-  cudaError_t e = cudaFuncSetAttribute(bwd_local<N, R>,
+  cudaError_t e = cudaFuncSetAttribute(bwd_local<N, R, TS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_local);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(bwd_main<N, R>,
+  e = cudaFuncSetAttribute(bwd_main<N, R, TS>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_main);
   if (e != cudaSuccess) return e;
 
-  bwd_local<N, R><<<dim3(nc, B), 2 * D, smem_local, stream>>>(
+  bwd_local<N, R, TS><<<dim3(nc, B), 2 * D, smem_local, stream>>>(
       x, wx, dtw, bias, A, dy, gcar, L, D, T, nc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -456,7 +465,7 @@ cudaError_t launch(const float* x, const float* wx, const float* dtw,
   bwd_prefix<<<pgrid, pblock, 0, stream>>>(A, gcar, sumda, N * D, D, nc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  bwd_main<N, R><<<dim3(gx, B), 2 * D, smem_main, stream>>>(
+  bwd_main<N, R, TS><<<dim3(gx, B), 2 * D, smem_main, stream>>>(
       x, wx, dtw, bias, A, dsk, state, gcar, dy, dx, part, L, D, T, nc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -465,30 +474,19 @@ cudaError_t launch(const float* x, const float* wx, const float* dtw,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// x (B, L, D); wx (2, D, R+2N); dtw (2, R, D); bias, dsk (2, D); A (2, N, D);
-// state (B, 2, nc, N, D) and sumda (B, 2, nc, D) as K1 left them, nc =
-// ceil(L / T); dy (B, 2, L, D). Outputs: dx (B, L, D); sums (P, 2, D), P =
-// (R+2N) + R + 1 + N + 1 rows [dwx | ddtw | dbias | dA | ddsk], each row
-// (direction, channel). Scratch: gcar (B, 2, nc, N, D); part (B * gx, P, 2, D),
-// gx <= nc the number of blocks that share a batch element's chunks. All f32,
-// contiguous, on the device of `stream`. Returns a cudaError_t; the caller has
-// checked N == 16, 1 <= R <= 4, D <= 64 and T a multiple of 8.
-int ss2d_scan_pair_bwd_f32(const void* x, const void* wx, const void* dtw,
-                           const void* bias, const void* A, const void* dsk,
-                           const void* state, const void* sumda, const void* dy,
-                           void* dx, void* gcar, void* part, void* sums,
-                           int B, int L, int D, int N, int R, int T, int gx, void* stream) {
+template <typename TS>
+cudaError_t launch_r(const void* x, const void* wx, const void* dtw, const void* bias,
+                     const void* A, const void* dsk, const void* state, const void* sumda,
+                     const void* dy, void* dx, void* gcar, void* part, void* sums,
+                     int B, int L, int D, int R, int T, int gx, cudaStream_t s) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto m = [](void* p) { return static_cast<float*>(p); };
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N != 16 || D > 64 || T % kSub != 0 || gx < 1) return cudaErrorInvalidValue;
-#define WM_LAUNCH(RR)                                                                   \
-  return launch<16, RR>(f(x), f(wx), f(dtw), f(bias), f(A), f(dsk), f(state), f(sumda), \
-                        f(dy), m(dx), m(gcar), m(part), m(sums), B, L, D, T, gx, s)
+  const TS* xt = static_cast<const TS*>(x);
+  const TS* dyt = static_cast<const TS*>(dy);
+  TS* dxt = static_cast<TS*>(dx);
+#define WM_LAUNCH(RR)                                                                         \
+  return launch<16, RR>(xt, f(wx), f(dtw), f(bias), f(A), f(dsk), f(state), f(sumda), dyt, dxt, \
+                        m(gcar), m(part), m(sums), B, L, D, T, gx, s)
   switch (R) {
     case 1: WM_LAUNCH(1);
     case 2: WM_LAUNCH(2);
@@ -497,6 +495,33 @@ int ss2d_scan_pair_bwd_f32(const void* x, const void* wx, const void* dtw,
     default: return cudaErrorInvalidValue;
   }
 #undef WM_LAUNCH
+}
+
+}  // namespace
+
+extern "C" {
+
+// x (B, L, D), dy (B, 2, L, D) and dx (B, L, D), all bf16 if bf16 else all
+// f32; wx (2, D, R+2N); dtw (2, R, D); bias, dsk (2, D); A (2, N, D); state
+// (B, 2, nc, N, D) and sumda (B, 2, nc, D) as K1 left them, nc = ceil(L / T).
+// Outputs: dx; sums (P, 2, D), P = (R+2N) + R + 1 + N +
+// 1 rows [dwx | ddtw | dbias | dA | ddsk], each row (direction, channel).
+// Scratch: gcar (B, 2, nc, N, D); part (B * gx, P, 2, D), gx <= nc the number
+// of blocks that share a batch element's chunks. All but x, dy and dx f32; all
+// contiguous, on the device of `stream`. Returns a cudaError_t; the caller has
+// checked N == 16, 1 <= R <= 4, D <= 64 and T a multiple of 8.
+int ss2d_scan_pair_bwd(const void* x, const void* wx, const void* dtw,
+                       const void* bias, const void* A, const void* dsk,
+                       const void* state, const void* sumda, const void* dy,
+                       void* dx, void* gcar, void* part, void* sums,
+                       int B, int L, int D, int N, int R, int T, int gx,
+                       int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N != 16 || D > 64 || T % kSub != 0 || gx < 1) return cudaErrorInvalidValue;
+#define WM_ARGS x, wx, dtw, bias, A, dsk, state, sumda, dy, dx, gcar, part, sums, B, L, D, R, T, gx, s
+  if (bf16) return launch_r<__nv_bfloat16>(WM_ARGS);
+  return launch_r<float>(WM_ARGS);
+#undef WM_ARGS
 }
 
 const char* ss2d_scan_bwd_error_string(int code) {

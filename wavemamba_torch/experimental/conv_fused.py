@@ -26,7 +26,7 @@ the plain version, a CUDA tensor launches the kernel of
 launches in `.launches`. The chains have no backward (as the TPU's have no
 VJP): a call with grad mode on and an input or weight that requires grad
 raises. The port runs them in float32; a bf16 input raises (ROADMAP queue 1,
-item 4). `_run` sends the nine wrappers to the band kernel by default, as the
+item 13). `_run` sends the nine wrappers to the band kernel by default, as the
 JAX package does; `band_h=None`, or a call inside `chain_route("tile")`, takes
 K6, and inside `chain_route("plain")` they run the plain version on any device
 (to hold the kernels against it on the card).
@@ -132,7 +132,7 @@ def _check(name, x, stages):
         raise ValueError(f"{name}: x must be (B, C, H, W), got {tuple(x.shape)}")
     if x.dtype != torch.float32:
         raise NotImplementedError(f"{name}: {x.dtype} input; the port runs the chains in float32, "
-                                  "bf16 waits for ROADMAP queue 1, item 4 (the bf16 fast preset)")
+                                  "bf16 activations wait for ROADMAP queue 1, item 13")
     tensors = [x] + [t for s in stages for t in s[1:] if isinstance(t, torch.Tensor)]
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name}: the fused conv chains are inference only, with no backward "

@@ -7,12 +7,14 @@ Each image is reflect-padded to a x128 bucket (`models/buckets.py`), run
 through the model and cropped back; with `--tile N` it goes through the model
 in N x N tiles instead (`models/tiling.py`, 16 pixels of context, tiles padded
 to a multiple of 8). Runs in float32 parity mode: TF32 is off for cuDNN
-convolutions and cuBLAS matmuls.
+convolutions and cuBLAS matmuls. `--fast` runs `WaveMambaConfig.fast()`, the
+bf16 preset (K1 on bf16 token streams), on the same path.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -26,13 +28,12 @@ from wavemamba_torch.metrics import build_metric
 from wavemamba_torch.models import build_network
 from wavemamba_torch.models.buckets import BucketLadder, pad_to_shape
 from wavemamba_torch.models.tiling import tiled_apply
-from wavemamba_torch.models.wavemamba import pad_to_multiple, wavemamba_apply
+from wavemamba_torch.models.wavemamba import WaveMambaConfig, pad_to_multiple, wavemamba_apply
 from wavemamba_torch.utils.img_util import batch2img, img2batch, imread, imwrite
 from wavemamba_torch.utils.misc import scandir
 
 # Flags of the JAX CLI that the port does not serve yet, and where they wait.
 NOT_PORTED = {
-    "fast": "--fast waits for ROADMAP queue 1, item 4 (bf16 fast preset)",
     "lpips_weights": "--lpips_weights waits for ROADMAP queue 1, item 11 (metrics/lpips.py)",
     "compile_cache": "--compile_cache waits for ROADMAP queue 1, item 10 (deployment)",
 }
@@ -79,7 +80,8 @@ def parse_args(argv=None):
                         help="pad each image to its own 128-multiple instead of shared buckets")
     parser.add_argument("--bucket_waste", type=float, default=1.35,
                         help="max padded-area overhead before a new bucket is opened")
-    parser.add_argument("--fast", action="store_true", help="bf16 preset (not ported yet)")
+    parser.add_argument("--fast", action="store_true",
+                        help="bf16 preset (WaveMambaConfig.fast: K1 on bf16 token streams)")
     parser.add_argument("--wf", type=int, default=32)
     parser.add_argument("--n_l_blocks", type=int, nargs="+", default=[1, 2, 4])
     parser.add_argument("--n_h_blocks", type=int, nargs="+", default=[1, 1, 2])
@@ -96,8 +98,9 @@ def main(argv=None):
         sys.exit("not ported: .wmx artifacts wait for ROADMAP queue 1, item 10 (deployment)")
     set_parity_mode()
     dev = resolve_device(args.device)
-    model = build_network({"type": "WaveMamba", "wf": args.wf, "n_l_blocks": args.n_l_blocks,
-                           "n_h_blocks": args.n_h_blocks},
+    mk = WaveMambaConfig.fast if args.fast else WaveMambaConfig
+    cfg = mk(wf=args.wf, n_l_blocks=tuple(args.n_l_blocks), n_h_blocks=tuple(args.n_h_blocks))
+    model = build_network({"type": "WaveMamba", **dataclasses.asdict(cfg)},
                           load_network(args.weight, device=dev), device=dev)
 
     psnr = build_metric({"type": "psnr", "crop_border": 1, "test_y_channel": True})

@@ -5,17 +5,16 @@ evaluate).
 One rule for every key of a `network_g` dict, whoever passes it (the inference
 CLI, the trainer, the yml pipelines): a field of `WaveMambaConfig` is honoured
 (the architecture, `scan_impl`, `scan_chunk`, `scan_sub`, `remat`,
-`conv_impl`); an
-execution knob of the JAX package that the port does not run yet is accepted
-at the value of the float32 path the port does run and raises
-`NotImplementedError`, naming where it waits in ROADMAP.md, at any other; any
-other key raises `KeyError`. Nothing is dropped silently: a shipped yml that
-asks for `compute_dtype: bfloat16` runs after `--force_yml
-network_g:compute_dtype=float32`.
+`conv_impl`, `compute_dtype`, `scan_dtype`); an execution knob of the JAX
+package that the port does not run yet is accepted at the value of the path
+the port does run and raises `NotImplementedError`, naming where it waits in
+ROADMAP.md, at any other; any other key raises `KeyError`. Nothing is dropped
+silently.
 
 `conv_impl: fused` is inference only, as in the JAX package (its chains have no
 VJP): `build_network` and `init_network(..., train=False)` build it, and a
-model to train (`init_network`, the trainer, `pipelines.train`) refuses it."""
+model to train (`init_network`, the trainer, `pipelines.train`) refuses it. It
+runs in float32 only: with `compute_dtype: bfloat16` the config raises."""
 
 from __future__ import annotations
 
@@ -37,10 +36,8 @@ from wavemamba_torch.models.wavemamba import (
 # The JAX package's execution knobs that the port does not run yet: the values
 # it accepts (what the port does anyway) and where the others wait.
 _NOT_PORTED = {
-    "compute_dtype": (("float32",), "queue 1, item 4 (the bf16 fast preset)"),
-    "scan_dtype": (("float32",), "queue 1, item 4 (the bf16 fast preset)"),
     "remat_policy": (("full",), "queue 1, item 6 (the save_scan policy)"),
-    "conv1x1_as_conv": (((), []), "queue 1, item 4 (the fast preset's 1x1 layout policy)"),
+    "conv1x1_as_conv": (((), []), "queue 1, item 15 (a TPU layout policy for the 1x1 convs)"),
     "scan_mesh": ((None,), "queue 1, item 9 (multi-GPU)"),
     "scan_mesh_axis": (("data",), "queue 1, item 9 (multi-GPU)"),
 }

@@ -1,6 +1,6 @@
 """WaveMamba: the wavelet state-space U-Net for UHD low-light enhancement.
 
-The counterpart of `wavemamba_tpu/models/wavemamba.py`, float32. Modules are
+The counterpart of `wavemamba_tpu/models/wavemamba.py`. Modules are
 NCHW inside, the reference's own layout, and their attribute names are the
 `.pth` keys, so `load_state_dict(strict=True)` takes the shipped checkpoints
 as they are. `wavemamba_apply` (inference, no gradient) and
@@ -24,6 +24,17 @@ each half-block) and the eight single dense 3x3 convs, 76 chains a forward at
 the shipped depth, each one launch of kernel K7 on a CUDA tensor. The chains'
 GELU is the tanh form; the stock route keeps the exact erf.
 
+With `compute_dtype='bfloat16'` the network runs in bf16 as the JAX model
+does: parameters stay float32 and each conv, linear, PReLU slope, skip scale
+and attention temperature is cast to the activation's dtype (`ops/nn.py`);
+LayerNorm keeps float32 statistics, the channel matching float32 distances,
+the scans float32 parameters and state; the Haar DWT and the pixel-unshuffle
+pyramid take their conv forms (`dwt2_conv`, `_ps_down`), as in the JAX
+model. `scan_dtype` is the dtype of the scans' y: bf16 y is summed over the
+directions in bf16. `WaveMamba.forward` casts the input to `compute_dtype`
+and the output back. `WaveMambaConfig.fast()` and its siblings are the JAX
+package's presets.
+
 With `cfg.remat` every LFSS and HFE block runs under
 `torch.utils.checkpoint`: the backward pass recomputes the block's forward
 (the scan included) instead of keeping its activations, the JAX package's
@@ -43,9 +54,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from wavemamba_torch.experimental import conv_fused as cf
-from wavemamba_torch.ops.haar import dwt2, iwt2_cat
+from wavemamba_torch.ops.haar import dwt2, dwt2_conv, iwt2_cat
 from wavemamba_torch.ops.nn import (
+    Conv2d,
     LayerNorm,
+    Linear,
+    PReLU,
     _fan_in_uniform,
     init_conv2d,
     init_layer_norm,
@@ -58,6 +72,7 @@ from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair
 _ROWS, _COLS = [0, 2], [1, 3]  # direction pairs: row-major and column-major fwd/rev
 SCAN_IMPLS = ("pallas_fused", "pallas", "chunked", "par", "ref")
 CONV_IMPLS = ("xla", "fused")
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +83,12 @@ class WaveMambaConfig:
     same routes here: 'pallas_fused' is kernels K1 / K2, 'pallas' kernels K3 /
     K4, 'chunked' | 'par' | 'ref' plain torch ops. The default is
     'pallas_fused', not the JAX package's 'chunked': on the card the entry
-    points launch a kernel by default, and every `options/*.yml` sets it."""
+    points launch a kernel by default, and every `options/*.yml` sets it.
+
+    `compute_dtype` and `scan_dtype` keep the JAX package's meaning: the
+    dtype the network runs in, and the dtype of the scans' y (and of the
+    working arrays of 'chunked' and 'par'); the scans' state math is float32
+    on the kernel routes. 'float32' is the parity mode."""
 
     in_chn: int = 3
     wf: int = 32
@@ -90,6 +110,45 @@ class WaveMambaConfig:
     # 'fused' runs the conv chains as fused chain kernels (K7), inference
     # only; 'xla' (the JAX package's name) is the stock, differentiable route.
     conv_impl: str = "xla"
+    # 'bfloat16' runs convs, matmuls and activations in bf16; 'float32' is the
+    # parity mode. The scans' y (and 'chunked' / 'par' working arrays) in
+    # `scan_dtype`.
+    compute_dtype: str = "float32"
+    scan_dtype: str = "float32"
+
+    @classmethod
+    def fast(cls, **kw):
+        """The bf16 inference preset: `fast_tpu()` on every device. The JAX
+        package's `fast()` turns into `fast_xla()` off a TPU; the port has no
+        such switch. On the card it launches K1 on bf16 token streams; on the
+        CPU the kernels' plain versions take the same preset."""
+        return cls.fast_tpu(**kw)
+
+    @classmethod
+    def fast_tpu(cls, **kw):
+        """bf16 convs and matmuls, the fused scan (K1, K2 under autograd) with
+        float32 state and bf16 y. `scan_chunk` is 512 as in the JAX preset;
+        the port's kernels keep their own chunk (`scan_cuda.CHUNK`)."""
+        kw.setdefault("scan_impl", "pallas_fused")
+        kw.setdefault("compute_dtype", "bfloat16")
+        kw.setdefault("scan_dtype", "bfloat16")
+        kw.setdefault("scan_chunk", 512)
+        return cls(**kw)
+
+    @classmethod
+    def fast_train(cls, **kw):
+        """The bf16 training preset: `fast_tpu()` with `scan_chunk` 128."""
+        kw.setdefault("scan_chunk", 128)
+        return cls.fast_tpu(**kw)
+
+    @classmethod
+    def fast_xla(cls, **kw):
+        """bf16 with no kernel: the 'par' scan on bf16 working arrays."""
+        kw.setdefault("scan_impl", "par")
+        kw.setdefault("scan_sub", 32)
+        kw.setdefault("compute_dtype", "bfloat16")
+        kw.setdefault("scan_dtype", "bfloat16")
+        return cls(**kw)
 
     def __post_init__(self):
         if self.scan_impl == "seq_sharded":
@@ -99,6 +158,13 @@ class WaveMambaConfig:
             raise ValueError(f"unknown scan_impl {self.scan_impl!r}; known: {SCAN_IMPLS}")
         if self.conv_impl not in CONV_IMPLS:
             raise ValueError(f"unknown conv_impl {self.conv_impl!r}; known: {CONV_IMPLS}")
+        for key in ("compute_dtype", "scan_dtype"):
+            if getattr(self, key) not in DTYPES:
+                raise ValueError(f"unknown {key} {getattr(self, key)!r}; known: {tuple(DTYPES)}")
+        if self.conv_impl == "fused" and self.compute_dtype != "float32":
+            raise NotImplementedError("conv_impl='fused' with compute_dtype='bfloat16' waits for "
+                                      "ROADMAP queue 1, item 13: the chain kernels take float32 "
+                                      "activations")
 
     @property
     def d_inner(self) -> int:
@@ -123,7 +189,8 @@ def _merge_directions(y, h, w):
     each brought back to row-major token order."""
     b, _, _, d = y.shape
     cols = lambda t: t.view(b, w, h, d).transpose(1, 2)
-    return (y[:, 0] + y[:, 2].flip(1)).view(b, h, w, d) + cols(y[:, 1]) + cols(y[:, 3].flip(1))
+    rows = lambda t: t.view(b, h, w, d)
+    return rows(y[:, 0]) + cols(y[:, 1]) + rows(y[:, 2].flip(1)) + cols(y[:, 3].flip(1))
 
 
 class SS2D(nn.Module):
@@ -132,17 +199,18 @@ class SS2D(nn.Module):
     def __init__(self, cfg: WaveMambaConfig):
         super().__init__()
         self.scan_impl, self.scan_chunk, self.scan_sub = cfg.scan_impl, cfg.scan_chunk, cfg.scan_sub
+        self.scan_dtype = DTYPES[cfg.scan_dtype]
         self.conv_fused = cfg.conv_impl == "fused" and cfg.d_conv == 3
         c, d, n, r = cfg.wf, cfg.d_inner, cfg.d_state, cfg.dt_rank
-        self.in_proj = nn.Linear(c, 2 * d, bias=False)
-        self.conv2d = nn.Conv2d(d, d, cfg.d_conv, padding=(cfg.d_conv - 1) // 2, groups=d)
+        self.in_proj = Linear(c, 2 * d, bias=False)
+        self.conv2d = Conv2d(d, d, cfg.d_conv, padding=(cfg.d_conv - 1) // 2, groups=d)
         self.x_proj_weight = nn.Parameter(torch.zeros(4, r + 2 * n, d))
         self.dt_projs_weight = nn.Parameter(torch.zeros(4, d, r))
         self.dt_projs_bias = nn.Parameter(torch.zeros(4, d))
         self.A_logs = nn.Parameter(torch.zeros(4 * d, n))
         self.Ds = nn.Parameter(torch.ones(4 * d))
         self.out_norm = LayerNorm(d, eps=1e-5, dim=-1)
-        self.out_proj = nn.Linear(d, c, bias=False)
+        self.out_proj = Linear(d, c, bias=False)
         self.scan = ss2d_scan_pair  # the fused route's scan, see `set_scan`
         self.unfused_scan = None  # the unfused route's, see `set_unfused_scan`
 
@@ -158,13 +226,14 @@ class SS2D(nn.Module):
         return self.out_proj(y).permute(0, 3, 1, 2)
 
     def _unfused(self, xx):
-        """xx: (B, D, H, W) -> (B, H, W, D): the four direction streams and
-        their projections in memory, then `selective_scan`."""
+        """xx: (B, D, H, W) -> (B, H, W, D) in xx's dtype: the four direction
+        streams and their projections in memory (in xx's dtype), then
+        `selective_scan`."""
         b, d, h, w = xx.shape
         r, n = self.dt_projs_weight.shape[2], self.A_logs.shape[1]
         xs = _scan_directions(xx.permute(0, 2, 3, 1))  # (B, 4, L, D)
-        x_dbl = torch.einsum("bkld,kcd->bklc", xs, self.x_proj_weight)
-        dts = torch.einsum("bklr,kdr->bkld", x_dbl[..., :r], self.dt_projs_weight)
+        x_dbl = torch.einsum("bkld,kcd->bklc", xs, self.x_proj_weight.to(xs.dtype))
+        dts = torch.einsum("bklr,kdr->bkld", x_dbl[..., :r], self.dt_projs_weight.to(xs.dtype))
         args = (xs, dts.contiguous(), -torch.exp(self.A_logs.float()).view(4, d, n),
                 x_dbl[..., r:r + n].contiguous(), x_dbl[..., r + n:].contiguous(),
                 self.Ds.view(4, d), self.dt_projs_bias)
@@ -172,12 +241,13 @@ class SS2D(nn.Module):
             y = self.unfused_scan(*args)
         else:
             y = selective_scan(*args, impl=self.scan_impl, chunk=self.scan_chunk,
-                               sub=self.scan_sub)
-        return _merge_directions(y, h, w)
+                               sub=self.scan_sub, scan_dtype=self.scan_dtype)
+        return _merge_directions(y, h, w).to(xx.dtype)
 
     def _fused(self, xx):
-        """xx: (B, D, H, W) -> (B, H, W, D): two direction pairs through
-        `ss2d_scan_pair`, which projects inside the kernel."""
+        """xx: (B, D, H, W) -> (B, H, W, D) in xx's dtype: two direction pairs
+        through `ss2d_scan_pair`, which projects inside the kernel and writes y
+        in `scan_dtype`; the four are summed in that dtype."""
         b, d, h, w = xx.shape
         A = -torch.exp(self.A_logs.float()).view(4, d, -1).transpose(1, 2)  # (4, N, D)
         wx = self.x_proj_weight.transpose(1, 2)  # (4, D, R+2N)
@@ -187,12 +257,13 @@ class SS2D(nn.Module):
         def pair(tokens, k):
             return self.scan(tokens, wx[k].contiguous(), dtw[k].contiguous(),
                              self.dt_projs_bias[k].contiguous(), A[k].contiguous(),
-                             dsk[k].contiguous())
+                             dsk[k].contiguous(), out_dtype=self.scan_dtype)
 
         pr = pair(xx.permute(0, 2, 3, 1).reshape(b, h * w, d).contiguous(), _ROWS)
         pc = pair(xx.permute(0, 3, 2, 1).reshape(b, w * h, d).contiguous(), _COLS)
-        return (pr[:, 0] + pr[:, 1]).view(b, h, w, d) \
+        y = (pr[:, 0] + pr[:, 1]).view(b, h, w, d) \
             + (pc[:, 0] + pc[:, 1]).view(b, w, h, d).transpose(1, 2)
+        return y.to(xx.dtype)
 
 
 class FFN(nn.Module):
@@ -201,9 +272,9 @@ class FFN(nn.Module):
     def __init__(self, c, expand=2):
         super().__init__()
         dw = c * expand
-        self.conv1 = nn.Conv2d(c, dw, 1)
-        self.conv2 = nn.Conv2d(dw, dw, 3, padding=1, groups=dw)
-        self.conv3 = nn.Conv2d(dw // 2, c, 1)
+        self.conv1 = Conv2d(c, dw, 1)
+        self.conv2 = Conv2d(dw, dw, 3, padding=1, groups=dw)
+        self.conv3 = Conv2d(dw // 2, c, 1)
 
     def forward(self, x):
         y1, y2 = self.conv2(self.conv1(x)).chunk(2, dim=1)
@@ -223,10 +294,10 @@ class LFSSBlock(nn.Module):
         self.conv_fused = cfg.conv_impl == "fused"
 
     def forward(self, x):
-        x = x * self.skip_scale.view(1, -1, 1, 1) + self.self_attention(self.ln_1(x))
+        x = x * self.skip_scale.to(x.dtype).view(1, -1, 1, 1) + self.self_attention(self.ln_1(x))
         if self.conv_fused:  # the whole second half-block in one chain
             return cf.lfss_ffn_block(self.ln_2, self.conv_blk, self.skip_scale2, x)
-        return x * self.skip_scale2.view(1, -1, 1, 1) + self.conv_blk(self.ln_2(x))
+        return x * self.skip_scale2.to(x.dtype).view(1, -1, 1, 1) + self.conv_blk(self.ln_2(x))
 
 
 def matching(x, perc):
@@ -246,9 +317,9 @@ def matching(x, perc):
 class PAConv(nn.Module):
     def __init__(self, nf, conv_fused=False):
         super().__init__()
-        self.k2 = nn.Conv2d(nf, nf, 1)
-        self.k3 = nn.Conv2d(nf, nf, 3, padding=1, bias=False)
-        self.k4 = nn.Conv2d(nf, nf // 2, 3, padding=1, bias=False)
+        self.k2 = Conv2d(nf, nf, 1)
+        self.k3 = Conv2d(nf, nf, 3, padding=1, bias=False)
+        self.k4 = Conv2d(nf, nf // 2, 3, padding=1, bias=False)
         self.conv_fused = conv_fused
 
     def forward(self, x):
@@ -273,9 +344,9 @@ class CMTAttention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1))
-        self.qkv = nn.Conv2d(c, 3 * c, 1)
-        self.qkv_dwconv = nn.Conv2d(3 * c, 3 * c, 3, padding=1, groups=3 * c)
-        self.project_out = nn.Conv2d(c, c, 1)
+        self.qkv = Conv2d(c, 3 * c, 1)
+        self.qkv_dwconv = Conv2d(3 * c, 3 * c, 3, padding=1, groups=3 * c)
+        self.project_out = Conv2d(c, c, 1)
         self.matching_transformation = MatchingTransformation(c, conv_fused)
         self.conv_fused = conv_fused
 
@@ -290,17 +361,17 @@ class CMTAttention(nn.Module):
             return t.reshape(b, self.num_heads, c // self.num_heads, h * w)
 
         q, k, v = l2_normalize(heads(q)), l2_normalize(heads(k)), heads(v)
-        attn = torch.softmax(q @ k.transpose(-2, -1) * self.temperature, dim=-1)
+        attn = torch.softmax(q @ k.transpose(-2, -1) * self.temperature.to(q.dtype), dim=-1)
         return self.project_out((attn @ v).reshape(b, c, h, w))
 
 
 class FeedForward(nn.Module):
     def __init__(self, c, conv_fused=False):
         super().__init__()
-        self.project_in = nn.Sequential(nn.Conv2d(c, c, 1), nn.Conv2d(c, c, 3, padding=1, groups=c))
+        self.project_in = nn.Sequential(Conv2d(c, c, 1), Conv2d(c, c, 3, padding=1, groups=c))
         self.matching_transformation = MatchingTransformation(c, conv_fused)
-        self.project_out = nn.Sequential(nn.Conv2d(c, c, 3, padding=1, groups=c), nn.GELU(),
-                                         nn.Conv2d(c, c, 1))
+        self.project_out = nn.Sequential(Conv2d(c, c, 3, padding=1, groups=c), nn.GELU(),
+                                         Conv2d(c, c, 1))
         self.conv_fused = conv_fused
 
     def forward(self, x, perc, ln=None):
@@ -315,9 +386,9 @@ class FeedForwardRestormer(nn.Module):
     def __init__(self, c, expand=1, conv_fused=False):
         super().__init__()
         hidden = int(c * expand)
-        self.project_in = nn.Conv2d(c, 2 * hidden, 1)
-        self.dwconv = nn.Conv2d(2 * hidden, 2 * hidden, 3, padding=1, groups=2 * hidden)
-        self.project_out = nn.Conv2d(hidden, c, 1)
+        self.project_in = Conv2d(c, 2 * hidden, 1)
+        self.dwconv = Conv2d(2 * hidden, 2 * hidden, 3, padding=1, groups=2 * hidden)
+        self.project_out = Conv2d(hidden, c, 1)
         self.conv_fused = conv_fused
 
     def forward(self, x, perc=None):
@@ -354,8 +425,8 @@ class SKFF(nn.Module):
     def __init__(self, c, height=3, reduction=8):
         super().__init__()
         d = max(c // reduction, 4)
-        self.conv_du = nn.Sequential(nn.Conv2d(c, d, 1, bias=False), nn.PReLU())
-        self.fcs = nn.ModuleList(nn.Conv2d(d, c, 1, bias=False) for _ in range(height))
+        self.conv_du = nn.Sequential(Conv2d(c, d, 1, bias=False), PReLU())
+        self.fcs = nn.ModuleList(Conv2d(d, c, 1, bias=False) for _ in range(height))
 
     def forward(self, feats):
         u = feats[0]
@@ -386,14 +457,17 @@ class DownFRG(nn.Module):
         super().__init__()
         c = cfg.wf
         self.remat = cfg.remat
-        self.l_conv = nn.Conv2d(2 * c, c, 3, padding=1)
+        self.l_conv = Conv2d(2 * c, c, 3, padding=1)
         self.l_blk = nn.ModuleList(LFSSBlock(cfg) for _ in range(n_l))
         self.h_fusion = SKFF(c)
         self.conv_fused = cfg.conv_impl == "fused"
         self.h_blk = nn.ModuleList(HFEBlock(c, cfg.ffn_restormer, self.conv_fused) for _ in range(n_h))
+        # bf16 takes the conv form of the DWT, as the JAX model does: the two
+        # round differently.
+        self.haar = dwt2 if cfg.compute_dtype == "float32" else dwt2_conv
 
     def forward(self, x, x_d):
-        ll, hl, lh, hh = dwt2(x)
+        ll, hl, lh, hh = self.haar(x)
         ll = _conv3x3(self.l_conv, torch.cat([ll, x_d], dim=1), self.conv_fused)
         for blk in self.l_blk:
             ll = _run_block(blk, self.remat, ll)
@@ -409,7 +483,7 @@ class UpFRG(nn.Module):
         c = cfg.wf
         self.remat = cfg.remat
         self.l_blk = nn.ModuleList(LFSSBlock(cfg) for _ in range(n_l))
-        self.h_out_conv = nn.Conv2d(c, 3 * c, 3, padding=1)
+        self.h_out_conv = Conv2d(c, 3 * c, 3, padding=1)
         self.conv_fused = cfg.conv_impl == "fused"
         self.h_blk = nn.ModuleList(HFEBlock(c, cfg.ffn_restormer, self.conv_fused) for _ in range(n_h))
 
@@ -426,28 +500,46 @@ class UNet(nn.Module):
         super().__init__()
         c, ic = cfg.wf, cfg.in_chn
         nl, nh = cfg.n_l_blocks, cfg.n_h_blocks
-        self.ps_down1 = nn.Sequential(nn.PixelUnshuffle(2), nn.Conv2d(4 * ic, c, 1))
-        self.ps_down2 = nn.Sequential(nn.PixelUnshuffle(4), nn.Conv2d(16 * ic, c, 1))
-        self.ps_down3 = nn.Sequential(nn.PixelUnshuffle(8), nn.Conv2d(64 * ic, c, 1))
-        self.conv_01 = nn.Conv2d(ic, c, 3, padding=1)
+        self.ps_down1 = nn.Sequential(nn.PixelUnshuffle(2), Conv2d(4 * ic, c, 1))
+        self.ps_down2 = nn.Sequential(nn.PixelUnshuffle(4), Conv2d(16 * ic, c, 1))
+        self.ps_down3 = nn.Sequential(nn.PixelUnshuffle(8), Conv2d(64 * ic, c, 1))
+        self.conv_01 = Conv2d(ic, c, 3, padding=1)
         self.down_group1 = DownFRG(cfg, nl[0], nh[0])
         self.down_group2 = DownFRG(cfg, nl[1], nh[1])
         self.down_group3 = DownFRG(cfg, nl[2], nh[2])
         self.up_group3 = UpFRG(cfg, nl[2], nh[2])
         self.up_group2 = UpFRG(cfg, nl[1], nh[1])
         self.up_group1 = UpFRG(cfg, nl[0], nh[0])
-        self.last = nn.Conv2d(c, ic, 3, padding=1)
+        self.last = Conv2d(c, ic, 3, padding=1)
         self.conv_fused = cfg.conv_impl == "fused"
+        self.bf16 = cfg.compute_dtype != "float32"
+
+    def _down(self, ps, x, r):
+        """The pyramid input at 1/r: pixel-unshuffle then 1x1, or in bf16 the
+        two as one conv (`_ps_down`), as the JAX model does."""
+        return _ps_down(ps[1], x, r) if self.bf16 else ps(x)
 
     def forward(self, x):
         """x: (B, in_chn, H, W), H and W multiples of 8. Global residual."""
-        x_l, xh1 = self.down_group1(_conv3x3(self.conv_01, x, self.conv_fused), self.ps_down1(x))
-        x_l, xh2 = self.down_group2(x_l, self.ps_down2(x))
-        x_l, xh3 = self.down_group3(x_l, self.ps_down3(x))
+        x_l, xh1 = self.down_group1(_conv3x3(self.conv_01, x, self.conv_fused),
+                                    self._down(self.ps_down1, x, 2))
+        x_l, xh2 = self.down_group2(x_l, self._down(self.ps_down2, x, 4))
+        x_l, xh3 = self.down_group3(x_l, self._down(self.ps_down3, x, 8))
         x_l = self.up_group3(x_l, xh3)
         x_l = self.up_group2(x_l, xh2)
         x_l = self.up_group1(x_l, xh1)
         return _conv3x3(self.last, x_l, self.conv_fused) + x
+
+
+def _ps_down(conv, x, r):
+    """PixelUnshuffle(r) then the 1x1 `conv`, as one r x r stride-r conv (the
+    JAX package's `_ps_down`, `wavemamba_tpu/models/wavemamba.py:715`): the
+    unshuffled channel order is cin * r^2 + dy * r + dx, so the 1x1 weight
+    (cout, cin * r^2) is the (cout, cin, r, r) kernel as it lies. The bias is
+    added after the conv's rounding, as there."""
+    cout, cin = conv.out_channels, x.shape[1]
+    kern = conv.weight.to(x.dtype).view(cout, cin, r, r)
+    return F.conv2d(x, kern, stride=r) + conv.bias.to(x.dtype).view(1, -1, 1, 1)
 
 
 class WaveMamba(nn.Module):
@@ -457,7 +549,9 @@ class WaveMamba(nn.Module):
         self.restoration_network = UNet(cfg)
 
     def forward(self, x):
-        return self.restoration_network(x)
+        """x: (B, in_chn, H, W) -> the same, in x's dtype; the network runs in
+        `cfg.compute_dtype` (the JAX `wavemamba_apply`'s cast in and out)."""
+        return self.restoration_network(x.to(DTYPES[self.cfg.compute_dtype])).to(x.dtype)
 
 
 def set_scan(model: nn.Module, scan) -> None:
@@ -520,7 +614,7 @@ def init_wavemamba(model: nn.Module, generator) -> nn.Module:
 
 
 def wavemamba_forward(model: WaveMamba, x):
-    """x: (B, H, W, in_chn) float32 NHWC, H and W multiples of 8 -> same.
+    """x: (B, H, W, in_chn) NHWC, H and W multiples of 8 -> the same, float32.
     Differentiable; `wavemamba_apply` is the same without a gradient."""
     return model(x.permute(0, 3, 1, 2).float()).permute(0, 2, 3, 1)
 

@@ -16,6 +16,15 @@ What is left is the LayerNorm with float32 statistics over an arbitrary axis
 everywhere else), the L2 normalisation of the channel attention, and the
 initialisers: the JAX package's `init_*` return new arrays from a key, these
 fill a module's parameters in place from a `torch.Generator`.
+
+The bf16 policy of the JAX module: parameters stay float32 and every conv,
+linear and PReLU casts its weight and bias to the activation's dtype
+(`.astype(x.dtype)` there; `Conv2d`, `Linear` and `PReLU` here, stock
+modules whose forward casts), and LayerNorm takes float32 statistics and
+returns the input's dtype. The casts are written out, not left to
+`torch.autocast`, whose op lists run LayerNorm and softmax in float32 and
+hand float32 on, where the JAX model stays in bf16. On float32 activations
+the casts are no-ops and the modules compute what the stock ones do.
 """
 
 from __future__ import annotations
@@ -36,6 +45,29 @@ def layer_norm(x, weight, bias, eps=1e-5, dim=-1):
     shape[dim] = -1
     y = (xf - mu) * torch.rsqrt(var + eps)
     return (y * weight.float().view(shape) + bias.float().view(shape)).to(x.dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` whose weight and bias take the input's dtype."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class Linear(nn.Linear):
+    """`nn.Linear` whose weight and bias take the input's dtype."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class PReLU(nn.PReLU):
+    """`nn.PReLU` whose slope takes the input's dtype."""
+
+    def forward(self, x):
+        return F.prelu(x, self.weight.to(x.dtype))
 
 
 class LayerNorm(nn.Module):

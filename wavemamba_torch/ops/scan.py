@@ -23,13 +23,20 @@ Implementations behind the `selective_scan` dispatcher:
   * ``pallas``  the kernel pair K3 / K4 (`ops/scan_cuda.py:selective_scan_cuda`,
                 hand-written CUDA) behind `SelectiveScan`; the name is the
                 JAX package's, whose option files select it.
-The first three are plain torch ops on either device.
+The first three are plain torch ops on either device. `scan_dtype=bfloat16`
+runs 'chunked' and 'par' on bf16 working arrays (state included; da is
+computed in float32 first), as the JAX package does, and they return y in
+bf16; 'ref' and 'pallas' compute in float32 whatever `scan_dtype` says, as
+there (K3 / K4 take bf16 inputs and widen them).
 
 `selective_scan_plain` / `selective_scan_plain_bwd` are the plain versions of
 kernels K3 / K4, and `ss2d_scan_pair_plain` / `ss2d_scan_pair_plain_bwd` of
 K1 / K2 (`ops/scan_cuda.py`): they run on CPU tensors and are the kernels'
 oracles on the card. All four work in float32, or in float64 when every input
-is float64 (for `gradcheck`).
+is float64 (for `gradcheck`). K1's and K2's take a bf16 token stream (and
+dy) too, widened on entry: K1's writes y in `out_dtype`, rounded once from
+float32; K2's dx in x's dtype, each member's rounded and the two added in
+it, as the TPU kernel does.
 """
 
 from __future__ import annotations
@@ -71,16 +78,23 @@ def _linscan(a, b, h0):
     return a * h0[:, :, None] + b
 
 
+def _working(scan_dtype, *ts):
+    """The tensors in bf16 for `scan_dtype=torch.bfloat16`, else as they are."""
+    return ts if scan_dtype != torch.bfloat16 else tuple(t.to(scan_dtype) for t in ts)
+
+
 def selective_scan_chunked(u, delta, A, Bs, Cs, D_skip, delta_bias, chunk=64,
-                           h0=None, return_final=False):
+                           h0=None, return_final=False, scan_dtype=torch.float32):
     """Sequential over chunks of `chunk` tokens; inside a chunk, `_linscan`,
     vectorised over (B, K, T, D, N).
 
     h0: optional entry state (B, K, D, N), for a scan that continues another.
     With `return_final` also the exit state (B, K, D, N). The last chunk may
-    be short: that equals padding it with identity transitions."""
+    be short: that equals padding it with identity transitions. With
+    `scan_dtype=torch.bfloat16` every working array is bf16 and so is y."""
     u = _f32(u)
     da = F.softplus(_f32(delta) + delta_bias[None, :, None, :])
+    u, da, A, Bs, Cs, D_skip = _working(scan_dtype, u, da, A, Bs, Cs, D_skip)
     dau = da * u
     b, k, length, d = u.shape
     h = u.new_zeros(b, k, d, A.shape[-1]) if h0 is None else h0.to(u.dtype)
@@ -95,14 +109,17 @@ def selective_scan_chunked(u, delta, A, Bs, Cs, D_skip, delta_bias, chunk=64,
     return (y, h) if return_final else y
 
 
-def selective_scan_par(u, delta, A, Bs, Cs, D_skip, delta_bias, sub=16):
+def selective_scan_par(u, delta, A, Bs, Cs, D_skip, delta_bias, sub=16,
+                       scan_dtype=torch.float32):
     """No sequential chunk loop. The sequence is cut into R = ceil(L / sub)
     subsegments: `sub` steps vectorised over (B, K, R, N, D) give every
     subsegment's transition, a doubling scan over R the entering states, and
     `sub` more steps replay them and emit y. L is padded to whole subsegments
-    with identity transitions (da = 0, u = 0)."""
+    with identity transitions (da = 0, u = 0). With
+    `scan_dtype=torch.bfloat16` every working array is bf16 and so is y."""
     u = _f32(u)
     da = F.softplus(_f32(delta) + delta_bias[None, :, None, :])
+    u, da, A, Bs, Cs, D_skip = _working(scan_dtype, u, da, A, Bs, Cs, D_skip)
     b, k, length, d = u.shape
     n = A.shape[-1]
     pad = (-length) % sub
@@ -235,17 +252,18 @@ def selective_scan(u, delta, A, Bs, Cs, D_skip, delta_bias, impl="chunked",
                    chunk=256, sub=16, scan_dtype=torch.float32):
     """Dispatch to an implementation; layouts as the module docstring.
     `chunk` serves 'chunked' and `sub` serves 'par'; 'pallas' (kernels K3 / K4)
-    has its own chunk, `scan_cuda.CHUNK`. Differentiable on every route."""
-    if scan_dtype not in (torch.float32, "float32"):
-        raise NotImplementedError(f"scan_dtype={scan_dtype}: the port scans in float32; the "
-                                  "bf16 fast preset is ROADMAP queue 1, item 4")
+    has its own chunk, `scan_cuda.CHUNK`. `scan_dtype` (torch.float32 or
+    torch.bfloat16) serves 'chunked' and 'par'. Differentiable on every
+    route."""
+    if scan_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"scan_dtype={scan_dtype}: float32 or bfloat16")
     args = (u, delta, A, Bs, Cs, D_skip, delta_bias)
     if impl == "ref":
         return selective_scan_ref(*args)
     if impl == "chunked":
-        return selective_scan_chunked(*args, chunk=chunk)
+        return selective_scan_chunked(*args, chunk=chunk, scan_dtype=scan_dtype)
     if impl == "par":
-        return selective_scan_par(*args, sub=sub)
+        return selective_scan_par(*args, sub=sub, scan_dtype=scan_dtype)
     if impl == "pallas":
         from wavemamba_torch.ops.scan_cuda import selective_scan_cuda
 
@@ -279,14 +297,15 @@ def _pair_streams(x, wx, dtw, bias, chunk):
 
 
 def ss2d_scan_pair_plain(x, wx, dtw, bias, A, dsk, chunk=64, return_carries=False,
-                         variant="twopass", sub=8):
+                         variant="twopass", sub=8, out_dtype=None):
     """Projection + scan of one SS2D direction pair (the plain version of K1,
     and with variant='ssd' of K5).
 
     x: (B, L, D) token stream; wx: (2, D, R+2N) projection weights of
     [forward, reverse]; dtw: (2, R, D); bias, dsk: (2, D); A: (2, N, D),
     negative. Member 0 scans forward, member 1 in reverse; both outputs come
-    back in token order: y (B, 2, L, D) float32.
+    back in token order: y (B, 2, L, D), float32 or `out_dtype` (rounded once
+    from float32). x may be bf16: it is widened on entry.
 
     With `return_carries`, also what the backward needs: `state`
     (B, 2, nc, N, D), the state entering each chunk of `chunk` tokens, indexed
@@ -298,9 +317,19 @@ def ss2d_scan_pair_plain(x, wx, dtw, bias, A, dsk, chunk=64, return_carries=Fals
     K5's factorization (`_scan_pair_ssd`); 'twopass' is K1's step by step.
     """
     if variant == "ssd":
-        return _scan_pair_ssd(x, wx, dtw, bias, A, dsk, chunk, sub, return_carries)
-    if variant != "twopass":
+        out = _scan_pair_ssd(x, wx, dtw, bias, A, dsk, chunk, sub, return_carries)
+    elif variant == "twopass":
+        out = _scan_pair_twopass(x, wx, dtw, bias, A, dsk, chunk, return_carries)
+    else:
         raise ValueError(f"unknown variant {variant!r}; known: 'twopass', 'ssd'")
+    if out_dtype is None:
+        return out
+    return (out[0].to(out_dtype),) + out[1:] if return_carries else out.to(out_dtype)
+
+
+def _scan_pair_twopass(x, wx, dtw, bias, A, dsk, chunk, return_carries):
+    """`ss2d_scan_pair_plain(..., variant='twopass')`: K1's recurrence, chunk
+    by chunk, float32."""
     r, n = dtw.shape[1], A.shape[1]
     length = x.shape[1]
     u, _, da, xd = _pair_streams(x, wx, dtw, bias, chunk)
@@ -382,8 +411,10 @@ def ss2d_scan_pair_plain_bwd(x, wx, dtw, bias, A, dsk, state, dy, chunk=64):
     h from the entering state, run the adjoint g_t = a_{t+1} g_{t+1} + C_t dy_t
     in reverse, then the gradients of da, z, u, B and C, the projection
     backward, and the sums for the weights. Returns (dx, dwx, ddtw, dbias, dA,
-    ddsk): dx (B, L, D) summed over the pair, the others in the layouts of
-    wx, dtw, bias, A and dsk.
+    ddsk): dx (B, L, D) in x's dtype, each member's dx rounded to it and the
+    two added in it, as the TPU kernel does (a bf16 add rounds the float32
+    sum once more); the others float32 in the layouts of wx, dtw, bias, A and
+    dsk. x and dy may be bf16: they are widened on entry.
     """
     r, n = dtw.shape[1], A.shape[1]
     length = x.shape[1]
@@ -425,4 +456,5 @@ def ss2d_scan_pair_plain_bwd(x, wx, dtw, bias, A, dsk, state, dy, chunk=64):
         dA += (common * dac[:, :, :, None, :]).sum((0, 2))
         ddsk += (dyc * uc).sum((0, 2))
     dxp = _flip1(torch.cat(dxs[::-1], 2), 2)
-    return (dxp[:, 0] + dxp[:, 1])[:, :length], dwx, ddtw, dbias, dA, ddsk
+    dx = (dxp[:, 0].to(x.dtype) + dxp[:, 1].to(x.dtype))[:, :length]
+    return dx, dwx, ddtw, dbias, dA, ddsk

@@ -17,7 +17,8 @@ and its backward (K3, K4), and K1's function in the segment-local (SSD) form
 `ss2d_scan_fused(variant='ssd')` (`_fused_kernel_ssd`), source
 `csrc/ss2d_scan_ssd.cu`; it has no backward, as on the TPU. `build_all` also
 builds `csrc/conv_chain.cu`, the conv-chain kernel of
-`ops/conv_fused_cuda.py` (K6 / K7). The note at the top of each
+`ops/conv_fused_cuda.py` (K6 / K7), and `csrc/gpu_probe.cu`, the probes of
+`scripts/gpu_probe.py` (P1-P5). The note at the top of each
 source says what bounds the kernel and how it is laid out. A source is
 compiled for sm_90a with `nvcc` at the first launch, into
 `build/wavemamba_torch/` keyed by a hash of the source, the headers beside it
@@ -28,6 +29,14 @@ A CPU tensor takes the plain versions (`ops/scan.py:ss2d_scan_pair_plain`,
 `ss2d_scan_pair_plain_bwd`, `selective_scan_plain`,
 `selective_scan_plain_bwd`, and `ss2d_scan_pair_plain(..., variant='ssd')`
 for K5); a CUDA tensor launches the kernel or raises.
+
+K1 and K2 take bf16 token streams (the bf16 presets): x and y, and K2's x,
+dy and dx, are all float32 or all bf16 (on the CPU the plain versions take
+any mix); y is rounded once from float32, dx once per member and once for
+the pair's sum, as the TPU kernel's; the weights and all arithmetic stay
+float32.
+K3 and K4 take bf16 streams by widening them to float32 before the launch,
+as the JAX wrapper does before its `pallas_call`; K5 takes float32 only.
 """
 
 from __future__ import annotations
@@ -57,7 +66,8 @@ SOURCE_K3 = CSRC / "selective_scan.cu"
 SOURCE_K4 = CSRC / "selective_scan_bwd.cu"
 SOURCE_K5 = CSRC / "ss2d_scan_ssd.cu"
 SOURCE_CHAIN = CSRC / "conv_chain.cu"
-SOURCES = (SOURCE, SOURCE_BWD, SOURCE_K3, SOURCE_K4, SOURCE_K5, SOURCE_CHAIN)
+SOURCE_PROBE = CSRC / "gpu_probe.cu"
+SOURCES = (SOURCE, SOURCE_BWD, SOURCE_K3, SOURCE_K4, SOURCE_K5, SOURCE_CHAIN, SOURCE_PROBE)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "wavemamba_torch"
 D_STATE = 16  # the one state width the kernels are compiled for
 MAX_DT_RANK = 4
@@ -104,8 +114,8 @@ def build(source: Path = SOURCE) -> Path:
 
 
 def build_all() -> list[Path]:
-    """Every library of `SOURCES` (K1-K5, and K6 / K7's), one `nvcc` each,
-    started together."""
+    """Every library of `SOURCES` (K1-K5, K6 / K7's and the probes P1-P5 of
+    `scripts/gpu_probe.py`), one `nvcc` each, started together."""
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         return list(pool.map(build, SOURCES))
 
@@ -120,8 +130,8 @@ def _need_cuda(kernel: str) -> None:
 def _library() -> ctypes.CDLL:
     _need_cuda("K1")
     lib = ctypes.CDLL(str(build(SOURCE)))
-    fn = lib.ss2d_scan_pair_f32
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn = lib.ss2d_scan_pair
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.ss2d_scan_error_string.argtypes = [ctypes.c_int]
     lib.ss2d_scan_error_string.restype = ctypes.c_char_p
@@ -132,8 +142,8 @@ def _library() -> ctypes.CDLL:
 def _library_bwd() -> ctypes.CDLL:
     _need_cuda("K2")
     lib = ctypes.CDLL(str(build(SOURCE_BWD)))
-    fn = lib.ss2d_scan_pair_bwd_f32
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn = lib.ss2d_scan_pair_bwd
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.ss2d_scan_bwd_error_string.argtypes = [ctypes.c_int]
     lib.ss2d_scan_bwd_error_string.restype = ctypes.c_char_p
@@ -176,20 +186,36 @@ def _library_k5() -> ctypes.CDLL:
     return lib
 
 
-def _check_tensors(name, x, tensors):
-    """Raise unless every tensor is float32, contiguous, of its shape and on
-    x's device. tensors: {name: (tensor, shape)}."""
+STREAM_DTYPES = (torch.float32, torch.bfloat16)  # of K1's and K2's x, y, dy and dx
+
+
+def _same_stream_dtype(name, streams):
+    """Raise unless the token streams {name: dtype} share one dtype: the
+    kernels are built for all-float32 and all-bf16 streams."""
+    if len(set(streams.values())) > 1:
+        got = ", ".join(f"{k} {str(v).removeprefix('torch.')}" for k, v in streams.items())
+        raise NotImplementedError(
+            f"{name}: the kernel takes float32 or bf16 streams alike, got {got}; "
+            "compute_dtype != scan_dtype on the card waits for ROADMAP queue 1, item 16")
+
+
+def _check_tensors(name, x, tensors, streams=()):
+    """Raise unless every tensor is float32 (or, for the keys in `streams`,
+    bf16), contiguous, of its shape and on x's device. tensors: {name:
+    (tensor, shape)}."""
     for key, (t, shape) in tensors.items():
-        if t.device != x.device or t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: {key} must be float32 {shape} on {x.device}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        dtypes = STREAM_DTYPES if key in streams else (torch.float32,)
+        if t.device != x.device or t.dtype not in dtypes or tuple(t.shape) != shape:
+            names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+            raise ValueError(f"{name}: {key} must be {names} {shape} on "
+                             f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
-def _check_inputs(name, x, tensors, max_d):
-    """Raise on what K1 / K2 do not take. tensors: {name: (tensor, shape)}."""
-    _check_tensors(name, x, tensors)
+def _check_inputs(name, x, tensors, max_d, streams=()):
+    """Raise on what K1 / K2 / K5 do not take. tensors: {name: (tensor, shape)}."""
+    _check_tensors(name, x, tensors, streams)
     b, length, d = x.shape
     r, n = tensors["dtw"][1][1], tensors["A"][1][1]
     if n != D_STATE or not 1 <= r <= MAX_DT_RANK or not 1 <= d <= max_d:
@@ -207,44 +233,51 @@ def _pair_shapes(x, wx, dtw, bias, A, dsk):
             "dsk": (dsk, (2, d))}
 
 
-def _launch_k1(x, wx, dtw, bias, A, dsk):
-    """K1 on CUDA tensors: y, and the scratch it leaves behind, `state`
-    (B, 2, nc, N, D), the state entering each chunk, and `sumda` (B, 2, nc, D),
-    each chunk's sum of da: what K2 needs."""
-    _check_inputs("ss2d_scan_pair", x, _pair_shapes(x, wx, dtw, bias, A, dsk), MAX_D)
+def _launch_k1(x, wx, dtw, bias, A, dsk, out_dtype):
+    """K1 on CUDA tensors: y in `out_dtype`, and the scratch it leaves behind,
+    `state` (B, 2, nc, N, D), the state entering each chunk, and `sumda`
+    (B, 2, nc, D), each chunk's sum of da: what K2 needs."""
+    _check_inputs("ss2d_scan_pair", x, _pair_shapes(x, wx, dtw, bias, A, dsk), MAX_D, ("x",))
+    if out_dtype not in STREAM_DTYPES:
+        raise ValueError(f"ss2d_scan_pair: out_dtype must be float32 or bfloat16, got {out_dtype}")
+    _same_stream_dtype("ss2d_scan_pair", {"x": x.dtype, "y": out_dtype})
     b, length, d = x.shape
     r, n = dtw.shape[1], A.shape[1]
     lib = _library()
     nc = -(-length // CHUNK)
-    y = torch.empty((b, 2, length, d), device=x.device, dtype=torch.float32)
+    y = torch.empty((b, 2, length, d), device=x.device, dtype=out_dtype)
     state = torch.empty((b, 2, nc, n, d), device=x.device, dtype=torch.float32)
     sumda = torch.empty((b, 2, nc, d), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ss2d_scan_pair_f32(
+        err = lib.ss2d_scan_pair(
             x.data_ptr(), wx.data_ptr(), dtw.data_ptr(), bias.data_ptr(), A.data_ptr(),
             dsk.data_ptr(), y.data_ptr(), state.data_ptr(), sumda.data_ptr(),
-            b, length, d, n, r, CHUNK, stream)
+            b, length, d, n, r, CHUNK, x.dtype == torch.bfloat16, stream)
     if err != 0:
         raise RuntimeError(f"ss2d_scan_pair launch failed: {lib.ss2d_scan_error_string(err).decode()}")
     ss2d_scan_pair.launches += 1
     return y, state, sumda
 
 
-def _forward(x, wx, dtw, bias, A, dsk):
+def _forward(x, wx, dtw, bias, A, dsk, out_dtype=None):
     """(y, state, sumda) on either device."""
     if x.device.type == "cpu":
-        return ss2d_scan_pair_plain(x, wx, dtw, bias, A, dsk, chunk=CHUNK, return_carries=True)
+        return ss2d_scan_pair_plain(x, wx, dtw, bias, A, dsk, chunk=CHUNK, return_carries=True,
+                                    out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"ss2d_scan_pair: unsupported device {x.device}")
-    return _launch_k1(x, wx, dtw, bias, A, dsk)
+    return _launch_k1(x, wx, dtw, bias, A, dsk, out_dtype or torch.float32)
 
 
-def ss2d_scan_pair(x, wx, dtw, bias, A, dsk, return_carries=False, variant="twopass", sub=8):
+def ss2d_scan_pair(x, wx, dtw, bias, A, dsk, return_carries=False, variant="twopass", sub=8,
+                   out_dtype=None):
     """Fused projection + scan of one SS2D direction pair.
 
-    x: (B, L, D) token stream; wx: (2, D, R+2N); dtw: (2, R, D); bias, dsk:
-    (2, D); A: (2, N, D), negative. Returns y (B, 2, L, D) float32: member 0
+    x: (B, L, D) token stream, float32 or bf16; wx: (2, D, R+2N); dtw: (2, R,
+    D); bias, dsk: (2, D); A: (2, N, D), negative; the weights float32.
+    Returns y (B, 2, L, D), float32 or `out_dtype` (float32 or bf16; on the
+    card x's dtype, as K1 takes streams of one dtype): member 0
     scanned forward, member 1 in reverse, both in token order. Both the
     kernel and the plain version work in chunks of `CHUNK` tokens. With
     `return_carries` also the chunk-entry states (B, 2, nc, N, D) and the
@@ -257,14 +290,16 @@ def ss2d_scan_pair(x, wx, dtw, bias, A, dsk, return_carries=False, variant="twop
     """
     args = (x, wx, dtw, bias, A, dsk)
     if variant == "ssd":
+        if x.dtype != torch.float32 or out_dtype not in (None, torch.float32):
+            raise NotImplementedError("ss2d_scan_pair(variant='ssd') (K5) takes float32 streams")
         return ss2d_scan_pair_ssd(*args, sub=sub, return_carries=return_carries)
     if variant != "twopass":
         raise ValueError(f"unknown variant {variant!r}; known: 'twopass', 'ssd'")
     if return_carries:
-        return _forward(*args)
+        return _forward(*args, out_dtype)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return SS2DScanPair.apply(*args)
-    return _forward(*args)[0]
+        return SS2DScanPair.apply(*args, out_dtype)
+    return _forward(*args, out_dtype)[0]
 
 
 ss2d_scan_pair.launches = 0
@@ -316,8 +351,10 @@ def ss2d_scan_pair_bwd(x, wx, dtw, bias, A, dsk, state, sumda, dy):
     """Backward of `ss2d_scan_pair` (kernel K2).
 
     `state`, `sumda`: what the forward returns with `return_carries`; dy:
-    (B, 2, L, D). Returns (dx, dwx, ddtw, dbias, dA, ddsk), dx (B, L, D) summed
-    over the pair and the rest in the layouts of wx, dtw, bias, A and dsk.
+    (B, 2, L, D), float32 or bf16. Returns (dx, dwx, ddtw, dbias, dA, ddsk),
+    dx (B, L, D) in x's dtype, each member's rounded to it and the two added
+    in it, the rest float32 in the layouts of wx, dtw, bias, A and dsk.
+    On the card x and dy share one dtype.
     The sums over tokens and batch are taken in a fixed order: the same bits
     every run. Counts its kernel launches in `ss2d_scan_pair_bwd.launches`.
     """
@@ -331,7 +368,8 @@ def ss2d_scan_pair_bwd(x, wx, dtw, bias, A, dsk, state, sumda, dy):
     shapes = _pair_shapes(x, wx, dtw, bias, A, dsk)
     shapes.update(state=(state, (b, 2, nc, n, d)), sumda=(sumda, (b, 2, nc, d)),
                   dy=(dy, (b, 2, length, d)))
-    _check_inputs("ss2d_scan_pair_bwd", x, shapes, MAX_D_BWD)
+    _check_inputs("ss2d_scan_pair_bwd", x, shapes, MAX_D_BWD, ("x", "dy"))
+    _same_stream_dtype("ss2d_scan_pair_bwd", {"x": x.dtype, "dy": dy.dtype})
     lib = _library_bwd()
     j = r + 2 * n
     rows = j + r + 1 + n + 1  # dwx | ddtw | dbias | dA | ddsk
@@ -344,11 +382,11 @@ def ss2d_scan_pair_bwd(x, wx, dtw, bias, A, dsk, state, sumda, dy):
     sums = torch.empty((rows, 2, d), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ss2d_scan_pair_bwd_f32(
+        err = lib.ss2d_scan_pair_bwd(
             x.data_ptr(), wx.data_ptr(), dtw.data_ptr(), bias.data_ptr(), A.data_ptr(),
             dsk.data_ptr(), state.data_ptr(), sumda.data_ptr(), dy.data_ptr(),
             dx.data_ptr(), gcar.data_ptr(), part.data_ptr(), sums.data_ptr(),
-            b, length, d, n, r, CHUNK, gx, stream)
+            b, length, d, n, r, CHUNK, gx, x.dtype == torch.bfloat16, stream)
     if err != 0:
         raise RuntimeError("ss2d_scan_pair_bwd launch failed: "
                            f"{lib.ss2d_scan_bwd_error_string(err).decode()}")
@@ -363,17 +401,18 @@ ss2d_scan_pair_bwd.launches = 0
 
 class SS2DScanPair(torch.autograd.Function):
     """`ss2d_scan_pair` with K2 as its backward: the forward keeps the inputs,
-    the chunk-entry states and the chunk decays; nothing else is saved."""
+    the chunk-entry states and the chunk decays; nothing else is saved. The
+    gradients come in each input's dtype (dx in x's, the weights' float32)."""
 
     @staticmethod
-    def forward(ctx, x, wx, dtw, bias, A, dsk):
-        y, state, sumda = _forward(x, wx, dtw, bias, A, dsk)
+    def forward(ctx, x, wx, dtw, bias, A, dsk, out_dtype=None):
+        y, state, sumda = _forward(x, wx, dtw, bias, A, dsk, out_dtype)
         ctx.save_for_backward(x, wx, dtw, bias, A, dsk, state, sumda)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        return ss2d_scan_pair_bwd(*ctx.saved_tensors, dy.contiguous())
+        return ss2d_scan_pair_bwd(*ctx.saved_tensors, dy.contiguous()) + (None,)
 
 
 def _scan_shapes(u, delta, A, Bs, Cs, D_skip, delta_bias):
@@ -437,14 +476,17 @@ def selective_scan_cuda(u, delta, A, Bs, Cs, D_skip, delta_bias, return_carries=
     """The selective scan over pre-projected inputs (kernel K3).
 
     u, delta: (B, K, L, D); A: (K, D, N), negative; Bs, Cs: (B, K, L, N);
-    D_skip, delta_bias: (K, D). Returns y (B, K, L, D) float32. Both the
-    kernel and the plain version work in chunks of `CHUNK` tokens. With
+    D_skip, delta_bias: (K, D). u, delta, Bs and Cs may be bf16: they are
+    widened to float32 here, before either version runs. Returns y (B, K, L,
+    D) float32. Both the kernel and the plain version work in chunks of
+    `CHUNK` tokens. With
     `return_carries` also the chunk-entry states (B, K, nc, N, D) and the
     chunks' sums of da (B, K, nc, D), detached. Differentiable: when an input
     requires grad the call goes through `SelectiveScan`, whose backward is K4.
     Counts its kernel launches in `selective_scan_cuda.launches`.
     """
-    args = (u, delta, A, Bs, Cs, D_skip, delta_bias)
+    args = tuple(t.float() if t.dtype == torch.bfloat16 else t
+                 for t in (u, delta, A, Bs, Cs, D_skip, delta_bias))
     if return_carries:
         return _scan_forward(*args)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):

@@ -1,0 +1,335 @@
+"""P1-P5 on the card: throughput probes of the SS2D scan's op patterns.
+
+`python -m wavemamba_torch.scripts.gpu_probe` runs the five probes of
+`scripts/tpu_vpu_probe.py` as hand-written Hopper kernels
+(`wavemamba_torch/csrc/gpu_probe.cu`), at the TPU probes' shapes (blocks g of
+(T, N*D2) = (512, 16*128) float32, GRID = 128 of them) and op counts, so the
+Gop/s compare: 1 op = one multiply or add, an FMA two. Each probe runs at the
+TPU probe's K and at a K that makes it compute-bound on an H100 (`K_COMPUTE`;
+P5 has no K). It prints one JSON line per run: Gop/s, ms per call, the
+kernel against its plain version (the same bits twice), the bound and what
+sets it, the plain version's time and, for P4 and P5, one PyTorch call that
+computes the same function; then the card's name and power limit. It needs a
+card and exits non-zero without one.
+
+Each probe is a function of its inputs here (`probe_flat(x, a, K)` ...), where
+the TPU script's builds its inputs and times itself; `probe_inputs` makes the
+TPU script's inputs. A CPU tensor takes the plain version (`*_plain`), a CUDA
+tensor launches the kernel or raises. Each wrapper counts its launches.
+
+P2 writes (GRID, R, N*D2): the TPU probe reshapes its (R, N, D2) result into
+(1, T, N*D2), which fails at trace time, so that probe never ran; its op
+count assumes the (R, N*D2) output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from wavemamba_torch.ops import scan_cuda
+
+T, N, D2 = 512, 16, 128  # chunk tokens, states, packed lanes (2 * D)
+S = 8
+R = T // S
+ND = N * D2
+GRID = 128
+NAMES = ("flat", "shaped", "exp", "nsum", "mxu_seg")
+K_DEFAULT = {"flat": 48, "shaped": 6, "exp": 16, "nsum": 24}  # the TPU probes' defaults
+# Where each probe's pipe, not the bytes, bounds it on an H100 by a margin (the
+# bound's operations term at least twice its bytes term).
+K_COMPUTE = {"flat": 384, "shaped": 192, "exp": 128, "nsum": 192}
+# Kernel against plain on the card, max abs difference over the plain output's
+# max abs: P1 / P2 take an FMA where the plain version rounds the product, K
+# times over; P3 the same expf; P4 sums over n in another order; P5 sums the
+# hi and lo TF32 parts in the tensor core's order.
+TOL = {"flat": 1e-4, "shaped": 1e-4, "exp": 1e-5, "nsum": 1e-5, "mxu_seg": 1e-5}
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s, float32
+# operations/s on the FMA pipe (an FMA counted as two), special-function
+# results/s (16 per SM per clock, a sixteenth of the FMA pipe's 128 lanes),
+# dense TF32 tensor-core operations/s.
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+SFU_OPS_S = F32_OPS_S / 16
+TF32_OPS_S = 495e12
+
+
+# ---------------------------------------------------------------- plain versions
+
+
+def probe_flat_plain(x, a, K=48):
+    y = x
+    for _ in range(K):
+        y = y * a + x
+    return y
+
+
+def probe_shaped_plain(x, K=6):
+    x4 = x.view(x.shape[0], R, S, ND)
+    pa = pb = x4[:, :, 0]
+    for _ in range(K):
+        for i in range(1, S):
+            ai = x4[:, :, i]
+            pa = pa * ai
+            pb = ai * pb + ai
+    return pa + pb
+
+
+def probe_exp_plain(x, a, K=16):
+    y = x
+    for _ in range(K):
+        y = torch.exp(y * a)
+    return y
+
+
+def probe_nsum_plain(x, c, K=24):
+    x3 = x.view(x.shape[0], T, N, D2)
+    acc = x.new_zeros(x.shape[0], T, D2)
+    for k in range(K):
+        acc = acc + (x3 * (c[:, :, None] + float(k))).sum(2)
+    return acc[:, :, None, :].expand(-1, T, N, D2).reshape(x.shape)
+
+
+def probe_mxu_seg_plain(x):
+    """The TPU probe's product: tril(S, S) @ the segment's tokens, float32."""
+    tri = torch.tril(torch.ones(S, S, device=x.device, dtype=x.dtype))
+    return torch.einsum("st,grtj->grsj", tri, x.view(x.shape[0], R, S, ND)).reshape(x.shape)
+
+
+# ---------------------------------------------------------------- kernels
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    if not torch.cuda.is_available():
+        raise RuntimeError("the probe kernels need a CUDA device; torch.cuda.is_available() is False")
+    lib = ctypes.CDLL(str(scan_cuda.build(scan_cuda.SOURCE_PROBE)))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, args in (("gpu_probe_flat", [p, p, p, i, i, i, i, p]),
+                       ("gpu_probe_shaped", [p, p, i, i, i, i, p]),
+                       ("gpu_probe_exp", [p, p, p, i, i, i, i, p]),
+                       ("gpu_probe_nsum", [p, p, p, i, i, i, i, i, p]),
+                       ("gpu_probe_mxu_seg", [p, p, i, i, i, p])):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, ctypes.c_int
+    lib.gpu_probe_error_string.argtypes = [ctypes.c_int]
+    lib.gpu_probe_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(name, tensors, out_shape, *ints):
+    """Check the tensors (float32, contiguous, on one CUDA device, x first,
+    (G, T, ND)), launch `gpu_probe_<name>` and return its output."""
+    x = tensors[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"probe_{name}: unsupported device {x.device}")
+    if x.dim() != 3 or tuple(x.shape[1:]) != (T, ND):
+        raise ValueError(f"probe_{name}: x must be (G, {T}, {ND}), got {tuple(x.shape)}")
+    for t in tensors:
+        if t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"probe_{name}: inputs must be contiguous float32 on {x.device}")
+    lib = _library()
+    out = torch.empty(out_shape, device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, f"gpu_probe_{name}")(*(t.data_ptr() for t in tensors), out.data_ptr(),
+                                                 *ints, stream)
+    if err != 0:
+        raise RuntimeError(f"probe_{name} launch failed: {lib.gpu_probe_error_string(err).decode()}")
+    return out
+
+
+def probe_flat(x, a, K=48):
+    """P1: y = x; K times y = y * a + x. x (G, T, ND), a (T, ND) -> (G, T, ND)."""
+    if x.device.type == "cpu":
+        return probe_flat_plain(x, a, K)
+    out = _launch("flat", (x, a), x.shape, x.shape[0], T, ND, K)
+    probe_flat.launches += 1
+    return out
+
+
+def probe_shaped(x, K=6):
+    """P2: pass 1 of the scan over the (R, S, ND) view of each block, K times.
+    x (G, T, ND) -> (G, R, ND)."""
+    if x.device.type == "cpu":
+        return probe_shaped_plain(x, K)
+    out = _launch("shaped", (x,), (x.shape[0], R, ND), x.shape[0], T, ND, K)
+    probe_shaped.launches += 1
+    return out
+
+
+def probe_exp(x, a, K=16):
+    """P3: y = x; K times y = exp(y * a). x (G, T, ND), a (T, ND)."""
+    if x.device.type == "cpu":
+        return probe_exp_plain(x, a, K)
+    out = _launch("exp", (x, a), x.shape, x.shape[0], T, ND, K)
+    probe_exp.launches += 1
+    return out
+
+
+def probe_nsum(x, c, K=24):
+    """P4: acc(t, d) = sum over k < K and n of x(t, n, d) * (c(t, n) + k),
+    broadcast over n. x (G, T, N*D2), c (T, N) -> (G, T, N*D2)."""
+    if x.device.type == "cpu":
+        return probe_nsum_plain(x, c, K)
+    out = _launch("nsum", (x, c), x.shape, x.shape[0], T, N, D2, K)
+    probe_nsum.launches += 1
+    return out
+
+
+def probe_mxu_seg(x):
+    """P5: the inclusive prefix over each segment of S tokens, on the tensor
+    cores. x (G, T, ND) -> the same."""
+    if x.device.type == "cpu":
+        return probe_mxu_seg_plain(x)
+    out = _launch("mxu_seg", (x,), x.shape, x.shape[0], T, ND)
+    probe_mxu_seg.launches += 1
+    return out
+
+
+for _fn in (probe_flat, probe_shaped, probe_exp, probe_nsum, probe_mxu_seg):
+    _fn.launches = 0
+WRAPPERS = dict(zip(NAMES, (probe_flat, probe_shaped, probe_exp, probe_nsum, probe_mxu_seg)))
+PLAIN = dict(zip(NAMES, (probe_flat_plain, probe_shaped_plain, probe_exp_plain, probe_nsum_plain,
+                         probe_mxu_seg_plain)))
+TPU_LINES = {"flat": 61, "shaped": 91, "exp": 123, "nsum": 153, "mxu_seg": 185}
+
+
+# ---------------------------------------------------------------- measurement
+
+
+def probe_inputs(name, grid=GRID):
+    """The TPU probe's inputs for `grid` blocks, as numpy float32 arrays."""
+    shape = (T, ND)
+
+    def rand(*dims):  # a fresh stream per array, as there
+        return np.random.default_rng(0).random(dims, np.float32)
+
+    if name == "flat":
+        return rand(grid, *shape), rand(*shape) * 0.5 + 0.5
+    if name == "exp":
+        return rand(grid, *shape) * -0.5, rand(*shape) * -0.5
+    if name == "shaped":
+        return (rand(grid, *shape) * 0.01 + 0.99,)
+    if name == "nsum":
+        return rand(grid, *shape), rand(T, N)
+    return (rand(grid, *shape),)
+
+
+def ops(name, grid, K=None):
+    """The TPU probe's op count for `grid` blocks."""
+    if name == "shaped":
+        return grid * R * (S - 1) * N * D2 * K * 3
+    if name == "mxu_seg":  # the sequential in-segment adds the product replaces
+        return grid * T * N * D2
+    return grid * T * N * D2 * K * 2
+
+
+def bound(name, grid, K=None):
+    """(ms, "bytes" or "operations", unit): the least time the card could take,
+    each input read once and each output written once, the operations at
+    their pipe's peak (`HBM_BYTES_S`, `F32_OPS_S`, `SFU_OPS_S`, `TF32_OPS_S`)."""
+    n = grid * T * ND
+    out = grid * R * ND if name == "shaped" else n
+    extra = {"flat": T * ND, "exp": T * ND, "nsum": T * N}.get(name, 0)
+    times = {"hbm": 4 * (n + out + extra) / HBM_BYTES_S, "fma": 0.0, "sfu": 0.0, "tensor": 0.0}
+    if name in ("flat", "shaped", "nsum"):
+        times["fma"] = ops(name, grid, K) / F32_OPS_S
+    if name == "exp":  # one ex2 per exp on the SFU; the multiply and the range reduction on the FMA pipe
+        times["sfu"], times["fma"] = n * K / SFU_OPS_S, n * K / F32_OPS_S
+    if name == "mxu_seg":  # one 8-deep product per output
+        times["tensor"] = 2 * S * n / TF32_OPS_S
+    unit = max(times, key=times.get)
+    return times[unit] * 1e3, ("bytes" if unit == "hbm" else "operations"), unit
+
+
+def library_call(name, args, K):
+    """One PyTorch call that computes the probe's function, or None."""
+    if name == "nsum":
+        x, c = args  # the sum over k of (c + k) is K c + K (K - 1) / 2
+        return lambda: torch.einsum("gtnd,tn->gtd", x.view(-1, T, N, D2), c * K + K * (K - 1) / 2)
+    if name == "mxu_seg":
+        return lambda: torch.cumsum(args[0].view(-1, R, S, ND), 2)
+    return None
+
+
+def cuda_ms(fn, reps=10):
+    """Median device time of `fn` in ms over `reps` runs, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def measure(name, args, K=None):
+    """One probe at one K on CUDA tensors: the kernel twice (the same bits),
+    against its plain version, timed beside the plain version, the library
+    call and the bound. Raises if the kernel disagrees with its plain version."""
+    kw = {} if K is None else {"K": K}
+    fn = WRAPPERS[name]
+    got, again = fn(*args, **kw), fn(*args, **kw)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = PLAIN[name](*args, **kw)
+    end.record()
+    end.synchronize()
+    abs_err = float((got - want).abs().max())
+    err = abs_err / float(want.abs().max())
+    row = {"probe": name, "replaces": f"scripts/tpu_vpu_probe.py:{TPU_LINES[name]}", "K": K,
+           "grid": args[0].shape[0], "same_bits_twice": bool(torch.equal(got, again)),
+           "finite": bool(torch.isfinite(got).all()), "max_abs_err": abs_err, "max_rel_err": err,
+           "tol": TOL[name]}
+    del got, again, want
+    before = fn.launches  # the timed launches, not the comparison's
+    row["ms"] = cuda_ms(lambda: fn(*args, **kw))
+    row["launches"] = fn.launches - before
+    row["gops"] = ops(name, row["grid"], K) / row["ms"] / 1e6
+    row["plain_ms"] = start.elapsed_time(end)
+    lib = library_call(name, args, K)
+    row["library_ms"] = None if lib is None else cuda_ms(lib)
+    row["bound_ms"], row["bound_by"], row["bound_unit"] = bound(name, row["grid"], K)
+    if not (row["same_bits_twice"] and row["finite"] and err <= TOL[name]):
+        raise RuntimeError(f"probe {name} K={K}: {row}")
+    return row
+
+
+def run_all(grid=GRID):
+    """Every probe at its TPU K and at `K_COMPUTE` (P5 once) on the card:
+    the `measure` rows, in order."""
+    rows = []
+    for name in NAMES:
+        args = tuple(torch.from_numpy(a).cuda() for a in probe_inputs(name, grid))
+        for K in ((K_DEFAULT[name], K_COMPUTE[name]) if name in K_DEFAULT else (None,)):
+            rows.append(measure(name, args, K))
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("gpu_probe: torch.cuda.is_available() is False; the probes measure the card")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain P5 in full float32
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    for row in run_all():
+        print(json.dumps({**row, "device": smi}), flush=True)
+    print(smi, flush=True)
+
+
+if __name__ == "__main__":
+    main()

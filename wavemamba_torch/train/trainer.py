@@ -7,6 +7,11 @@
     written into the optimizer before every update, step counted from 0
   * EMA: ema = ema * decay + p * (1 - decay), after the update
 
+A model built with `compute_dtype: bfloat16` runs its forward and backward in
+bf16 (the model casts its float32 parameters where they are used): the
+parameters, their gradients, AdamW's and the EMA's state and the loss stay
+float32, as in the JAX trainer.
+
 Where the JAX package threads a pytree through a jitted pure function, the
 port keeps a `TrainState` that holds the model, its optimizer and the EMA
 copy, and a step that updates them in place. No mesh argument yet: one card.
