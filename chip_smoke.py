@@ -27,13 +27,15 @@ and prints one JSON line per phase:
              y and carries, at the three scan lengths of a 1080p forward, a
              ragged length and a column stream, the same bits twice; times and
              bounds.
-  3e. chain  the conv-chain kernel (`csrc/conv_chain.cu`) from both entry
-             points, K6 (`fused_chain`, 2-D tiles) and K7 (`fused_chain_band`,
-             row bands), against `fused_chain_plain`, for each of the nine
-             wrappers with the shipped checkpoint's modules at the 1080p shape
-             where each runs and at 17x130, the same bits twice and from both
-             entry points; times beside the bound, the plain version, the stock
-             modules the chain replaces and, for a single conv, `F.conv2d`.
+  3e. chain  the conv-chain kernel (`csrc/conv_chain.cu`, tensor cores) from
+             both entry points, K6 (`fused_chain`, 2-D tiles) and K7
+             (`fused_chain_band`, row bands), against `fused_chain_plain`, for
+             each of the nine wrappers with the shipped checkpoint's modules at
+             the 1080p shape where each runs and at 17x130, on a float32 and on
+             a bf16 input (one bf16 step more), the same bits twice and from
+             both entry points; times beside the bound, the plain version, the
+             stock modules the chain replaces and, for a single conv,
+             `F.conv2d`, all on the row's dtype; tile, shared memory, TFLOP/s.
   4. serve   `ckpt/WaveMamba_ProcLLIE_BSRGAN_XXL4.pth` through the CLI's
              load -> bucket pad -> forward -> crop path, two seeded
              low-light requests (1080x1920, 720x1280); launches of K1,
@@ -78,6 +80,11 @@ and prints one JSON line per phase:
              bf16 x and y, latency, forward time, peak memory, PSNR against
              the float32 route's output; the whole model with K1 against the
              plain scan at 256x384.
+ 11b. serve_fast_fused the same two requests with `WaveMambaConfig.fast(
+             conv_impl="fused")`: 76 K7 + 28 K1 launches a forward, both on
+             bf16 activations, PSNR against the float32 route (held) and
+             against `fast()` (reported), chain kernels against plain chains on
+             the same model, the forward beside `fast()`'s, peak memory.
  12. train_fast the xxl4 yml's `network_g` (bf16) and `train` sections
              through `build_model` and the loader on a seeded uint8 dataset,
              1 + 6 steps on one batch of 8 x 512x512: 28 K1 + 28 K2 a step
@@ -87,7 +94,8 @@ and prints one JSON line per phase:
              route's gradients as bf16 noise, and a planted K2 fault that the
              check must catch.
  13. profile device time by kernel (torch.profiler) over one 1152x1920
-             forward of each conv route and of `fast()`, one training step of
+             forward of each conv route, of `fast()` and of
+             `fast(conv_impl="fused")`, one training step of
              the fused scan route, of the unfused route and of the bf16 yml,
              and the card's idle share.
  14. bench   `wavemamba_torch.bench` in `fast` and `parity` modes.
@@ -165,11 +173,12 @@ K4_RTOL = 1e-5
 # (the same inputs; the segment-local form sums in another order again).
 K5_ATOL = 1e-4
 # The chain kernel against its plain version, of each output's max abs value.
-# Both round the same operands to bf16 and sum in f32, in other orders. Where
-# a last-bit difference of an f32 stage (LayerNorm, GELU, the depthwise sum)
-# moves a value across a bf16 rounding boundary ahead of a 1x1 or dense 3x3,
-# one product moves by a bf16 step: 1e-5 on at least 99.5% of the elements,
-# 1e-2 on every one.
+# Both round the same operands to bf16; the plain version takes each product's
+# sum exactly and rounds it once, the kernel sums on the tensor cores within
+# about an ulp of that. Where a last-bit difference of an f32 stage (LayerNorm,
+# GELU, the depthwise sum, a sum) moves a value across a bf16 rounding boundary
+# ahead of a 1x1 or dense 3x3, one product moves by a bf16 step: 1e-5 on at
+# least 99.5% of the elements, 1e-2 on every one.
 CHAIN_TIGHT_REL, CHAIN_TIGHT_SHARE, CHAIN_LOOSE_REL = 1e-5, 0.995, 1e-2
 # The fused-route model, chain kernels against plain chains on the card: the
 # same rounding flips, spread over the image by the scans. Max and mean abs.
@@ -194,6 +203,10 @@ BF16_STEP = 2.0 ** -7
 FAST_MODEL_ATOL, FAST_MODEL_PSNR = 5e-2, 45.0
 # The fast route's 1080p request against the float32 route's, same weights.
 FAST_VS_F32_PSNR = 40.0
+# `fast(conv_impl="fused")`, chain kernels against plain chains on the card,
+# both on bf16 activations: as FAST_MODEL_*, one-step flips of bf16 chain
+# outputs travel through the bf16 network. Max abs and PSNR.
+FAST_FUSED_MODEL_ATOL, FAST_FUSED_MODEL_PSNR = 5e-2, 45.0
 # bf16 training, K1 + K2 against the plain scan and backward, both on bf16
 # streams: the loss relative. The gradients against bf16 noise, which the
 # float32 plain route's gradients measure: the kernels may be no farther from
@@ -287,17 +300,18 @@ def k5_bound(B, L, D, N, R):
     return _bound(nbytes, fma_ops, sfu_ops)
 
 
-def chain_bound(c0, specs, pixels):
+def chain_bound(c0, specs, pixels, act_bytes=4):
     """Least time (ms) the card could take for one chain over `pixels` pixels
-    of one image, and what bounds it. Bytes: the input read once, the output
-    written once, the weights read once. Per pixel: the bf16 products of the
-    1x1, dense 3x3 and gate stages (2 per multiply-add) on the tensor cores;
-    on the FMA pipe the depthwise taps (2 each), a bias 1, LayerNorm 6, the
+    of one image, what bounds it, the unit that does, and the tensor cores'
+    operations. Bytes: the input read once, the output written once
+    (`act_bytes` each: 2 in bf16), the f32 weights read once. Per pixel: the
+    bf16 products of the 1x1, dense 3x3 and gate stages (2 per multiply-add)
+    on the tensor cores; on the FMA pipe the depthwise taps (2 each), a bias 1, LayerNorm 6, the
     tanh GELU 8 and silu / sigmoid 3 per element, the gate 3, the residual 2;
     on the SFU a tanh per GELU, an exp and a reciprocal per silu or sigmoid,
     a reciprocal square root per LayerNorm."""
     weights = sum(t.numel() for s in specs for t in s[4:6] if t is not None)
-    nbytes = 4 * (pixels * (c0 + specs[-1][2]) + weights)
+    nbytes = act_bytes * pixels * (c0 + specs[-1][2]) + 4 * weights
     tensor, fma, sfu = 0, 0, 0
     for kind, cin, cout, act, w, b, eps in specs:
         fma += cout if b is not None and kind != "ln" else 0
@@ -316,7 +330,7 @@ def chain_bound(c0, specs, pixels):
             fma, sfu = fma + 6 * cin, sfu + 1
         if kind == "res0":
             fma += 2 * cin
-    return _bound(nbytes, fma * pixels, sfu * pixels, tensor * pixels)
+    return (*_bound(nbytes, fma * pixels, sfu * pixels, tensor * pixels), tensor * pixels)
 
 
 def k2_bound(B, L, D, N, R, T=64, stream_bytes=4):
@@ -805,7 +819,8 @@ def chain_cases(stock):
         ("dw_act", lambda x: cf.dw_act(lfss.self_attention.conv2d, x),
          lambda x: F.silu(lfss.self_attention.conv2d(x)), 64, level1),
         ("lfss_ffn_block", lambda x: cf.lfss_ffn_block(lfss.ln_2, lfss.conv_blk, lfss.skip_scale2, x),
-         lambda x: x * lfss.skip_scale2.view(1, -1, 1, 1) + lfss.conv_blk(lfss.ln_2(x)), 32, level1),
+         lambda x: x * lfss.skip_scale2.to(x.dtype).view(1, -1, 1, 1) + lfss.conv_blk(lfss.ln_2(x)),
+         32, level1),
         ("qkv_chain", lambda x: cf.qkv_chain(hfe.attn, x, ln=hfe.norm1),
          lambda x: hfe.attn.qkv_dwconv(hfe.attn.qkv(hfe.norm1(x))), 32, level1),
         ("paconv_chain", lambda x: cf.paconv_chain(pac, x), pac, 64, level1),
@@ -828,17 +843,39 @@ def chain_errors(got, want):
             "share_beyond_tight": float((d > CHAIN_TIGHT_REL * scale).float().mean())}
 
 
+def chain_errors_bf16(got, want):
+    """`chain_errors` for a bf16 output against the plain chain's bf16 output on
+    the same bf16 input: both compute in float32 and round once, so an element
+    may also differ by one bf16 step where the two float32 values fall on two
+    sides of a rounding boundary. The share beyond one step plus the tight
+    bound, and (`bf16_excess`) the worst excess over one step plus the loose
+    bound, of `want`'s max abs value (<= 0 passes)."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    scale = float(w.abs().max())
+    beyond = d > BF16_STEP * w.abs() + CHAIN_TIGHT_REL * scale
+    excess, differing = bf16_excess(got, want, CHAIN_LOOSE_REL * scale)
+    return {"max_abs_err": float(d.max()), "max_rel_err": float(d.max()) / scale,
+            "share_beyond_tight": float(beyond.float().mean()), "loose_excess": excess / scale,
+            "share_differing": differing}
+
+
 def check_chain(name, err):
     check(1.0 - err["share_beyond_tight"] >= CHAIN_TIGHT_SHARE,
           f"{name}: {err['share_beyond_tight']} of the elements beyond {CHAIN_TIGHT_REL} of the max")
-    check(err["max_rel_err"] <= CHAIN_LOOSE_REL, f"{name}: max rel err {err['max_rel_err']}")
+    if "loose_excess" in err:  # bf16: one bf16 step more
+        check(err["loose_excess"] <= 0, f"{name}: {err['loose_excess']} beyond a bf16 step + "
+              f"{CHAIN_LOOSE_REL} of the max")
+    else:
+        check(err["max_rel_err"] <= CHAIN_LOOSE_REL, f"{name}: max rel err {err['max_rel_err']}")
 
 
 @torch.no_grad()
 def phase_chain(stock, per_forward):
     """The chain kernel from both entry points against the plain version, for
-    every wrapper; `per_forward`: each wrapper's launches in a forward of the
-    serve path (`serve_fused`)."""
+    every wrapper, on a float32 and on a bf16 input; `per_forward`: each
+    wrapper's launches in a forward of the serve path (`serve_fused`). The
+    bf16 rows time the stock modules and `F.conv2d` on the same bf16 input."""
     import torch.nn.functional as F
 
     from wavemamba_torch.experimental import conv_fused as cf
@@ -848,41 +885,48 @@ def phase_chain(stock, per_forward):
     rows = []
     for name, call, stock_call, c, (h, w) in chain_cases(stock):
         wrapper = name.split()[0]
-        row = {"phase": "chain", "chain": name, "shape": [1, c, h, w],
-               "launches_per_forward": per_forward.get(wrapper, 0)}
+        by_dtype = {dtype: {"phase": "chain", "chain": name, "dtype": str(dtype).split(".")[1],
+                            "shape": [1, c, h, w], "launches_per_forward": per_forward.get(wrapper, 0)}
+                    for dtype in (torch.float32, torch.bfloat16)}
         for shape in ((h, w), (17, 130)):  # the 1080p shape, then an odd one for the borders
-            x = torch.from_numpy((rs.randn(1, c, *shape) * 0.5).astype(np.float32)).cuda()
-            stages = chain_stages(call, x)
-            specs = cf._specs(c, stages)
-            band = cf.fused_chain_band(x, stages)
-            band2 = cf.fused_chain_band(x, stages)
-            tile = cf.fused_chain(x, stages)
-            tile2 = cf.fused_chain(x, stages)
-            torch.cuda.synchronize()
-            plain, plain_ms = timed_once(lambda: cf.fused_chain_plain(x, stages))
-            check(bool(torch.isfinite(band).all()), f"{name} {shape}: finite")
-            check(torch.equal(band, band2) and torch.equal(tile, tile2),
-                  f"{name} {shape}: the same bits twice")
-            check(torch.equal(band, tile), f"{name} {shape}: K7 and K6 compute the same bits")
-            err = chain_errors(band, plain)
-            check_chain(f"{name} {shape}", err)
-            key = "odd" if shape == (17, 130) else "main"
-            row[key] = err
-            if key == "main":
-                row["tile_K7"], row["smem_K7"] = chain_plan(c, specs, 16, w)
-                row["tile_K6"], row["smem_K6"] = chain_plan(c, specs, 8, 128)
-                row["ms"] = cuda_ms(lambda: cf.fused_chain_band(x, stages), 10)
-                row["k6_ms"] = cuda_ms(lambda: cf.fused_chain(x, stages), 10)
-                row["plain_ms"] = plain_ms
-                row["stock_ms"] = cuda_ms(lambda: stock_call(x), 10)
-                row["library_ms"] = None
-                if wrapper == "dense3x3":  # one library call computes a single conv
-                    conv = stages[0]
-                    row["library_ms"] = cuda_ms(lambda: F.conv2d(x, conv[1], conv[2], padding=1), 10)
-                row["bound_ms"], row["bound_by"], row["bound_unit"] = chain_bound(c, specs, h * w)
-            del band, band2, tile, tile2, plain, x
-        emit(row)
-        rows.append(row)
+            # One float32 draw per shape (the draws of earlier runs), rounded for the bf16 row.
+            x32 = torch.from_numpy((rs.randn(1, c, *shape) * 0.5).astype(np.float32)).cuda()
+            for dtype, row in by_dtype.items():
+                x = x32.to(dtype)
+                stages = chain_stages(call, x)
+                specs = cf._specs(c, stages)
+                band = cf.fused_chain_band(x, stages)
+                band2 = cf.fused_chain_band(x, stages)
+                tile = cf.fused_chain(x, stages)
+                tile2 = cf.fused_chain(x, stages)
+                torch.cuda.synchronize()
+                plain, plain_ms = timed_once(lambda: cf.fused_chain_plain(x, stages))
+                label = f"{name} {row['dtype']} {shape}"
+                check(band.dtype == dtype and bool(torch.isfinite(band).all()), f"{label}: finite, {dtype}")
+                check(torch.equal(band, band2) and torch.equal(tile, tile2), f"{label}: the same bits twice")
+                check(torch.equal(band, tile), f"{label}: K7 and K6 compute the same bits")
+                err = chain_errors(band, plain) if dtype == torch.float32 else chain_errors_bf16(band, plain)
+                check_chain(label, err)
+                key = "odd" if shape == (17, 130) else "main"
+                row[key] = err
+                if key == "main":
+                    row["tile_K7"], row["smem_K7"] = chain_plan(c, specs, 16, w)
+                    row["tile_K6"], row["smem_K6"] = chain_plan(c, specs, 8, 128)
+                    row["ms"] = cuda_ms(lambda: cf.fused_chain_band(x, stages), 10)
+                    row["k6_ms"] = cuda_ms(lambda: cf.fused_chain(x, stages), 10)
+                    row["plain_ms"] = plain_ms
+                    row["stock_ms"] = cuda_ms(lambda: stock_call(x), 10)
+                    row["library_ms"] = None
+                    if wrapper == "dense3x3":  # one library call computes a single conv
+                        wt, bt = (t.to(dtype) for t in stages[0][1:3])
+                        row["library_ms"] = cuda_ms(lambda: F.conv2d(x, wt, bt, padding=1), 10)
+                    (row["bound_ms"], row["bound_by"], row["bound_unit"],
+                     tensor_ops) = chain_bound(c, specs, h * w, act_bytes=x.element_size())
+                    row["tensor_tflops"] = tensor_ops / row["ms"] / 1e9
+                del band, band2, tile, tile2, plain, x
+        for row in by_dtype.values():
+            emit(row)
+            rows.append(row)
     return rows
 
 
@@ -1702,6 +1746,83 @@ def phase_serve_fast(fast, stock):
     return dict(launches=launches, forward_ms=forward_ms, x=x)
 
 
+@torch.no_grad()
+def phase_serve_fast_fused(model, fast, stock):
+    """The serve path with `WaveMambaConfig.fast(conv_impl="fused")` on the
+    same weights: the bf16 network with its chains on K7 and its scans on K1,
+    both on bf16 activations. The two requests of `serve_fast` (each bucket
+    warmed): 76 K7 + 28 K1 launches a forward, outputs finite and brighter,
+    the PSNR against the float32 stock route (held) and against `fast()` on
+    stock convs (reported); then the chain kernels against the plain chains on
+    the same model, and the forward at 1152x1920 beside `fast()`'s."""
+    from wavemamba_torch.experimental import conv_fused as cf
+    from wavemamba_torch.inference import enhance
+    from wavemamba_torch.models.buckets import BucketLadder
+    from wavemamba_torch.models.wavemamba import wavemamba_apply
+    from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair
+
+    check((model.cfg.conv_impl, model.cfg.compute_dtype, model.cfg.scan_dtype)
+          == ("fused", "bfloat16", "bfloat16"), f"the fused fast preset {model.cfg}")
+    rs = np.random.RandomState(0)
+    shapes = [(1080, 1920), (720, 1280)]
+    images = [(rs.rand(1, h, w, 3) * 0.12).astype(np.float32) for h, w in shapes]
+    ladder = BucketLadder()
+    for img in images:  # warm-up of each bucket
+        enhance(model, img, ladder)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = lambda: (cf.fused_chain_band.launches, cf.fused_chain.launches, ss2d_scan_pair.launches)
+    cf.fused_chain_band.launches = cf.fused_chain.launches = ss2d_scan_pair.launches = 0  # the main path
+    results = []
+    for img in images:
+        before = counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = enhance(model, img, ladder)
+        end.record()
+        end.synchronize()
+        results.append((img, out, start.elapsed_time(end), time.perf_counter() - t0,
+                        tuple(a - b for a, b in zip(counts(), before))))
+    launches = counts()  # read just after the main path
+    peak = torch.cuda.max_memory_allocated()
+    for (img, out, ms, host_s, n), (h, w) in zip(results, shapes):
+        ref = enhance(stock, img, ladder)  # the float32 stock route, the same request
+        psnr, psnr_fast = psnr_db(out, ref), psnr_db(out, enhance(fast, img, ladder))
+        check(out.shape == img.shape and out.dtype == np.float32 and bool(np.isfinite(out).all()),
+              "the fused fast route's output")
+        check(float(out.mean()) > float(img.mean()), "outputs brighter than inputs")
+        check(n == (76, 0, 28), f"{n} K7 / K6 / K1 launches in a forward, expected (76, 0, 28)")
+        emit({"phase": "serve_fast_fused", "image": [h, w], "bucket": list(ladder.shape_for(h, w)),
+              "latency_ms": ms, "host_s": host_s, "k7_launches": n[0], "k1_launches": n[2],
+              "psnr_vs_float32_db": psnr, "max_abs_vs_float32": float(np.abs(out - ref).max()),
+              "tol_psnr_db": FAST_VS_F32_PSNR, "psnr_vs_fast_stock_convs_db": psnr_fast})
+        check(psnr >= FAST_VS_F32_PSNR,
+              f"{h}x{w}: fused fast vs float32 route {psnr} dB >= {FAST_VS_F32_PSNR}")
+    check(launches == (76 * len(images), 0, 28 * len(images)), f"{launches} launches on the main path")
+
+    x = torch.from_numpy(np.ascontiguousarray(np.pad(
+        images[0], ((0, 0), (0, 72), (0, 0), (0, 0)), mode="reflect"))).cuda()
+    forward_ms = cuda_ms(lambda: wavemamba_apply(model, x), 3)
+    fast_ms = cuda_ms(lambda: wavemamba_apply(fast, x), 3)
+    y = wavemamba_apply(model, x)
+    with cf.chain_route("plain"):
+        y_plain = wavemamba_apply(model, x)
+    d = (y - y_plain).abs()
+    psnr = psnr_db(y, y_plain)
+    row = {"phase": "serve_fast_fused", "requests": len(images), "k7_launches": launches[0],
+           "k6_launches": launches[1], "k1_launches": launches[2],
+           "forward_ms_1152x1920": forward_ms, "fast_stock_convs_forward_ms_1152x1920": fast_ms,
+           "peak_memory_bytes": peak,
+           "kernel_vs_plain_chains": {"max_abs_err": float(d.max()), "mean_abs_err": float(d.mean()),
+                                      "psnr_db": psnr, "tol_max": FAST_FUSED_MODEL_ATOL,
+                                      "tol_psnr_db": FAST_FUSED_MODEL_PSNR}}
+    emit(row)
+    check(float(d.max()) <= FAST_FUSED_MODEL_ATOL and psnr >= FAST_FUSED_MODEL_PSNR,
+          f"fused fast model, chain kernels vs plain chains {row['kernel_vs_plain_chains']}")
+    return dict(launches=launches[0], k1_launches=launches[2], forward_ms=forward_ms)
+
+
 def fast_train_opt(seed):
     """The `network_g` and `train` sections of
     `options/train_wavemamba_proc_bsrgan_xxl4.yml` as `parse_options` hands
@@ -1832,9 +1953,10 @@ def profile_rows(fn):
     return wall_ms, sorted(((us, n, name) for name, (us, n) in by_name.items()), reverse=True)
 
 
-def phase_profile(model, x, forward_ms, run, pipe, fused, fast, train_fast):
+def phase_profile(model, x, forward_ms, run, pipe, fused, fast, fast_fused, train_fast):
     """Device time by kernel over one 1152x1920 forward of each conv route
-    (stock convs, and the fused chains: K7) and of `fast()`, one training step
+    (stock convs, and the fused chains: K7), of `fast()` and of
+    `fast(conv_impl="fused")`, one training step
     of the fused scan route (K1 + K2), of the unfused route (K3 + K4, through
     the runner) and of the bf16 yml (`train_fast`), and the share of each
     one's wall time in which the card ran no kernel."""
@@ -1876,9 +1998,26 @@ def phase_profile(model, x, forward_ms, run, pipe, fused, fast, train_fast):
            pipe["ms_per_step"], batch=run["lq"].shape[0], size=[TRAIN_SIZE, TRAIN_SIZE], remat=False)
     report("forward_fast", *profile_rows(lambda: wavemamba_apply(fast["model"], x)), fast["forward_ms"],
            image=[1152, 1920])
+    report("forward_fast_fused", *profile_rows(lambda: wavemamba_apply(fast_fused["model"], x)),
+           fast_fused["forward_ms"], image=[1152, 1920])
     report("train_step_fast", *profile_rows(lambda: train_fast["model"].optimize_parameters(
         train_fast["batch"])), train_fast["ms_per_step"], batch=TRAIN_BATCH, size=[TRAIN_SIZE, TRAIN_SIZE],
         remat=False)
+
+
+def kernel_errors(k1_rows, k1_bf16_rows, k2_rows, k2_bf16_rows):
+    """The `kernels` line's errors of K1 and K2: at the top level the float32
+    rows' own (the k1 phase's, and K1's y and carries as the k2 phase checks
+    them; the k2 phase's), and for each `bf16` sub-dict the worst bf16 reading
+    over every shape, which is one bf16 step on values up to ~50."""
+    return {"K1": {"max_abs_err": max([r["max_abs_err"] for r in k1_rows]
+                                      + [max(r["k1"].values()) for r in k2_rows]),
+                   "bf16_max_abs_err": max([r["max_abs_err"] for r in k1_bf16_rows]
+                                           + [r["k1"]["y"] for r in k2_bf16_rows])},
+            "K2": {"max_abs_err": max(max(r["max_abs_err"].values()) for r in k2_rows),
+                   "max_rel_err": max(max(r["max_rel_err"].values()) for r in k2_rows),
+                   "bf16_max_abs_err": max(max(r["max_abs_err"].values()) for r in k2_bf16_rows),
+                   "bf16_max_rel_err": max(max(r["max_rel_err"].values()) for r in k2_bf16_rows)}}
 
 
 def main():
@@ -1926,16 +2065,22 @@ def main():
                                load_network(CKPT, device="cuda"), device="cuda")
     fast = phase_serve_fast(fast_model, model)
     fast["model"] = fast_model
+    fast_fused_model = build_network(
+        {"type": "WaveMamba", **dataclasses.asdict(WaveMambaConfig.fast(conv_impl="fused"))},
+        load_network(CKPT, device="cuda"), device="cuda")
+    fast_fused = phase_serve_fast_fused(fast_fused_model, fast_model, model)
+    fast_fused["model"] = fast_fused_model
     phase_grad("fast")
     train_fast = phase_train_fast()
-    phase_profile(model, x1080, forward_ms, run, pipe, fused, fast, train_fast)
+    phase_profile(model, x1080, forward_ms, run, pipe, fused, fast, fast_fused, train_fast)
     bench = phase_bench()
 
     # K1 and K5 at level 1 of the 1080p forward; K2, K3 and K4 at level 1 of
     # the training step. Launches: each path's own, counted from 0 just before
     # it: K1 the serve paths' (float32 and fast) and the training paths'
-    # (fused and fast), K2 the training paths', K3 and K4 the pipeline path's
-    # (steps, validation, the request), K7 the fused serve path's, P1-P5 the
+    # (fused and fast) and the fused fast serve path's, K2 the training paths',
+    # K3 and K4 the pipeline path's (steps, validation, the request), K7 the
+    # two fused serve paths' (float32 and fast), P1-P5 the
     # probe path's timed calls.
     level1 = k1_rows[0]
     k2_level1 = k2_rows[0]
@@ -1943,10 +2088,20 @@ def main():
     k4_level1 = next(r for r in k4_rows if r["case"] == "train_level1")
     k5_level1 = k5_rows[0]
     # K6 / K7: one call of the slowest chain of a 1080p forward, paconv_chain
-    # at level 1; the `chain` lines hold every wrapper's.
-    pac = next(r for r in chain_rows if r["chain"] == "paconv_chain")
-    chain_err = lambda key: max(max(r[k][key] for k in ("main", "odd")) for r in chain_rows)
+    # at level 1, float32 at the top and bf16 in `bf16`; the `chain` lines
+    # hold every wrapper's. Errors: the worst of each dtype's rows.
+    pac, pac_bf16 = (next(r for r in chain_rows if r["chain"] == "paconv_chain" and r["dtype"] == dt)
+                     for dt in ("float32", "bfloat16"))
+    chain_err = lambda key, dt: max(max(r[k][key] for k in ("main", "odd"))
+                                    for r in chain_rows if r["dtype"] == dt)
+    chain_bf16 = lambda ms_key: {
+        "ms": pac_bf16[ms_key], "plain_ms": pac_bf16["plain_ms"], "bound_ms": pac_bf16["bound_ms"],
+        "bound_by": pac_bf16["bound_by"], "stock_ms": pac_bf16["stock_ms"],
+        "max_abs_err": chain_err("max_abs_err", "bfloat16"),
+        "max_rel_err": chain_err("max_rel_err", "bfloat16"),
+        "share_differing": chain_err("share_differing", "bfloat16")}
     k1_bf16, k2_bf16 = k1_bf16_rows[0], k2_bf16_rows[0]
+    errs = kernel_errors(k1_rows, k1_bf16_rows, k2_rows, k2_bf16_rows)
     from wavemamba_torch.scripts.gpu_probe import NAMES as PROBES
 
     probes = []
@@ -1967,30 +2122,32 @@ def main():
     emit({"kernels": [{
         "name": "ss2d_scan_pair (K1)", "route": "cuda", "source": "wavemamba_torch/csrc/ss2d_scan.cu",
         "replaces": "wavemamba_tpu/ops/scan_pallas.py:705",
-        "launches": launches + run["k1_launches"] + fast["launches"] + train_fast["k1_launches"],
+        "launches": launches + run["k1_launches"] + fast["launches"] + train_fast["k1_launches"]
+        + fast_fused["k1_launches"],
         "launches_serve": launches, "launches_train": run["k1_launches"],
         "launches_serve_fast": fast["launches"], "launches_train_fast": train_fast["k1_launches"],
+        "launches_serve_fast_fused": fast_fused["k1_launches"],
         "variants": "x and y float32, or bfloat16 on the fast paths",
-        "max_abs_err": max([r["max_abs_err"] for r in k1_rows + k1_bf16_rows]
-                           + [max(r["k1"].values()) for r in k2_rows]
-                           + [r["k1"]["y"] for r in k2_bf16_rows]),
+        "max_abs_err": errs["K1"]["max_abs_err"],
         "ms": level1["ms"], "plain_ms": level1["plain_ms"], "bound_ms": level1["bound_ms"],
         "bound_by": level1["bound_by"], "library_ms": None,
-        "bf16": {k: k1_bf16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-                                         "share_differing")}}, {
+        "bf16": {**{k: k1_bf16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                                            "share_differing")},
+                 "max_abs_err_all_shapes": errs["K1"]["bf16_max_abs_err"]}}, {
         "name": "ss2d_scan_pair_bwd (K2)", "route": "cuda",
         "source": "wavemamba_torch/csrc/ss2d_scan_bwd.cu",
         "replaces": "wavemamba_tpu/ops/scan_pallas.py:952",
         "launches": run["k2_launches"] + train_fast["k2_launches"],
         "launches_train": run["k2_launches"], "launches_train_fast": train_fast["k2_launches"],
         "variants": "x, dy and dx float32, or bfloat16 on the fast training path",
-        "max_abs_err": max(max(r["max_abs_err"].values()) for r in k2_rows + k2_bf16_rows),
-        "max_rel_err": max(max(r["max_rel_err"].values()) for r in k2_rows + k2_bf16_rows),
+        "max_abs_err": errs["K2"]["max_abs_err"], "max_rel_err": errs["K2"]["max_rel_err"],
         "ms": k2_level1["ms"], "plain_ms": k2_level1["plain_ms"],
         "bound_ms": k2_level1["bound_ms"], "bound_by": k2_level1["bound_by"],
         "library_ms": None,
-        "bf16": {k: k2_bf16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-                                         "dx_share_differing")}}, {
+        "bf16": {**{k: k2_bf16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                                            "dx_share_differing")},
+                 "max_abs_err_all_shapes": errs["K2"]["bf16_max_abs_err"],
+                 "max_rel_err_all_shapes": errs["K2"]["bf16_max_rel_err"]}}, {
         "name": "selective_scan_cuda (K3)", "route": "cuda",
         "source": "wavemamba_torch/csrc/selective_scan.cu",
         "replaces": "wavemamba_tpu/ops/scan_pallas.py:134", "launches": pipe["launches"]["k3"],
@@ -2020,15 +2177,21 @@ def main():
         "replaces": "wavemamba_tpu/experimental/conv_fused.py:96", "launches": fused["k6_launches"],
         "launches_note": "one 1152x1920 forward of the fused route under chain_route('tile')",
         "shape": "paconv_chain " + "x".join(map(str, pac["shape"])),
-        "max_abs_err": chain_err("max_abs_err"), "max_rel_err": chain_err("max_rel_err"),
+        "max_abs_err": chain_err("max_abs_err", "float32"),
+        "max_rel_err": chain_err("max_rel_err", "float32"),
         "ms": pac["k6_ms"], "plain_ms": pac["plain_ms"], "bound_ms": pac["bound_ms"],
-        "bound_by": pac["bound_by"], "library_ms": pac["library_ms"], "stock_ms": pac["stock_ms"]}, {
+        "bound_by": pac["bound_by"], "library_ms": pac["library_ms"], "stock_ms": pac["stock_ms"],
+        "bf16": chain_bf16("k6_ms")}, {
         "name": "fused_chain_band (K7)", "route": "cuda", "source": "wavemamba_torch/csrc/conv_chain.cu",
-        "replaces": "wavemamba_tpu/experimental/conv_fused.py:403", "launches": fused["launches"],
+        "replaces": "wavemamba_tpu/experimental/conv_fused.py:403",
+        "launches": fused["launches"] + fast_fused["launches"],
+        "launches_serve_fused": fused["launches"], "launches_serve_fast_fused": fast_fused["launches"],
         "shape": "paconv_chain " + "x".join(map(str, pac["shape"])),
-        "max_abs_err": chain_err("max_abs_err"), "max_rel_err": chain_err("max_rel_err"),
+        "max_abs_err": chain_err("max_abs_err", "float32"),
+        "max_rel_err": chain_err("max_rel_err", "float32"),
         "ms": pac["ms"], "plain_ms": pac["plain_ms"], "bound_ms": pac["bound_ms"],
-        "bound_by": pac["bound_by"], "library_ms": pac["library_ms"], "stock_ms": pac["stock_ms"]}]
+        "bound_by": pac["bound_by"], "library_ms": pac["library_ms"], "stock_ms": pac["stock_ms"],
+        "bf16": chain_bf16("ms")}]
         + probes, "bench": {m: {k: r[k] for k in ("value", "device_ms", "vs_baseline")}
                             for m, r in bench.items()}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,40 @@
+"""What `chip_smoke.py` reports without a card: the `kernels` line's top-level
+errors of K1 and K2 are the float32 rows' own, the bf16 rows' in `bf16`."""
+
+import importlib.util
+import pathlib
+
+import torch
+
+# The suite runs in several worker processes on a few cores: torch's intra-op
+# threads spin while they wait.
+torch.set_num_threads(1)
+
+_SPEC = importlib.util.spec_from_file_location(
+    "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(chip_smoke)
+
+
+def test_kernel_errors_take_the_float32_rows_at_the_top():
+    k1 = [{"max_abs_err": 1.1e-5}, {"max_abs_err": 2e-6}]
+    k1_bf16 = [{"max_abs_err": 0.25}]
+    k2 = [{"k1": {"y": 3e-6, "carries": 4e-6}, "max_abs_err": {"dx": 1e-6, "dA": 5e-6},
+           "max_rel_err": {"dx": 1.3e-6, "dA": 2e-7}}]
+    k2_bf16 = [{"k1": {"y": 0.5}, "max_abs_err": {"dx": 1.0, "dA": 7e-6},
+                "max_rel_err": {"dx": 3e-3, "dA": 1.8e-6}}]
+    errs = chip_smoke.kernel_errors(k1, k1_bf16, k2, k2_bf16)
+    assert errs["K1"] == {"max_abs_err": 1.1e-5, "bf16_max_abs_err": 0.5}
+    assert errs["K2"] == {"max_abs_err": 5e-6, "max_rel_err": 1.3e-6,
+                          "bf16_max_abs_err": 1.0, "bf16_max_rel_err": 3e-3}
+
+
+def test_bf16_chain_errors_allow_one_step():
+    """A bf16 output one bf16 step from the plain chain's passes; an element
+    a step plus more than the loose bound (1e-2 of the max, 0.02) off fails."""
+    want = torch.tensor([1.0, 0.5, -2.0, 0.25]).bfloat16()
+    one = torch.tensor([1.0078125, 0.5, -2.0, 0.25]).bfloat16()
+    err = chip_smoke.chain_errors_bf16(one, want)
+    assert err["loose_excess"] <= 0 and err["share_differing"] == 0.25
+    far = torch.tensor([1.0, 0.5, -2.0, 0.28]).bfloat16()
+    assert chip_smoke.chain_errors_bf16(far, want)["loose_excess"] > 0

@@ -5,8 +5,9 @@ The JAX chains run their Pallas kernels in interpret mode, as
 `tests/test_conv_fused.py` does; the port's run their plain version, which is
 what a CPU tensor takes. Same weights (the JAX init carried over by
 `convert.state_dict_from_jax`), same numpy inputs. Both round the operands of
-every 1x1 and dense 3x3 to bf16 (nearest even) and sum in float32, so the
-outputs differ by the order of float32 sums, ~1e-6. A chain that rounds the
+every 1x1 and dense 3x3 to bf16 (nearest even); JAX sums in float32, the port's
+plain version takes each sum exactly and rounds it once, so the outputs differ
+by float32 rounding, ~1e-6. A chain that rounds the
 output of a float32 stage to bf16 (paconv: the product with the sigmoid gate
 feeds the second dense 3x3) can see one input land on the other side of a bf16
 rounding boundary: then one element moves by a bf16 step times a weight. So:
@@ -121,6 +122,33 @@ def test_chain_wrapper_matches_jax(name, hw):
     _assert_close(*_run_both(jfn, tfn, (1, *hw, c), seed=3))
 
 
+BF16_STEP = 2.0 ** -7  # one bf16 step (8 significant bits), at most this share of the value
+
+
+@pytest.mark.parametrize("hw", [(17, 130), (40, 48)])
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_chain_wrapper_bf16_matches_jax(name, hw):
+    """The wrappers on a bf16 input, as `compute_dtype: bfloat16` hands them:
+    both widen it to float32, run the stages and round the output once to
+    bf16. Beyond the float32 rule above, an element may differ by one bf16 step
+    of its value, where the two float32 results fall on two sides of a rounding
+    boundary: within one step + 1e-5 on at least 97% of the elements, one step
+    + 2e-2 on all."""
+    c = 16 if name == "paconv_chain" else 8
+    jfn, tfn = _pair(name, c)
+    x = np.random.RandomState(3).rand(1, *hw, c).astype(np.float32)
+    xb = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2))).bfloat16()
+    want = np.asarray(jfn(jnp.asarray(x).astype(jnp.bfloat16)).astype(jnp.float32))
+    with torch.no_grad():
+        y = tfn(xb)
+    assert y.dtype == torch.bfloat16
+    got = np.transpose(y.float().numpy(), (0, 2, 3, 1))
+    assert got.shape == want.shape and np.isfinite(got).all()
+    d = np.abs(got - want) - BF16_STEP * np.abs(want)
+    assert float((d <= TIGHT).mean()) >= TIGHT_SHARE, (float(d.max()), float((d > TIGHT).mean()))
+    assert float(d.max()) <= LOOSE
+
+
 def test_paconv_halo2_band_and_tile_match_jax():
     """The halo-2 chain at 21x37, where border masking matters most: the port's
     plain version against the JAX band kernel and the JAX tile kernel."""
@@ -168,8 +196,10 @@ def test_chain_refuses_what_it_does_not_run():
     with pytest.raises(RuntimeError, match="inference only"):  # no backward: the weights need one
         tcf.dw_act(conv, x)
     with torch.no_grad():
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tcf.dw_act(conv, x.bfloat16())
+        y = tcf.dw_act(conv, x.bfloat16())  # bf16 in, bf16 out (it raised before bf16 was ported)
+        assert y.dtype == torch.bfloat16 and y.shape == x.shape
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            tcf.dw_act(conv, x.half())
         with pytest.raises(ValueError, match="unknown stage"):
             tcf.fused_chain(x, (("conv", conv.weight, None),))
         with pytest.raises(ValueError, match="does not fit"):

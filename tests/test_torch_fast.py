@@ -123,8 +123,8 @@ def test_presets_have_the_jax_field_values():
     assert (t.scan_impl, t.scan_chunk, t.compute_dtype, t.scan_dtype) == \
         ("pallas_fused", 128, "bfloat16", "bfloat16")
     assert twm.WaveMambaConfig.fast(wf=16).wf == 16
-    with pytest.raises(NotImplementedError, match="item 13"):
-        twm.WaveMambaConfig.fast(conv_impl="fused")
+    f = twm.WaveMambaConfig.fast(conv_impl="fused")  # raised before the chains took bf16
+    assert (f.conv_impl, f.compute_dtype, f.scan_dtype) == ("fused", "bfloat16", "bfloat16")
 
 
 @pytest.mark.parametrize("jax_preset,port_preset", [("fast_tpu", "fast"), ("fast_xla", "fast_xla")])

@@ -8,6 +8,7 @@ only: 1e-5 absolute for the blocks and the shipped checkpoint.
 """
 
 import functools
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -254,8 +255,15 @@ def test_network_g_keys_are_honoured_or_refused():
                               ("scan_impl", "seq_sharded", "item 9")]:
         with pytest.raises(NotImplementedError, match=match):
             config_from_opt({**base, key: value})
-    with pytest.raises(NotImplementedError, match="item 13"):  # the chains take float32
-        config_from_opt({**base, "conv_impl": "fused", "compute_dtype": "bfloat16"})
+    from wavemamba_torch.models import init_network
+
+    fused_bf16 = config_from_opt({**base, "conv_impl": "fused", "compute_dtype": "bfloat16"})
+    assert (fused_bf16.conv_impl, fused_bf16.compute_dtype) == ("fused", "bfloat16")  # raised before
+    model = init_network({**base, "conv_impl": "fused", "compute_dtype": "bfloat16"},
+                         torch.Generator().manual_seed(0), device="cpu", train=False)
+    with torch.no_grad():
+        y = model.restoration_network(torch.rand(1, 3, 16, 24).bfloat16())
+    assert y.dtype == torch.bfloat16 and y.shape == (1, 3, 16, 24)
     with pytest.raises(ValueError, match="unknown scan_dtype"):
         config_from_opt({**base, "scan_dtype": "float16"})
     with pytest.raises(KeyError, match="unknown network_g key"):
@@ -264,3 +272,35 @@ def test_network_g_keys_are_honoured_or_refused():
         config_from_opt({**base, "scan_impl": "fast"})
     with pytest.raises(NotImplementedError, match="item 11"):
         config_from_opt({"type": "ART"})
+
+
+@pytest.mark.parametrize("extra,warns", [({"remat": True}, True), ({}, True),
+                                         ({"remat": True, "remat_policy": "full"}, False),
+                                         ({"remat": False}, False)])
+def test_config_from_opt_names_the_remat_policy_it_runs(extra, warns):
+    """With remat on (as given, or by default) and no remat_policy, the port
+    recomputes whole blocks where the JAX package would take 'save_scan':
+    `config_from_opt` says so in one warning. `remat_policy: full`, or remat
+    off, is silent."""
+    from wavemamba_torch.models import config_from_opt
+
+    base = {"type": "WaveMamba", "wf": 16, "n_l_blocks": [1, 1, 1], "n_h_blocks": [1, 1, 1]}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        cfg = config_from_opt({**base, **extra})
+    said = [str(w.message) for w in caught if "remat_policy" in str(w.message)]
+    assert cfg.remat == extra.get("remat", True)
+    assert len(said) == (1 if warns else 0), said
+    if warns:
+        assert "'full'" in said[0] and "save_scan" in said[0] and "item 6" in said[0]
+
+
+def test_load_network_points_elsewhere_for_jax_artifacts(tmp_path):
+    """An Orbax directory names the JAX package's converter to a state dict;
+    a `.wmx` artifact names the deployment item."""
+    from wavemamba_torch.checkpoint import load_network
+
+    with pytest.raises(ValueError, match="params_to_state_dict"):
+        load_network(str(tmp_path), device="cpu")
+    with pytest.raises(ValueError, match="item 10"):
+        load_network(str(tmp_path / "model.wmx"), device="cpu")

@@ -50,11 +50,17 @@ def load_network(path: str, device="cuda") -> dict:
     """A reference-format `.pth`/`.pt` -> its state dict on `device`.
 
     Orbax directories and `.wmx` deployment artifacts belong to the JAX
-    package and are not read by the port."""
+    package and are not read by the port: the JAX package's
+    `wavemamba_tpu/convert/torch_export.py:params_to_state_dict` turns an
+    Orbax checkpoint's params into a state dict to save as a `.pth`."""
+    if path.endswith(".wmx"):
+        raise ValueError(f"{path}: .wmx deployment artifacts belong to the JAX package; the port's "
+                         "own deployment format waits for ROADMAP queue 1, item 10")
     if not path.endswith((".pth", ".pt")):
-        raise ValueError(f"{path}: the port loads .pth/.pt weights only; Orbax directories and "
-                         ".wmx artifacts wait for ROADMAP queue 1, items 8 (checkpoints) and "
-                         "10 (deployment)")
+        raise ValueError(f"{path}: the port reads .pth/.pt weights only; for an Orbax directory, "
+                         "make a state dict with the JAX package's "
+                         "wavemamba_tpu/convert/torch_export.py:params_to_state_dict and save it "
+                         "as a .pth")
     dev = resolve_device(device)
     return {k: v.to(dev) for k, v in load_pth(path).items()}
 

@@ -15,8 +15,12 @@ Chain DSL (a tuple of stages, walked in order):
     ("ln",      g, b, eps)                       LayerNorm over channels, f32 statistics
     ("res0",    scale | None)                    y += [scale *] x0
 A bf16 operand is the float32 value rounded to nearest even; the sums are
-float32. The GELU is the tanh form of the TPU kernel (`conv_fused.py:70-75`),
-not the exact erf of the stock route.
+float32 (the plain version takes each exactly and rounds once, `_product`).
+The GELU is the tanh form of the TPU kernel (`conv_fused.py:70-75`), not the
+exact erf of the stock route. x is float32 or bf16, as in the JAX
+package: it is widened to float32, every stage runs in float32 (the TPU
+kernel's working dtype) and the output is rounded once into x's dtype;
+mulsig0 and res0 read the chain input as it came.
 
 `fused_chain_plain` is the chain in plain PyTorch over the whole image, SAME
 zero padding for each 3x3 stage. `fused_chain` (TPU kernel K6, 2-D tiles) and
@@ -25,8 +29,7 @@ the plain version, a CUDA tensor launches the kernel of
 `ops/conv_fused_cuda.py` (one source for both) or raises. Each counts its
 launches in `.launches`. The chains have no backward (as the TPU's have no
 VJP): a call with grad mode on and an input or weight that requires grad
-raises. The port runs them in float32; a bf16 input raises (ROADMAP queue 1,
-item 13). `_run` sends the nine wrappers to the band kernel by default, as the
+raises. `_run` sends the nine wrappers to the band kernel by default, as the
 JAX package does; `band_h=None`, or a call inside `chain_route("tile")`, takes
 K6, and inside `chain_route("plain")` they run the plain version on any device
 (to hold the kernels against it on the card).
@@ -102,16 +105,29 @@ def _specs(c0, stages):
     return specs
 
 
+def _product(a, w, b, padding=0):
+    """A product stage: a and w rounded to bf16, the sum of their products
+    taken exactly (float64 holds every bf16 product and their sums here) and
+    rounded once to float32, then the bias added in float32. That is the value
+    a float32 accumulation approaches whatever its order; a particular order's
+    own rounding (cuDNN's) flips a later bf16 rounding (paconv_chain's second
+    3x3) on more outputs than the kernels' check allows, and the kernels on
+    the tensor cores cannot share that order."""
+    y = F.conv2d(_bf16(a).double(), _bf16(w).double(), padding=padding).float()
+    return y if b is None else y + b.view(1, -1, 1, 1)
+
+
 def fused_chain_plain(x, stages):
     """The chain over the whole image in plain PyTorch (the plain version of
-    K6 and K7): x (B, C, H, W) -> (B, Cout, H, W) float32."""
+    K6 and K7): x (B, C, H, W) float32 or bf16 -> (B, Cout, H, W) in x's
+    dtype, computed in float32 (each product's sum exactly, `_product`)."""
     x0 = x.float()
     cur = x0
     for kind, cin, cout, act, w, b, eps in _specs(x.shape[1], stages):
         if kind == "pw":
-            cur = F.conv2d(_bf16(cur), _bf16(w).view(cout, cin, 1, 1), b)
+            cur = _product(cur, w.view(cout, cin, 1, 1), b)
         elif kind == "dense":
-            cur = F.conv2d(_bf16(cur), _bf16(w), b, padding=1)
+            cur = _product(cur, w, b, padding=1)
         elif kind == "dw":
             cur = F.conv2d(cur, w, b, padding=1, groups=cin)
         elif kind == "act":
@@ -119,20 +135,19 @@ def fused_chain_plain(x, stages):
         elif kind == "glu":
             cur = _act(act, cur[:, :cout]) * cur[:, cout:]
         elif kind == "mulsig0":
-            cur = cur * torch.sigmoid(F.conv2d(_bf16(x0), _bf16(w).view(cout, cin, 1, 1), b))
+            cur = cur * torch.sigmoid(_product(x0, w.view(cout, cin, 1, 1), b))
         elif kind == "ln":
             cur = layer_norm(cur, w, b, eps, dim=1)
         else:  # res0
             cur = cur + (x0 if w is None else x0 * w.view(1, -1, 1, 1))
-    return cur
+    return cur.to(x.dtype)
 
 
 def _check(name, x, stages):
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be (B, C, H, W), got {tuple(x.shape)}")
-    if x.dtype != torch.float32:
-        raise NotImplementedError(f"{name}: {x.dtype} input; the port runs the chains in float32, "
-                                  "bf16 activations wait for ROADMAP queue 1, item 13")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: {x.dtype} input; the chains take float32 or bfloat16")
     tensors = [x] + [t for s in stages for t in s[1:] if isinstance(t, torch.Tensor)]
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name}: the fused conv chains are inference only, with no backward "
@@ -154,8 +169,8 @@ def _launch(name, x, stages, tile_h, tile_w):
 
 
 def fused_chain(x, stages, tile_h=8, tile_w=128):
-    """The chain on 2-D tiles (kernel K6): x (B, C, H, W) float32 ->
-    (B, Cout, H, W). The kernel takes `tile_h` rows and, of `tile_w`
+    """The chain on 2-D tiles (kernel K6): x (B, C, H, W) float32 or bf16 ->
+    (B, Cout, H, W) in x's dtype. The kernel takes `tile_h` rows and, of `tile_w`
     columns, as many as its shared memory holds."""
     _check("fused_chain", x, stages)
     if x.device.type == "cpu":

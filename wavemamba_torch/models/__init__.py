@@ -14,11 +14,17 @@ silently.
 `conv_impl: fused` is inference only, as in the JAX package (its chains have no
 VJP): `build_network` and `init_network(..., train=False)` build it, and a
 model to train (`init_network`, the trainer, `pipelines.train`) refuses it. It
-runs in float32 only: with `compute_dtype: bfloat16` the config raises."""
+runs under either `compute_dtype`: in bf16 the chains take and return bf16
+activations.
+
+`remat` recomputes whole blocks (the JAX package's 'full' policy); the JAX
+default policy, 'save_scan', is not ported. A dict that turns `remat` on (it
+is on by default) and names no `remat_policy` gets a warning saying so."""
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 
@@ -63,7 +69,12 @@ def config_from_opt(opt: dict) -> WaveMambaConfig:
                                           f"for ROADMAP {where}; the port runs {accepted[0]!r}")
         else:
             raise KeyError(f"unknown network_g key {key!r}")
-    return WaveMambaConfig(**kw)
+    cfg = WaveMambaConfig(**kw)
+    if cfg.remat and "remat_policy" not in opt:
+        warnings.warn("network_g gives no remat_policy: the port recomputes whole blocks ('full'), "
+                      "where the JAX package's default is 'save_scan'; set remat_policy: full to "
+                      "say so, or see ROADMAP queue 1, item 6", stacklevel=2)
+    return cfg
 
 
 def build_network(opt: dict, state_dict: dict, device="cuda") -> WaveMamba:

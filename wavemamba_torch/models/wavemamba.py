@@ -22,7 +22,9 @@ depthwise conv + silu, LFSS's whole second half-block, HFE's qkv, PAConv and
 FeedForward chains (the block's norm1 / norm2 folded into the first chain of
 each half-block) and the eight single dense 3x3 convs, 76 chains a forward at
 the shipped depth, each one launch of kernel K7 on a CUDA tensor. The chains'
-GELU is the tanh form; the stock route keeps the exact erf.
+GELU is the tanh form; the stock route keeps the exact erf. Under
+`compute_dtype='bfloat16'` the chains take and return the bf16 activations,
+computing in float32 between, as the JAX package's do.
 
 With `compute_dtype='bfloat16'` the network runs in bf16 as the JAX model
 does: parameters stay float32 and each conv, linear, PReLU slope, skip scale
@@ -161,10 +163,6 @@ class WaveMambaConfig:
         for key in ("compute_dtype", "scan_dtype"):
             if getattr(self, key) not in DTYPES:
                 raise ValueError(f"unknown {key} {getattr(self, key)!r}; known: {tuple(DTYPES)}")
-        if self.conv_impl == "fused" and self.compute_dtype != "float32":
-            raise NotImplementedError("conv_impl='fused' with compute_dtype='bfloat16' waits for "
-                                      "ROADMAP queue 1, item 13: the chain kernels take float32 "
-                                      "activations")
 
     @property
     def d_inner(self) -> int:

@@ -4,9 +4,11 @@ It replaces the TPU kernels `wavemamba_tpu/experimental/conv_fused.py:
 _chain_kernel` (`fused_chain`) and `_band_kernel` (`fused_chain_band`), which
 compute one function on two tilings; `experimental/conv_fused.py` launches it
 from both entry points and counts their launches. The chain is passed as a
-descriptor array (`Chain`), which the kernel walks. The source is built like
-the scan kernels', by `scan_cuda.build` at the first launch (and by
-`scan_cuda.build_all`); importing this module needs no `nvcc`.
+descriptor array (`Chain`), which the kernel walks; its 1x1, dense 3x3 and gate
+products run on the tensor cores (`mma.sync` bf16). x is float32 or bf16 and y
+comes back in x's dtype. The source is built like the scan kernels', by
+`scan_cuda.build` at the first launch (and by `scan_cuda.build_all`);
+importing this module needs no `nvcc`.
 """
 
 from __future__ import annotations
@@ -38,9 +40,9 @@ class Chain(ctypes.Structure):
 def _library() -> ctypes.CDLL:
     _need_cuda("K6 / K7 conv-chain")
     lib = ctypes.CDLL(str(build(SOURCE_CHAIN)))
-    lib.conv_chain_f32.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 4
-                                   + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.conv_chain_f32.restype = ctypes.c_int
+    lib.conv_chain.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 4
+                               + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.conv_chain.restype = ctypes.c_int
     lib.conv_chain_plan.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                     ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     lib.conv_chain_plan.restype = ctypes.c_int
@@ -65,7 +67,8 @@ def _descriptor(c0, specs) -> Chain:
 
 def chain_plan(c0, specs, tile_h, tile_w):
     """(core width, shared-memory bytes) the kernel takes for this chain on
-    tiles of `tile_h` rows and at most `tile_w` columns."""
+    tiles of `tile_h` rows and at most `tile_w` columns: the widest core whose
+    buffers and staged weights fit one block an SM."""
     tw, smem = ctypes.c_int(), ctypes.c_int()
     lib = _library()
     err = lib.conv_chain_plan(ctypes.byref(_descriptor(c0, specs)), tile_h, tile_w,
@@ -76,17 +79,17 @@ def chain_plan(c0, specs, tile_h, tile_w):
 
 
 def conv_chain(x, specs, tile_h, tile_w):
-    """One launch of the chain kernel: x (B, c0, H, W) float32 CUDA, any
-    strides -> y (B, cout, H, W) contiguous, on tiles of `tile_h` rows and the
-    widest width <= `tile_w` that fits shared memory."""
+    """One launch of the chain kernel: x (B, c0, H, W) float32 or bf16 CUDA,
+    any strides -> y (B, cout, H, W) contiguous in x's dtype, on tiles of
+    `tile_h` rows and the widest width <= `tile_w` that fits shared memory."""
     b, c0, h, w = x.shape
     lib = _library()
     ch = _descriptor(c0, specs)
-    y = torch.empty((b, ch.cout, h, w), device=x.device, dtype=torch.float32)
+    y = torch.empty((b, ch.cout, h, w), device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.conv_chain_f32(ctypes.byref(ch), x.data_ptr(), *x.stride(), y.data_ptr(),
-                                 b, h, w, tile_h, tile_w, stream)
+        err = lib.conv_chain(ctypes.byref(ch), x.data_ptr(), *x.stride(), y.data_ptr(),
+                             b, h, w, tile_h, tile_w, int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"conv chain launch failed: {lib.conv_chain_error_string(err).decode()}")
     return y
