@@ -14,7 +14,10 @@ and prints one JSON line per phase:
   3. k2      kernel K2 (`ss2d_scan_pair_bwd`, K1's backward) against
              `ss2d_scan_pair_plain_bwd` at the training shapes, on a ragged
              length and on a column stream, all six outputs and K1's carries;
-             times at the three training lengths and bounds.
+             times at the three training lengths and bounds; the launch's
+             geometry (threads, shared memory, `gx`) and the blocks and warps
+             an SM that the card's occupancy query reports, held against
+             `scan_cuda.k2_plan`.
   3b. k3     kernel K3 (`selective_scan_cuda`, the unfused scan of
              `scan_impl: pallas`) against `selective_scan_plain` at the route's
              shapes: the three scan lengths of a 1080p forward, the three of a
@@ -97,7 +100,8 @@ and prints one JSON line per phase:
              forward of each conv route, of `fast()` and of
              `fast(conv_impl="fused")`, one training step of
              the fused scan route, of the unfused route and of the bf16 yml,
-             and the card's idle share.
+             and the card's idle share; K2's ms and share of each fused
+             step's busy time, also in the `kernels` line.
  14. bench   `wavemamba_torch.bench` in `fast` and `parity` modes.
 
 The k1 and k2 phases also hold the kernels on bf16 streams (x and y, or x,
@@ -523,6 +527,41 @@ def phase_k1_bf16():
 
 
 OUTPUTS = ("dx", "dwx", "ddtw", "dbias", "dA", "ddsk")
+# K2's design holds at least this many warps resident on an SM in bwd_main
+# and in bwd_local, as the card's occupancy query reports them.
+K2_MIN_WARPS = 16
+
+
+def k2_geometry(plan, occ):
+    """K2's launch geometry for a `k2` row: `scan_cuda.k2_plan`'s grid and
+    residency beside what the card reports for the same launch
+    (`scan_cuda.k2_occupancy`, registers included). Fails where the launch's
+    threads or shared memory are not the plan's, where the card lets fewer
+    blocks of either kernel reside than planned, or where either kernel has
+    fewer than K2_MIN_WARPS warps an SM."""
+    kernels = ("local", "main")
+    check(all(occ[k] == plan[k] for k in ("threads", "smem_local", "smem_main")),
+          f"K2 launches {occ} as k2_plan planned {plan}")
+    warps = {f"bwd_{k}": occ[f"blocks_per_sm_{k}"] * occ["threads"] // 32 for k in kernels}
+    for k in kernels:
+        check(occ[f"blocks_per_sm_{k}"] >= plan[f"blocks_per_sm_{k}"],
+              f"K2 bwd_{k}: {occ[f'blocks_per_sm_{k}']} blocks an SM, "
+              f"{plan[f'blocks_per_sm_{k}']} planned")
+    check(min(warps.values()) >= K2_MIN_WARPS, f"K2's warps an SM {warps} >= {K2_MIN_WARPS}")
+    return {"threads": occ["threads"],
+            "smem_bytes": {f"bwd_{k}": occ[f"smem_{k}"] for k in kernels},
+            "blocks_per_sm": {f"bwd_{k}": occ[f"blocks_per_sm_{k}"] for k in kernels},
+            "warps_per_sm": warps,
+            "planned_warps_per_sm": {f"bwd_{k}": plan[f"warps_per_sm_{k}"] for k in kernels},
+            "gx": plan["gx"]}
+
+
+def k2_row_geometry(B, L, bf16):
+    """`k2_geometry` at a k2 row's shape (D=64, N=16, R=2) on this card."""
+    from wavemamba_torch.ops.scan_cuda import CHUNK, k2_occupancy, k2_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return k2_geometry(k2_plan(B, L, 64, 16, 2, CHUNK, sms), k2_occupancy(R=2, bf16=bf16))
 
 
 def phase_k2():
@@ -561,7 +600,8 @@ def phase_k2():
                    "sumda": float((sumda - sumda_plain).abs().max())}
         check(max(fwd_err.values()) <= K1_ATOL, f"K1 {name} B={B}: y and carries {fwd_err}")
         row = {"phase": "k2", "case": name, "B": B, "L": L, "D": 64, "N": 16, "R": 2,
-               "tol_rel": K2_RTOL, "k1": fwd_err, "max_abs_err": {}, "max_rel_err": {}}
+               "tol_rel": K2_RTOL, "k1": fwd_err, "max_abs_err": {}, "max_rel_err": {},
+               "geometry": k2_row_geometry(B, L, bf16=False)}
         for key, g, g2, w_ in zip(OUTPUTS, got, again, want):
             check(g.shape == w_.shape and bool(torch.isfinite(g).all()), f"K2 {name} {key}: finite")
             check(torch.equal(g, g2), f"K2 {name} {key}: the same bits on a second run")
@@ -641,7 +681,8 @@ def phase_k2_bf16():
                "x": "bfloat16", "dy": "bfloat16", "dx": "bfloat16", "k1": fwd_err,
                "max_abs_err": {"dx": float((got[0].float() - want[0].float()).abs().max())},
                "dx_share_differing": share, "max_rel_err": rel,
-               "tol": f"dx one bf16 step of it and of each member's dx; {K2_RTOL}"}
+               "tol": f"dx one bf16 step of it and of each member's dx; {K2_RTOL}",
+               "geometry": k2_row_geometry(B, L, bf16=True)}
         if B == TRAIN_BATCH:
             row["ms"] = cuda_ms(lambda: ss2d_scan_pair_bwd(*args, state, sumda, dy), 10)
             row["plain_ms"] = plain_ms
@@ -1968,12 +2009,13 @@ def phase_profile(model, x, forward_ms, run, pipe, fused, fast, fast_fused, trai
         # K2 and K4 name their kernels alike (each in its own library): a
         # profile holds one route, so the adjoint's time is that route's.
         adjoint = named("bwd_local", "bwd_prefix", "bwd_main", "bwd_reduce", "chunk_prefix<true>")
-        emit({"phase": "profile", "what": what, **extra, "wall_ms": wall_ms, "busy_ms": busy_ms,
+        k2_ms = 0.0 if what == "train_step_unfused" else adjoint
+        row = {"phase": "profile", "what": what, **extra, "wall_ms": wall_ms, "busy_ms": busy_ms,
               "idle_share": 1.0 - busy_ms / wall_ms,
               # against the same work's time without the profiler's overhead
               "unprofiled_ms": unprofiled_ms, "idle_share_unprofiled": 1.0 - busy_ms / unprofiled_ms,
               "k1_ms": named("chunk_scan", "::chunk_prefix("),
-              "k2_ms": 0.0 if what == "train_step_unfused" else adjoint,
+              "k2_ms": k2_ms, "k2_share_of_busy": k2_ms / busy_ms,
               "k3_ms": named("scan_chunk", "chunk_prefix<false>"),
               "k4_ms": adjoint if what == "train_step_unfused" else 0.0,
               "flip_ms": named("flip"),
@@ -1985,13 +2027,15 @@ def phase_profile(model, x, forward_ms, run, pipe, fused, fast, fast_fused, trai
                   "conv" in r[2].lower() or "xmma" in r[2] or "wgrad" in r[2]
                   or "dgrad" in r[2])) / 1e3,
               "kernels": len(rows), "launches": sum(r[1] for r in rows),
-              "top": [{"us": us, "calls": n, "name": name[:90]} for us, n, name in rows[:20]]})
+              "top": [{"us": us, "calls": n, "name": name[:90]} for us, n, name in rows[:20]]}
+        emit(row)
+        return row
 
     report("forward", *profile_rows(lambda: wavemamba_apply(model, x)), forward_ms,
            image=[1152, 1920])
     report("forward_fused", *profile_rows(lambda: wavemamba_apply(fused["model"], x)),
            fused["forward_ms"], image=[1152, 1920])
-    report("train_step", *profile_rows(lambda: run["step"](run["state"], run["lq"], run["gt"])),
+    train = report("train_step", *profile_rows(lambda: run["step"](run["state"], run["lq"], run["gt"])),
            run["ms_per_step"], batch=run["lq"].shape[0], size=[TRAIN_SIZE, TRAIN_SIZE], remat=run["remat"])
     batch = {"lq": run["lq"], "gt": run["gt"]}
     report("train_step_unfused", *profile_rows(lambda: pipe["model"].optimize_parameters(batch)),
@@ -2000,9 +2044,13 @@ def phase_profile(model, x, forward_ms, run, pipe, fused, fast, fast_fused, trai
            image=[1152, 1920])
     report("forward_fast_fused", *profile_rows(lambda: wavemamba_apply(fast_fused["model"], x)),
            fast_fused["forward_ms"], image=[1152, 1920])
-    report("train_step_fast", *profile_rows(lambda: train_fast["model"].optimize_parameters(
+    fast_step = report("train_step_fast", *profile_rows(lambda: train_fast["model"].optimize_parameters(
         train_fast["batch"])), train_fast["ms_per_step"], batch=TRAIN_BATCH, size=[TRAIN_SIZE, TRAIN_SIZE],
         remat=False)
+    # K2's device time in each fused training step, beside the step's.
+    return {what: {k: r[k] for k in ("k2_ms", "busy_ms", "k2_share_of_busy", "wall_ms", "unprofiled_ms",
+                                     "idle_share_unprofiled")}
+            for what, r in (("train_step", train), ("train_step_fast", fast_step))}
 
 
 def kernel_errors(k1_rows, k1_bf16_rows, k2_rows, k2_bf16_rows):
@@ -2028,6 +2076,7 @@ def main():
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
+    t_start = time.perf_counter()
 
     from wavemamba_torch.checkpoint import load_network
     from wavemamba_torch.inference import set_parity_mode
@@ -2072,7 +2121,7 @@ def main():
     fast_fused["model"] = fast_fused_model
     phase_grad("fast")
     train_fast = phase_train_fast()
-    phase_profile(model, x1080, forward_ms, run, pipe, fused, fast, fast_fused, train_fast)
+    k2_steps = phase_profile(model, x1080, forward_ms, run, pipe, fused, fast, fast_fused, train_fast)
     bench = phase_bench()
 
     # K1 and K5 at level 1 of the 1080p forward; K2, K3 and K4 at level 1 of
@@ -2144,8 +2193,11 @@ def main():
         "ms": k2_level1["ms"], "plain_ms": k2_level1["plain_ms"],
         "bound_ms": k2_level1["bound_ms"], "bound_by": k2_level1["bound_by"],
         "library_ms": None,
+        **{k: k2_level1["geometry"][k] for k in ("threads", "smem_bytes", "warps_per_sm", "gx")},
+        "ms_levels": [r["ms"] for r in k2_rows if "ms" in r], "steps": k2_steps,
         "bf16": {**{k: k2_bf16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
                                             "dx_share_differing")},
+                 "ms_levels": [r["ms"] for r in k2_bf16_rows if "ms" in r],
                  "max_abs_err_all_shapes": errs["K2"]["bf16_max_abs_err"],
                  "max_rel_err_all_shapes": errs["K2"]["bf16_max_rel_err"]}}, {
         "name": "selective_scan_cuda (K3)", "route": "cuda",
@@ -2193,7 +2245,8 @@ def main():
         "bound_by": pac["bound_by"], "library_ms": pac["library_ms"], "stock_ms": pac["stock_ms"],
         "bf16": chain_bf16("ms")}]
         + probes, "bench": {m: {k: r[k] for k in ("value", "device_ms", "vs_baseline")}
-                            for m, r in bench.items()}})
+                            for m, r in bench.items()},
+        "script_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

@@ -17,44 +17,69 @@
 // ddtw = x_dbl[:R]^T dz, dbias = sum dz, dA = sum common da, ddsk = sum dy x.
 // Every product stays in the kernel.
 //
-// What bounds it on an H100: the FMA pipe. Per token and direction the
-// recompute of h, the adjoint and the sums take some 20 float32 operations per
-// (n, d) plus the projections; the special-function units do N*D + 3D exp
-// (a_t, the softplus, the sigmoid and its reciprocal), about half the FMA
-// pipe's time, and the 12*D bytes of x and dy read and 4*D bytes of dx written
-// per token are far less again.
+// What bounds it on an H100 (`chip_smoke.py:k2_bound`): the FMA pipe. Per
+// token and direction the recompute of h, the adjoint and the sums take some
+// 20 float32 operations per (n, d) plus the projections: 0.547 ms for a
+// training step's level 1 (8 x 65,536 tokens). The special-function units do
+// N*D + 3D exp per token and direction and pass (about a quarter of the FMA
+// pipe's time for one pass), and the 12*D bytes of x and dy read and 4*D bytes
+// of dx written per token are far less again.
 //
 // Design. As K1 it is parallel over L in chunks of T tokens, which K1 has left
 // the entering states of. The adjoint g obeys a linear recurrence with the
 // same decays as h, so three phases serve again:
-//   1. bwd_local: one block per (chunk, batch), thread = (direction, channel)
-//      with g[N] in registers. Runs the adjoint backwards over the chunk from
-//      g = 0 and writes what leaves the chunk, a_first * g_first.
+//   1. bwd_local: one block per (chunk, batch) runs the adjoint backwards over
+//      the chunk from g = 0 and writes what leaves it, a_first * g_first.
 //   2. bwd_prefix: per (b, k, n, d), a prefix over the chunks in reverse
 //      processing order (a chunk's decay is exp(A * sumda), saved by K1) turns
 //      that into what enters each chunk.
 //   3. bwd_main: the gradients. g runs backwards but needs h_t at every token,
-//      and a chunk's h (T*N*2D floats) fits neither registers nor shared
-//      memory. So a forward pass over the chunk keeps h at every S-th token in
-//      shared memory; then, sub-tile by sub-tile from the last, h is recomputed
-//      for S tokens into a shared-memory history and g sweeps back over it.
-//      The recurrence is never inverted. The sums over channels (dB, dC, the
-//      dt projection) are taken over the history tile after each sweep, one
-//      (token, n) row per thread; the history's rows are padded to 2D+1 floats
-//      so those reads do not collide. dx of the two directions meets in a
-//      shared tile (two adds onto zero: the same bits in either order).
-//      Blocks stride over the chunks and keep the weight sums in registers;
-//      each block writes one set of partial sums and bwd_reduce adds them up
-//      in a fixed order, so the result is the same bits every run.
-// The exp() of the recurrence is computed four times (phase 1, and three
-// passes of phase 3); fewer passes are work for a later version.
+//      so a forward pass over the chunk keeps h at every S-th token in shared
+//      memory; then, sub-tile by sub-tile from the last, h is recomputed for S
+//      tokens into registers and g sweeps back over them. The recurrence is
+//      never inverted.
+//
+// The first design ran one thread per (direction, channel): 128 threads
+// that held all 16 states each, and 198 KB of shared memory, so one block of
+// 4 warps an SM, where every exp, shared-memory load and dependent FMA of the
+// serial recurrence waited its full latency. Its grid was two waves of long
+// serial blocks; its sums over channels were 64-long serial loops, one
+// thread per (token, n) row; it read wx again for every token. What this
+// version does about each:
+//   - Occupancy. A quad of threads holds one (direction, channel), 4 states
+//     each: 512 threads a block. bwd_main keeps 16 warps an SM: its ~228 KB
+//     of shared memory and its 128 registers a thread allow one block, and two
+//     would leave 64 registers, fewer than a sub-tile's h history (32) and
+//     the accumulators need. bwd_local (85 KB, at most 64 registers)
+//     keeps 32. The sums over n (g.B, dda) are two xor-shuffles in the quad.
+//   - The grid. bwd_main's blocks stride over all B * nc chunks, as many as
+//     reside at once: one whole wave (`ops/scan_cuda.py:k2_plan`).
+//   - The serial chains. The h history of a sub-tile stays in registers; the
+//     sums over channels (dB, dC and the dt part of dz . dtw^T) are a
+//     transposing butterfly over the warp's 8 channels (7 + 3 shuffles a
+//     token) and one 8-term sum over the warps; da and sigmoid(z) of a chunk
+//     are computed once, in parallel over (token, channel), before the serial
+//     passes; dy comes from shared memory, staged for the chunk (bwd_local) or
+//     fetched for the next sub-tile while the sweep runs (bwd_main); a decay
+//     is one ex2.approx.ftz of da times A log2(e), in place of expf's longer
+//     sequence; bwd_prefix loads four chunks' values before it uses them.
+//   - The weights. wx sits in shared memory, staged once per block; the
+//     projection takes 4 tokens by 4-5 columns a thread; each thread keeps its
+//     quarter of its channel's row of wx, and its dt weights, in registers,
+//     so the dx loop reads no weight from memory.
+// The exp of the recurrence is still computed four times (phase 1, and three
+// passes of phase 3): keeping a_t of a sub-tile beside h would take 32 more
+// registers a thread, and registers are what hold bwd_main to one block an
+// SM. Each block writes one set of partial sums and bwd_reduce adds them up
+// in a fixed order; every shuffle sum has a fixed order too, so the result is
+// the same bits every run.
 //
 // Token streams in float32 or bf16 (the bf16 presets), x, dy and dx alike: x
 // and dy are widened on load. Each member's dx is rounded to the streams'
-// dtype, the two are added in float32 in shared memory (exact for two bf16
-// values of like size) and the sum is rounded again: the TPU kernel's bf16
-// dx, one rounding per member and a bf16 add. Weights, their gradients and
-// every operation stay float32.
+// dtype, the two are added in float32 in shared memory (two adds onto zero:
+// the same bits in either order) and the sum is rounded again: the TPU
+// kernel's bf16 dx, one rounding per member and a bf16 add. Weights, their
+// gradients and every operation stay float32.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,96 +91,248 @@ namespace {
 constexpr int kRPad = 4;            // x_dbl row: [dt (R <= 4, padded) | B (N) | C (N)]
 constexpr int kSub = 8;             // tokens per sub-tile of bwd_main
 constexpr int kPrefixWorkers = 32;  // workers per lane in bwd_prefix
+constexpr int kDMax = 64;           // channels a block holds; D <= kDMax
+constexpr int kTMax = 64;           // tokens a chunk holds; T <= kTMax
+constexpr int kDP = kDMax + 1;      // padded row of the x and dx tiles
+constexpr int kQuad = 4;            // threads per (direction, channel)
+constexpr int kThreads = 2 * kDMax * kQuad;  // 512
+constexpr int kWarpsPerDir = kDMax / 8;      // 8 channels a warp
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(2 * kSub * kDMax == 2 * kThreads, "a sub-tile's dy is two elements a thread");
+constexpr float kLog2e = 1.4426950408889634f;  // exp(v) = exp2(v log2 e)
+constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float softplus(float v) {
-  // torch.nn.functional.softplus (threshold 20), as in K1.
-  return v > 20.f ? v : log1pf(expf(v));
+// 2^v in one SFU instruction. Results below 2^-126 flush to zero: they are
+// far below what the float32 sums they enter can resolve.
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
 }
 
-// Stages the chunk's x tile in xs [T][D+1] and x_dbl of both directions in
-// xd [2][T][JP], as K1 does.
+// softplus(v) (torch.nn.functional.softplus, threshold 20, as in K1) and
+// sigmoid(v) from one exp.
+__device__ __forceinline__ void softplus_sigmoid(float v, float& sp, float& sg) {
+  const float e = expf(v);
+  sp = v > 20.f ? v : log1pf(e);
+  sg = v > 20.f ? 1.f : e * __frcp_rn(1.f + e);
+}
+
+// Where a thread sits: direction k (threads 0-255 and 256-511), channel d =
+// 8 * (warp within the direction) + lane / 4, and q = lane % 4, the quarter
+// of the states (n = 4q .. 4q+3) it holds. Channels d >= D are idle lanes
+// that compute on zeros and write nothing.
+struct Lane {
+  int k, d, q, dl, wd;
+  bool active;
+};
+
+__device__ __forceinline__ Lane lane_of(int D) {
+  Lane l;
+  const int tid = threadIdx.x;
+  l.k = tid >> 8;
+  l.wd = (tid >> 5) & (kWarpsPerDir - 1);
+  l.q = tid & 3;
+  l.dl = (tid >> 2) & 7;
+  l.d = l.wd * 8 + l.dl;
+  l.active = l.d < D;
+  return l;
+}
+
+// The sum over a quad's four lanes; every lane gets the same bits.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(kFull, v, 1);
+  return v + __shfl_xor_sync(kFull, v, 2);
+}
+
+// v[0..7] of each lane summed over the 8 lanes of the warp that share q
+// (lanes 4 apart): lane dl returns the sum of value dl. 7 shuffles.
+__device__ __forceinline__ float transpose_sum8(const float (&v)[8], int dl) {
+  const bool h2 = dl & 4, h1 = dl & 2, h0 = dl & 1;
+  float a[4], c[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    a[i] = (h2 ? v[i + 4] : v[i]) + __shfl_xor_sync(kFull, h2 ? v[i] : v[i + 4], 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    c[i] = (h1 ? a[i + 2] : a[i]) + __shfl_xor_sync(kFull, h1 ? a[i] : a[i + 2], 8);
+  }
+  return (h0 ? c[1] : c[0]) + __shfl_xor_sync(kFull, h0 ? c[0] : c[1], 4);
+}
+
+// wx (2, D, J) into wxs [2][kDMax][J], zero beyond D.
+template <int J>
+__device__ __forceinline__ void stage_wx(const float* __restrict__ wx, float* wxs, int D) {
+  for (int i = threadIdx.x; i < 2 * kDMax * J; i += kThreads) {
+    const int k = i / (kDMax * J), rem = i - k * kDMax * J;
+    const int d = rem / J;
+    wxs[i] = d < D ? wx[((size_t)k * D + d) * J + rem - d * J] : 0.f;
+  }
+}
+
+// Stages the chunk's x tile in xs [T][kDP] (zero beyond D) and x_dbl of both
+// directions in xd [2][T][JP] from the staged wx. A thread takes 4 tokens
+// (tq + 16i) by 4-5 columns (g + 8m) over half the channels: 20 FMAs for 9
+// shared-memory loads; the two halves' sums meet by a shuffle.
 template <int N, int R, typename TS>
 __device__ __forceinline__ void load_and_project(
-    const TS* __restrict__ xb, const float* __restrict__ wx,
-    float* xs, float* xd, int tc, int D, int T) {
+    const TS* __restrict__ xb, const float* wxs, float* xs, float* xd, int tc, int D, int T) {
   constexpr int J = R + 2 * N;
   constexpr int JP = kRPad + 2 * N;
-  const int DP = D + 1;
-  for (int i = threadIdx.x; i < tc * D; i += blockDim.x) {
-    xs[(i / D) * DP + i % D] = load_f32(xb + i);
+  for (int i = threadIdx.x; i < tc * kDMax; i += kThreads) {
+    const int t = i / kDMax, d = i - t * kDMax;
+    xs[t * kDP + d] = d < D ? load_f32(xb + (size_t)t * D + d) : 0.f;
   }
   __syncthreads();
-  for (int p = threadIdx.x; p < 2 * tc; p += blockDim.x) {
-    const int k = p / tc, t = p - k * tc;
-    const float* w = wx + (size_t)k * D * J;
-    const float* xr = xs + t * DP;
-    float acc[J];
+  constexpr int MG = (J + 7) / 8;
+  const int g = threadIdx.x & 7, hf = (threadIdx.x >> 3) & 1, tq = (threadIdx.x >> 4) & 15;
+  const int k = threadIdx.x >> 8;
+  const float* w = wxs + k * kDMax * J + g;
+  float acc[4][MG];
 #pragma unroll
-    for (int j = 0; j < J; ++j) acc[j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float xv = xr[d];
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < J; ++j) acc[j] = fmaf(xv, __ldg(w + d * J + j), acc[j]);
-    }
+    for (int m = 0; m < MG; ++m) acc[i][m] = 0.f;
+  const int d0 = hf * 32, d1 = min(D, d0 + 32);
+#pragma unroll 2
+  for (int d = d0; d < d1; ++d) {
+    float xv[4], wv[MG];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) xv[i] = xs[min(tq + 16 * i, tc - 1) * kDP + d];
+#pragma unroll
+    for (int m = 0; m < MG; ++m) wv[m] = g + 8 * m < J ? w[d * J + 8 * m] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int m = 0; m < MG; ++m) acc[i][m] = fmaf(xv[i], wv[m], acc[i][m]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = tq + 16 * i;
     float* o = xd + (k * T + t) * JP;
 #pragma unroll
-    for (int j = 0; j < R; ++j) o[j] = acc[j];
-#pragma unroll
-    for (int j = 0; j < 2 * N; ++j) o[kRPad + j] = acc[R + j];
+    for (int m = 0; m < MG; ++m) {
+      const float v = acc[i][m] + __shfl_xor_sync(kFull, acc[i][m], 8);
+      const int j = g + 8 * m;
+      if (hf == 0 && j < J && t < tc) o[j < R ? j : kRPad + j - R] = v;
+    }
   }
   __syncthreads();
+}
+
+// da (and, where sgs is given, sigmoid(z)) of every (direction, token,
+// channel) of the chunk into [2][T][kDMax], zero beyond D. Element i of the
+// loop has channel i % kDMax = threadIdx.x % kDMax, whose dt weights and bias
+// of both directions the caller holds in wdt2 and bias2.
+template <int R, int JP>
+__device__ __forceinline__ void prepare_da(const float* xd, const float (&wdt2)[2][R],
+                                           const float (&bias2)[2], float* das, float* sgs,
+                                           int tc, int D, int T) {
+  for (int i = threadIdx.x; i < 2 * tc * kDMax; i += kThreads) {
+    const int k = i / (tc * kDMax), rem = i - k * tc * kDMax;
+    const int t = rem / kDMax, d = rem - t * kDMax;
+    const float* q = xd + (k * T + t) * JP;
+    float dt = k ? bias2[1] : bias2[0];
+#pragma unroll
+    for (int r = 0; r < R; ++r) dt = fmaf(q[r], k ? wdt2[1][r] : wdt2[0][r], dt);
+    const bool on = d < D;
+    float sp, sg;
+    softplus_sigmoid(dt, sp, sg);
+    das[(k * T + t) * kDMax + d] = on ? sp : 0.f;
+    if (sgs) sgs[(k * T + t) * kDMax + d] = on ? sg : 0.f;
+  }
+  __syncthreads();
+}
+
+// The dt weights and biases of channel threadIdx.x % kDMax, both directions.
+template <int R>
+__device__ __forceinline__ void load_dt_weights(const float* __restrict__ dtw,
+                                                const float* __restrict__ bias, int D,
+                                                float (&wdt2)[2][R], float (&bias2)[2]) {
+  const int d = threadIdx.x & (kDMax - 1);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    bias2[k] = d < D ? bias[k * D + d] : 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) wdt2[k][r] = d < D ? dtw[((size_t)k * R + r) * D + d] : 0.f;
+  }
+}
+
+// bwd_local's region that holds wx and x, then dy.
+__host__ __device__ constexpr int local_dy_floats(int J, int T) {
+  return 2 * kDMax * J + T * kDP > 2 * T * kDMax ? 2 * kDMax * J + T * kDP : 2 * T * kDMax;
+}
+
+size_t local_smem(int N, int R, int T) {
+  const int J = R + 2 * N, JP = kRPad + 2 * N;
+  return sizeof(float) * ((size_t)2 * T * JP + local_dy_floats(J, T) + (size_t)2 * T * kDMax);
+}
+
+size_t main_smem(int N, int R, int T) {
+  const int J = R + 2 * N, JP = kRPad + 2 * N;
+  return sizeof(float) * ((size_t)2 * kDMax * J + (size_t)2 * T * JP + (size_t)2 * T * kDP +
+                          (size_t)(T / kSub) * 2 * kDMax * N + (size_t)4 * T * kDMax +
+                          (size_t)2 * kWarpsPerDir * kSub * J + (size_t)2 * kSub * J +
+                          (size_t)4 * kSub * kDMax);
 }
 
 // Phase 1: what the adjoint carries out of each chunk when nothing enters it.
 template <int N, int R, typename TS>
-__global__ void __launch_bounds__(128) bwd_local(
+__global__ void __launch_bounds__(kThreads, 2) bwd_local(
     const TS* __restrict__ x, const float* __restrict__ wx,
     const float* __restrict__ dtw, const float* __restrict__ bias,
     const float* __restrict__ A, const TS* __restrict__ dy,
     float* __restrict__ gcar, int L, int D, int T, int nc) {
+  constexpr int J = R + 2 * N;
   constexpr int JP = kRPad + 2 * N;
+  constexpr int NQ = N / kQuad;
   extern __shared__ float4 smem4[];
   float* xd = reinterpret_cast<float*>(smem4);  // [2][T][JP]
-  float* xs = xd + 2 * T * JP;                  // [T][D+1]
+  float* wxs = xd + 2 * T * JP;                 // [2][kDMax][J], then dy
+  float* xs = wxs + 2 * kDMax * J;              // [T][kDP], then dy
+  float* dys = wxs;                             // [2][T][kDMax] once x_dbl is made
+  float* das = wxs + local_dy_floats(J, T);     // [2][T][kDMax]
   const int c = blockIdx.x, b = blockIdx.y;
   const int l0 = c * T;
   const int tc = min(T, L - l0);
-  load_and_project<N, R>(x + ((size_t)b * L + l0) * D, wx, xs, xd, tc, D, T);
+  float wdt2[2][R], bias2[2];
+  load_dt_weights<R>(dtw, bias, D, wdt2, bias2);
+  stage_wx<J>(wx, wxs, D);
+  load_and_project<N, R>(x + ((size_t)b * L + l0) * D, wxs, xs, xd, tc, D, T);
+  // dy of the chunk, both directions, where wx and x were.
+  const TS* dyc = dy + ((size_t)b * 2 * L + l0) * D;
+  for (int i = threadIdx.x; i < 2 * tc * kDMax; i += kThreads) {
+    const int k = i / (tc * kDMax), rem = i - k * tc * kDMax;
+    const int t = rem / kDMax, d = rem - t * kDMax;
+    dys[(k * T + t) * kDMax + d] = d < D ? load_f32(dyc + ((size_t)k * L + t) * D + d) : 0.f;
+  }
+  prepare_da<R, JP>(xd, wdt2, bias2, das, nullptr, tc, D, T);  // its barrier covers dys
 
-  const int k = threadIdx.x / D, d = threadIdx.x - k * D;
-  float An[N], ga[N], wdt[R];
+  const Lane ln = lane_of(D);
+  const int k = ln.k, d = ln.d;
+  float An[NQ], ga[NQ];
 #pragma unroll
-  for (int n = 0; n < N; ++n) An[n] = A[((size_t)k * N + n) * D + d];
-#pragma unroll
-  for (int r = 0; r < R; ++r) wdt[r] = dtw[((size_t)k * R + r) * D + d];
-  const float bk = bias[k * D + d];
-#pragma unroll
-  for (int n = 0; n < N; ++n) ga[n] = 0.f;  // a_{t+1} g_{t+1}
-  const TS* dyb = dy + (((size_t)b * 2 + k) * L + l0) * D + d;
-
+  for (int i = 0; i < NQ; ++i) {
+    An[i] = ln.active ? A[((size_t)k * N + kQuad * ln.q + i) * D + d] * kLog2e : 0.f;
+    ga[i] = 0.f;  // a_{t+1} g_{t+1}
+  }
+  // Backwards over the chunk.
+#pragma unroll 4
   for (int s = tc - 1; s >= 0; --s) {
     const int t = k == 0 ? s : tc - 1 - s;
-    const float* q = xd + (k * T + t) * JP;
-    float dt = bk;
+    const int row = (k * T + t);
+    const float da = das[row * kDMax + d], dyv = dys[row * kDMax + d];
+    const float4 cv = *reinterpret_cast<const float4*>(xd + row * JP + kRPad + N + kQuad * ln.q);
+    const float cs[4] = {cv.x, cv.y, cv.z, cv.w};
 #pragma unroll
-    for (int r = 0; r < R; ++r) dt = fmaf(q[r], wdt[r], dt);
-    const float da = softplus(dt);
-    const float dyv = load_f32(dyb + (size_t)t * D);
-    const float4* cq = reinterpret_cast<const float4*>(q + kRPad + N);
-#pragma unroll
-    for (int n4 = 0; n4 < N / 4; ++n4) {
-      const float4 cv = cq[n4];
-      const float cs[4] = {cv.x, cv.y, cv.z, cv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int n = 4 * n4 + i;
-        ga[n] = expf(da * An[n]) * fmaf(cs[i], dyv, ga[n]);
-      }
-    }
+    for (int j = 0; j < NQ; ++j) ga[j] = ex2(da * An[j]) * fmaf(cs[j], dyv, ga[j]);
   }
-  float* go = gcar + (((size_t)b * 2 + k) * nc + c) * N * D + d;
+  if (ln.active) {
+    float* go = gcar + (((size_t)b * 2 + k) * nc + c) * N * D + d;
 #pragma unroll
-  for (int n = 0; n < N; ++n) go[(size_t)n * D] = ga[n];
+    for (int j = 0; j < NQ; ++j) go[(size_t)(kQuad * ln.q + j) * D] = ga[j];
+  }
 }
 
 // Phase 2: what enters every chunk, in place of what leaves it. As K1's
@@ -175,13 +352,24 @@ __global__ void __launch_bounds__(32 * kPrefixWorkers) bwd_prefix(
   const int seg = (nc + kPrefixWorkers - 1) / kPrefixWorkers;
   const int p0 = min(nc, w * seg), p1 = min(nc, p0 + seg);
 
+  // Each pass loads kBatch chunks' values before it uses them: the loads
+  // overlap, and the writes of the second pass cannot hold them back.
+  constexpr int kBatch = 4;
   float pa = 1.f, pg = 0.f;
   if (valid) {
-    for (int p = p0; p < p1; ++p) {
-      const size_t ci = base + (k == 0 ? nc - 1 - p : p);
-      const float a = expf(a_nd * sumda[ci * D + d]);
-      pg = fmaf(a, pg, gcar[ci * ND + nd]);
-      pa *= a;
+    for (int p = p0; p < p1; p += kBatch) {
+      float a[kBatch], ge[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const size_t ci = base + (k == 0 ? nc - 1 - (p + u) : p + u);
+        a[u] = p + u < p1 ? expf(a_nd * sumda[ci * D + d]) : 1.f;
+        ge[u] = p + u < p1 ? gcar[ci * ND + nd] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        pg = fmaf(a[u], pg, ge[u]);
+        pa *= a[u];
+      }
     }
   }
   agg_a[w][lane] = pa;
@@ -191,237 +379,269 @@ __global__ void __launch_bounds__(32 * kPrefixWorkers) bwd_prefix(
 
   float gc = 0.f;
   for (int v = 0; v < w; ++v) gc = fmaf(agg_a[v][lane], gc, agg_g[v][lane]);
-  for (int p = p0; p < p1; ++p) {
-    const size_t ci = base + (k == 0 ? nc - 1 - p : p);
-    const float a = expf(a_nd * sumda[ci * D + d]);
-    const float ge = gcar[ci * ND + nd];
-    gcar[ci * ND + nd] = gc;
-    gc = fmaf(a, gc, ge);
+  for (int p = p0; p < p1; p += kBatch) {
+    float a[kBatch], ge[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const size_t ci = base + (k == 0 ? nc - 1 - (p + u) : p + u);
+      a[u] = p + u < p1 ? expf(a_nd * sumda[ci * D + d]) : 1.f;
+      ge[u] = p + u < p1 ? gcar[ci * ND + nd] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (p + u < p1) {
+        gcar[(base + (k == 0 ? nc - 1 - (p + u) : p + u)) * ND + nd] = gc;
+        gc = fmaf(a[u], gc, ge[u]);
+      }
+    }
   }
 }
 
-// Phase 3: the gradients. part: [gridDim.y * gridDim.x][P][2D] partial sums,
-// P = (R+2N) + R + 1 + N + 1 rows: dwx, ddtw, dbias, dA, ddsk.
+// dy of element e of a sub-tile's [2][kSub][kDMax] tile: tokens s0 .. s0+cnt-1
+// of the processing order, zero beyond them and beyond D.
+template <typename TS>
+__device__ __forceinline__ float sub_tile_dy(const TS* dyg, int e, int s0, int cnt, int tc,
+                                             int L, int D) {
+  const int kk = e / (kSub * kDMax), si = (e / kDMax) % kSub, dd = e % kDMax;
+  const int s = s0 + si;
+  const int t = kk == 0 ? s : tc - 1 - s;
+  return si < cnt && dd < D ? load_f32(dyg + ((size_t)kk * L + t) * D + dd) : 0.f;
+}
+
+// Phase 3: the gradients. The gridDim.x blocks stride over the B * nc chunks.
+// part: [gridDim.x][P][2D] partial sums, P = (R+2N) + R + 1 + N + 1 rows:
+// dwx, ddtw, dbias, dA, ddsk.
 template <int N, int R, typename TS>
-__global__ void __launch_bounds__(128) bwd_main(
+__global__ void __launch_bounds__(kThreads, 1) bwd_main(
     const TS* __restrict__ x, const float* __restrict__ wx,
     const float* __restrict__ dtw, const float* __restrict__ bias,
     const float* __restrict__ A, const float* __restrict__ dsk,
     const float* __restrict__ state, const float* __restrict__ gcar,
     const TS* __restrict__ dy, TS* __restrict__ dx,
-    float* __restrict__ part, int L, int D, int T, int nc) {
+    float* __restrict__ part, int B, int L, int D, int T, int nc) {
   constexpr int J = R + 2 * N;
   constexpr int JP = kRPad + 2 * N;
   constexpr int S = kSub;
-  const int D2 = 2 * D, HP = 2 * D + 1, DP = D + 1;
+  constexpr int NQ = N / kQuad;
+  constexpr int M = (J + kQuad - 1) / kQuad;
   extern __shared__ float4 smem4[];
-  float* xd = reinterpret_cast<float*>(smem4);  // [2][T][JP]
-  float* xs = xd + 2 * T * JP;                  // [T][DP] x
-  float* dxs = xs + T * DP;                     // [T][DP] dx of both directions
-  float* hb = dxs + T * DP;                     // [T/S][N][2D] h entering each sub-tile
-  float* hist = hb + (T / S) * N * D2;          // [S][N][HP] h, then g da u, of a sub-tile
-  float* dys = hist + S * N * HP;               // [S][2D] dy
-  float* ddrs = dys + S * D2;                   // [S][2D] dz
-  float* dus = ddrs + S * D2;                   // [S][2D] du
-  float* dxd = dus + S * D2;                    // [S][2][JP] gradient of x_dbl
+  float* wxs = reinterpret_cast<float*>(smem4);  // [2][kDMax][J] wx
+  float* xd = wxs + 2 * kDMax * J;               // [2][T][JP] x_dbl
+  float* xs = xd + 2 * T * JP;                   // [T][kDP] x
+  float* dxs = xs + T * kDP;                     // [T][kDP] dx of both directions
+  float* hb = dxs + T * kDP;                     // [T/S][2][kDMax][N] h entering each sub-tile
+  float* das = hb + (T / S) * 2 * kDMax * N;     // [2][T][kDMax] da
+  float* sgs = das + 2 * T * kDMax;              // [2][T][kDMax] sigmoid(z)
+  float* red = sgs + 2 * T * kDMax;              // [2][warps][S][J] the warps' sums over d
+  float* dxd = red + 2 * kWarpsPerDir * S * J;   // [2][S][J] gradient of x_dbl
+  float* dys = dxd + 2 * S * J;                  // [2][S][kDMax] dy
+  float* dus = dys + 2 * S * kDMax;              // [2][S][kDMax] du
 
   const int tid = threadIdx.x;
-  const int k = tid / D, d = tid - k * D;
-  const int b = blockIdx.y;
-  float An[N], wdt[R];
+  const Lane ln = lane_of(D);
+  const int k = ln.k, d = ln.d, q = ln.q;
+  float wdt2[2][R], bias2[2];
+  load_dt_weights<R>(dtw, bias, D, wdt2, bias2);
+  stage_wx<J>(wx, wxs, D);  // before load_and_project's first barrier
+  float An[NQ], wrow[M];
 #pragma unroll
-  for (int n = 0; n < N; ++n) An[n] = A[((size_t)k * N + n) * D + d];
+  for (int i = 0; i < NQ; ++i) An[i] = ln.active ? A[((size_t)k * N + kQuad * q + i) * D + d] * kLog2e : 0.f;
 #pragma unroll
-  for (int r = 0; r < R; ++r) wdt[r] = dtw[((size_t)k * R + r) * D + d];
-  const float bk = bias[k * D + d];
-  const float dk = dsk[k * D + d];
-  const float* wrow = wx + ((size_t)k * D + d) * J;
+  for (int m = 0; m < M; ++m) {
+    const int j = q + kQuad * m;
+    wrow[m] = ln.active && j < J ? wx[((size_t)k * D + d) * J + j] : 0.f;
+  }
+  const float wdtq = ln.active && q < R ? dtw[((size_t)k * R + q) * D + d] : 0.f;
+  const float dk = ln.active ? dsk[k * D + d] : 0.f;
 
-  float dwx_acc[J], ddtw_acc[R], dA_acc[N];
-  float dbias_acc = 0.f, ddsk_acc = 0.f;
+  float dwx_acc[M], dA_acc[NQ];
+  float ddtw_acc = 0.f, dbias_acc = 0.f, ddsk_acc = 0.f;
 #pragma unroll
-  for (int j = 0; j < J; ++j) dwx_acc[j] = 0.f;
+  for (int m = 0; m < M; ++m) dwx_acc[m] = 0.f;
 #pragma unroll
-  for (int r = 0; r < R; ++r) ddtw_acc[r] = 0.f;
-#pragma unroll
-  for (int n = 0; n < N; ++n) dA_acc[n] = 0.f;
+  for (int i = 0; i < NQ; ++i) dA_acc[i] = 0.f;
 
-  for (int c = blockIdx.x; c < nc; c += gridDim.x) {
+  for (int item = blockIdx.x; item < B * nc; item += gridDim.x) {
+    const int b = item / nc, c = item - b * nc;
     const int l0 = c * T;
     const int tc = min(T, L - l0);
     __syncthreads();  // the previous chunk's tiles are free
-    for (int i = tid; i < tc * DP; i += blockDim.x) dxs[i] = 0.f;
-    load_and_project<N, R>(x + ((size_t)b * L + l0) * D, wx, xs, xd, tc, D, T);
+    for (int i = tid; i < tc * kDP; i += kThreads) dxs[i] = 0.f;
+    load_and_project<N, R>(x + ((size_t)b * L + l0) * D, wxs, xs, xd, tc, D, T);
+    const TS* dyg = dy + (size_t)b * 2 * L * D + (size_t)l0 * D;
+    const int nsub = (tc + S - 1) / S;
+    // dy of the last sub-tile; each later one is fetched during the sweep before it.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      dys[tid + r * kThreads] = sub_tile_dy(dyg, tid + r * kThreads, (nsub - 1) * S,
+                                            tc - (nsub - 1) * S, tc, L, D);
+    }
+    prepare_da<R, JP>(xd, wdt2, bias2, das, sgs, tc, D, T);  // its barrier covers dys
 
     const size_t ci = ((size_t)b * 2 + k) * nc + c;
-    const TS* dyb = dy + (((size_t)b * 2 + k) * L + l0) * D + d;
-    float h[N], ga[N];
+    float h[NQ], ga[NQ];
 
-    // h at the head of every sub-tile, from the chunk's entering state.
+    // h at the head of every sub-tile, from the chunk's entering state; each
+    // thread keeps its own four states there.
 #pragma unroll
-    for (int n = 0; n < N; ++n) h[n] = state[(ci * N + n) * D + d];
+    for (int i = 0; i < NQ; ++i) h[i] = ln.active ? state[(ci * N + kQuad * q + i) * D + d] : 0.f;
     for (int s = 0; s < tc; ++s) {
       if (s % S == 0) {
-        float* o = hb + (s / S) * N * D2 + tid;
-#pragma unroll
-        for (int n = 0; n < N; ++n) o[n * D2] = h[n];
+        *reinterpret_cast<float4*>(hb + (((s / S) * 2 + k) * kDMax + d) * N + kQuad * q) =
+            make_float4(h[0], h[1], h[2], h[3]);
       }
       const int t = k == 0 ? s : tc - 1 - s;
-      const float* q = xd + (k * T + t) * JP;
-      float dt = bk;
+      const float da = das[(k * T + t) * kDMax + d];
+      const float du = da * xs[t * kDP + d];
+      const float4 bv = *reinterpret_cast<const float4*>(xd + (k * T + t) * JP + kRPad + kQuad * q);
+      const float bs[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-      for (int r = 0; r < R; ++r) dt = fmaf(q[r], wdt[r], dt);
-      const float da = softplus(dt);
-      const float du = da * xs[t * DP + d];
-#pragma unroll
-      for (int n = 0; n < N; ++n) h[n] = fmaf(expf(da * An[n]), h[n], du * q[kRPad + n]);
+      for (int i = 0; i < NQ; ++i) h[i] = fmaf(ex2(da * An[i]), h[i], du * bs[i]);
     }
 #pragma unroll
-    for (int n = 0; n < N; ++n) ga[n] = gcar[(ci * N + n) * D + d];
+    for (int i = 0; i < NQ; ++i) ga[i] = ln.active ? gcar[(ci * N + kQuad * q + i) * D + d] : 0.f;
 
-    const int nsub = (tc + S - 1) / S;
     for (int j = nsub - 1; j >= 0; --j) {
       const int s0 = j * S;
       const int cnt = min(S, tc - s0);
 
-      // h of the sub-tile's tokens into the history, and dy beside it.
+      // h of the sub-tile's tokens, into registers.
+      float hh[S][NQ];
       {
-        const float* o = hb + j * N * D2 + tid;
-#pragma unroll
-        for (int n = 0; n < N; ++n) h[n] = o[n * D2];
+        const float4 v = *reinterpret_cast<const float4*>(hb + ((j * 2 + k) * kDMax + d) * N + kQuad * q);
+        h[0] = v.x, h[1] = v.y, h[2] = v.z, h[3] = v.w;
       }
-      for (int si = 0; si < cnt; ++si) {
-        const int s = s0 + si;
-        const int t = k == 0 ? s : tc - 1 - s;
-        const float* q = xd + (k * T + t) * JP;
-        float dt = bk;
 #pragma unroll
-        for (int r = 0; r < R; ++r) dt = fmaf(q[r], wdt[r], dt);
-        const float da = softplus(dt);
-        const float du = da * xs[t * DP + d];
-        float* o = hist + si * N * HP + tid;
-#pragma unroll
-        for (int n = 0; n < N; ++n) {
-          h[n] = fmaf(expf(da * An[n]), h[n], du * q[kRPad + n]);
-          o[n * HP] = h[n];
-        }
-        dys[si * D2 + tid] = load_f32(dyb + (size_t)t * D);
-      }
-      __syncthreads();
-
-      // dC[si][kk][n] = sum_d dy h: one (si, n) row per thread and direction.
-      for (int o = tid; o < 2 * S * N; o += blockDim.x) {
-        const int kk = o / (S * N), row = o - kk * S * N;
-        const int si = row / N, n = row - si * N;
+      for (int si = 0; si < S; ++si) {
         if (si < cnt) {
-          const float* hr = hist + row * HP + kk * D;
-          const float* dr = dys + si * D2 + kk * D;
-          float acc = 0.f;
-          for (int dd = 0; dd < D; ++dd) acc = fmaf(hr[dd], dr[dd], acc);
-          dxd[(si * 2 + kk) * JP + kRPad + N + n] = acc;
+          const int s = s0 + si;
+          const int t = k == 0 ? s : tc - 1 - s;
+          const float da = das[(k * T + t) * kDMax + d];
+          const float du = da * xs[t * kDP + d];
+          const float4 bv = *reinterpret_cast<const float4*>(xd + (k * T + t) * JP + kRPad + kQuad * q);
+          const float bs[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+          for (int i = 0; i < NQ; ++i) {
+            h[i] = fmaf(ex2(da * An[i]), h[i], du * bs[i]);
+            hh[si][i] = h[i];
+          }
         }
       }
-      __syncthreads();
-
-      // The adjoint sweeps back over the sub-tile; g da u replaces h in the history.
-      for (int si = cnt - 1; si >= 0; --si) {
-        const int s = s0 + si;
-        const int t = k == 0 ? s : tc - 1 - s;
-        const float* q = xd + (k * T + t) * JP;
-        float dt = bk;
+      // dy of the sub-tile before, fetched while the sweep runs (only the
+      // chunk's last sub-tile can be short).
+      float dy_next[2] = {0.f, 0.f};
+      if (j > 0) {
 #pragma unroll
-        for (int r = 0; r < R; ++r) dt = fmaf(q[r], wdt[r], dt);
-        const float da = softplus(dt);
-        const float sig = 1.f / (1.f + expf(-dt));
-        const float u = xs[t * DP + d];
-        const float dau = da * u;
-        const float dyv = dys[si * D2 + tid];
-        float* o = hist + si * N * HP + tid;
-        float gB = 0.f, dda = 0.f;
-#pragma unroll
-        for (int n = 0; n < N; ++n) {
-          const float bn = q[kRPad + n], cn = q[kRPad + N + n];
-          const float hn = o[n * HP];
-          const float g = fmaf(cn, dyv, ga[n]);
-          const float gdau = g * dau;
-          const float common = fmaf(g, hn, -gdau * bn);
-          gB = fmaf(g, bn, gB);
-          dda = fmaf(common, An[n], dda);
-          dA_acc[n] = fmaf(common, da, dA_acc[n]);
-          ga[n] = expf(da * An[n]) * g;
-          o[n * HP] = gdau;
-        }
-        dda = fmaf(gB, u, dda);
-        const float ddr = dda * sig;
-        ddrs[si * D2 + tid] = ddr;
-        dus[si * D2 + tid] = fmaf(da, gB, dk * dyv);
-        dbias_acc += ddr;
-        ddsk_acc = fmaf(dyv, u, ddsk_acc);
-#pragma unroll
-        for (int r = 0; r < R; ++r) ddtw_acc[r] = fmaf(q[r], ddr, ddtw_acc[r]);
+        for (int r = 0; r < 2; ++r) dy_next[r] = sub_tile_dy(dyg, tid + r * kThreads, s0 - S, S, tc, L, D);
       }
-      __syncthreads();
 
-      // dB[si][kk][n] = sum_d g da u, and the dt part dz . dtw^T.
-      for (int o = tid; o < 2 * S * N; o += blockDim.x) {
-        const int kk = o / (S * N), row = o - kk * S * N;
-        const int si = row / N, n = row - si * N;
+      // The adjoint sweeps back over the sub-tile; the sums over the warp's
+      // channels of g da u (dB), dy h (dC) and dz dtw go to red.
+#pragma unroll
+      for (int si = S - 1; si >= 0; --si) {
         if (si < cnt) {
-          const float* gr = hist + row * HP + kk * D;
-          float acc = 0.f;
-          for (int dd = 0; dd < D; ++dd) acc += gr[dd];
-          dxd[(si * 2 + kk) * JP + kRPad + n] = acc;
-        }
-      }
-      for (int o = tid; o < 2 * S * R; o += blockDim.x) {
-        const int kk = o / (S * R), row = o - kk * S * R;
-        const int si = row / R, r = row - si * R;
-        if (si < cnt) {
-          const float* zr = ddrs + si * D2 + kk * D;
-          const float* wr = dtw + ((size_t)kk * R + r) * D;
-          float acc = 0.f;
-          for (int dd = 0; dd < D; ++dd) acc = fmaf(zr[dd], __ldg(wr + dd), acc);
-          dxd[(si * 2 + kk) * JP + r] = acc;
+          const int s = s0 + si;
+          const int t = k == 0 ? s : tc - 1 - s;
+          const int row = k * T + t;
+          const float da = das[row * kDMax + d];
+          const float sig = sgs[row * kDMax + d];
+          const float u = xs[t * kDP + d];
+          const float dau = da * u;
+          const float dyv = dys[(k * S + si) * kDMax + d];
+          const float* xq = xd + row * JP;
+          const float4 bv = *reinterpret_cast<const float4*>(xq + kRPad + kQuad * q);
+          const float4 cv = *reinterpret_cast<const float4*>(xq + kRPad + N + kQuad * q);
+          const float bs[4] = {bv.x, bv.y, bv.z, bv.w}, cs[4] = {cv.x, cv.y, cv.z, cv.w};
+          float gB = 0.f, dda = 0.f, vals[8];
+#pragma unroll
+          for (int i = 0; i < NQ; ++i) {
+            const float g = fmaf(cs[i], dyv, ga[i]);
+            const float gdau = g * dau;
+            const float common = fmaf(g, hh[si][i], -gdau * bs[i]);
+            gB = fmaf(g, bs[i], gB);
+            dda = fmaf(common, An[i], dda);
+            dA_acc[i] = fmaf(common, da, dA_acc[i]);
+            ga[i] = ex2(da * An[i]) * g;
+            vals[i] = gdau;
+            vals[NQ + i] = dyv * hh[si][i];
+          }
+          gB = quad_sum(gB);
+          dda = fmaf(gB, u, quad_sum(dda) * kLn2);  // An holds A log2 e
+          const float ddr = dda * sig;
+          dbias_acc += ddr;
+          ddsk_acc = fmaf(dyv, u, ddsk_acc);
+          if (q < R) ddtw_acc = fmaf(xq[q], ddr, ddtw_acc);
+          if (q == 0) dus[(k * S + si) * kDMax + d] = fmaf(da, gB, dk * dyv);
+          const float v = transpose_sum8(vals, ln.dl);
+          float xr = ddr * wdtq;
+          xr += __shfl_xor_sync(kFull, xr, 4);
+          xr += __shfl_xor_sync(kFull, xr, 8);
+          xr += __shfl_xor_sync(kFull, xr, 16);
+          float* rr = red + ((k * kWarpsPerDir + ln.wd) * S + si) * J;
+          rr[ln.dl < NQ ? R + kQuad * q + ln.dl : R + N + kQuad * q + ln.dl - NQ] = v;
+          if (ln.dl == 0 && q < R) rr[q] = xr;
         }
       }
       __syncthreads();
-
-      // dx = dxd . wx^T + du, and dwx += x^T dxd.
-      for (int si = 0; si < cnt; ++si) {
-        const int s = s0 + si;
-        const int t = k == 0 ? s : tc - 1 - s;
-        const float* row = dxd + (si * 2 + k) * JP;
-        const float xv = xs[t * DP + d];
-        float acc = dus[si * D2 + tid];
-#pragma unroll
-        for (int jj = 0; jj < R; ++jj) {
-          acc = fmaf(row[jj], __ldg(wrow + jj), acc);
-          dwx_acc[jj] = fmaf(xv, row[jj], dwx_acc[jj]);
-        }
-#pragma unroll
-        for (int jj = 0; jj < 2 * N; ++jj) {
-          acc = fmaf(row[kRPad + jj], __ldg(wrow + R + jj), acc);
-          dwx_acc[R + jj] = fmaf(xv, row[kRPad + jj], dwx_acc[R + jj]);
-        }
-        atomicAdd(dxs + t * DP + d, round_like(dx, acc));
+      if (j > 0) {  // the sweep has read dys
+        dys[tid] = dy_next[0];
+        dys[tid + kThreads] = dy_next[1];
       }
-      __syncthreads();  // before the next sub-tile reuses hist, dys and dxd
+
+      // dxd = the sum of the warps' sums, in warp order.
+      for (int o = tid; o < 2 * S * J; o += kThreads) {
+        const int kk = o / (S * J);
+        const float* rp = red + kk * kWarpsPerDir * S * J + (o - kk * S * J);
+        float acc = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarpsPerDir; ++w) acc += rp[w * S * J];
+        dxd[o] = acc;
+      }
+      __syncthreads();
+
+      // dx = dxd . wx^T + du, and dwx += x^T dxd; a quad shares the row.
+#pragma unroll
+      for (int si = 0; si < S; ++si) {
+        if (si < cnt) {
+          const int s = s0 + si;
+          const int t = k == 0 ? s : tc - 1 - s;
+          const float* rowp = dxd + (k * S + si) * J + q;
+          const float xv = xs[t * kDP + d];
+          float acc = 0.f;
+#pragma unroll
+          for (int m = 0; m < M; ++m) {
+            if (q + kQuad * m < J) {
+              const float v = rowp[kQuad * m];
+              acc = fmaf(v, wrow[m], acc);
+              dwx_acc[m] = fmaf(xv, v, dwx_acc[m]);
+            }
+          }
+          acc = quad_sum(acc);
+          if (q == 0 && ln.active) {
+            atomicAdd(dxs + t * kDP + d, round_like(dx, acc + dus[(k * S + si) * kDMax + d]));
+          }
+        }
+      }
     }
-
+    __syncthreads();
     TS* dxb = dx + ((size_t)b * L + l0) * D;
-    for (int i = tid; i < tc * D; i += blockDim.x) store_f32(dxb + i, dxs[(i / D) * DP + i % D]);
+    for (int i = tid; i < tc * D; i += kThreads) store_f32(dxb + i, dxs[(i / D) * kDP + i % D]);
   }
 
-  float* po = part + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * (J + R + N + 2) * D2 + tid;
-  int row = 0;
+  if (!ln.active) return;
+  const int D2 = 2 * D;
+  float* po = part + (size_t)blockIdx.x * (J + R + N + 2) * D2 + k * D + d;
 #pragma unroll
-  for (int j = 0; j < J; ++j) po[(size_t)(row++) * D2] = dwx_acc[j];
+  for (int m = 0; m < M; ++m) {
+    if (q + kQuad * m < J) po[(size_t)(q + kQuad * m) * D2] = dwx_acc[m];
+  }
+  if (q < R) po[(size_t)(J + q) * D2] = ddtw_acc;
+  if (q == 0) {
+    po[(size_t)(J + R) * D2] = dbias_acc;
+    po[(size_t)(J + R + 1 + N) * D2] = ddsk_acc;
+  }
 #pragma unroll
-  for (int r = 0; r < R; ++r) po[(size_t)(row++) * D2] = ddtw_acc[r];
-  po[(size_t)(row++) * D2] = dbias_acc;
-#pragma unroll
-  for (int n = 0; n < N; ++n) po[(size_t)(row++) * D2] = dA_acc[n];
-  po[(size_t)row * D2] = ddsk_acc;
+  for (int i = 0; i < NQ; ++i) po[(size_t)(J + R + 1 + kQuad * q + i) * D2] = dA_acc[i];
 }
 
 // out[i] = sum over the blocks' partial sums, in block order.
@@ -434,11 +654,13 @@ __global__ void bwd_reduce(const float* __restrict__ part, float* __restrict__ o
   out[i] = acc;
 }
 
-size_t main_smem(int N, int D, int T) {
-  const int JP = kRPad + 2 * N, D2 = 2 * D;
-  return sizeof(float) * ((size_t)2 * T * JP + 2 * (size_t)T * (D + 1) +
-                          (size_t)(T / kSub) * N * D2 + (size_t)kSub * N * (D2 + 1) +
-                          3 * (size_t)kSub * D2 + (size_t)kSub * 2 * JP);
+template <int N, int R, typename TS>
+cudaError_t set_smem(int T) {
+  cudaError_t e = cudaFuncSetAttribute(bwd_local<N, R, TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)local_smem(N, R, T));
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(bwd_main<N, R, TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)main_smem(N, R, T));
 }
 
 template <int N, int R, typename TS>
@@ -448,16 +670,9 @@ cudaError_t launch(const TS* x, const float* wx, const float* dtw,
                    TS* dx, float* gcar, float* part, float* sums,
                    int B, int L, int D, int T, int gx, cudaStream_t stream) {
   const int nc = (L + T - 1) / T;
-  const size_t smem_local = sizeof(float) * ((size_t)2 * T * (kRPad + 2 * N) + (size_t)T * (D + 1));
-  const size_t smem_main = main_smem(N, D, T);
-  cudaError_t e = cudaFuncSetAttribute(bwd_local<N, R, TS>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_local);
+  cudaError_t e = set_smem<N, R, TS>(T);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(bwd_main<N, R, TS>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_main);
-  if (e != cudaSuccess) return e;
-
-  bwd_local<N, R, TS><<<dim3(nc, B), 2 * D, smem_local, stream>>>(
+  bwd_local<N, R, TS><<<dim3(nc, B), kThreads, local_smem(N, R, T), stream>>>(
       x, wx, dtw, bias, A, dy, gcar, L, D, T, nc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -465,12 +680,12 @@ cudaError_t launch(const TS* x, const float* wx, const float* dtw,
   bwd_prefix<<<pgrid, pblock, 0, stream>>>(A, gcar, sumda, N * D, D, nc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  bwd_main<N, R, TS><<<dim3(gx, B), 2 * D, smem_main, stream>>>(
-      x, wx, dtw, bias, A, dsk, state, gcar, dy, dx, part, L, D, T, nc);
+  bwd_main<N, R, TS><<<gx, kThreads, main_smem(N, R, T), stream>>>(
+      x, wx, dtw, bias, A, dsk, state, gcar, dy, dx, part, B, L, D, T, nc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int width = (R + 2 * N + R + N + 2) * 2 * D;
-  bwd_reduce<<<(width + 255) / 256, 256, 0, stream>>>(part, sums, gx * B, width);
+  bwd_reduce<<<(width + 255) / 256, 256, 0, stream>>>(part, sums, gx, width);
   return cudaGetLastError();
 }
 
@@ -497,6 +712,31 @@ cudaError_t launch_r(const void* x, const void* wx, const void* dtw, const void*
 #undef WM_LAUNCH
 }
 
+// out: threads a block, shared memory of bwd_local and bwd_main, and the
+// blocks of each that the runtime lets reside on one SM.
+template <int N, int R, typename TS>
+cudaError_t occupancy(int T, int* out) {
+  cudaError_t e = set_smem<N, R, TS>(T);
+  if (e != cudaSuccess) return e;
+  out[0] = kThreads;
+  out[1] = (int)local_smem(N, R, T);
+  out[2] = (int)main_smem(N, R, T);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 3, bwd_local<N, R, TS>, kThreads, out[1]);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 4, bwd_main<N, R, TS>, kThreads, out[2]);
+}
+
+template <typename TS>
+cudaError_t occupancy_r(int R, int T, int* out) {
+  switch (R) {
+    case 1: return occupancy<16, 1, TS>(T, out);
+    case 2: return occupancy<16, 2, TS>(T, out);
+    case 3: return occupancy<16, 3, TS>(T, out);
+    case 4: return occupancy<16, 4, TS>(T, out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -506,10 +746,10 @@ extern "C" {
 // (B, 2, nc, N, D) and sumda (B, 2, nc, D) as K1 left them, nc = ceil(L / T).
 // Outputs: dx; sums (P, 2, D), P = (R+2N) + R + 1 + N +
 // 1 rows [dwx | ddtw | dbias | dA | ddsk], each row (direction, channel).
-// Scratch: gcar (B, 2, nc, N, D); part (B * gx, P, 2, D), gx <= nc the number
-// of blocks that share a batch element's chunks. All but x, dy and dx f32; all
-// contiguous, on the device of `stream`. Returns a cudaError_t; the caller has
-// checked N == 16, 1 <= R <= 4, D <= 64 and T a multiple of 8.
+// Scratch: gcar (B, 2, nc, N, D); part (gx, P, 2, D), gx <= B * nc the number
+// of bwd_main's blocks, which stride over all the chunks. All but x, dy and dx
+// f32; all contiguous, on the device of `stream`. Returns a cudaError_t; the
+// caller has checked N == 16, 1 <= R <= 4, D <= 64 and T <= 64 a multiple of 8.
 int ss2d_scan_pair_bwd(const void* x, const void* wx, const void* dtw,
                        const void* bias, const void* A, const void* dsk,
                        const void* state, const void* sumda, const void* dy,
@@ -517,11 +757,21 @@ int ss2d_scan_pair_bwd(const void* x, const void* wx, const void* dtw,
                        int B, int L, int D, int N, int R, int T, int gx,
                        int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N != 16 || D > 64 || T % kSub != 0 || gx < 1) return cudaErrorInvalidValue;
+  if (N != 16 || D > kDMax || T % kSub != 0 || T > kTMax || gx < 1) return cudaErrorInvalidValue;
 #define WM_ARGS x, wx, dtw, bias, A, dsk, state, sumda, dy, dx, gcar, part, sums, B, L, D, R, T, gx, s
   if (bf16) return launch_r<__nv_bfloat16>(WM_ARGS);
   return launch_r<float>(WM_ARGS);
 #undef WM_ARGS
+}
+
+// The launch geometry on the current device: out[0] threads a block (both
+// kernels), out[1] / out[2] dynamic shared memory of bwd_local / bwd_main,
+// out[3] / out[4] their resident blocks an SM as
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them (registers
+// included). Returns a cudaError_t.
+int ss2d_scan_bwd_occupancy(int N, int R, int T, int bf16, int* out) {
+  if (N != 16 || T % kSub != 0 || T > kTMax) return cudaErrorInvalidValue;
+  return bf16 ? occupancy_r<__nv_bfloat16>(R, T, out) : occupancy_r<float>(R, T, out);
 }
 
 const char* ss2d_scan_bwd_error_string(int code) {

@@ -72,7 +72,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "wavemamba_torch"
 D_STATE = 16  # the one state width the kernels are compiled for
 MAX_DT_RANK = 4
 MAX_D = 128  # K1: 2*D threads per block
-MAX_D_BWD = 64  # K2: its shared-memory tiles are sized for 2*D <= 128 threads
+MAX_D_BWD = 64  # K2: a block holds 2 x 64 channels, four threads each
 MAX_D_K3 = 256  # K3: D threads per block
 MAX_D_K4 = 128  # K4: D threads per block, and a (8, N, D+1) history in shared memory
 MAX_STREAMS = 65535  # K3, K4: B*K is a grid's second dimension
@@ -145,6 +145,8 @@ def _library_bwd() -> ctypes.CDLL:
     fn = lib.ss2d_scan_pair_bwd
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.ss2d_scan_bwd_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.ss2d_scan_bwd_occupancy.restype = ctypes.c_int
     lib.ss2d_scan_bwd_error_string.argtypes = [ctypes.c_int]
     lib.ss2d_scan_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -347,6 +349,54 @@ def ss2d_scan_pair_ssd(x, wx, dtw, bias, A, dsk, sub=8, return_carries=False):
 ss2d_scan_pair_ssd.launches = 0
 
 
+K2_THREADS = 2 * MAX_D_BWD * 4  # a quad of threads per (direction, channel)
+SMEM_PER_SM = 233_472  # an H100 SM's shared memory: 228 KB
+SMEM_RESERVED = 1_024  # the runtime's share of each resident block
+THREADS_PER_SM = 2_048
+
+
+def k2_plan(B, L, D, N, R, T, sms):
+    """K2's launch geometry, from shapes alone (the kernel's source,
+    `csrc/ss2d_scan_bwd.cu`, sizes its tiles by the same sums).
+
+    Returns threads a block (both kernels), the dynamic shared memory of
+    `bwd_local` and `bwd_main` in bytes, the blocks and warps of each that the
+    SM's shared memory and 2,048 threads let reside (registers are the card's
+    to report: `k2_occupancy`), and `gx`, the blocks of `bwd_main`, which
+    stride over all B * ceil(L / T) chunks: as many as reside at once on `sms`
+    SMs, one whole wave. Tiles hold 64 channels whatever D <= 64 is."""
+    if not 1 <= D <= MAX_D_BWD:
+        raise ValueError(f"k2_plan: K2 takes 1 <= D <= {MAX_D_BWD}, got D={D}")
+    J, JP, DP, DM, S = R + 2 * N, 4 + 2 * N, MAX_D_BWD + 1, MAX_D_BWD, 8
+    smem_local = 4 * (2 * T * JP + max(2 * DM * J + T * DP, 2 * T * DM) + 2 * T * DM)
+    smem_main = 4 * (2 * DM * J + 2 * T * JP + 2 * T * DP + (T // S) * 2 * DM * N + 4 * T * DM
+                     + 2 * (DM // 8) * S * J + 2 * S * J + 4 * S * DM)
+
+    def resident(smem):
+        return min(THREADS_PER_SM // K2_THREADS, SMEM_PER_SM // (smem + SMEM_RESERVED))
+
+    local, main = resident(smem_local), resident(smem_main)
+    return {"threads": K2_THREADS, "smem_local": smem_local, "smem_main": smem_main,
+            "blocks_per_sm_local": local, "blocks_per_sm_main": main,
+            "warps_per_sm_local": local * K2_THREADS // 32,
+            "warps_per_sm_main": main * K2_THREADS // 32,
+            "gx": max(1, min(B * -(-L // T), sms * main))}
+
+
+def k2_occupancy(R=2, bf16=False, T=CHUNK):
+    """What the card reports for K2's kernels (N = 16) at the launch's
+    threads and shared memory: {threads, smem_local, smem_main,
+    blocks_per_sm_local, blocks_per_sm_main} from
+    `cudaOccupancyMaxActiveBlocksPerMultiprocessor`, registers included."""
+    lib = _library_bwd()
+    out = (ctypes.c_int * 5)()
+    err = lib.ss2d_scan_bwd_occupancy(D_STATE, R, T, int(bf16), out)
+    if err != 0:
+        raise RuntimeError(f"ss2d_scan_bwd_occupancy failed: {lib.ss2d_scan_bwd_error_string(err).decode()}")
+    keys = ("threads", "smem_local", "smem_main", "blocks_per_sm_local", "blocks_per_sm_main")
+    return dict(zip(keys, out))
+
+
 def ss2d_scan_pair_bwd(x, wx, dtw, bias, A, dsk, state, sumda, dy):
     """Backward of `ss2d_scan_pair` (kernel K2).
 
@@ -373,12 +423,11 @@ def ss2d_scan_pair_bwd(x, wx, dtw, bias, A, dsk, state, sumda, dy):
     lib = _library_bwd()
     j = r + 2 * n
     rows = j + r + 1 + n + 1  # dwx | ddtw | dbias | dA | ddsk
-    # Blocks that share a batch element's chunks: two waves of one block per SM.
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    gx = min(nc, max(1, -(-2 * sms // b)))
+    gx = k2_plan(b, length, d, n, r, CHUNK, sms)["gx"]
     dx = torch.empty_like(x)
     gcar = torch.empty_like(state)
-    part = torch.empty((b * gx, rows, 2, d), device=x.device, dtype=torch.float32)
+    part = torch.empty((gx, rows, 2, d), device=x.device, dtype=torch.float32)
     sums = torch.empty((rows, 2, d), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
