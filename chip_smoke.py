@@ -10,7 +10,13 @@ and prints one JSON line per phase:
   1. device  the card (nvidia-smi), torch and CUDA versions, the kernel builds.
   2. k1      kernel K1 (`ss2d_scan_pair`) against `ss2d_scan_pair_plain` at
              the three scan lengths of a 1080p forward, on a ragged length
-             and on a column (transposed) token stream; times and bounds.
+             and on a column (transposed) token stream; times and bounds,
+             the device time of each of K1's three kernels (`phases_ms`:
+             pass 1, chunk prefix, replay; torch.profiler), the SM clock and
+             power draw that nvidia-smi samples while it runs, and the
+             launch's geometry (threads, shared memory, grid) beside the
+             blocks and warps an SM that the card's occupancy query reports,
+             held against `scan_cuda.k1_plan`.
   3. k2      kernel K2 (`ss2d_scan_pair_bwd`, K1's backward) against
              `ss2d_scan_pair_plain_bwd` at the training shapes, on a ragged
              length and on a column stream, all six outputs and K1's carries;
@@ -440,6 +446,107 @@ def phase_device():
     return smi
 
 
+K1_PHASES = ("pass1", "prefix", "replay")
+
+
+def k1_phase_of(kernel):
+    """Which of K1's three kernels a profiler name is: pass 1
+    (`chunk_scan<..., false, ...>`), the chunk prefix, or the replay
+    (`chunk_scan<..., true, ...>`); None for any other kernel."""
+    if "chunk_prefix" in kernel:
+        return "prefix"
+    if "chunk_scan<" in kernel:
+        return "replay" if "true" in kernel else "pass1"
+    return None
+
+
+def k1_phases(call, reps=5):
+    """Device ms per call of each of K1's kernels over `reps` calls of `call`
+    under torch.profiler (after one call outside it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    for _ in range(2):  # a second session where the first recorded no kernel
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        ms = dict.fromkeys(K1_PHASES, 0.0)
+        for e in prof.events():
+            phase = k1_phase_of(e.name) if e.device_type == DeviceType.CUDA else None
+            if phase:
+                ms[phase] += e.device_time_total / 1e3 / reps
+        if all(v > 0 for v in ms.values()):
+            return ms
+    raise RuntimeError(f"check failed: K1's three kernels ran under the profiler: {ms}")
+
+
+def clocks_under_load(call, seconds=1.0):
+    """(SM clock MHz, power draw W): the medians of nvidia-smi's samples,
+    every 50 ms, while `call` runs back to back for `seconds` (the first
+    sample, taken as the load starts, left out)."""
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "50"],
+                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=30)[0]
+    samples = [[float(v) for v in ln.split(",")] for ln in out.splitlines()[1:] if ln.count(",") == 1]
+    check(len(samples) > 0, "nvidia-smi sampled the clock under load")
+    return float(np.median([s[0] for s in samples])), float(np.median([s[1] for s in samples]))
+
+
+def k1_geometry(plan, occ):
+    """K1's launch geometry for a `k1` row: `scan_cuda.k1_plan`'s blocks and
+    residency beside what the card reports for the same launch
+    (`scan_cuda.k1_occupancy`, registers included). Fails where the launch's
+    threads or shared memory are not the plan's, or where the card lets fewer
+    blocks of a kernel reside than planned."""
+    kernels = {"chunk_scan<false>": ("pass1", "scan"), "chunk_scan<true>": ("replay", "scan"),
+               "chunk_prefix": ("prefix", "prefix")}
+    check(all(occ[k] == plan[k] for k in ("threads", "smem_scan", "prefix_threads")),
+          f"K1 launches {occ} as k1_plan planned {plan}")
+    blocks = {name: occ[f"blocks_per_sm_{own}"] for name, (own, _) in kernels.items()}
+    threads = {"chunk_scan<false>": plan["threads"], "chunk_scan<true>": plan["threads"],
+               "chunk_prefix": plan["prefix_threads"]}
+    for name, (_, planned) in kernels.items():
+        check(blocks[name] >= plan[f"blocks_per_sm_{planned}"],
+              f"K1 {name}: {blocks[name]} blocks an SM, {plan[f'blocks_per_sm_{planned}']} planned")
+    return {"threads": threads,
+            "smem_bytes": {"chunk_scan": plan["smem_scan"], "chunk_prefix": plan["smem_prefix"]},
+            "blocks_per_sm": blocks,
+            "warps_per_sm": {name: blocks[name] * threads[name] // 32 for name in kernels},
+            "planned_warps_per_sm": {name: plan[f"warps_per_sm_{planned}"]
+                                     for name, (_, planned) in kernels.items()},
+            "grid_scan": list(plan["grid_scan"]), "waves_scan": plan["waves_scan"],
+            "grid_prefix": list(plan["grid_prefix"])}
+
+
+def k1_row_geometry(B, L, bf16):
+    """`k1_geometry` at a k1 row's shape (D=64, N=16, R=2) on this card."""
+    from wavemamba_torch.ops.scan_cuda import CHUNK, k1_occupancy, k1_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return k1_geometry(k1_plan(B, L, 64, 16, 2, CHUNK, sms), k1_occupancy(D=64, R=2, bf16=bf16))
+
+
+def k1_timings(row, call):
+    """A timed k1 row's device times: `ms` (CUDA events, median of 20),
+    `phases_ms` (K1's three kernels, torch.profiler), and the SM clock and
+    power draw while it runs."""
+    row["ms"] = cuda_ms(call, 20)
+    row["phases_ms"] = k1_phases(call)
+    row["clocks_sm_mhz"], row["power_draw_w"] = clocks_under_load(call)
+
+
 def phase_k1():
     from wavemamba_torch.ops.scan import ss2d_scan_pair_plain
     from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair
@@ -460,9 +567,10 @@ def phase_k1():
         check(bool(torch.isfinite(y).all()), f"K1 {name}: finite")
         check(err <= K1_ATOL, f"K1 {name}: max abs err {err} <= {K1_ATOL}")
         row = {"phase": "k1", "case": name, "B": 1, "L": h * w, "D": 64, "N": 16, "R": 2,
-               "max_abs_err": err, "tol": K1_ATOL, "y_max_abs": float(y_plain.abs().max())}
+               "max_abs_err": err, "tol": K1_ATOL, "y_max_abs": float(y_plain.abs().max()),
+               "geometry": k1_row_geometry(1, h * w, bf16=False)}
         if not columns and name != "ragged":
-            row["ms"] = cuda_ms(lambda: ss2d_scan_pair(*args), 20)
+            k1_timings(row, lambda: ss2d_scan_pair(*args))
             row["plain_ms"] = cuda_ms(lambda: ss2d_scan_pair_plain(*args), 1, warmup=False)
             row["bound_ms"], row["bound_by"], row["bound_unit"] = k1_bound(1, h * w, 64, 16, 2)
         row["launches"] = ss2d_scan_pair.launches
@@ -512,10 +620,11 @@ def phase_k1_bf16():
         row = {"phase": "k1", "case": name, "B": 1, "L": h * w, "D": 64, "N": 16, "R": 2,
                "x": "bfloat16", "y": "bfloat16", "max_abs_err": float((y.float() - y_plain.float()).abs().max()),
                "share_differing": share, "tol": f"one bf16 step + {K1_ATOL}",
-               "y_max_abs": float(y_plain.float().abs().max())}
+               "y_max_abs": float(y_plain.float().abs().max()),
+               "geometry": k1_row_geometry(1, h * w, bf16=True)}
         if not columns and not name.startswith("ragged"):
             x32 = args[0].float()
-            row["ms"] = cuda_ms(lambda: ss2d_scan_pair(*args, out_dtype=bf16), 20)
+            k1_timings(row, lambda: ss2d_scan_pair(*args, out_dtype=bf16))
             row["f32_ms"] = cuda_ms(lambda: ss2d_scan_pair(x32, *args[1:]), 20)
             row["plain_ms"] = plain_ms
             row["bound_ms"], row["bound_by"], row["bound_unit"] = k1_bound(1, h * w, 64, 16, 2, 2)
@@ -2180,8 +2289,14 @@ def main():
         "max_abs_err": errs["K1"]["max_abs_err"],
         "ms": level1["ms"], "plain_ms": level1["plain_ms"], "bound_ms": level1["bound_ms"],
         "bound_by": level1["bound_by"], "library_ms": None,
+        **{k: level1["geometry"][k] for k in ("threads", "smem_bytes", "warps_per_sm")},
+        "ms_levels": [r["ms"] for r in k1_rows if "ms" in r],
+        "phases_ms": [r["phases_ms"] for r in k1_rows if "ms" in r],
+        **{k: level1[k] for k in ("clocks_sm_mhz", "power_draw_w")},
         "bf16": {**{k: k1_bf16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
                                             "share_differing")},
+                 "ms_levels": [r["ms"] for r in k1_bf16_rows if "ms" in r],
+                 "phases_ms": [r["phases_ms"] for r in k1_bf16_rows if "ms" in r],
                  "max_abs_err_all_shapes": errs["K1"]["bf16_max_abs_err"]}}, {
         "name": "ss2d_scan_pair_bwd (K2)", "route": "cuda",
         "source": "wavemamba_torch/csrc/ss2d_scan_bwd.cu",

@@ -41,6 +41,7 @@ as the JAX wrapper does before its `pallas_call`; K5 takes float32 only.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -71,7 +72,7 @@ SOURCES = (SOURCE, SOURCE_BWD, SOURCE_K3, SOURCE_K4, SOURCE_K5, SOURCE_CHAIN, SO
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "wavemamba_torch"
 D_STATE = 16  # the one state width the kernels are compiled for
 MAX_DT_RANK = 4
-MAX_D = 128  # K1: 2*D threads per block
+MAX_D = 128  # K1: a block scans 64 channels, two blocks a chunk above 64
 MAX_D_BWD = 64  # K2: a block holds 2 x 64 channels, four threads each
 MAX_D_K3 = 256  # K3: D threads per block
 MAX_D_K4 = 128  # K4: D threads per block, and a (8, N, D+1) history in shared memory
@@ -131,8 +132,10 @@ def _library() -> ctypes.CDLL:
     _need_cuda("K1")
     lib = ctypes.CDLL(str(build(SOURCE)))
     fn = lib.ss2d_scan_pair
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.ss2d_scan_occupancy.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.ss2d_scan_occupancy.restype = ctypes.c_int
     lib.ss2d_scan_error_string.argtypes = [ctypes.c_int]
     lib.ss2d_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -235,10 +238,25 @@ def _pair_shapes(x, wx, dtw, bias, A, dsk):
             "dsk": (dsk, (2, d))}
 
 
+@functools.cache
+def _sm_count(index):
+    """The SMs of CUDA device `index` (None: the current device)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _on_device(device):
+    """A context that makes `device` current, or none where it is already
+    (switching costs the host some microseconds a launch)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def _launch_k1(x, wx, dtw, bias, A, dsk, out_dtype):
-    """K1 on CUDA tensors: y in `out_dtype`, and the scratch it leaves behind,
+    """K1 on CUDA tensors: y in `out_dtype`, and what it leaves behind for K2,
     `state` (B, 2, nc, N, D), the state entering each chunk, and `sumda`
-    (B, 2, nc, D), each chunk's sum of da: what K2 needs."""
+    (B, 2, nc, D), each chunk's sum of da. The launch takes `k1_plan`'s shared
+    memory (the source refuses any other) and its x_dbl scratch."""
     _check_inputs("ss2d_scan_pair", x, _pair_shapes(x, wx, dtw, bias, A, dsk), MAX_D, ("x",))
     if out_dtype not in STREAM_DTYPES:
         raise ValueError(f"ss2d_scan_pair: out_dtype must be float32 or bfloat16, got {out_dtype}")
@@ -246,16 +264,21 @@ def _launch_k1(x, wx, dtw, bias, A, dsk, out_dtype):
     b, length, d = x.shape
     r, n = dtw.shape[1], A.shape[1]
     lib = _library()
+    plan = k1_plan(b, length, d, n, r, CHUNK, _sm_count(x.device.index))
+    # The kernel reads x and wx 16 bytes at a time: a view that starts off a
+    # 16-byte boundary is copied.
+    x, wx = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, wx))
     nc = -(-length // CHUNK)
     y = torch.empty((b, 2, length, d), device=x.device, dtype=out_dtype)
     state = torch.empty((b, 2, nc, n, d), device=x.device, dtype=torch.float32)
     sumda = torch.empty((b, 2, nc, d), device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
+    xdbl = torch.empty(plan["xdbl_shape"], device=x.device, dtype=torch.float32)
+    with _on_device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ss2d_scan_pair(
             x.data_ptr(), wx.data_ptr(), dtw.data_ptr(), bias.data_ptr(), A.data_ptr(),
-            dsk.data_ptr(), y.data_ptr(), state.data_ptr(), sumda.data_ptr(),
-            b, length, d, n, r, CHUNK, x.dtype == torch.bfloat16, stream)
+            dsk.data_ptr(), y.data_ptr(), state.data_ptr(), sumda.data_ptr(), xdbl.data_ptr(),
+            b, length, d, n, r, CHUNK, plan["smem_scan"], x.dtype == torch.bfloat16, stream)
     if err != 0:
         raise RuntimeError(f"ss2d_scan_pair launch failed: {lib.ss2d_scan_error_string(err).decode()}")
     ss2d_scan_pair.launches += 1
@@ -353,6 +376,71 @@ K2_THREADS = 2 * MAX_D_BWD * 4  # a quad of threads per (direction, channel)
 SMEM_PER_SM = 233_472  # an H100 SM's shared memory: 228 KB
 SMEM_RESERVED = 1_024  # the runtime's share of each resident block
 THREADS_PER_SM = 2_048
+K1_GROUP = 64  # channels a chunk_scan block scans
+K1_THREADS = 2 * K1_GROUP * 2  # both directions, a quad of threads per channel pair
+K1_PREFIX_LANES, K1_PREFIX_WORKERS = 16, 64  # chunk_prefix: (n, d) lanes x workers a block
+# The resident blocks an SM each kernel's launch bounds ask for: its register
+# budget a thread is 65,536 over threads x blocks.
+K1_SCAN_BLOCKS, K1_PREFIX_BLOCKS = 3, 1
+
+
+def _resident(threads, smem):
+    """Blocks an SM holds by its 2,048 threads and 228 KB of shared memory."""
+    return min(THREADS_PER_SM // threads, SMEM_PER_SM // (smem + SMEM_RESERVED))
+
+
+def k1_plan(B, L, D, N, R, T, sms):
+    """K1's launch geometry, from shapes alone (the kernel's source,
+    `csrc/ss2d_scan.cu`, sizes its tiles by the same sums, and refuses a
+    launch whose shared memory is not this plan's).
+
+    chunk_scan (pass 1 and the replay) runs `threads` a block on a grid of
+    (chunks, B, channel groups of 64); its dynamic shared memory `smem_scan`
+    holds the x tile and wx rows of width 64 * groups + 4, x_dbl of both
+    directions, and da. chunk_prefix runs `prefix_threads` a block, one block
+    per K1_PREFIX_LANES (n, d) lanes of each (direction, batch element), on
+    static shared memory `smem_prefix`. For each, the blocks and warps an SM that shared
+    memory, 2,048 threads and the register budget of the kernel's launch
+    bounds let reside (the registers used are the card's to report:
+    `k1_occupancy`), and chunk_scan's blocks against what `sms` SMs hold at
+    once (`waves_scan`). `xdbl_shape` is the scratch where pass 1 leaves x_dbl
+    for the replay."""
+    if N != D_STATE or not 1 <= R <= MAX_DT_RANK or not 1 <= D <= MAX_D:
+        raise ValueError(f"k1_plan: K1 takes N={D_STATE}, 1<=R<={MAX_DT_RANK}, D<={MAX_D}; "
+                         f"got N={N}, R={R}, D={D}")
+    if not 4 <= T <= 64 or T % 4:
+        raise ValueError(f"k1_plan: K1 takes chunks of T <= 64 tokens, a multiple of 4; got T={T}")
+    groups = -(-D // K1_GROUP)
+    width, J, JP = K1_GROUP * groups + 4, R + 2 * N, 4 + 2 * N
+    smem_scan = 4 * (T * width + 2 * T * JP + max(2 * J * width, 2 * T * K1_GROUP))
+    prefix_threads = K1_PREFIX_LANES * K1_PREFIX_WORKERS
+    smem_prefix = 4 * 2 * prefix_threads
+    scan = min(_resident(K1_THREADS, smem_scan), K1_SCAN_BLOCKS)
+    prefix = min(_resident(prefix_threads, smem_prefix), K1_PREFIX_BLOCKS)
+    nc = -(-L // T)
+    grid_scan = (nc, B, groups)
+    grid_prefix = (-(-N * D // K1_PREFIX_LANES), 2, B)
+    return {"threads": K1_THREADS, "smem_scan": smem_scan, "blocks_per_sm_scan": scan,
+            "warps_per_sm_scan": scan * K1_THREADS // 32, "grid_scan": grid_scan,
+            "waves_scan": nc * B * groups / (sms * scan),
+            "prefix_threads": prefix_threads, "smem_prefix": smem_prefix,
+            "blocks_per_sm_prefix": prefix, "warps_per_sm_prefix": prefix * prefix_threads // 32,
+            "grid_prefix": grid_prefix, "xdbl_shape": (B, 2, L, JP)}
+
+
+def k1_occupancy(D=64, R=2, bf16=False, T=CHUNK):
+    """What the card reports for K1's kernels (N = 16) at the launch's
+    threads and shared memory: {threads, smem_scan, blocks_per_sm_pass1,
+    blocks_per_sm_replay, prefix_threads, blocks_per_sm_prefix} from
+    `cudaOccupancyMaxActiveBlocksPerMultiprocessor`, registers included."""
+    lib = _library()
+    out = (ctypes.c_int * 6)()
+    err = lib.ss2d_scan_occupancy(D_STATE, R, D, T, int(bf16), out)
+    if err != 0:
+        raise RuntimeError(f"ss2d_scan_occupancy failed: {lib.ss2d_scan_error_string(err).decode()}")
+    keys = ("threads", "smem_scan", "blocks_per_sm_pass1", "blocks_per_sm_replay",
+            "prefix_threads", "blocks_per_sm_prefix")
+    return dict(zip(keys, out))
 
 
 def k2_plan(B, L, D, N, R, T, sms):
@@ -372,10 +460,7 @@ def k2_plan(B, L, D, N, R, T, sms):
     smem_main = 4 * (2 * DM * J + 2 * T * JP + 2 * T * DP + (T // S) * 2 * DM * N + 4 * T * DM
                      + 2 * (DM // 8) * S * J + 2 * S * J + 4 * S * DM)
 
-    def resident(smem):
-        return min(THREADS_PER_SM // K2_THREADS, SMEM_PER_SM // (smem + SMEM_RESERVED))
-
-    local, main = resident(smem_local), resident(smem_main)
+    local, main = _resident(K2_THREADS, smem_local), _resident(K2_THREADS, smem_main)
     return {"threads": K2_THREADS, "smem_local": smem_local, "smem_main": smem_main,
             "blocks_per_sm_local": local, "blocks_per_sm_main": main,
             "warps_per_sm_local": local * K2_THREADS // 32,
