@@ -30,7 +30,13 @@ and prints one JSON line per phase:
              batch-8 512x512 step, a ragged length; times and bounds.
   3c. k4     kernel K4 (`selective_scan_cuda_bwd`, K3's backward) against
              `selective_scan_plain_bwd` at the three training shapes and the
-             ragged one, all seven outputs, the same bits twice; times, bounds.
+             ragged one, all seven outputs, the same bits twice; times at the
+             three training lengths and bounds, the device time of each of
+             K4's four kernels (`phases_ms`: local adjoint, prefix, gradients,
+             reduction; torch.profiler), the SM clock and power draw under
+             its load; the launch's geometry (threads, shared memory, `gx`)
+             and the blocks and warps an SM that the card's occupancy query
+             reports, held against `scan_cuda.k4_plan`.
   3d. k5     kernel K5 (`ss2d_scan_pair(..., variant='ssd')`, K1's function in
              the segment-local form) against its plain version and against K1,
              y and carries, at the three scan lengths of a 1080p forward, a
@@ -107,7 +113,9 @@ and prints one JSON line per phase:
              `fast(conv_impl="fused")`, one training step of
              the fused scan route, of the unfused route and of the bf16 yml,
              and the card's idle share; K2's ms and share of each fused
-             step's busy time, also in the `kernels` line.
+             step's busy time, also in the `kernels` line; K3's and K4's ms
+             of the unfused step (the run fails if that profile finds either
+             by name nowhere).
  14. bench   `wavemamba_torch.bench` in `fast` and `parity` modes.
 
 The k1 and k2 phases also hold the kernels on bf16 streams (x and y, or x,
@@ -419,15 +427,17 @@ def phase_device():
     libs = scan_cuda.build_all()  # one nvcc per source, started together
     build_s = time.perf_counter() - t0
 
-    def ptxas(lib, kernels):
+    def ptxas(lib, kernels, shipped="ILi16ELi2E"):
         """Registers and spills of each kernel of the build, as `-Xptxas -v`
-        reports them; of a templated kernel, the shipped dt_rank's (<16, 2>)."""
+        reports them; of a templated kernel, the shipped instantiation's
+        (`shipped` in its mangled name: <16, 2> is K1's and K2's dt_rank, <16,
+        64> K4's 64 channels a block)."""
         lines = lib.with_suffix(".log").read_text().splitlines()
         out = []
         for i, ln in enumerate(lines):
             name = next((k for k in kernels if k in ln), None)
             if "Compiling entry function" in ln and name and (
-                    "ILi16ELi" not in ln or "ILi16ELi2E" in ln):
+                    "ILi16ELi" not in ln or shipped in ln):
                 out.append(name + ": " + ", ".join(
                     x.replace("ptxas info    :", "").strip() for x in lines[i + 2:i + 4]))
         return out
@@ -439,7 +449,7 @@ def phase_device():
           "k1_ptxas": ptxas(libs[0], ["chunk_scan", "chunk_prefix"]),
           "k2_ptxas": ptxas(libs[1], ["bwd_local", "bwd_prefix", "bwd_main", "bwd_reduce"]),
           "k3_ptxas": ptxas(libs[2], ["scan_chunk", "chunk_prefix"]),
-          "k4_ptxas": ptxas(libs[3], ["bwd_local", "chunk_prefix", "bwd_main", "bwd_reduce"]),
+          "k4_ptxas": ptxas(libs[3], ["bwd_local", "bwd_prefix", "bwd_main", "bwd_reduce"], "ILi16ELi64E"),
           "k5_ptxas": ptxas(libs[4], ["chunk_scan_ssd", "chunk_prefix"]),
           "chain_ptxas": ptxas(libs[5], ["chain_kernel"]),
           "probe_ptxas": ptxas(libs[6], ["flat", "shaped", "expchain", "nsum", "mxu_seg"])})
@@ -460,9 +470,12 @@ def k1_phase_of(kernel):
     return None
 
 
-def k1_phases(call, reps=5):
-    """Device ms per call of each of K1's kernels over `reps` calls of `call`
-    under torch.profiler (after one call outside it)."""
+def kernel_phases(call, phase_of, phases, what, reps=5):
+    """Device ms per call of each of a kernel's launches (`phases`, named by
+    `phase_of` from the profiler's kernel names) over `reps` calls of `call`
+    under torch.profiler (after one call outside it). The profiler need not
+    record every launch of a session (it kept 2-3 of 5 of K4's long
+    launches): each launch's time is the mean over those it recorded."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -473,14 +486,16 @@ def k1_phases(call, reps=5):
             for _ in range(reps):
                 call()
             torch.cuda.synchronize()
-        ms = dict.fromkeys(K1_PHASES, 0.0)
+        us, calls = dict.fromkeys(phases, 0.0), dict.fromkeys(phases, 0)
         for e in prof.events():
-            phase = k1_phase_of(e.name) if e.device_type == DeviceType.CUDA else None
+            phase = phase_of(e.name) if e.device_type == DeviceType.CUDA else None
             if phase:
-                ms[phase] += e.device_time_total / 1e3 / reps
-        if all(v > 0 for v in ms.values()):
-            return ms
-    raise RuntimeError(f"check failed: K1's three kernels ran under the profiler: {ms}")
+                us[phase] += e.device_time_total
+                calls[phase] += 1
+        if all(calls.values()):
+            return {p: us[p] / 1e3 / calls[p] for p in phases}
+        ms = us
+    raise RuntimeError(f"check failed: {what}'s {len(phases)} kernels ran under the profiler: {ms}")
 
 
 def clocks_under_load(call, seconds=1.0):
@@ -543,7 +558,7 @@ def k1_timings(row, call):
     `phases_ms` (K1's three kernels, torch.profiler), and the SM clock and
     power draw while it runs."""
     row["ms"] = cuda_ms(call, 20)
-    row["phases_ms"] = k1_phases(call)
+    row["phases_ms"] = kernel_phases(call, k1_phase_of, K1_PHASES, "K1")
     row["clocks_sm_mhz"], row["power_draw_w"] = clocks_under_load(call)
 
 
@@ -636,33 +651,43 @@ def phase_k1_bf16():
 
 
 OUTPUTS = ("dx", "dwx", "ddtw", "dbias", "dA", "ddsk")
-# K2's design holds at least this many warps resident on an SM in bwd_main
-# and in bwd_local, as the card's occupancy query reports them.
-K2_MIN_WARPS = 16
+# The warps each backward design holds resident on an SM in bwd_local and
+# bwd_main at the least, as the card's occupancy query reports them.
+K2_MIN_WARPS = {"bwd_local": 16, "bwd_main": 16}
+K4_MIN_WARPS = {"bwd_local": 32, "bwd_main": 16}
 
 
-def k2_geometry(plan, occ):
-    """K2's launch geometry for a `k2` row: `scan_cuda.k2_plan`'s grid and
-    residency beside what the card reports for the same launch
-    (`scan_cuda.k2_occupancy`, registers included). Fails where the launch's
-    threads or shared memory are not the plan's, where the card lets fewer
-    blocks of either kernel reside than planned, or where either kernel has
-    fewer than K2_MIN_WARPS warps an SM."""
+def bwd_geometry(kernel, plan, occ, min_warps):
+    """The launch geometry of K2's or K4's `bwd_local` and `bwd_main` for a
+    `k2` / `k4` row: the plan's grid and residency (`scan_cuda.k2_plan` /
+    `k4_plan`) beside what the card reports for the same launch
+    (`k2_occupancy` / `k4_occupancy`, registers included). Fails where the
+    launch's threads or shared memory are not the plan's, where the card lets
+    fewer blocks of either kernel reside than planned, or where a kernel has
+    fewer warps an SM than `min_warps` holds for it."""
     kernels = ("local", "main")
     check(all(occ[k] == plan[k] for k in ("threads", "smem_local", "smem_main")),
-          f"K2 launches {occ} as k2_plan planned {plan}")
+          f"{kernel} launches {occ} as {kernel.lower()}_plan planned {plan}")
     warps = {f"bwd_{k}": occ[f"blocks_per_sm_{k}"] * occ["threads"] // 32 for k in kernels}
     for k in kernels:
         check(occ[f"blocks_per_sm_{k}"] >= plan[f"blocks_per_sm_{k}"],
-              f"K2 bwd_{k}: {occ[f'blocks_per_sm_{k}']} blocks an SM, "
+              f"{kernel} bwd_{k}: {occ[f'blocks_per_sm_{k}']} blocks an SM, "
               f"{plan[f'blocks_per_sm_{k}']} planned")
-    check(min(warps.values()) >= K2_MIN_WARPS, f"K2's warps an SM {warps} >= {K2_MIN_WARPS}")
+    check(all(warps[k] >= min_warps[k] for k in warps), f"{kernel}'s warps an SM {warps} >= {min_warps}")
     return {"threads": occ["threads"],
             "smem_bytes": {f"bwd_{k}": occ[f"smem_{k}"] for k in kernels},
             "blocks_per_sm": {f"bwd_{k}": occ[f"blocks_per_sm_{k}"] for k in kernels},
             "warps_per_sm": warps,
             "planned_warps_per_sm": {f"bwd_{k}": plan[f"warps_per_sm_{k}"] for k in kernels},
             "gx": plan["gx"]}
+
+
+def k2_geometry(plan, occ):
+    return bwd_geometry("K2", plan, occ, K2_MIN_WARPS)
+
+
+def k4_geometry(plan, occ):
+    return bwd_geometry("K4", plan, occ, K4_MIN_WARPS)
 
 
 def k2_row_geometry(B, L, bf16):
@@ -815,6 +840,25 @@ def timed_once(fn):
 
 
 SCAN_OUTPUTS = ("du", "ddelta", "dA", "dBs", "dCs", "dD_skip", "ddelta_bias")
+K4_PHASES = ("local", "prefix", "main", "reduce")
+def k4_row_geometry(B, L):
+    """`k4_geometry` at a k4 row's shape (K=4, D=64, N=16) on this card."""
+    from wavemamba_torch.ops.scan_cuda import CHUNK, k4_occupancy, k4_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return k4_geometry(k4_plan(B, 4, L, 64, 16, CHUNK, sms), k4_occupancy(D=64))
+
+
+def k4_phase_of(kernel):
+    """Which of K4's four kernels a profiler name is: the local adjoint
+    (`bwd_local`), the chunk prefix, the gradients (`bwd_main`) or the
+    reduction of the blocks' partial sums; None for any other kernel. K2
+    names its kernels alike: a profile that holds K4 holds no K2."""
+    for phase, key in (("local", "bwd_local<"), ("prefix", "bwd_prefix"), ("main", "bwd_main<"),
+                       ("reduce", "bwd_reduce")):
+        if key in kernel:
+            return phase
+    return None
 
 
 def phase_k3_k4():
@@ -857,7 +901,8 @@ def phase_k3_k4():
             torch.cuda.synchronize()
             want, plain_ms = timed_once(lambda: selective_scan_plain_bwd(*args, state_plain, dy))
             row = {"phase": "k4", "case": name, "B": B, "K": 4, "L": L, "D": 64, "N": 16,
-                   "tol_rel": K4_RTOL, "max_abs_err": {}, "max_rel_err": {}}
+                   "tol_rel": K4_RTOL, "max_abs_err": {}, "max_rel_err": {},
+                   "geometry": k4_row_geometry(B, L)}
             for key, g, g2, w_ in zip(SCAN_OUTPUTS, got, again, want):
                 check(g.shape == w_.shape and bool(torch.isfinite(g).all()), f"K4 {name} {key}: finite")
                 check(torch.equal(g, g2), f"K4 {name} {key}: the same bits on a second run")
@@ -868,7 +913,10 @@ def phase_k3_k4():
                       f"K4 {name} {key}: max rel err {row['max_rel_err'][key]} <= {K4_RTOL}")
             del got, again, want
             if name != "ragged":
-                row["ms"] = cuda_ms(lambda: selective_scan_cuda_bwd(*args, state, sumda, dy), 10)
+                call = lambda: selective_scan_cuda_bwd(*args, state, sumda, dy)
+                row["ms"] = cuda_ms(call, 10)
+                row["phases_ms"] = kernel_phases(call, k4_phase_of, K4_PHASES, "K4")
+                row["clocks_sm_mhz"], row["power_draw_w"] = clocks_under_load(call)
                 row["plain_ms"] = plain_ms
                 row["bound_ms"], row["bound_by"], row["bound_unit"] = k4_bound(B, 4, L, 64, 16)
             row["launches"] = selective_scan_cuda_bwd.launches
@@ -2117,15 +2165,15 @@ def phase_profile(model, x, forward_ms, run, pipe, fused, fast, fast_fused, trai
         named = lambda *keys: sum(r[0] for r in rows if any(k in r[2] for k in keys)) / 1e3
         # K2 and K4 name their kernels alike (each in its own library): a
         # profile holds one route, so the adjoint's time is that route's.
-        adjoint = named("bwd_local", "bwd_prefix", "bwd_main", "bwd_reduce", "chunk_prefix<true>")
+        adjoint = named("bwd_local", "bwd_prefix", "bwd_main", "bwd_reduce")
         k2_ms = 0.0 if what == "train_step_unfused" else adjoint
         row = {"phase": "profile", "what": what, **extra, "wall_ms": wall_ms, "busy_ms": busy_ms,
               "idle_share": 1.0 - busy_ms / wall_ms,
               # against the same work's time without the profiler's overhead
               "unprofiled_ms": unprofiled_ms, "idle_share_unprofiled": 1.0 - busy_ms / unprofiled_ms,
-              "k1_ms": named("chunk_scan", "::chunk_prefix("),
+              "k1_ms": named("chunk_scan", "(anonymous namespace)::chunk_prefix("),
               "k2_ms": k2_ms, "k2_share_of_busy": k2_ms / busy_ms,
-              "k3_ms": named("scan_chunk", "chunk_prefix<false>"),
+              "k3_ms": named("scan_chunk", "wm::chunk_prefix("),
               "k4_ms": adjoint if what == "train_step_unfused" else 0.0,
               "flip_ms": named("flip"),
               # dtype casts and other copies (the bf16 path casts each weight where it is used)
@@ -2138,6 +2186,10 @@ def phase_profile(model, x, forward_ms, run, pipe, fused, fast, fast_fused, trai
               "kernels": len(rows), "launches": sum(r[1] for r in rows),
               "top": [{"us": us, "calls": n, "name": name[:90]} for us, n, name in rows[:20]]}
         emit(row)
+        if what == "train_step_unfused":
+            check(row["k3_ms"] > 0 and row["k4_ms"] > 0 and row["k1_ms"] == 0,
+                  f"the unfused step's profile finds K3 and K4 by name, and no K1: {row['k3_ms']}, "
+                  f"{row['k4_ms']}, {row['k1_ms']}")
         return row
 
     report("forward", *profile_rows(lambda: wavemamba_apply(model, x)), forward_ms,
@@ -2329,7 +2381,11 @@ def main():
         "max_rel_err": max(max(r["max_rel_err"].values()) for r in k4_rows),
         "ms": k4_level1["ms"], "plain_ms": k4_level1["plain_ms"],
         "bound_ms": k4_level1["bound_ms"], "bound_by": k4_level1["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None,
+        **{k: k4_level1["geometry"][k] for k in ("threads", "smem_bytes", "warps_per_sm", "gx")},
+        "ms_levels": [r["ms"] for r in k4_rows if "ms" in r],
+        "phases_ms": [r["phases_ms"] for r in k4_rows if "ms" in r],
+        **{k: k4_level1[k] for k in ("clocks_sm_mhz", "power_draw_w")}}, {
         "name": "ss2d_scan_pair_ssd (K5)", "route": "cuda",
         "source": "wavemamba_torch/csrc/ss2d_scan_ssd.cu",
         "replaces": "wavemamba_tpu/ops/scan_pallas.py:578", "launches": k5_rows[-1]["launches"],

@@ -132,7 +132,7 @@ cudaError_t launch(const float* u, const float* delta, const float* A, const flo
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const dim3 pgrid((N * D + 31) / 32, G), pblock(32, kPrefixWorkers);
-  chunk_prefix<false><<<pgrid, pblock, 0, stream>>>(A, state, sumda, K, N, D, nc);
+  chunk_prefix<<<pgrid, pblock, 0, stream>>>(A, state, sumda, K, N, D, nc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   scan_chunk<N, true><<<grid, D, smem, stream>>>(

@@ -33,10 +33,9 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ src, float*
 // A chunk acts on what enters it as x -> exp(A * sumda) * x + carry, where
 // `carry` is what leaves the chunk when nothing enters it. This turns every
 // chunk's `carry` into what enters it, in place: a prefix over the chunks
-// from the first (the forward state h) or, with REVERSE, from the last (the
-// adjoint g). Lane = one (n, d) of a stream; the chunks are split among
-// kPrefixWorkers workers, which combine in shared memory.
-template <bool REVERSE>
+// from the first (K3's forward state h). Lane = one (n, d) of a stream; the
+// chunks are split among kPrefixWorkers workers, which combine in shared
+// memory.
 __global__ void __launch_bounds__(32 * kPrefixWorkers) chunk_prefix(
     const float* __restrict__ A, float* __restrict__ carry,
     const float* __restrict__ sumda, int K, int N, int D, int nc) {
@@ -56,7 +55,7 @@ __global__ void __launch_bounds__(32 * kPrefixWorkers) chunk_prefix(
   float pa = 1.f, px = 0.f;  // this worker's segment as one transition
   if (valid) {
     for (int p = p0; p < p1; ++p) {
-      const size_t ci = base + (REVERSE ? nc - 1 - p : p);
+      const size_t ci = base + p;
       const float a = expf(a_nd * sumda[ci * D + d]);
       px = fmaf(a, px, carry[ci * ND + nd]);
       pa *= a;
@@ -70,7 +69,7 @@ __global__ void __launch_bounds__(32 * kPrefixWorkers) chunk_prefix(
   float xc = 0.f;  // what enters this worker's first chunk
   for (int v = 0; v < w; ++v) xc = fmaf(agg_a[v][lane], xc, agg_x[v][lane]);
   for (int p = p0; p < p1; ++p) {
-    const size_t ci = base + (REVERSE ? nc - 1 - p : p);
+    const size_t ci = base + p;
     const float a = expf(a_nd * sumda[ci * D + d]);
     const float xe = carry[ci * ND + nd];
     carry[ci * ND + nd] = xc;

@@ -75,7 +75,7 @@ MAX_DT_RANK = 4
 MAX_D = 128  # K1: a block scans 64 channels, two blocks a chunk above 64
 MAX_D_BWD = 64  # K2: a block holds 2 x 64 channels, four threads each
 MAX_D_K3 = 256  # K3: D threads per block
-MAX_D_K4 = 128  # K4: D threads per block, and a (8, N, D+1) history in shared memory
+MAX_D_K4 = 128  # K4: a block holds 64 channels (D <= 64) or 128, a quad of threads each
 MAX_STREAMS = 65535  # K3, K4: B*K is a grid's second dimension
 CHUNK = 64  # tokens per block of the kernels, and the plain versions' chunk on the CPU
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
@@ -174,6 +174,8 @@ def _library_k4() -> ctypes.CDLL:
     fn = lib.selective_scan_bwd_f32
     fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.selective_scan_bwd_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.selective_scan_bwd_occupancy.restype = ctypes.c_int
     lib.selective_scan_bwd_error_string.argtypes = [ctypes.c_int]
     lib.selective_scan_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -482,6 +484,58 @@ def k2_occupancy(R=2, bf16=False, T=CHUNK):
     return dict(zip(keys, out))
 
 
+K4_QUAD, K4_SUB = 4, 8  # threads a channel; tokens a sub-tile of bwd_main
+
+
+def k4_plan(B, K, L, D, N, T, sms):
+    """K4's launch geometry, from shapes alone (the kernel's source,
+    `csrc/selective_scan_bwd.cu`, sizes its tiles by the same sums).
+
+    A block holds DM = 64 channels where D <= 64, else 128, a quad of threads
+    each: `threads` = 4 DM in both kernels. Returns that, the dynamic shared
+    memory of `bwd_local` (C of the chunk, (da, dy) of each (token, channel))
+    and of `bwd_main` (B and C of the chunk, (da, u, sigmoid(z), dy) of each
+    (token, channel), h at the head of each sub-tile, the warps' sums over
+    channels of a sub-tile) in bytes, the blocks and warps of each that the
+    SM's shared memory, 2,048 threads and the launch bounds' register budget
+    let reside (the registers used are the card's to report: `k4_occupancy`),
+    and `gx`, the blocks of `bwd_main` for each of the K directions, which
+    stride over that direction's B * ceil(L / T) chunks: as many in all as
+    reside at once on `sms` SMs, one whole wave."""
+    if N != D_STATE or not 1 <= D <= MAX_D_K4:
+        raise ValueError(f"k4_plan: K4 takes N={D_STATE}, D<={MAX_D_K4}; got N={N}, D={D}")
+    if not K4_SUB <= T <= CHUNK or T % K4_SUB:
+        raise ValueError(f"k4_plan: K4 takes chunks of T <= {CHUNK} tokens, a multiple of "
+                         f"{K4_SUB}; got T={T}")
+    dm = 64 if D <= 64 else 128
+    threads = K4_QUAD * dm
+    smem_local = 4 * (T * N + 2 * T * dm)
+    smem_main = 4 * (T * 2 * N + 4 * T * dm + (T // K4_SUB) * dm * N + (dm // 8) * K4_SUB * 2 * N)
+    # The launch bounds ask for 32 warps an SM of bwd_local and 16 of bwd_main.
+    local = min(_resident(threads, smem_local), 1024 // threads)
+    main = min(_resident(threads, smem_main), 512 // threads)
+    gx = max(1, min(B * -(-L // T), sms * main // K))
+    return {"threads": threads, "smem_local": smem_local, "smem_main": smem_main,
+            "blocks_per_sm_local": local, "blocks_per_sm_main": main,
+            "warps_per_sm_local": local * threads // 32, "warps_per_sm_main": main * threads // 32,
+            "gx": gx}
+
+
+def k4_occupancy(D=64, T=CHUNK):
+    """What the card reports for K4's kernels (N = 16) at the launch's
+    threads and shared memory for D channels: {threads, smem_local,
+    smem_main, blocks_per_sm_local, blocks_per_sm_main} from
+    `cudaOccupancyMaxActiveBlocksPerMultiprocessor`, registers included."""
+    lib = _library_k4()
+    out = (ctypes.c_int * 5)()
+    err = lib.selective_scan_bwd_occupancy(D_STATE, D, T, out)
+    if err != 0:
+        raise RuntimeError("selective_scan_bwd_occupancy failed: "
+                           f"{lib.selective_scan_bwd_error_string(err).decode()}")
+    keys = ("threads", "smem_local", "smem_main", "blocks_per_sm_local", "blocks_per_sm_main")
+    return dict(zip(keys, out))
+
+
 def ss2d_scan_pair_bwd(x, wx, dtw, bias, A, dsk, state, sumda, dy):
     """Backward of `ss2d_scan_pair` (kernel K2).
 
@@ -653,13 +707,12 @@ def selective_scan_cuda_bwd(u, delta, A, Bs, Cs, D_skip, delta_bias, state, sumd
                   dy=(dy, (b, k, length, d)))
     _check_scan_inputs("selective_scan_cuda_bwd", u, shapes, MAX_D_K4)
     lib = _library_k4()
-    # Blocks that share a stream's chunks: about six blocks per SM in all.
     sms = torch.cuda.get_device_properties(u.device).multi_processor_count
-    gx = min(nc, max(1, -(-6 * sms // (b * k))))
+    gx = k4_plan(b, k, length, d, n, CHUNK, sms)["gx"]
     du, ddelta = torch.empty_like(u), torch.empty_like(u)
     dB, dC = torch.empty_like(Bs), torch.empty_like(Cs)
     gcar = torch.empty_like(state)
-    part = torch.empty((b * k, gx, n + 2, d), device=u.device, dtype=torch.float32)
+    part = torch.empty((k, gx, n + 2, d), device=u.device, dtype=torch.float32)
     sums = torch.empty((k, n + 2, d), device=u.device, dtype=torch.float32)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
