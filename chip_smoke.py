@@ -7,7 +7,9 @@ plain PyTorch version on the card, serves the shipped model, trains a fresh
 one at full width, drives the yml pipelines' path with `scan_impl: pallas`,
 and prints one JSON line per phase:
 
-  1. device  the card (nvidia-smi), torch and CUDA versions, the kernel builds.
+  1. device  the card (nvidia-smi), torch and CUDA versions, the kernel builds
+             (seconds in all and each source's `nvcc`), each kernel's
+             registers and spills.
   2. k1      kernel K1 (`ss2d_scan_pair`) against `ss2d_scan_pair_plain` at
              the three scan lengths of a 1080p forward, on a ragged length
              and on a column (transposed) token stream; times and bounds,
@@ -100,19 +102,24 @@ and prints one JSON line per phase:
              bf16 activations, PSNR against the float32 route (held) and
              against `fast()` (reported), chain kernels against plain chains on
              the same model, the forward beside `fast()`'s, peak memory.
- 12. train_fast the xxl4 yml's `network_g` (bf16) and `train` sections
+ 12. train_fast / train_mixed the xxl4 yml's (bf16 compute and scan) and
+             the proc512 yml's (bf16 compute, float32 scan) `network_g` and
+             `train` sections
              through `build_model` and the loader on a seeded uint8 dataset,
              1 + 6 steps on one batch of 8 x 512x512: 28 K1 + 28 K2 a step
-             on bf16 streams, ms a step, images/s, peak memory, the loss
-             falls; loss and gradients with K1 + K2 against the plain scan
-             and backward at 128x128, both read against the float32 plain
-             route's gradients as bf16 noise, and a planted K2 fault that the
-             check must catch.
+             on bf16 streams (train_mixed: bf16 x, float32 y and dy), ms a
+             step, images/s, peak memory, the loss falls; before them, for
+             each mix, loss and gradients with K1 + K2 against the plain scan
+             and backward at 128x128 (`grad` routes `fast` and `mixed`), both
+             read against the float32 plain route's gradients as bf16 noise,
+             and a planted K2 fault that the check must catch.
  13. profile device time by kernel (torch.profiler) over one 1152x1920
              forward of each conv route, of `fast()` and of
-             `fast(conv_impl="fused")`, one training step of
-             the fused scan route, of the unfused route and of the bf16 yml,
-             and the card's idle share; K2's ms and share of each fused
+             `fast(conv_impl="fused")`, one training step of the fused scan
+             route, of the unfused route and of the two bf16 ymls, and the
+             card's idle share; K1's and K3's launches as the profile
+             recorded them beside their wrappers' counts (`short_profile`
+             where it recorded fewer); K2's ms and share of each fused
              step's busy time, also in the `kernels` line; K3's and K4's ms
              of the unfused step (the run fails if that profile finds either
              by name nowhere).
@@ -120,7 +127,10 @@ and prints one JSON line per phase:
 
 The k1 and k2 phases also hold the kernels on bf16 streams (x and y, or x,
 dy and dx) against their plain versions, within one bf16 rounding step, at
-every shape the fast paths give them. Then
+every shape the fast paths give them, and on bf16 x with float32 y / dy (the
+proc ymls' mix, rows `*_mixed`) at the three levels of a 1080p forward and
+of a training step: y to the float32 rows' tolerance, dx within one bf16
+step, the same bits twice. Then
 the `kernels` line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, and the script exits non-zero without the last line. It needs
 one card and exits non-zero where CUDA is missing. `--remat` trains with
@@ -283,13 +293,13 @@ def _bound(nbytes, fma_ops, sfu_ops, tensor_ops=0):
     return times[unit], ("bytes" if unit == "hbm" else "operations"), unit
 
 
-def k1_bound(B, L, D, N, R, stream_bytes=4):
+def k1_bound(B, L, D, N, R, x_bytes=4, y_bytes=None):
     """Least time (ms) the card could take for one K1 call, what bounds it
     ("bytes" or "operations"), and the unit that bounds it ("hbm", "fma" or
     "sfu").
 
-    Bytes: x read once, y written once (`stream_bytes` each: 2 in bf16), the
-    weights read once. Per (token,
+    Bytes: x read once (`x_bytes` a value: 2 in bf16), y written once
+    (`y_bytes`, x's by default), the weights read once. Per (token,
     direction), each computed once: on the FMA pipe, an FMA counted as two,
     the projection 2D(R+2N), dt 2RD, log1p of the softplus D (one operation,
     though it is a polynomial), the recurrence 6 per (n, d) (da*A, the FMA of
@@ -297,7 +307,7 @@ def k1_bound(B, L, D, N, R, stream_bytes=4):
     per (n, d) and one per d for the softplus (`expf` is one ex2 there plus
     FMA-pipe range reduction, not counted)."""
     weights = 2 * D * (R + 2 * N) + 2 * R * D + 2 * D + 2 * N * D + 2 * D
-    nbytes = stream_bytes * (B * L * D + 2 * B * L * D) + 4 * weights
+    nbytes = x_bytes * B * L * D + (y_bytes or x_bytes) * 2 * B * L * D + 4 * weights
     fma_ops = 2 * B * L * (2 * D * (R + 2 * N) + 2 * R * D + D + 6 * N * D + D + 2 * D)
     sfu_ops = 2 * B * L * (N * D + D)
     return _bound(nbytes, fma_ops, sfu_ops)
@@ -351,11 +361,11 @@ def chain_bound(c0, specs, pixels, act_bytes=4):
     return (*_bound(nbytes, fma * pixels, sfu * pixels, tensor * pixels), tensor * pixels)
 
 
-def k2_bound(B, L, D, N, R, T=64, stream_bytes=4):
+def k2_bound(B, L, D, N, R, T=64, stream_bytes=4, dy_bytes=None):
     """Least time (ms) the card could take for one K2 call; as `k1_bound`.
 
-    Bytes: x and dy read once, dx written once (`stream_bytes` each), the
-    chunk-entry states and
+    Bytes: x and dy read once, dx written once (`stream_bytes` each, dy
+    `dy_bytes` where it differs), the chunk-entry states and
     chunk decays read once, the weights read and their gradients written.
     Per (token, direction), each computed once: on the FMA pipe, the
     projection 2DJ (J = R+2N) and dt 2RD; per (n, d) the state's recompute 4
@@ -367,7 +377,8 @@ def k2_bound(B, L, D, N, R, T=64, stream_bytes=4):
     J = R + 2 * N
     nc = -(-L // T)
     weights = 2 * D * J + 2 * R * D + 2 * D + 2 * N * D + 2 * D
-    nbytes = stream_bytes * B * L * D * (1 + 2 + 1) + 4 * (B * 2 * nc * (N * D + D) + 2 * weights)
+    nbytes = B * L * D * (2 * stream_bytes + 2 * (dy_bytes or stream_bytes)) \
+        + 4 * (B * 2 * nc * (N * D + D) + 2 * weights)
     fma_ops = 2 * B * L * (3 * 2 * D * J + 3 * 2 * R * D + (4 + 13 + 3) * N * D + 10 * D)
     sfu_ops = 2 * B * L * (N * D + 3 * D)
     return _bound(nbytes, fma_ops, sfu_ops)
@@ -417,6 +428,28 @@ def pair_inputs(rs, B, L, D=64, N=16, R=2):
             -torch.exp(cuda(rs.rand(2, N, D))), cuda(rs.rand(2, D)))
 
 
+def template_tags(mangled):
+    """The template arguments that follow a kernel's <16, R> in its mangled
+    name, as words: a pass (`Lb0E` pass1, `Lb1E` replay) and stream dtypes
+    (`f` f32, `13__nv_bfloat16` bf16, a substitution `S<n>_` the dtype before
+    it)."""
+    words, rest = [], mangled
+    while rest and not rest.startswith("E"):
+        for pat, word in (("Lb0E", "pass1"), ("Lb1E", "replay"), ("13__nv_bfloat16", "bf16"),
+                          ("f", "f32")):
+            if rest.startswith(pat):
+                words.append(word)
+                rest = rest[len(pat):]
+                break
+        else:
+            sub = rest.find("_") if rest.startswith("S") else -1
+            if sub < 0 or not words:
+                break
+            words.append(words[-1])
+            rest = rest[sub + 1:]
+    return words
+
+
 def phase_device():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -431,21 +464,24 @@ def phase_device():
         """Registers and spills of each kernel of the build, as `-Xptxas -v`
         reports them; of a templated kernel, the shipped instantiation's
         (`shipped` in its mangled name: <16, 2> is K1's and K2's dt_rank, <16,
-        64> K4's 64 channels a block)."""
+        64> K4's 64 channels a block), named with its pass and stream dtypes
+        where it has them (K1: [pass, x, y]; K2: [x, dy])."""
         lines = lib.with_suffix(".log").read_text().splitlines()
         out = []
         for i, ln in enumerate(lines):
             name = next((k for k in kernels if k in ln), None)
             if "Compiling entry function" in ln and name and (
                     "ILi16ELi" not in ln or shipped in ln):
-                out.append(name + ": " + ", ".join(
+                args = template_tags(ln.split(shipped, 1)[1]) if shipped in ln else []
+                out.append(name + (f" [{', '.join(args)}]" if args else "") + ": " + ", ".join(
                     x.replace("ptxas info    :", "").strip() for x in lines[i + 2:i + 4]))
         return out
 
     emit({"phase": "device", "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s, "libraries": [os.path.relpath(lib, ROOT) for lib in libs],
+          "build_s": build_s, "build_s_by_source": dict(scan_cuda.BUILD_SECONDS),
+          "libraries": [os.path.relpath(lib, ROOT) for lib in libs],
           "k1_ptxas": ptxas(libs[0], ["chunk_scan", "chunk_prefix"]),
           "k2_ptxas": ptxas(libs[1], ["bwd_local", "bwd_prefix", "bwd_main", "bwd_reduce"]),
           "k3_ptxas": ptxas(libs[2], ["scan_chunk", "chunk_prefix"]),
@@ -470,6 +506,12 @@ def k1_phase_of(kernel):
     return None
 
 
+# Profiler sessions a measurement takes at most: torch.profiler may record
+# none of a session's kernels (two sessions in a row recorded none of K1's
+# in one run), and the next session takes the measurement again.
+PROFILE_SESSIONS = 5
+
+
 def kernel_phases(call, phase_of, phases, what, reps=5):
     """Device ms per call of each of a kernel's launches (`phases`, named by
     `phase_of` from the profiler's kernel names) over `reps` calls of `call`
@@ -481,7 +523,7 @@ def kernel_phases(call, phase_of, phases, what, reps=5):
 
     call()
     torch.cuda.synchronize()
-    for _ in range(2):  # a second session where the first recorded no kernel
+    for _ in range(PROFILE_SESSIONS):  # another session where one recorded none of the kernels
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 call()
@@ -545,12 +587,16 @@ def k1_geometry(plan, occ):
             "grid_prefix": list(plan["grid_prefix"])}
 
 
-def k1_row_geometry(B, L, bf16):
-    """`k1_geometry` at a k1 row's shape (D=64, N=16, R=2) on this card."""
+F32_STREAMS = (torch.float32, torch.float32)  # (x, y) or (x, dy) dtypes of the float32 rows
+
+
+def k1_row_geometry(B, L, streams):
+    """`k1_geometry` at a k1 row's shape (D=64, N=16, R=2) and (x, y) dtypes
+    on this card."""
     from wavemamba_torch.ops.scan_cuda import CHUNK, k1_occupancy, k1_plan
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return k1_geometry(k1_plan(B, L, 64, 16, 2, CHUNK, sms), k1_occupancy(D=64, R=2, bf16=bf16))
+    return k1_geometry(k1_plan(B, L, 64, 16, 2, CHUNK, sms), k1_occupancy(D=64, R=2, streams=streams))
 
 
 def k1_timings(row, call):
@@ -583,7 +629,7 @@ def phase_k1():
         check(err <= K1_ATOL, f"K1 {name}: max abs err {err} <= {K1_ATOL}")
         row = {"phase": "k1", "case": name, "B": 1, "L": h * w, "D": 64, "N": 16, "R": 2,
                "max_abs_err": err, "tol": K1_ATOL, "y_max_abs": float(y_plain.abs().max()),
-               "geometry": k1_row_geometry(1, h * w, bf16=False)}
+               "geometry": k1_row_geometry(1, h * w, F32_STREAMS)}
         if not columns and name != "ragged":
             k1_timings(row, lambda: ss2d_scan_pair(*args))
             row["plain_ms"] = cuda_ms(lambda: ss2d_scan_pair_plain(*args), 1, warmup=False)
@@ -605,44 +651,57 @@ def bf16_excess(got, want, atol):
     return float((d - BF16_STEP * w.abs() - atol).max()), float((d > 0).float().mean())
 
 
-def phase_k1_bf16():
-    """K1 on bf16 streams, x and y (the fast presets), against its plain
-    version on the same bf16 x, at every level of a 1080p forward (B=1, as
-    `phase_k1`), a ragged length and a column stream; times and bounds. K1 at
-    the training shapes on bf16 streams is held in `phase_k2_bf16`."""
+def phase_k1_bf16(y_dtype=torch.bfloat16):
+    """K1 on bf16 x, against its plain version on the same bf16 x, at every
+    level of a 1080p forward (B=1, as `phase_k1`); times and bounds. With bf16
+    y (the fast presets; also a ragged length and a column stream) an element
+    may differ by one bf16 step; with float32 y (rows `*_mixed`, the proc
+    ymls' mix) y is held to the float32 rows' K1_ATOL, as x is the same bf16
+    values in both versions. K1 at the training shapes on these streams is
+    held in `phase_k2_bf16`."""
     from wavemamba_torch.ops.scan import ss2d_scan_pair_plain
     from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair
 
-    rs = np.random.RandomState(8)
-    rows = []
     bf16 = torch.bfloat16
-    cases = [("level%d_bf16" % (i + 1), h, w, False) for i, (h, w) in enumerate(LEVELS_1080P)]
-    cases += [("ragged_bf16", 1, 34560 + 37, False), ("columns_bf16", 144, 240, True)]
+    mixed = y_dtype == torch.float32
+    rs = np.random.RandomState(18 if mixed else 8)
+    rows = []
+    tag = "mixed" if mixed else "bf16"
+    cases = [(f"level{i + 1}_{tag}", h, w, False) for i, (h, w) in enumerate(LEVELS_1080P)]
+    if not mixed:
+        cases += [("ragged_bf16", 1, 34560 + 37, False), ("columns_bf16", 144, 240, True)]
     for name, h, w, columns in cases:
         args = pair_inputs(rs, 1, h * w)
         x = args[0].to(bf16)
         if columns:
             x = x.view(1, h, w, -1).transpose(1, 2).reshape(1, h * w, -1).contiguous()
         args = (x,) + args[1:]
-        y = ss2d_scan_pair(*args, out_dtype=bf16)
-        again = ss2d_scan_pair(*args, out_dtype=bf16)
+        y = ss2d_scan_pair(*args, out_dtype=y_dtype)
+        again = ss2d_scan_pair(*args, out_dtype=y_dtype)
         torch.cuda.synchronize()
-        y_plain, plain_ms = timed_once(lambda: ss2d_scan_pair_plain(*args, out_dtype=bf16))
-        excess, share = bf16_excess(y, y_plain, K1_ATOL)
-        check(y.dtype == bf16 and bool(torch.isfinite(y.float()).all()), f"K1 {name}: bf16, finite")
+        y_plain, plain_ms = timed_once(lambda: ss2d_scan_pair_plain(*args, out_dtype=y_dtype))
+        err = float((y.float() - y_plain.float()).abs().max())
+        check(y.dtype == y_dtype and bool(torch.isfinite(y.float()).all()),
+              f"K1 {name}: {y_dtype}, finite")
         check(torch.equal(y, again), f"K1 {name}: the same bits twice")
-        check(excess <= 0, f"K1 {name}: beyond one bf16 step of the plain version by {excess}")
         row = {"phase": "k1", "case": name, "B": 1, "L": h * w, "D": 64, "N": 16, "R": 2,
-               "x": "bfloat16", "y": "bfloat16", "max_abs_err": float((y.float() - y_plain.float()).abs().max()),
-               "share_differing": share, "tol": f"one bf16 step + {K1_ATOL}",
-               "y_max_abs": float(y_plain.float().abs().max()),
-               "geometry": k1_row_geometry(1, h * w, bf16=True)}
+               "x": "bfloat16", "y": str(y_dtype).removeprefix("torch."), "max_abs_err": err}
+        if mixed:
+            check(err <= K1_ATOL, f"K1 {name}: max abs err {err} <= {K1_ATOL}")
+            row["tol"] = K1_ATOL
+        else:
+            excess, share = bf16_excess(y, y_plain, K1_ATOL)
+            check(excess <= 0, f"K1 {name}: beyond one bf16 step of the plain version by {excess}")
+            row.update(share_differing=share, tol=f"one bf16 step + {K1_ATOL}")
+        row.update(y_max_abs=float(y_plain.float().abs().max()),
+                   geometry=k1_row_geometry(1, h * w, (bf16, y_dtype)))
         if not columns and not name.startswith("ragged"):
             x32 = args[0].float()
-            k1_timings(row, lambda: ss2d_scan_pair(*args, out_dtype=bf16))
+            k1_timings(row, lambda: ss2d_scan_pair(*args, out_dtype=y_dtype))
             row["f32_ms"] = cuda_ms(lambda: ss2d_scan_pair(x32, *args[1:]), 20)
             row["plain_ms"] = plain_ms
-            row["bound_ms"], row["bound_by"], row["bound_unit"] = k1_bound(1, h * w, 64, 16, 2, 2)
+            row["bound_ms"], row["bound_by"], row["bound_unit"] = k1_bound(
+                1, h * w, 64, 16, 2, 2, y_dtype.itemsize)
         row["launches"] = ss2d_scan_pair.launches
         emit(row)
         rows.append(row)
@@ -690,12 +749,13 @@ def k4_geometry(plan, occ):
     return bwd_geometry("K4", plan, occ, K4_MIN_WARPS)
 
 
-def k2_row_geometry(B, L, bf16):
-    """`k2_geometry` at a k2 row's shape (D=64, N=16, R=2) on this card."""
+def k2_row_geometry(B, L, streams):
+    """`k2_geometry` at a k2 row's shape (D=64, N=16, R=2) and (x, dy) dtypes
+    on this card."""
     from wavemamba_torch.ops.scan_cuda import CHUNK, k2_occupancy, k2_plan
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return k2_geometry(k2_plan(B, L, 64, 16, 2, CHUNK, sms), k2_occupancy(R=2, bf16=bf16))
+    return k2_geometry(k2_plan(B, L, 64, 16, 2, CHUNK, sms), k2_occupancy(R=2, streams=streams))
 
 
 def phase_k2():
@@ -735,7 +795,7 @@ def phase_k2():
         check(max(fwd_err.values()) <= K1_ATOL, f"K1 {name} B={B}: y and carries {fwd_err}")
         row = {"phase": "k2", "case": name, "B": B, "L": L, "D": 64, "N": 16, "R": 2,
                "tol_rel": K2_RTOL, "k1": fwd_err, "max_abs_err": {}, "max_rel_err": {},
-               "geometry": k2_row_geometry(B, L, bf16=False)}
+               "geometry": k2_row_geometry(B, L, F32_STREAMS)}
         for key, g, g2, w_ in zip(OUTPUTS, got, again, want):
             check(g.shape == w_.shape and bool(torch.isfinite(g).all()), f"K2 {name} {key}: finite")
             check(torch.equal(g, g2), f"K2 {name} {key}: the same bits on a second run")
@@ -758,40 +818,48 @@ def phase_k2():
     return rows
 
 
-def phase_k2_bf16():
-    """K2 on bf16 streams, x, dy and dx (the fast training preset), against
-    its plain version on the same inputs, at the three LFSS levels of a
-    training step (batch 8, as `phase_k2`), a ragged length and a column
-    stream; K1's bf16 y and carries at the same shapes; times and bounds.
-    Both versions round each member's dx to bf16 and add the two in bf16, so
-    an element may differ by one bf16 step of either member's dx: the plain
-    version's members (from dy with the other member's half zeroed) set that
-    step."""
+def phase_k2_bf16(dy_dtype=torch.bfloat16):
+    """K2 on bf16 x and dx with `dy_dtype` dy: bf16 (the fast training
+    preset; K1's y bf16 too) or float32 (rows `*_mixed`, the proc ymls' mix:
+    K1's y float32), against its plain version on the same inputs, at
+    the three LFSS levels of a training step (batch 8, as `phase_k2`) and, on
+    bf16 dy, a ragged length and a column stream; K1's y and carries at the
+    same shapes; times and bounds. Both versions round each member's dx to
+    bf16 and add the two in bf16, so an element may differ by one bf16 step
+    of either member's dx: the plain version's members (from dy with the
+    other member's half zeroed) set that step."""
     from wavemamba_torch.ops.scan import ss2d_scan_pair_plain, ss2d_scan_pair_plain_bwd
     from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair, ss2d_scan_pair_bwd
 
-    rs = np.random.RandomState(9)
-    rows = []
     bf16 = torch.bfloat16
-    cases = [("level%d_bf16" % (i + 1), TRAIN_BATCH, L, 1, False) for i, L in enumerate(TRAIN_LENGTHS)]
-    cases += [("ragged_bf16", 1, 1000, 1, False), ("columns_bf16", 1, 48 * 80, 48, True)]
+    mixed = dy_dtype == torch.float32
+    rs = np.random.RandomState(19 if mixed else 9)
+    rows = []
+    tag = "mixed" if mixed else "bf16"
+    cases = [(f"level{i + 1}_{tag}", TRAIN_BATCH, L, 1, False) for i, L in enumerate(TRAIN_LENGTHS)]
+    if not mixed:
+        cases += [("ragged_bf16", 1, 1000, 1, False), ("columns_bf16", 1, 48 * 80, 48, True)]
     for name, B, L, h, columns in cases:
         args = pair_inputs(rs, B, L)
         x = args[0].to(bf16)
         if columns:
             x = x.view(B, h, L // h, -1).transpose(1, 2).reshape(B, L, -1).contiguous()
         args = (x,) + args[1:]
-        dy = torch.from_numpy(rs.randn(B, 2, L, 64).astype(np.float32)).cuda().to(bf16)
-        y, state, sumda = ss2d_scan_pair(*args, return_carries=True, out_dtype=bf16)
+        dy = torch.from_numpy(rs.randn(B, 2, L, 64).astype(np.float32)).cuda().to(dy_dtype)
+        y, state, sumda = ss2d_scan_pair(*args, return_carries=True, out_dtype=dy_dtype)
         got = ss2d_scan_pair_bwd(*args, state, sumda, dy)
         again = ss2d_scan_pair_bwd(*args, state, sumda, dy)
         torch.cuda.synchronize()
-        y_plain, state_plain, sumda_plain = ss2d_scan_pair_plain(*args, return_carries=True, out_dtype=bf16)
-        y_excess, y_share = bf16_excess(y, y_plain, K1_ATOL)
-        fwd_err = {"y": float((y.float() - y_plain.float()).abs().max()), "y_share_differing": y_share,
+        y_plain, state_plain, sumda_plain = ss2d_scan_pair_plain(*args, return_carries=True,
+                                                                 out_dtype=dy_dtype)
+        fwd_err = {"y": float((y.float() - y_plain.float()).abs().max()),
                    "state": float((state - state_plain).abs().max()),
                    "sumda": float((sumda - sumda_plain).abs().max())}
-        check(y.dtype == bf16 and y_excess <= 0, f"K1 {name} B={B}: y beyond one bf16 step by {y_excess}")
+        if mixed:  # float32 y from the same bf16 x: the float32 rows' tolerance
+            check(y.dtype == torch.float32 and fwd_err["y"] <= K1_ATOL, f"K1 {name} B={B}: y {fwd_err}")
+        else:
+            y_excess, fwd_err["y_share_differing"] = bf16_excess(y, y_plain, K1_ATOL)
+            check(y.dtype == bf16 and y_excess <= 0, f"K1 {name} B={B}: y beyond one bf16 step by {y_excess}")
         check(max(fwd_err["state"], fwd_err["sumda"]) <= K1_ATOL, f"K1 {name} B={B}: carries {fwd_err}")
         del y, y_plain, sumda_plain
         want, plain_ms = timed_once(lambda: ss2d_scan_pair_plain_bwd(*args, state_plain, dy))
@@ -812,15 +880,17 @@ def phase_k2_bf16():
                for k, g, w_ in zip(OUTPUTS[1:], got[1:], want[1:])}
         check(max(rel.values()) <= K2_RTOL, f"K2 {name}: weight gradients {rel}")
         row = {"phase": "k2", "case": name, "B": B, "L": L, "D": 64, "N": 16, "R": 2,
-               "x": "bfloat16", "dy": "bfloat16", "dx": "bfloat16", "k1": fwd_err,
+               "x": "bfloat16", "dy": str(dy_dtype).removeprefix("torch."), "dx": "bfloat16",
+               "k1": fwd_err,
                "max_abs_err": {"dx": float((got[0].float() - want[0].float()).abs().max())},
                "dx_share_differing": share, "max_rel_err": rel,
                "tol": f"dx one bf16 step of it and of each member's dx; {K2_RTOL}",
-               "geometry": k2_row_geometry(B, L, bf16=True)}
+               "geometry": k2_row_geometry(B, L, (bf16, dy_dtype))}
         if B == TRAIN_BATCH:
             row["ms"] = cuda_ms(lambda: ss2d_scan_pair_bwd(*args, state, sumda, dy), 10)
             row["plain_ms"] = plain_ms
-            row["bound_ms"], row["bound_by"], row["bound_unit"] = k2_bound(B, L, 64, 16, 2, stream_bytes=2)
+            row["bound_ms"], row["bound_by"], row["bound_unit"] = k2_bound(
+                B, L, 64, 16, 2, stream_bytes=2, dy_bytes=dy_dtype.itemsize)
         row["launches"] = ss2d_scan_pair_bwd.launches
         emit(row)
         rows.append(row)
@@ -1455,20 +1525,23 @@ def fast_grad_readings(grads_k, grads_p, grads_32):
 def phase_grad(route):
     """Loss and gradients of the whole model, the route's kernels against its
     plain scan with the plain backward: 'fused' is K1 + K2 (28 + 28 launches),
-    'fast' the same on bf16 streams (`fast_train()`'s dtypes), 'unfused'
-    (`scan_impl: pallas`) K3 + K4 (14 + 14). 'fast' also reads both against
-    the float32 plain route's gradients on the same weights, and shows that
-    its check fails on a planted K2 fault (dA off by GRAD_FAST_PLANT)."""
+    'fast' the same on bf16 streams (`fast_train()`'s dtypes), 'mixed' on
+    bf16 compute with float32 scan streams (the proc ymls': bf16 x, float32
+    y and dy), 'unfused' (`scan_impl: pallas`) K3 + K4 (14 + 14). 'fast' and
+    'mixed' also read both against the float32 plain route's gradients on
+    the same weights, and show that their check fails on a planted K2 fault
+    (dA off by GRAD_FAST_PLANT)."""
     from wavemamba_torch.models import init_network
     from wavemamba_torch.models.wavemamba import set_scan, set_unfused_scan
     from wavemamba_torch.ops import scan_cuda
     from wavemamba_torch.train.trainer import TrainConfig
 
-    fused = route in ("fused", "fast")
+    fused = route in ("fused", "fast", "mixed")
+    bf16 = route in ("fast", "mixed")
     net = {"type": "WaveMamba", "remat": False, "scan_impl": "pallas_fused" if fused else "pallas"}
-    if route == "fast":
-        net.update(compute_dtype="bfloat16", scan_dtype="bfloat16")
-    loss_tol = GRAD_FAST_LOSS_RTOL if route == "fast" else GRAD_LOSS_RTOL
+    if bf16:
+        net.update(compute_dtype="bfloat16", scan_dtype="bfloat16" if route == "fast" else "float32")
+    loss_tol = GRAD_FAST_LOSS_RTOL if bf16 else GRAD_LOSS_RTOL
     model = init_network(net, torch.Generator().manual_seed(11), device="cuda")
     lq, gt = synthetic_batch(12, 2, 128)
     tcfg = TrainConfig()
@@ -1488,12 +1561,13 @@ def phase_grad(route):
     worst = max(((float((grads_k[n] - g).abs().max()) / (float(g.abs().max()) + 1e-30), n)
                  for n, g in grads_p.items()))
     check(all(bool(torch.isfinite(g).all()) for g in grads_k.values()), "gradients finite")
-    row = {"phase": "grad", "route": route, "image": [128, 128], "batch": 2, "loss_kernel": loss_k,
+    row = {"phase": "grad", "route": route, **{k: net[k] for k in ("compute_dtype", "scan_dtype") if k in net},
+           "image": [128, 128], "batch": 2, "loss_kernel": loss_k,
            "loss_plain": loss_p, "loss_rel_err": loss_rel, "loss_tol": loss_tol,
            "parameters": len(grads_p), "worst_grad_rel_err": worst[0], "worst_grad": worst[1],
            "max_grad_abs_err": max(float((grads_k[n] - g).abs().max()) for n, g in grads_p.items())}
     check(loss_rel <= loss_tol, f"loss kernel vs plain {loss_rel} <= {loss_tol}")
-    if route != "fast":
+    if not bf16:
         emit({**row, "grad_tol": GRAD_RTOL, "grad_tol_of": "each gradient's max"})
         check(worst[0] <= GRAD_RTOL, f"gradient of {worst[1]}: {worst[0]} <= {GRAD_RTOL}")
         return
@@ -2021,49 +2095,83 @@ def phase_serve_fast_fused(model, fast, stock):
     return dict(launches=launches[0], k1_launches=launches[2], forward_ms=forward_ms)
 
 
-def fast_train_opt(seed):
-    """The `network_g` and `train` sections of
-    `options/train_wavemamba_proc_bsrgan_xxl4.yml` as `parse_options` hands
-    them on (bf16 compute and scan streams), without block recompute, from a
-    seeded init."""
-    root = os.path.join(ROOT, "build", "chip_smoke", "experiments", "train_fast")
+def _yml_train_opt(name, seed, network_g, train):
+    """An options dict as `parse_options` hands on a train yml's `network_g`
+    and `train` sections, without block recompute, from a seeded init."""
+    root = os.path.join(ROOT, "build", "chip_smoke", "experiments", name)
     return {
-        "name": "train_fast", "model_type": "FeMaSRModel", "scale": 1, "manual_seed": seed,
-        "is_train": True, "device": "cuda",
-        "network_g": {"type": "WaveMamba", "in_chn": 3, "wf": 32, "n_l_blocks": [1, 2, 4],
-                      "n_h_blocks": [1, 1, 2], "ffn_scale": 2.0, "scan_impl": "pallas_fused",
-                      "scan_chunk": 128, "compute_dtype": "bfloat16", "scan_dtype": "bfloat16",
-                      "remat": False},
+        "name": name, "model_type": "FeMaSRModel", "scale": 1, "manual_seed": seed,
+        "is_train": True, "device": "cuda", "network_g": {**network_g, "remat": False},
         "path": {"pretrain_network_g": None, "resume_state": None, "experiments_root": root,
                  "models": os.path.join(root, "models"),
                  "training_states": os.path.join(root, "training_states"),
                  "visualization": os.path.join(root, "visualization")},
-        "train": {"ema_decay": 0.999,
-                  "optim_g": {"type": "AdamW", "lr": 1e-4, "weight_decay": 1e-3, "betas": [0.9, 0.99]},
-                  "scheduler": {"type": "CosineAnnealingRestartCyclicLR", "periods": [600, 5400],
-                                "restart_weights": [1, 1], "eta_mins": [0.0001, 0.0000001]},
-                  "total_iter": 6000, "warmup_iter": -1,
-                  "pixel_opt": {"type": "L1Loss", "loss_weight": 1.0, "reduction": "mean"},
-                  "fft_opt": {"type": "FFTLoss", "loss_weight": 0.1, "reduction": "mean"}},
+        "train": train,
     }
 
 
-def phase_train_fast():
-    """bf16 training through the yml path: `build_model` on the xxl4 yml's
-    sections, a seeded uint8 dataset through the sampler, `ThreadedLoader` and
-    `device_prefetch`, then one warm-up step and TRAIN_STEPS steps on the
-    first batch, repeated."""
+def _yml_train_section(lr, periods, eta_mins, total_iter):
+    return {"ema_decay": 0.999,
+            "optim_g": {"type": "AdamW", "lr": lr, "weight_decay": 1e-3, "betas": [0.9, 0.99]},
+            "scheduler": {"type": "CosineAnnealingRestartCyclicLR", "periods": periods,
+                          "restart_weights": [1, 1], "eta_mins": eta_mins},
+            "total_iter": total_iter, "warmup_iter": -1,
+            "pixel_opt": {"type": "L1Loss", "loss_weight": 1.0, "reduction": "mean"},
+            "fft_opt": {"type": "FFTLoss", "loss_weight": 0.1, "reduction": "mean"}}
+
+
+_PROC_NETWORK_G = {"type": "WaveMamba", "in_chn": 3, "wf": 32, "n_l_blocks": [1, 2, 4],
+                   "n_h_blocks": [1, 1, 2], "ffn_scale": 2.0, "scan_impl": "pallas_fused",
+                   "scan_chunk": 128, "compute_dtype": "bfloat16"}
+
+
+def fast_train_opt(seed):
+    """`options/train_wavemamba_proc_bsrgan_xxl4.yml`'s sections (bf16
+    compute and scan streams)."""
+    return _yml_train_opt("train_fast", seed, {**_PROC_NETWORK_G, "scan_dtype": "bfloat16"},
+                          _yml_train_section(1e-4, [600, 5400], [0.0001, 0.0000001], 6000))
+
+
+def mixed_train_opt(seed):
+    """`options/train_wavemamba_proc512.yml`'s sections (bf16 compute, no
+    `scan_dtype`: float32 scan streams)."""
+    return _yml_train_opt("train_mixed", seed, _PROC_NETWORK_G,
+                          _yml_train_section(2e-4, [300, 2700], [0.0002, 0.0000001], 3000))
+
+
+# The phases that train from a shipped yml's sections: its path, its options,
+# and the (x, y) dtypes each of its 28 K1 calls a step must see. Block
+# recompute is off in both (`remat: False`): the port's recompute is the
+# 'full' policy, which runs K1 twice a step, where the ymls' JAX default
+# 'save_scan' keeps the scan's outputs (ROADMAP queue 1, item 6).
+TRAIN_YMLS = {
+    "train_fast": ("options/train_wavemamba_proc_bsrgan_xxl4.yml", fast_train_opt, 41,
+                   ("torch.bfloat16", "torch.bfloat16"),
+                   "bfloat16 x, bfloat16 y; K2 bfloat16 x and dy, dx bfloat16"),
+    "train_mixed": ("options/train_wavemamba_proc512.yml", mixed_train_opt, 51,
+                    ("torch.bfloat16", "torch.float32"),
+                    "bfloat16 x, float32 y; K2 bfloat16 x, float32 dy, dx bfloat16"),
+}
+
+
+def phase_train_yml(phase):
+    """bf16 training through the yml path (`TRAIN_YMLS[phase]`): `build_model`
+    on the yml's sections, a seeded uint8 dataset through the sampler,
+    `ThreadedLoader` and `device_prefetch`, then one warm-up step and
+    TRAIN_STEPS steps on the first batch, repeated."""
     from wavemamba_torch.data import EnlargedSampler, ThreadedLoader, device_prefetch
     from wavemamba_torch.models.wavemamba import set_scan
     from wavemamba_torch.ops import scan_cuda
     from wavemamba_torch.runner import build_model
 
-    model = build_model(fast_train_opt(seed=41))
+    yml, make_opt, seed, streams_want, streams_note = TRAIN_YMLS[phase]
+    opt = make_opt(seed=seed)
+    model = build_model(opt)
     check(all(p.dtype == torch.float32 for p in model.model.parameters()), "float32 parameters")
-    train_set = SyntheticPairs(16, TRAIN_SIZE, seed=42, uint8=True)
+    train_set = SyntheticPairs(16, TRAIN_SIZE, seed=seed + 1, uint8=True)
     loader = ThreadedLoader(train_set, batch_size=TRAIN_BATCH,
                             sampler=EnlargedSampler(len(train_set), 1, 0, ratio=1), num_workers=4,
-                            drop_last=True, seed=41)
+                            drop_last=True, seed=seed)
     loader.set_epoch(0)
     batches = device_prefetch(loader, "cuda")
     batch = next(batches)
@@ -2073,8 +2181,8 @@ def phase_train_fast():
     set_scan(model.model, streams)
     torch.cuda.reset_peak_memory_stats()
     warm_loss = float(model.optimize_parameters(batch)["total"])  # warm-up
-    check(streams.calls == [("torch.bfloat16", "torch.bfloat16")] * 28,
-          f"K1's streams in a fast training step: {sorted(set(streams.calls))}")
+    check(streams.calls == [streams_want] * 28,
+          f"K1's streams in a {phase} step: {sorted(set(streams.calls))}")
     set_scan(model.model, scan_cuda.ss2d_scan_pair)
     wrappers = (scan_cuda.ss2d_scan_pair, scan_cuda.ss2d_scan_pair_bwd)
     for w in wrappers:  # the main path's counts start here
@@ -2091,12 +2199,13 @@ def phase_train_fast():
     k1, k2 = (w.launches for w in wrappers)  # read just after
     peak = torch.cuda.max_memory_allocated()
     ms = float(np.median(times))
-    emit({"phase": "train_fast", "yml": "options/train_wavemamba_proc_bsrgan_xxl4.yml",
-          "compute_dtype": "bfloat16", "scan_dtype": "bfloat16", "batch": TRAIN_BATCH,
-          "size": [TRAIN_SIZE, TRAIN_SIZE], "steps": TRAIN_STEPS, "loss_first": warm_loss,
-          "losses": losses, "step_ms": times, "ms_per_step": ms, "images_per_s": TRAIN_BATCH / ms * 1e3,
-          "peak_memory_bytes": peak, "k1_launches": k1, "k2_launches": k2,
-          "k1_streams": "bfloat16 x, bfloat16 y; K2 bfloat16 x and dy, dx bfloat16"})
+    net = opt["network_g"]
+    emit({"phase": phase, "yml": yml, "compute_dtype": net["compute_dtype"],
+          "scan_dtype": net.get("scan_dtype", "float32 (the default)"), "remat": net["remat"],
+          "batch": TRAIN_BATCH, "size": [TRAIN_SIZE, TRAIN_SIZE], "steps": TRAIN_STEPS,
+          "loss_first": warm_loss, "losses": losses, "step_ms": times, "ms_per_step": ms,
+          "images_per_s": TRAIN_BATCH / ms * 1e3, "peak_memory_bytes": peak, "k1_launches": k1,
+          "k2_launches": k2, "k1_streams": streams_note})
     check(all(np.isfinite(losses)) and np.isfinite(warm_loss), "losses finite")
     check(losses[-1] < warm_loss, f"the loss fell on the repeated batch: {warm_loss} -> {losses[-1]}")
     check((k1, k2) == (28 * TRAIN_STEPS, 28 * TRAIN_STEPS), f"{k1} K1 / {k2} K2 launches in {TRAIN_STEPS} steps")
@@ -2106,11 +2215,16 @@ def phase_train_fast():
 def phase_probe():
     """P1-P5 (`wavemamba_torch.scripts.gpu_probe.run_all`): each at the TPU
     probe's K and at `K_COMPUTE`. Its launches: the timed ones (the
-    comparison's are left out)."""
+    comparison's are left out). P4's rows also carry its registers, spills,
+    warps an SM and the issued instructions a multiply-add of its inner loop
+    (`gpu_probe.nsum_resources`)."""
     from wavemamba_torch.scripts import gpu_probe
 
     rows = gpu_probe.run_all()
+    nsum = gpu_probe.nsum_resources()
     for row in rows:
+        if row["probe"] == "nsum":
+            row["resources"] = nsum
         emit({"phase": "probe", **row})
         check(row["launches"] > 0, f"probe {row['probe']} K={row['K']} launched")
     return rows
@@ -2128,39 +2242,65 @@ def phase_bench():
 
 
 def profile_rows(fn):
-    """Run `fn` under torch.profiler: (wall ms, [(device us, calls, kernel name)])."""
+    """Run `fn` under torch.profiler: (wall ms, [(device us, calls, kernel
+    name)], {"k1": K1's launches, "k3": K3's} as their wrappers counted them
+    while `fn` ran). A session that recorded no device event at all is taken
+    again, up to PROFILE_SESSIONS times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-    wall_ms = start.elapsed_time(end)
-    by_name = {}
-    for e in prof.events():
-        # Kernels and copies only: the profiler mirrors host annotations
-        # (`Optimizer.step#AdamW.step`) onto the device's timeline as spans.
-        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False) \
-                or e.name.startswith("Optimizer."):
-            continue
-        us, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + e.device_time_total, n + 1)
-    return wall_ms, sorted(((us, n, name) for name, (us, n) in by_name.items()), reverse=True)
+    from wavemamba_torch.ops import scan_cuda
+
+    wrappers = {"k1": scan_cuda.ss2d_scan_pair, "k3": scan_cuda.selective_scan_cuda}
+    for _ in range(PROFILE_SESSIONS):
+        before = {k: w.launches for k, w in wrappers.items()}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+        counted = {k: w.launches - before[k] for k, w in wrappers.items()}
+        by_name = {}
+        for e in prof.events():
+            # Kernels and copies only: the profiler mirrors host annotations
+            # (`Optimizer.step#AdamW.step`) onto the device's timeline as spans.
+            if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False) \
+                    or e.name.startswith("Optimizer."):
+                continue
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.device_time_total, n + 1)
+        if by_name:
+            break
+    rows = sorted(((us, n, name) for name, (us, n) in by_name.items()), reverse=True)
+    return start.elapsed_time(end), rows, counted
 
 
-def phase_profile(model, x, forward_ms, run, pipe, fused, fast, fast_fused, train_fast):
+def profiled_launches(rows, counted):
+    """K1's and K3's launches as the profile recorded them (each call runs
+    one replay kernel: `chunk_scan<..., true, ...>`, `scan_chunk<16, true>`)
+    beside their wrappers' counts, and whether the profile is short: it
+    recorded fewer than the wrappers launched, so its busy time may read low
+    and its idle share high. A short profile is flagged, not failed."""
+    replays = {"k1": "chunk_scan<", "k3": "scan_chunk<"}
+    recorded = {k: sum(n for _, n, name in rows if pat in name and "true" in name)
+                for k, pat in replays.items()}
+    return {"profiled_launches": recorded, "wrapper_launches": counted,
+            "short_profile": any(recorded[k] < counted[k] for k in replays)}
+
+
+def phase_profile(model, x, forward_ms, run, pipe, fused, fast, fast_fused, train_fast, train_mixed):
     """Device time by kernel over one 1152x1920 forward of each conv route
     (stock convs, and the fused chains: K7), of `fast()` and of
-    `fast(conv_impl="fused")`, one training step
-    of the fused scan route (K1 + K2), of the unfused route (K3 + K4, through
-    the runner) and of the bf16 yml (`train_fast`), and the share of each
-    one's wall time in which the card ran no kernel."""
+    `fast(conv_impl="fused")`, one training step of the fused scan route
+    (K1 + K2), of the unfused route (K3 + K4, through the runner), of the
+    bf16 yml (`train_fast`) and of the proc512 yml (`train_mixed`), and the
+    share of each one's wall time in which the card ran no kernel; beside
+    each, K1's and K3's launches as the profile recorded them and as their
+    wrappers counted them (`profiled_launches`)."""
     from wavemamba_torch.models.wavemamba import wavemamba_apply
 
-    def report(what, wall_ms, rows, unprofiled_ms, **extra):
+    def report(what, wall_ms, rows, counted, unprofiled_ms, **extra):
         busy_ms = sum(r[0] for r in rows) / 1e3
         named = lambda *keys: sum(r[0] for r in rows if any(k in r[2] for k in keys)) / 1e3
         # K2 and K4 name their kernels alike (each in its own library): a
@@ -2184,6 +2324,7 @@ def phase_profile(model, x, forward_ms, run, pipe, fused, fast, fast_fused, trai
                   "conv" in r[2].lower() or "xmma" in r[2] or "wgrad" in r[2]
                   or "dgrad" in r[2])) / 1e3,
               "kernels": len(rows), "launches": sum(r[1] for r in rows),
+              **profiled_launches(rows, counted),
               "top": [{"us": us, "calls": n, "name": name[:90]} for us, n, name in rows[:20]]}
         emit(row)
         if what == "train_step_unfused":
@@ -2208,10 +2349,14 @@ def phase_profile(model, x, forward_ms, run, pipe, fused, fast, fast_fused, trai
     fast_step = report("train_step_fast", *profile_rows(lambda: train_fast["model"].optimize_parameters(
         train_fast["batch"])), train_fast["ms_per_step"], batch=TRAIN_BATCH, size=[TRAIN_SIZE, TRAIN_SIZE],
         remat=False)
+    mixed_step = report("train_step_mixed", *profile_rows(lambda: train_mixed["model"].optimize_parameters(
+        train_mixed["batch"])), train_mixed["ms_per_step"], batch=TRAIN_BATCH, size=[TRAIN_SIZE, TRAIN_SIZE],
+        remat=False)
     # K2's device time in each fused training step, beside the step's.
     return {what: {k: r[k] for k in ("k2_ms", "busy_ms", "k2_share_of_busy", "wall_ms", "unprofiled_ms",
-                                     "idle_share_unprofiled")}
-            for what, r in (("train_step", train), ("train_step_fast", fast_step))}
+                                     "idle_share_unprofiled", "short_profile")}
+            for what, r in (("train_step", train), ("train_step_fast", fast_step),
+                            ("train_step_mixed", mixed_step))}
 
 
 def kernel_errors(k1_rows, k1_bf16_rows, k2_rows, k2_bf16_rows):
@@ -2247,8 +2392,10 @@ def main():
     smi = phase_device()
     k1_rows = phase_k1()
     k1_bf16_rows = phase_k1_bf16()
+    k1_mixed_rows = phase_k1_bf16(y_dtype=torch.float32)
     k2_rows = phase_k2()
     k2_bf16_rows = phase_k2_bf16()
+    k2_mixed_rows = phase_k2_bf16(dy_dtype=torch.float32)
     k3_rows, k4_rows = phase_k3_k4()
     k5_rows = phase_k5()
     t0 = time.perf_counter()
@@ -2281,14 +2428,17 @@ def main():
     fast_fused = phase_serve_fast_fused(fast_fused_model, fast_model, model)
     fast_fused["model"] = fast_fused_model
     phase_grad("fast")
-    train_fast = phase_train_fast()
-    k2_steps = phase_profile(model, x1080, forward_ms, run, pipe, fused, fast, fast_fused, train_fast)
+    phase_grad("mixed")
+    train_fast = phase_train_yml("train_fast")
+    train_mixed = phase_train_yml("train_mixed")
+    k2_steps = phase_profile(model, x1080, forward_ms, run, pipe, fused, fast, fast_fused, train_fast,
+                             train_mixed)
     bench = phase_bench()
 
     # K1 and K5 at level 1 of the 1080p forward; K2, K3 and K4 at level 1 of
     # the training step. Launches: each path's own, counted from 0 just before
     # it: K1 the serve paths' (float32 and fast) and the training paths'
-    # (fused and fast) and the fused fast serve path's, K2 the training paths',
+    # (fused, fast and mixed) and the fused fast serve path's, K2 the training paths',
     # K3 and K4 the pipeline path's (steps, validation, the request), K7 the
     # two fused serve paths' (float32 and fast), P1-P5 the
     # probe path's timed calls.
@@ -2311,6 +2461,7 @@ def main():
         "max_rel_err": chain_err("max_rel_err", "bfloat16"),
         "share_differing": chain_err("share_differing", "bfloat16")}
     k1_bf16, k2_bf16 = k1_bf16_rows[0], k2_bf16_rows[0]
+    k1_mixed, k2_mixed = k1_mixed_rows[0], k2_mixed_rows[0]
     errs = kernel_errors(k1_rows, k1_bf16_rows, k2_rows, k2_bf16_rows)
     from wavemamba_torch.scripts.gpu_probe import NAMES as PROBES
 
@@ -2325,6 +2476,7 @@ def main():
             "max_rel_err": max(r["max_rel_err"] for r in rows), "K": first["K"], "ms": first["ms"],
             "gops": first["gops"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+            **({"resources": first["resources"]} if "resources" in first else {}),
             "at_compute_K": None if len(rows) == 1 else {
                 k: rows[1][k] for k in ("K", "ms", "gops", "plain_ms", "bound_ms", "bound_by",
                                         "library_ms")}})
@@ -2333,11 +2485,13 @@ def main():
         "name": "ss2d_scan_pair (K1)", "route": "cuda", "source": "wavemamba_torch/csrc/ss2d_scan.cu",
         "replaces": "wavemamba_tpu/ops/scan_pallas.py:705",
         "launches": launches + run["k1_launches"] + fast["launches"] + train_fast["k1_launches"]
-        + fast_fused["k1_launches"],
+        + fast_fused["k1_launches"] + train_mixed["k1_launches"],
         "launches_serve": launches, "launches_train": run["k1_launches"],
         "launches_serve_fast": fast["launches"], "launches_train_fast": train_fast["k1_launches"],
         "launches_serve_fast_fused": fast_fused["k1_launches"],
-        "variants": "x and y float32, or bfloat16 on the fast paths",
+        "launches_train_mixed": train_mixed["k1_launches"],
+        "variants": "x and y float32; both bfloat16 on the fast paths; bfloat16 x with float32 y "
+                    "on the proc ymls' path (train_mixed)",
         "max_abs_err": errs["K1"]["max_abs_err"],
         "ms": level1["ms"], "plain_ms": level1["plain_ms"], "bound_ms": level1["bound_ms"],
         "bound_by": level1["bound_by"], "library_ms": None,
@@ -2349,13 +2503,20 @@ def main():
                                             "share_differing")},
                  "ms_levels": [r["ms"] for r in k1_bf16_rows if "ms" in r],
                  "phases_ms": [r["phases_ms"] for r in k1_bf16_rows if "ms" in r],
-                 "max_abs_err_all_shapes": errs["K1"]["bf16_max_abs_err"]}}, {
+                 "max_abs_err_all_shapes": errs["K1"]["bf16_max_abs_err"]},
+        "mixed": {**{k: k1_mixed[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+                  "ms_levels": [r["ms"] for r in k1_mixed_rows],
+                  "phases_ms": [r["phases_ms"] for r in k1_mixed_rows],
+                  "max_abs_err_all_shapes": max([r["max_abs_err"] for r in k1_mixed_rows]
+                                                + [r["k1"]["y"] for r in k2_mixed_rows])}}, {
         "name": "ss2d_scan_pair_bwd (K2)", "route": "cuda",
         "source": "wavemamba_torch/csrc/ss2d_scan_bwd.cu",
         "replaces": "wavemamba_tpu/ops/scan_pallas.py:952",
-        "launches": run["k2_launches"] + train_fast["k2_launches"],
+        "launches": run["k2_launches"] + train_fast["k2_launches"] + train_mixed["k2_launches"],
         "launches_train": run["k2_launches"], "launches_train_fast": train_fast["k2_launches"],
-        "variants": "x, dy and dx float32, or bfloat16 on the fast training path",
+        "launches_train_mixed": train_mixed["k2_launches"],
+        "variants": "x, dy and dx float32; all bfloat16 on the fast training path; bfloat16 x and "
+                    "dx with float32 dy on the proc ymls' path (train_mixed)",
         "max_abs_err": errs["K2"]["max_abs_err"], "max_rel_err": errs["K2"]["max_rel_err"],
         "ms": k2_level1["ms"], "plain_ms": k2_level1["plain_ms"],
         "bound_ms": k2_level1["bound_ms"], "bound_by": k2_level1["bound_by"],
@@ -2366,7 +2527,11 @@ def main():
                                             "dx_share_differing")},
                  "ms_levels": [r["ms"] for r in k2_bf16_rows if "ms" in r],
                  "max_abs_err_all_shapes": errs["K2"]["bf16_max_abs_err"],
-                 "max_rel_err_all_shapes": errs["K2"]["bf16_max_rel_err"]}}, {
+                 "max_rel_err_all_shapes": errs["K2"]["bf16_max_rel_err"]},
+        "mixed": {**{k: k2_mixed[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                                             "dx_share_differing")},
+                  "ms_levels": [r["ms"] for r in k2_mixed_rows],
+                  "max_rel_err_all_shapes": max(max(r["max_rel_err"].values()) for r in k2_mixed_rows)}}, {
         "name": "selective_scan_cuda (K3)", "route": "cuda",
         "source": "wavemamba_torch/csrc/selective_scan.cu",
         "replaces": "wavemamba_tpu/ops/scan_pallas.py:134", "launches": pipe["launches"]["k3"],

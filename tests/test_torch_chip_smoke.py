@@ -1,17 +1,23 @@
 """What `chip_smoke.py` reports without a card: the `kernels` line's top-level
-errors of K1 and K2 are the float32 rows' own, the bf16 rows' in `bf16`."""
+errors of K1 and K2 are the float32 rows' own, the bf16 rows' in `bf16`; the
+yml training phases' options are the shipped ymls' sections; the build log's
+and the profile's readings."""
 
 import importlib.util
 import pathlib
 
+import pytest
 import torch
+
+from wavemamba_torch.models import config_from_opt
+from wavemamba_torch.utils.options import yaml_load
 
 # The suite runs in several worker processes on a few cores: torch's intra-op
 # threads spin while they wait.
 torch.set_num_threads(1)
 
-_SPEC = importlib.util.spec_from_file_location(
-    "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+REPO = pathlib.Path(__file__).resolve().parents[1]
+_SPEC = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
 chip_smoke = importlib.util.module_from_spec(_SPEC)
 _SPEC.loader.exec_module(chip_smoke)
 
@@ -38,3 +44,34 @@ def test_bf16_chain_errors_allow_one_step():
     assert err["loose_excess"] <= 0 and err["share_differing"] == 0.25
     far = torch.tensor([1.0, 0.5, -2.0, 0.28]).bfloat16()
     assert chip_smoke.chain_errors_bf16(far, want)["loose_excess"] > 0
+
+
+@pytest.mark.parametrize("phase", ["train_fast", "train_mixed"])
+def test_yml_train_phases_take_the_ymls_sections(phase):
+    """The card run holds no PyYAML: its options dicts repeat the shipped
+    ymls' `network_g` and `train` sections, block recompute off."""
+    yml, make_opt, seed, streams, _ = chip_smoke.TRAIN_YMLS[phase]
+    opt, want = make_opt(seed), yaml_load(str(REPO / yml))
+    assert opt["network_g"] == {**want["network_g"], "remat": False}
+    assert opt["train"] == want["train"]
+    cfg = config_from_opt(opt["network_g"])
+    assert streams == (f"torch.{cfg.compute_dtype}", f"torch.{cfg.scan_dtype}")
+
+
+def test_template_tags_name_each_instantiation():
+    assert chip_smoke.template_tags("Lb1E13__nv_bfloat16S1_EEvPKT2_") == ["replay", "bf16", "bf16"]
+    assert chip_smoke.template_tags("Lb0E13__nv_bfloat16fEEvPKT2_") == ["pass1", "bf16", "f32"]
+    assert chip_smoke.template_tags("ffEEvPKT1_") == ["f32", "f32"]
+    assert chip_smoke.template_tags("EEvPKfS1_") == []
+
+
+def test_profiled_launches_flag_a_short_profile():
+    """K1's and K3's calls each run one replay kernel; a profile that recorded
+    fewer of them than the wrappers launched is flagged."""
+    rows = [(9.0, 27, "void (anonymous namespace)::chunk_scan<16, 2, true, float, float>(...)"),
+            (8.0, 28, "void (anonymous namespace)::chunk_scan<16, 2, false, float, float>(...)"),
+            (1.0, 14, "void wm::scan_chunk<16, true>(...)")]
+    got = chip_smoke.profiled_launches(rows, {"k1": 28, "k3": 14})
+    assert got["profiled_launches"] == {"k1": 27, "k3": 14} and got["short_profile"]
+    whole = chip_smoke.profiled_launches(rows, {"k1": 27, "k3": 14})
+    assert not whole["short_profile"]

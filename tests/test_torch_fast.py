@@ -17,6 +17,7 @@ checked on its own, under each preset.
 
 import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +39,7 @@ from wavemamba_tpu.train import trainer as jtrain
 # threads spin while they wait, and the tiny tensors here gain nothing from them.
 torch.set_num_threads(1)
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(wf=16, n_l_blocks=(1, 1, 1), n_h_blocks=(1, 1, 1))
 PSNR_FLOOR = 45.0
 BF16_STEP = 2.0 ** -7  # one bf16 step (8 significant bits), at most this share of the value
@@ -202,22 +204,24 @@ def _batch(seed, b=2, h=32, w=32):
     return lq.astype(np.float32), gt
 
 
-def test_three_bf16_train_steps_match_jax():
+@pytest.mark.parametrize("scan_dtype", ["bfloat16", "float32"])
+def test_three_bf16_train_steps_match_jax(scan_dtype):
     """`fast_train()` without remat, EMA on: the kernel preset on both sides
     (the JAX fused kernel and its backward in interpret mode; the port's
     plain versions of K1 and K2), float32 parameters, AdamW state and loss.
     Per-step loss relative 2e-3 (measured 1e-4 to 2.8e-4; JAX's bf16 loss is
-    7e-4 from its float32 loss by step 3)."""
+    7e-4 from its float32 loss by step 3). `scan_dtype` float32 is the proc
+    ymls' mix: bf16 compute, bf16 tokens into the scan, float32 y and dy."""
     sched = {"type": "CosineAnnealingRestartCyclicLR", "periods": [100, 100000],
              "restart_weights": [1, 1], "eta_mins": [0.0005, 0.0000001]}
     tkw = dict(lr=5e-4, weight_decay=1e-3, betas=(0.9, 0.99), scheduler=sched, pixel_weight=1.0,
                fft_weight=0.1, ema_decay=0.999)
     jcfg = jwm.WaveMambaConfig(**SMALL, remat=False, scan_impl="pallas_fused", scan_chunk=128,
-                               compute_dtype="bfloat16", scan_dtype="bfloat16")
+                               compute_dtype="bfloat16", scan_dtype=scan_dtype)
     jstate = jtrain.create_train_state(jax.tree_util.tree_map(jnp.array, _params()),
                                        jtrain.TrainConfig(**tkw))
     jstep = jtrain.make_train_step(jcfg, jtrain.TrainConfig(**tkw))
-    tcfg = twm.WaveMambaConfig.fast_train(**SMALL, remat=False)
+    tcfg = twm.WaveMambaConfig.fast_train(**SMALL, remat=False, scan_dtype=scan_dtype)
     model = build_network({"type": "WaveMamba", **dataclasses.asdict(tcfg)}, _state_dict(), device="cpu")
     state = ttrain.create_train_state(model, ttrain.TrainConfig(**tkw))
     step = ttrain.make_train_step(ttrain.TrainConfig(**tkw))
@@ -238,3 +242,43 @@ def test_the_xxl4_yml_network_builds_bf16():
                            "n_h_blocks": [1, 1, 2], "ffn_scale": 2.0, "scan_impl": "pallas_fused",
                            "scan_chunk": 128, "compute_dtype": "bfloat16", "scan_dtype": "bfloat16"})
     assert cfg == twm.WaveMambaConfig.fast_train()
+
+
+class _RecordingScan:
+    """A `set_scan` route that records the dtype of each call's tokens, the
+    `out_dtype` asked for and y's dtype, and passes the call on to the port's
+    `ss2d_scan_pair` (its plain version on the CPU)."""
+
+    def __init__(self):
+        from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair
+
+        self.scan, self.calls = ss2d_scan_pair, []
+
+    def __call__(self, x, *args, out_dtype=None):
+        y = self.scan(x, *args, out_dtype=out_dtype)
+        self.calls.append((x.dtype, out_dtype, y.dtype))
+        return y
+
+
+@pytest.mark.parametrize("yml", ["train_wavemamba_proc.yml", "train_wavemamba_proc512.yml"])
+def test_the_proc_ymls_scan_bf16_tokens_into_float32_y(yml):
+    """The proc and proc512 ymls set `compute_dtype: bfloat16` and no
+    `scan_dtype`, so float32: `SS2D._fused` hands the scan bf16 tokens and
+    asks for float32 y, the (bf16, float32) pair that K1 and K2 are built for.
+    A forward of the yml's full-width network at 32x48 through a recording
+    scan shows the mix in every one of its 28 calls."""
+    from wavemamba_torch.models import init_network
+    from wavemamba_torch.utils.options import yaml_load
+
+    opt = yaml_load(os.path.join(REPO, "options", yml))["network_g"]
+    with pytest.warns(UserWarning, match="remat_policy"):  # the ymls train with recompute
+        cfg = config_from_opt(opt)
+    assert (cfg.compute_dtype, cfg.scan_dtype, cfg.scan_impl) == ("bfloat16", "float32", "pallas_fused")
+    model = init_network({**opt, "remat": False}, torch.Generator().manual_seed(5), device="cpu",
+                         train=False)
+    scan = _RecordingScan()
+    twm.set_scan(model, scan)
+    with torch.no_grad():
+        out = twm.wavemamba_apply(model, torch.rand(1, 32, 48, 3))
+    assert out.shape == (1, 32, 48, 3) and bool(torch.isfinite(out).all())
+    assert scan.calls == [(torch.bfloat16, torch.float32, torch.float32)] * 28

@@ -155,14 +155,21 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
 
 @pytest.mark.parametrize("x_dtype,out_dtype", [(torch.bfloat16, None), (torch.float32, torch.bfloat16)])
 def test_kernel_wrapper_refuses_mixed_stream_dtypes(monkeypatch, x_dtype, out_dtype):
-    """K1 is built for x and y of one dtype: a CUDA tensor with another mix
-    raises naming the ROADMAP item, before any build; no launch is counted."""
+    """K1 is built for three (x, y) pairs: both float32, both bf16, and bf16 x
+    with float32 y (out_dtype None), which the proc ymls train with. That mix
+    passes every check and reaches the kernel's loader, which raises on a host
+    without CUDA; float32 x with bf16 y is refused by name before any build.
+    Neither counts a launch."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = [FakeCuda(torch.from_numpy(a)) for a in _pair_inputs(3, 1, 70, 64, 16, 2)]
     args[0] = FakeCuda(args[0].t.to(x_dtype))
     before = scan_cuda.ss2d_scan_pair.launches
-    with pytest.raises(NotImplementedError, match="item 16"):
-        scan_cuda.ss2d_scan_pair(*args, out_dtype=out_dtype)
+    if x_dtype == torch.float32:
+        with pytest.raises(NotImplementedError, match="float32 x with bfloat16 y"):
+            scan_cuda.ss2d_scan_pair(*args, out_dtype=out_dtype)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            scan_cuda.ss2d_scan_pair(*args, out_dtype=out_dtype)
     assert scan_cuda.ss2d_scan_pair.launches == before
 
 

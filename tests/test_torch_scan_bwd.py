@@ -146,15 +146,22 @@ def _fake_bwd_args(seed, B, L, D, N, R):
 
 @pytest.mark.parametrize("x_bf16", [True, False])
 def test_bwd_wrapper_refuses_mixed_stream_dtypes(monkeypatch, x_bf16):
-    """K2 is built for x and dy of one dtype: a CUDA tensor with another mix
-    raises naming the ROADMAP item, before any build; no launch is counted."""
+    """K2 is built for three (x, dy) pairs: both float32, both bf16, and bf16
+    x with float32 dy, which the proc ymls train with. That mix passes every
+    check and reaches the kernel's loader, which raises on a host without
+    CUDA; float32 x with bf16 dy is refused by name before any build. Neither
+    counts a launch."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = _fake_bwd_args(9, 1, 70, 64, 16, 2)
     i = 0 if x_bf16 else -1
     args[i] = FakeCuda(args[i].t.bfloat16())
     before = scan_cuda.ss2d_scan_pair_bwd.launches
-    with pytest.raises(NotImplementedError, match="item 16"):
-        scan_cuda.ss2d_scan_pair_bwd(*args)
+    if x_bf16:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            scan_cuda.ss2d_scan_pair_bwd(*args)
+    else:
+        with pytest.raises(NotImplementedError, match="float32 x with bfloat16 dy"):
+            scan_cuda.ss2d_scan_pair_bwd(*args)
     assert scan_cuda.ss2d_scan_pair_bwd.launches == before
 
 

@@ -20,15 +20,15 @@
 // block is 4 MB in device memory, not VMEM, so P1, P2, P4 and P5 are bound by
 // bytes (each element read and written once) and P3 by the SFU. The probes'
 // own K, made larger, moves P1-P4 to their pipes; P5 has no K and stays bound
-// by bytes. Design: one element (P1, P3), one (r, n, d) (P2) or one (t, d)
-// (P4) per thread with the whole chain in registers, so each byte crosses the
-// bus once; P5 one warp per 16 columns of a segment. The K loops are
-// unrolled (the TPU probes' Python loops unroll at trace time), so the loop's
-// own counter and branch do not take the issue slots the probed operations
-// need. P5 splits x into hi + lo, both TF32 (the 0/1 triangle is exact in
-// TF32, so the two products are what 3xTF32 needs): the prefix then agrees
-// with the float32 one to its rounding, not to TF32's 10-bit mantissa, at no
-// cost a bytes-bound kernel would notice.
+// by bytes. Design: one element (P1, P3), one (r, n, d) (P2) or four d of one
+// (g, t) (P4, see `nsum`) per thread with the whole chain in registers, so
+// each byte crosses the bus once; P5 one warp per 16 columns of a segment.
+// The K loops are unrolled (the TPU probes' Python loops unroll at trace
+// time), so the loop's own counter and branch do not take the issue slots the
+// probed operations need. P5 splits x into hi + lo, both TF32 (the 0/1
+// triangle is exact in TF32, so the two products are what 3xTF32 needs): the
+// prefix then agrees with the float32 one to its rounding, not to TF32's
+// 10-bit mantissa, at no cost a bytes-bound kernel would notice.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,6 +39,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kS = 8;   // tokens per segment (P2, P5)
 constexpr int kN = 16;  // states (P4)
+constexpr int kNsumThreads = 128;  // P4: threads a block
+constexpr int kNsumBlocks = 3;     // P4: resident blocks an SM its launch bounds ask for
+constexpr int kNsumV = 8;          // P4: d a thread owns, two 16-byte chunks
+constexpr int kNsumKTile = 192;    // P4: values of k a block tabulates c + k for at once
 
 __global__ void __launch_bounds__(kThreads) flat(
     const float* __restrict__ x, const float* __restrict__ a, float* __restrict__ out,
@@ -85,32 +89,85 @@ __global__ void __launch_bounds__(kThreads) expchain(
   out[i] = y;
 }
 
-__global__ void __launch_bounds__(kThreads) nsum(
+// P4. A block holds one t and `gpb` g (g_per_block = kNsumThreads / (D2 /
+// kNsumV)), a thread kNsumV d of one (g, t) as kNsumV / 4 float4 chunks,
+// chunk v at d = 4 (col + v cols) with cols = D2 / kNsumV, so that each
+// 16-byte load or store of a warp covers runs of consecutive bytes; its 16 x
+// rows (16 x 32 bytes) sit in registers for the whole K loop.
+// c(t, n) + k is the same for every thread of the block, so the block
+// tabulates it in shared memory, kNsumKTile values of k at a time, and each
+// thread reads four n of it in one 16-byte broadcast load that feeds 4 *
+// kNsumV = 32 FFMAs: ~1.05 issued instructions a multiply-add (the inner
+// loop's SASS, `scripts/gpu_probe.py:sass_loop`), where a thread of one d took
+// an FADD (c + k) and an FFMA per term and an FADD per k (~2.06). Every one
+// of the K x 16 multiply-adds is still done; the sums run straight into two
+// accumulators a d (even and odd n), 16 independent FFMA chains a thread,
+// added at the end. At 4 d a thread (16 FFMAs a load) the loop ran no faster
+// with its memory traffic taken out: the shared-memory loads, not the bytes
+// or the occupancy, held it back; 8 d halve them, at the price of ~170
+// registers and 12 warps an SM.
+__global__ void __launch_bounds__(kNsumThreads, kNsumBlocks) nsum(
     const float* __restrict__ x, const float* __restrict__ c, float* __restrict__ out,
-    size_t n, int T, int D2, int K) {
-  const size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;  // (g, t, d)
-  if (i >= n) return;
-  const size_t d = i % D2, gt = i / D2;
-  const int t = (int)(gt % T);
-  const float* xr = x + gt * kN * D2 + d;
-  float xv[kN], cv[kN];
+    int G, int T, int D2, int K) {
+  constexpr int V4 = kNsumV / 4;               // float4 chunks of a row a thread
+  __shared__ float4 ck4[kNsumKTile * kN / 4];  // c(t, n) + k0 + kk at [kk][n]
+  float* ck = reinterpret_cast<float*>(ck4);
+  const int t = blockIdx.x;
+  const int cols = D2 / kNsumV, gpb = kNsumThreads / cols;
+  const int gl = threadIdx.x / cols, col = threadIdx.x - gl * cols;
+  const int g = blockIdx.y * gpb + gl;
+  const bool on = gl < gpb && g < G;
+  // Entry e of a tile is (kk, n) = (e / 16, e % 16); e = threadIdx.x + i *
+  // kNsumThreads, so n is the thread's own throughout.
+  const float ctn = __ldg(c + (size_t)t * kN + threadIdx.x % kN);
+  const size_t row = ((size_t)g * T + t) * kN * D2 + (size_t)col * 4;  // (g, t, 0, chunk 0)
+  float4 xv[kN][V4];
+  if (on) {
 #pragma unroll
-  for (int m = 0; m < kN; ++m) {
-    xv[m] = xr[(size_t)m * D2];
-    cv[m] = __ldg(c + t * kN + m);
+    for (int m = 0; m < kN; ++m)
+#pragma unroll
+      for (int v = 0; v < V4; ++v)
+        xv[m][v] = *reinterpret_cast<const float4*>(x + row + (size_t)m * D2 + 4 * v * cols);
   }
-  float acc = 0.f;
+  float4 a0[V4], a1[V4];
+#pragma unroll
+  for (int v = 0; v < V4; ++v) a0[v] = a1[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k0 = 0; k0 < K; k0 += kNsumKTile) {
+    const int kt = min(kNsumKTile, K - k0);
+    __syncthreads();  // every thread has read the previous tile
+    for (int e = threadIdx.x; e < kt * kN; e += kNsumThreads) ck[e] = ctn + (float)(k0 + e / kN);
+    __syncthreads();
+    if (!on) continue;
 #pragma unroll 2
-  for (int k = 0; k < K; ++k) {
-    const float kf = (float)k;
-    float s = 0.f;
+    for (int kk = 0; kk < kt; ++kk) {
 #pragma unroll
-    for (int m = 0; m < kN; ++m) s = fmaf(xv[m], cv[m] + kf, s);
-    acc += s;
+      for (int q = 0; q < kN / 4; ++q) {
+        const float4 w = ck4[kk * (kN / 4) + q];
+#pragma unroll
+        for (int v = 0; v < V4; ++v) {
+          const float4 x0 = xv[4 * q][v], x1 = xv[4 * q + 1][v];
+          const float4 x2 = xv[4 * q + 2][v], x3 = xv[4 * q + 3][v];
+          a0[v].x = fmaf(x0.x, w.x, a0[v].x); a0[v].y = fmaf(x0.y, w.x, a0[v].y);
+          a0[v].z = fmaf(x0.z, w.x, a0[v].z); a0[v].w = fmaf(x0.w, w.x, a0[v].w);
+          a1[v].x = fmaf(x1.x, w.y, a1[v].x); a1[v].y = fmaf(x1.y, w.y, a1[v].y);
+          a1[v].z = fmaf(x1.z, w.y, a1[v].z); a1[v].w = fmaf(x1.w, w.y, a1[v].w);
+          a0[v].x = fmaf(x2.x, w.z, a0[v].x); a0[v].y = fmaf(x2.y, w.z, a0[v].y);
+          a0[v].z = fmaf(x2.z, w.z, a0[v].z); a0[v].w = fmaf(x2.w, w.z, a0[v].w);
+          a1[v].x = fmaf(x3.x, w.w, a1[v].x); a1[v].y = fmaf(x3.y, w.w, a1[v].y);
+          a1[v].z = fmaf(x3.z, w.w, a1[v].z); a1[v].w = fmaf(x3.w, w.w, a1[v].w);
+        }
+      }
+    }
   }
-  float* o = out + gt * kN * D2 + d;
+  if (!on) return;
 #pragma unroll
-  for (int m = 0; m < kN; ++m) o[(size_t)m * D2] = acc;
+  for (int v = 0; v < V4; ++v) {
+    const float4 acc = make_float4(a0[v].x + a1[v].x, a0[v].y + a1[v].y, a0[v].z + a1[v].z,
+                                   a0[v].w + a1[v].w);
+#pragma unroll
+    for (int m = 0; m < kN; ++m)
+      *reinterpret_cast<float4*>(out + row + (size_t)m * D2 + 4 * v * cols) = acc;
+  }
 }
 
 __device__ __forceinline__ uint32_t to_tf32(float v) {
@@ -202,15 +259,34 @@ int gpu_probe_exp(const void* x, const void* a, void* out, int G, int T, int ND,
   return cudaGetLastError();
 }
 
-// P4: x, out (G, T, N, D2); c (T, N).
+// P4: x, out (G, T, N, D2), both starting on a 16-byte boundary; c (T, N).
+// Takes N == 16 and D2 a multiple of 8 up to 8 * 128. `gpb` is the g a block
+// holds as the caller planned it (`scripts/gpu_probe.py:nsum_plan`): the
+// launch is refused unless it is this source's.
 int gpu_probe_nsum(const void* x, const void* c, void* out, int G, int T, int N, int D2, int K,
-                   void* stream) {
-  if (N != kN) return cudaErrorInvalidValue;
-  const size_t n = (size_t)G * T * D2;
-  nsum<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(c), static_cast<float*>(out), n,
-      T, D2, K);
+                   int gpb, void* stream) {
+  if (N != kN || D2 % kNsumV || D2 < kNsumV || D2 / kNsumV > kNsumThreads ||
+      gpb != kNsumThreads / (D2 / kNsumV) || G < 1 || T < 1 || (G + gpb - 1) / gpb > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(out) % 16) {
+    return cudaErrorMisalignedAddress;
+  }
+  const dim3 grid(T, (G + gpb - 1) / gpb);
+  nsum<<<grid, kNsumThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(c), static_cast<float*>(out), G, T,
+      D2, K);
   return cudaGetLastError();
+}
+
+// P4's geometry on the current device: out[0] threads a block, out[1] its
+// static shared memory, out[2] the resident blocks an SM as
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them (registers
+// included). Returns a cudaError_t.
+int gpu_probe_nsum_occupancy(int* out) {
+  out[0] = kNsumThreads;
+  out[1] = (int)(sizeof(float) * kNsumKTile * kN);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, nsum, kNsumThreads, 0);
 }
 
 // P5: x, out (G, T, ND).

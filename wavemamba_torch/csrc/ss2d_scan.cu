@@ -51,11 +51,14 @@
 // packing and zero padding to whole chunks are TPU layout devices: here the
 // reverse direction is index arithmetic and the last chunk is ragged.
 //
-// Token streams in float32 or bf16 (the bf16 presets), x and y alike: x is
-// widened as it is staged; y is written in the streams' dtype, rounded once
-// from the float32 value (the TPU rounds the reverse member's y before it
-// un-reverses it, which moves the same values). Weights, state, the scratch
-// and every operation stay float32.
+// Token streams in float32 or bf16: x of type TX is widened as it is staged;
+// y of type TY is written rounded once from the float32 value (the TPU rounds
+// the reverse member's y before it un-reverses it, which moves the same
+// values). Three pairs are built: (float32, float32) for the parity route,
+// (bf16, bf16) for the bf16 presets, and (bf16, float32) for
+// `compute_dtype: bfloat16` with the default `scan_dtype: float32`, as the
+// proc ymls train. Weights, state, the scratch and every operation stay
+// float32.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -130,8 +133,8 @@ __device__ __forceinline__ void zero_pad(float* rowsp, int rows, int D, int W) {
 
 // The x tile [T][W] from token l0 of batch b, zero beyond D: four channels a
 // thread where D is a multiple of 4 (rows then start 16 or 8 bytes aligned).
-template <typename TS>
-__device__ __forceinline__ void stage_x(const TS* __restrict__ xb, float* xs, int tc, int D, int W) {
+template <typename TX>
+__device__ __forceinline__ void stage_x(const TX* __restrict__ xb, float* xs, int tc, int D, int W) {
   if ((D & 3) == 0) {
     const int D4 = D >> 2;
     for (int i = threadIdx.x; i < tc * D4; i += kThreads) {
@@ -220,13 +223,13 @@ __device__ __forceinline__ void prepare_da(const float* xd, const float (&wdt2)[
   }
 }
 
-template <int N, int R, bool REPLAY, typename TS>
+template <int N, int R, bool REPLAY, typename TX, typename TY>
 __global__ void __launch_bounds__(kThreads, kScanBlocks) chunk_scan(
-    const TS* __restrict__ x, const float* __restrict__ wx,
+    const TX* __restrict__ x, const float* __restrict__ wx,
     const float* __restrict__ dtw, const float* __restrict__ bias,
     const float* __restrict__ A, const float* __restrict__ dsk,
     float* __restrict__ state, float* __restrict__ sumda, float* __restrict__ xdbl,
-    TS* __restrict__ y, int L, int D, int T, int nc) {
+    TY* __restrict__ y, int L, int D, int T, int nc) {
   constexpr int J = R + 2 * N;
   constexpr int JP = kRPad + 2 * N;
   constexpr int NQ = N / kQuad;
@@ -316,7 +319,7 @@ __global__ void __launch_bounds__(kThreads, kScanBlocks) chunk_scan(
   const float* dap = das + (k * T + t0) * kGroup + dl;
   const float* up = xs + t0 * W + g0 + dl;
   const float* xq = xd + (k * T + t0) * JP + kRPad + kQuad * q;
-  TS* yp = y + (((size_t)b * 2 + k) * L + l0 + t0) * D + g0 + dl + (q & 1);
+  TY* yp = y + (((size_t)b * 2 + k) * L + l0 + t0) * D + g0 + dl + (q & 1);
   const int dstep = dir * kGroup, ustep = dir * W, xstep = dir * JP, ystep = dir * D;
 
 #pragma unroll 2
@@ -435,27 +438,27 @@ __global__ void __launch_bounds__(kPrefixThreads) chunk_prefix(
   }
 }
 
-template <int N, int R, typename TS>
+template <int N, int R, typename TX, typename TY>
 cudaError_t set_smem(int D, int T) {
   const int smem = (int)sizeof(float) * scan_smem_floats(D, N, R, T);
-  cudaError_t e = cudaFuncSetAttribute(chunk_scan<N, R, false, TS>,
+  cudaError_t e = cudaFuncSetAttribute(chunk_scan<N, R, false, TX, TY>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(chunk_scan<N, R, true, TS>,
+  return cudaFuncSetAttribute(chunk_scan<N, R, true, TX, TY>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <int N, int R, typename TS>
-cudaError_t launch(const TS* x, const float* wx, const float* dtw,
+template <int N, int R, typename TX, typename TY>
+cudaError_t launch(const TX* x, const float* wx, const float* dtw,
                    const float* bias, const float* A, const float* dsk,
-                   TS* y, float* state, float* sumda, float* xdbl,
+                   TY* y, float* state, float* sumda, float* xdbl,
                    int B, int L, int D, int T, cudaStream_t stream) {
   const int nc = (L + T - 1) / T;
   const size_t smem = sizeof(float) * scan_smem_floats(D, N, R, T);
-  cudaError_t e = set_smem<N, R, TS>(D, T);
+  cudaError_t e = set_smem<N, R, TX, TY>(D, T);
   if (e != cudaSuccess) return e;
   const dim3 grid(nc, B, (D + kGroup - 1) / kGroup);
-  chunk_scan<N, R, false, TS><<<grid, kThreads, smem, stream>>>(
+  chunk_scan<N, R, false, TX, TY><<<grid, kThreads, smem, stream>>>(
       x, wx, dtw, bias, A, dsk, state, sumda, xdbl, y, L, D, T, nc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -463,19 +466,19 @@ cudaError_t launch(const TS* x, const float* wx, const float* dtw,
   chunk_prefix<<<pgrid, dim3(kPrefixLanes, kPrefixWorkers), 0, stream>>>(A, state, sumda, N * D, D, nc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  chunk_scan<N, R, true, TS><<<grid, kThreads, smem, stream>>>(
+  chunk_scan<N, R, true, TX, TY><<<grid, kThreads, smem, stream>>>(
       x, wx, dtw, bias, A, dsk, state, sumda, xdbl, y, L, D, T, nc);
   return cudaGetLastError();
 }
 
-template <typename TS>
+template <typename TX, typename TY>
 cudaError_t launch_r(const void* x, const void* wx, const void* dtw, const void* bias,
                      const void* A, const void* dsk, void* y, void* state, void* sumda,
                      void* xdbl, int B, int L, int D, int R, int T, cudaStream_t s) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto m = [](void* p) { return static_cast<float*>(p); };
-  const TS* xt = static_cast<const TS*>(x);
-  TS* yt = static_cast<TS*>(y);
+  const TX* xt = static_cast<const TX*>(x);
+  TY* yt = static_cast<TY*>(y);
 #define WM_LAUNCH(RR) \
   return launch<16, RR>(xt, f(wx), f(dtw), f(bias), f(A), f(dsk), yt, m(state), m(sumda), m(xdbl), B, L, D, T, s)
   switch (R) {
@@ -491,27 +494,27 @@ cudaError_t launch_r(const void* x, const void* wx, const void* dtw, const void*
 // out: threads a block and dynamic shared memory of chunk_scan, the blocks of
 // chunk_scan<false> and chunk_scan<true> that the runtime lets reside on one
 // SM, then threads a block and resident blocks of chunk_prefix.
-template <int N, int R, typename TS>
+template <int N, int R, typename TX, typename TY>
 cudaError_t occupancy(int D, int T, int* out) {
-  cudaError_t e = set_smem<N, R, TS>(D, T);
+  cudaError_t e = set_smem<N, R, TX, TY>(D, T);
   if (e != cudaSuccess) return e;
   out[0] = kThreads;
   out[1] = (int)sizeof(float) * scan_smem_floats(D, N, R, T);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, chunk_scan<N, R, false, TS>, kThreads, out[1]);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, chunk_scan<N, R, false, TX, TY>, kThreads, out[1]);
   if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 3, chunk_scan<N, R, true, TS>, kThreads, out[1]);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 3, chunk_scan<N, R, true, TX, TY>, kThreads, out[1]);
   if (e != cudaSuccess) return e;
   out[4] = kPrefixThreads;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 5, chunk_prefix, kPrefixThreads, 0);
 }
 
-template <typename TS>
+template <typename TX, typename TY>
 cudaError_t occupancy_r(int R, int D, int T, int* out) {
   switch (R) {
-    case 1: return occupancy<16, 1, TS>(D, T, out);
-    case 2: return occupancy<16, 2, TS>(D, T, out);
-    case 3: return occupancy<16, 3, TS>(D, T, out);
-    case 4: return occupancy<16, 4, TS>(D, T, out);
+    case 1: return occupancy<16, 1, TX, TY>(D, T, out);
+    case 2: return occupancy<16, 2, TX, TY>(D, T, out);
+    case 3: return occupancy<16, 3, TX, TY>(D, T, out);
+    case 4: return occupancy<16, 4, TX, TY>(D, T, out);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -520,22 +523,32 @@ bool takes(int N, int R, int D, int T) {
   return N == 16 && R >= 1 && R <= 4 && D >= 1 && D <= 2 * kGroup && T >= 4 && T <= kTMax && T % 4 == 0;
 }
 
+// The stream dtypes a call takes: x and y float32 (0), both bf16 (1), or x
+// bf16 and y float32 (2). float32 x with bf16 y is refused: no preset or yml
+// asks for it.
+int stream_pair(int x_bf16, int y_bf16) {
+  if (!x_bf16) return y_bf16 ? -1 : 0;
+  return y_bf16 ? 1 : 2;
+}
+
 }  // namespace
 
 extern "C" {
 
-// x (B, L, D) and y (B, 2, L, D), both bf16 if bf16 else both f32; wx (2, D,
-// R+2N); dtw (2, R, D); bias, dsk (2, D); A (2, N, D); outputs beside y:
-// state (B, 2, nc, N, D), sumda (B, 2, nc, D) with nc = ceil(L / T); scratch:
-// xdbl (B, 2, L, 4 + 2N). All but x and y f32; all contiguous, on the device
-// of `stream`; x and wx start on a 16-byte boundary. `smem` is the dynamic
-// shared memory the caller planned for chunk_scan: the launch is refused
-// unless it is this source's. Takes N == 16, 1 <= R <= 4, D <= 128 and T <= 64
-// a multiple of 4. Returns a cudaError_t.
+// x (B, L, D) and y (B, 2, L, D), each bf16 if x_bf16 / y_bf16 else f32, one
+// of the pairs `stream_pair` takes; wx (2, D, R+2N); dtw (2, R, D);
+// bias, dsk (2, D); A (2, N, D); outputs beside y: state (B, 2, nc, N, D),
+// sumda (B, 2, nc, D) with nc = ceil(L / T); scratch: xdbl (B, 2, L, 4 + 2N).
+// All but x and y f32; all contiguous, on the device of `stream`; x and wx
+// start on a 16-byte boundary. `smem` is the dynamic shared memory the caller
+// planned for chunk_scan: the launch is refused unless it is this source's.
+// Takes N == 16, 1 <= R <= 4, D <= 128 and T <= 64 a multiple of 4. Returns a
+// cudaError_t.
 int ss2d_scan_pair(const void* x, const void* wx, const void* dtw,
                    const void* bias, const void* A, const void* dsk,
                    void* y, void* state, void* sumda, void* xdbl,
-                   int B, int L, int D, int N, int R, int T, int smem, int bf16, void* stream) {
+                   int B, int L, int D, int N, int R, int T, int smem, int x_bf16, int y_bf16,
+                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!takes(N, R, D, T) || smem != (int)sizeof(float) * scan_smem_floats(D, N, R, T)) {
     return cudaErrorInvalidValue;
@@ -544,19 +557,29 @@ int ss2d_scan_pair(const void* x, const void* wx, const void* dtw,
     return cudaErrorMisalignedAddress;
   }
 #define WM_ARGS x, wx, dtw, bias, A, dsk, y, state, sumda, xdbl, B, L, D, R, T, s
-  if (bf16) return launch_r<__nv_bfloat16>(WM_ARGS);
-  return launch_r<float>(WM_ARGS);
+  switch (stream_pair(x_bf16, y_bf16)) {
+    case 0: return launch_r<float, float>(WM_ARGS);
+    case 1: return launch_r<__nv_bfloat16, __nv_bfloat16>(WM_ARGS);
+    case 2: return launch_r<__nv_bfloat16, float>(WM_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
 #undef WM_ARGS
 }
 
-// The launch geometry on the current device: out[0] threads a block of
-// chunk_scan, out[1] its dynamic shared memory, out[2] / out[3] the resident
-// blocks an SM of pass 1 / the replay, out[4] threads a block of chunk_prefix,
-// out[5] its resident blocks an SM, as cudaOccupancyMaxActiveBlocksPerMultiprocessor
-// reports them (registers included). Returns a cudaError_t.
-int ss2d_scan_occupancy(int N, int R, int D, int T, int bf16, int* out) {
+// The launch geometry on the current device for the stream pair (x_bf16,
+// y_bf16): out[0] threads a block of chunk_scan, out[1] its dynamic shared
+// memory, out[2] / out[3] the resident blocks an SM of pass 1 / the replay,
+// out[4] threads a block of chunk_prefix, out[5] its resident blocks an SM, as
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them (registers
+// included). Returns a cudaError_t.
+int ss2d_scan_occupancy(int N, int R, int D, int T, int x_bf16, int y_bf16, int* out) {
   if (!takes(N, R, D, T)) return cudaErrorInvalidValue;
-  return bf16 ? occupancy_r<__nv_bfloat16>(R, D, T, out) : occupancy_r<float>(R, D, T, out);
+  switch (stream_pair(x_bf16, y_bf16)) {
+    case 0: return occupancy_r<float, float>(R, D, T, out);
+    case 1: return occupancy_r<__nv_bfloat16, __nv_bfloat16>(R, D, T, out);
+    case 2: return occupancy_r<__nv_bfloat16, float>(R, D, T, out);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 const char* ss2d_scan_error_string(int code) {

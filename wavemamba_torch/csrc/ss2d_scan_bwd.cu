@@ -74,12 +74,14 @@
 // in a fixed order; every shuffle sum has a fixed order too, so the result is
 // the same bits every run.
 //
-// Token streams in float32 or bf16 (the bf16 presets), x, dy and dx alike: x
-// and dy are widened on load. Each member's dx is rounded to the streams'
-// dtype, the two are added in float32 in shared memory (two adds onto zero:
-// the same bits in either order) and the sum is rounded again: the TPU
-// kernel's bf16 dx, one rounding per member and a bf16 add. Weights, their
-// gradients and every operation stay float32.
+// Token streams in float32 or bf16: x and dx of type TX, dy of type TDY, both
+// widened on load. Three pairs are built, as K1's: (float32, float32),
+// (bf16, bf16), and bf16 x with float32 dy, which `compute_dtype: bfloat16`
+// with the default `scan_dtype: float32` gives. Each member's dx is rounded to
+// x's dtype, the two are added in float32 in shared memory (two adds onto
+// zero: the same bits in either order) and the sum is rounded again: the TPU
+// kernel's bf16 dx, one rounding per member and a bf16 add, whatever dy's
+// dtype. Weights, their gradients and every operation stay float32.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -175,9 +177,9 @@ __device__ __forceinline__ void stage_wx(const float* __restrict__ wx, float* wx
 // directions in xd [2][T][JP] from the staged wx. A thread takes 4 tokens
 // (tq + 16i) by 4-5 columns (g + 8m) over half the channels: 20 FMAs for 9
 // shared-memory loads; the two halves' sums meet by a shuffle.
-template <int N, int R, typename TS>
+template <int N, int R, typename TX>
 __device__ __forceinline__ void load_and_project(
-    const TS* __restrict__ xb, const float* wxs, float* xs, float* xd, int tc, int D, int T) {
+    const TX* __restrict__ xb, const float* wxs, float* xs, float* xd, int tc, int D, int T) {
   constexpr int J = R + 2 * N;
   constexpr int JP = kRPad + 2 * N;
   for (int i = threadIdx.x; i < tc * kDMax; i += kThreads) {
@@ -278,11 +280,11 @@ size_t main_smem(int N, int R, int T) {
 }
 
 // Phase 1: what the adjoint carries out of each chunk when nothing enters it.
-template <int N, int R, typename TS>
+template <int N, int R, typename TX, typename TDY>
 __global__ void __launch_bounds__(kThreads, 2) bwd_local(
-    const TS* __restrict__ x, const float* __restrict__ wx,
+    const TX* __restrict__ x, const float* __restrict__ wx,
     const float* __restrict__ dtw, const float* __restrict__ bias,
-    const float* __restrict__ A, const TS* __restrict__ dy,
+    const float* __restrict__ A, const TDY* __restrict__ dy,
     float* __restrict__ gcar, int L, int D, int T, int nc) {
   constexpr int J = R + 2 * N;
   constexpr int JP = kRPad + 2 * N;
@@ -301,7 +303,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_local(
   stage_wx<J>(wx, wxs, D);
   load_and_project<N, R>(x + ((size_t)b * L + l0) * D, wxs, xs, xd, tc, D, T);
   // dy of the chunk, both directions, where wx and x were.
-  const TS* dyc = dy + ((size_t)b * 2 * L + l0) * D;
+  const TDY* dyc = dy + ((size_t)b * 2 * L + l0) * D;
   for (int i = threadIdx.x; i < 2 * tc * kDMax; i += kThreads) {
     const int k = i / (tc * kDMax), rem = i - k * tc * kDMax;
     const int t = rem / kDMax, d = rem - t * kDMax;
@@ -399,8 +401,8 @@ __global__ void __launch_bounds__(32 * kPrefixWorkers) bwd_prefix(
 
 // dy of element e of a sub-tile's [2][kSub][kDMax] tile: tokens s0 .. s0+cnt-1
 // of the processing order, zero beyond them and beyond D.
-template <typename TS>
-__device__ __forceinline__ float sub_tile_dy(const TS* dyg, int e, int s0, int cnt, int tc,
+template <typename TDY>
+__device__ __forceinline__ float sub_tile_dy(const TDY* dyg, int e, int s0, int cnt, int tc,
                                              int L, int D) {
   const int kk = e / (kSub * kDMax), si = (e / kDMax) % kSub, dd = e % kDMax;
   const int s = s0 + si;
@@ -411,13 +413,13 @@ __device__ __forceinline__ float sub_tile_dy(const TS* dyg, int e, int s0, int c
 // Phase 3: the gradients. The gridDim.x blocks stride over the B * nc chunks.
 // part: [gridDim.x][P][2D] partial sums, P = (R+2N) + R + 1 + N + 1 rows:
 // dwx, ddtw, dbias, dA, ddsk.
-template <int N, int R, typename TS>
+template <int N, int R, typename TX, typename TDY>
 __global__ void __launch_bounds__(kThreads, 1) bwd_main(
-    const TS* __restrict__ x, const float* __restrict__ wx,
+    const TX* __restrict__ x, const float* __restrict__ wx,
     const float* __restrict__ dtw, const float* __restrict__ bias,
     const float* __restrict__ A, const float* __restrict__ dsk,
     const float* __restrict__ state, const float* __restrict__ gcar,
-    const TS* __restrict__ dy, TS* __restrict__ dx,
+    const TDY* __restrict__ dy, TX* __restrict__ dx,
     float* __restrict__ part, int B, int L, int D, int T, int nc) {
   constexpr int J = R + 2 * N;
   constexpr int JP = kRPad + 2 * N;
@@ -468,7 +470,7 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_main(
     __syncthreads();  // the previous chunk's tiles are free
     for (int i = tid; i < tc * kDP; i += kThreads) dxs[i] = 0.f;
     load_and_project<N, R>(x + ((size_t)b * L + l0) * D, wxs, xs, xd, tc, D, T);
-    const TS* dyg = dy + (size_t)b * 2 * L * D + (size_t)l0 * D;
+    const TDY* dyg = dy + (size_t)b * 2 * L * D + (size_t)l0 * D;
     const int nsub = (tc + S - 1) / S;
     // dy of the last sub-tile; each later one is fetched during the sweep before it.
 #pragma unroll
@@ -624,7 +626,7 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_main(
       }
     }
     __syncthreads();
-    TS* dxb = dx + ((size_t)b * L + l0) * D;
+    TX* dxb = dx + ((size_t)b * L + l0) * D;
     for (int i = tid; i < tc * D; i += kThreads) store_f32(dxb + i, dxs[(i / D) * kDP + i % D]);
   }
 
@@ -654,25 +656,25 @@ __global__ void bwd_reduce(const float* __restrict__ part, float* __restrict__ o
   out[i] = acc;
 }
 
-template <int N, int R, typename TS>
+template <int N, int R, typename TX, typename TDY>
 cudaError_t set_smem(int T) {
-  cudaError_t e = cudaFuncSetAttribute(bwd_local<N, R, TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t e = cudaFuncSetAttribute(bwd_local<N, R, TX, TDY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)local_smem(N, R, T));
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(bwd_main<N, R, TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  return cudaFuncSetAttribute(bwd_main<N, R, TX, TDY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)main_smem(N, R, T));
 }
 
-template <int N, int R, typename TS>
-cudaError_t launch(const TS* x, const float* wx, const float* dtw,
+template <int N, int R, typename TX, typename TDY>
+cudaError_t launch(const TX* x, const float* wx, const float* dtw,
                    const float* bias, const float* A, const float* dsk,
-                   const float* state, const float* sumda, const TS* dy,
-                   TS* dx, float* gcar, float* part, float* sums,
+                   const float* state, const float* sumda, const TDY* dy,
+                   TX* dx, float* gcar, float* part, float* sums,
                    int B, int L, int D, int T, int gx, cudaStream_t stream) {
   const int nc = (L + T - 1) / T;
-  cudaError_t e = set_smem<N, R, TS>(T);
+  cudaError_t e = set_smem<N, R, TX, TDY>(T);
   if (e != cudaSuccess) return e;
-  bwd_local<N, R, TS><<<dim3(nc, B), kThreads, local_smem(N, R, T), stream>>>(
+  bwd_local<N, R, TX, TDY><<<dim3(nc, B), kThreads, local_smem(N, R, T), stream>>>(
       x, wx, dtw, bias, A, dy, gcar, L, D, T, nc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -680,7 +682,7 @@ cudaError_t launch(const TS* x, const float* wx, const float* dtw,
   bwd_prefix<<<pgrid, pblock, 0, stream>>>(A, gcar, sumda, N * D, D, nc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  bwd_main<N, R, TS><<<gx, kThreads, main_smem(N, R, T), stream>>>(
+  bwd_main<N, R, TX, TDY><<<gx, kThreads, main_smem(N, R, T), stream>>>(
       x, wx, dtw, bias, A, dsk, state, gcar, dy, dx, part, B, L, D, T, nc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -689,16 +691,16 @@ cudaError_t launch(const TS* x, const float* wx, const float* dtw,
   return cudaGetLastError();
 }
 
-template <typename TS>
+template <typename TX, typename TDY>
 cudaError_t launch_r(const void* x, const void* wx, const void* dtw, const void* bias,
                      const void* A, const void* dsk, const void* state, const void* sumda,
                      const void* dy, void* dx, void* gcar, void* part, void* sums,
                      int B, int L, int D, int R, int T, int gx, cudaStream_t s) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto m = [](void* p) { return static_cast<float*>(p); };
-  const TS* xt = static_cast<const TS*>(x);
-  const TS* dyt = static_cast<const TS*>(dy);
-  TS* dxt = static_cast<TS*>(dx);
+  const TX* xt = static_cast<const TX*>(x);
+  const TDY* dyt = static_cast<const TDY*>(dy);
+  TX* dxt = static_cast<TX*>(dx);
 #define WM_LAUNCH(RR)                                                                         \
   return launch<16, RR>(xt, f(wx), f(dtw), f(bias), f(A), f(dsk), f(state), f(sumda), dyt, dxt, \
                         m(gcar), m(part), m(sums), B, L, D, T, gx, s)
@@ -714,38 +716,47 @@ cudaError_t launch_r(const void* x, const void* wx, const void* dtw, const void*
 
 // out: threads a block, shared memory of bwd_local and bwd_main, and the
 // blocks of each that the runtime lets reside on one SM.
-template <int N, int R, typename TS>
+template <int N, int R, typename TX, typename TDY>
 cudaError_t occupancy(int T, int* out) {
-  cudaError_t e = set_smem<N, R, TS>(T);
+  cudaError_t e = set_smem<N, R, TX, TDY>(T);
   if (e != cudaSuccess) return e;
   out[0] = kThreads;
   out[1] = (int)local_smem(N, R, T);
   out[2] = (int)main_smem(N, R, T);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 3, bwd_local<N, R, TS>, kThreads, out[1]);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 3, bwd_local<N, R, TX, TDY>, kThreads, out[1]);
   if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 4, bwd_main<N, R, TS>, kThreads, out[2]);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 4, bwd_main<N, R, TX, TDY>, kThreads, out[2]);
 }
 
-template <typename TS>
+template <typename TX, typename TDY>
 cudaError_t occupancy_r(int R, int T, int* out) {
   switch (R) {
-    case 1: return occupancy<16, 1, TS>(T, out);
-    case 2: return occupancy<16, 2, TS>(T, out);
-    case 3: return occupancy<16, 3, TS>(T, out);
-    case 4: return occupancy<16, 4, TS>(T, out);
+    case 1: return occupancy<16, 1, TX, TDY>(T, out);
+    case 2: return occupancy<16, 2, TX, TDY>(T, out);
+    case 3: return occupancy<16, 3, TX, TDY>(T, out);
+    case 4: return occupancy<16, 4, TX, TDY>(T, out);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The stream dtypes a call takes: x, dy and dx float32 (0), all bf16 (1), or
+// x and dx bf16 with float32 dy (2). float32 x with bf16 dy is refused: no
+// preset or yml asks for it.
+int stream_pair(int x_bf16, int dy_bf16) {
+  if (!x_bf16) return dy_bf16 ? -1 : 0;
+  return dy_bf16 ? 1 : 2;
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (B, L, D), dy (B, 2, L, D) and dx (B, L, D), all bf16 if bf16 else all
-// f32; wx (2, D, R+2N); dtw (2, R, D); bias, dsk (2, D); A (2, N, D); state
-// (B, 2, nc, N, D) and sumda (B, 2, nc, D) as K1 left them, nc = ceil(L / T).
-// Outputs: dx; sums (P, 2, D), P = (R+2N) + R + 1 + N +
-// 1 rows [dwx | ddtw | dbias | dA | ddsk], each row (direction, channel).
+// x (B, L, D) and dx (B, L, D), bf16 if x_bf16 else f32; dy (B, 2, L, D),
+// bf16 if dy_bf16 else f32, one of the pairs `stream_pair` takes; wx (2, D,
+// R+2N); dtw (2, R, D); bias, dsk (2, D); A (2, N, D); state (B, 2, nc, N, D)
+// and sumda (B, 2, nc, D) as K1 left them, nc = ceil(L / T). Outputs: dx;
+// sums (P, 2, D), P = (R+2N) + R + 1 + N + 1 rows [dwx | ddtw | dbias | dA |
+// ddsk], each row (direction, channel).
 // Scratch: gcar (B, 2, nc, N, D); part (gx, P, 2, D), gx <= B * nc the number
 // of bwd_main's blocks, which stride over all the chunks. All but x, dy and dx
 // f32; all contiguous, on the device of `stream`. Returns a cudaError_t; the
@@ -755,23 +766,32 @@ int ss2d_scan_pair_bwd(const void* x, const void* wx, const void* dtw,
                        const void* state, const void* sumda, const void* dy,
                        void* dx, void* gcar, void* part, void* sums,
                        int B, int L, int D, int N, int R, int T, int gx,
-                       int bf16, void* stream) {
+                       int x_bf16, int dy_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N != 16 || D > kDMax || T % kSub != 0 || T > kTMax || gx < 1) return cudaErrorInvalidValue;
 #define WM_ARGS x, wx, dtw, bias, A, dsk, state, sumda, dy, dx, gcar, part, sums, B, L, D, R, T, gx, s
-  if (bf16) return launch_r<__nv_bfloat16>(WM_ARGS);
-  return launch_r<float>(WM_ARGS);
+  switch (stream_pair(x_bf16, dy_bf16)) {
+    case 0: return launch_r<float, float>(WM_ARGS);
+    case 1: return launch_r<__nv_bfloat16, __nv_bfloat16>(WM_ARGS);
+    case 2: return launch_r<__nv_bfloat16, float>(WM_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
 #undef WM_ARGS
 }
 
-// The launch geometry on the current device: out[0] threads a block (both
-// kernels), out[1] / out[2] dynamic shared memory of bwd_local / bwd_main,
-// out[3] / out[4] their resident blocks an SM as
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them (registers
-// included). Returns a cudaError_t.
-int ss2d_scan_bwd_occupancy(int N, int R, int T, int bf16, int* out) {
+// The launch geometry on the current device for the stream pair (x_bf16,
+// dy_bf16): out[0] threads a block (both kernels), out[1] / out[2] dynamic
+// shared memory of bwd_local / bwd_main, out[3] / out[4] their resident
+// blocks an SM as cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them
+// (registers included). Returns a cudaError_t.
+int ss2d_scan_bwd_occupancy(int N, int R, int T, int x_bf16, int dy_bf16, int* out) {
   if (N != 16 || T % kSub != 0 || T > kTMax) return cudaErrorInvalidValue;
-  return bf16 ? occupancy_r<__nv_bfloat16>(R, T, out) : occupancy_r<float>(R, T, out);
+  switch (stream_pair(x_bf16, dy_bf16)) {
+    case 0: return occupancy_r<float, float>(R, T, out);
+    case 1: return occupancy_r<__nv_bfloat16, __nv_bfloat16>(R, T, out);
+    case 2: return occupancy_r<__nv_bfloat16, float>(R, T, out);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 const char* ss2d_scan_bwd_error_string(int code) {

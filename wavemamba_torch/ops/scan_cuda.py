@@ -30,10 +30,13 @@ A CPU tensor takes the plain versions (`ops/scan.py:ss2d_scan_pair_plain`,
 `selective_scan_plain_bwd`, and `ss2d_scan_pair_plain(..., variant='ssd')`
 for K5); a CUDA tensor launches the kernel or raises.
 
-K1 and K2 take bf16 token streams (the bf16 presets): x and y, and K2's x,
-dy and dx, are all float32 or all bf16 (on the CPU the plain versions take
-any mix); y is rounded once from float32, dx once per member and once for
-the pair's sum, as the TPU kernel's; the weights and all arithmetic stay
+K1 and K2 take bf16 token streams in three pairs (`STREAM_PAIRS`): x and y
+(K2: x and dx, and dy) all float32, all bf16 (the bf16 presets), or bf16 x
+with float32 y / dy (`compute_dtype: bfloat16` with the default `scan_dtype:
+float32`, as the proc and proc512 ymls train). float32 x with bf16 y / dy is
+refused on the card (on the CPU the plain versions take any mix). y is
+rounded once from float32, dx once per member and once for the pair's sum,
+in x's dtype, as the TPU kernel's; the weights and all arithmetic stay
 float32.
 K3 and K4 take bf16 streams by widening them to float32 before the launch,
 as the JAX wrapper does before its `pallas_call`; K5 takes float32 only.
@@ -48,6 +51,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -80,6 +84,7 @@ MAX_STREAMS = 65535  # K3, K4: B*K is a grid's second dimension
 CHUNK = 64  # tokens per block of the kernels, and the plain versions' chunk on the CPU
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+BUILD_SECONDS: dict[str, float] = {}  # source name -> seconds of its nvcc run in this process
 
 
 def _nvcc() -> str:
@@ -97,7 +102,7 @@ def build(source: Path = SOURCE) -> Path:
     The library is named by the hash of the source, of every header in its
     directory (a source may include any of them) and of `NVCC_FLAGS`, so an
     unchanged build is made once. `nvcc`'s resource report (`-Xptxas -v`) is kept beside it as
-    a `.log` file."""
+    a `.log` file, and the seconds `nvcc` took in `BUILD_SECONDS`."""
     text = b"\0".join(p.read_bytes() for p in [source, *sorted(source.parent.glob("*.cuh"))])
     digest = hashlib.sha256(text + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{source.stem}_{digest}.so"
@@ -106,7 +111,9 @@ def build(source: Path = SOURCE) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_SECONDS[source.name] = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source}:\n{proc.stderr}")
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
@@ -132,9 +139,9 @@ def _library() -> ctypes.CDLL:
     _need_cuda("K1")
     lib = ctypes.CDLL(str(build(SOURCE)))
     fn = lib.ss2d_scan_pair
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.ss2d_scan_occupancy.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.ss2d_scan_occupancy.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
     lib.ss2d_scan_occupancy.restype = ctypes.c_int
     lib.ss2d_scan_error_string.argtypes = [ctypes.c_int]
     lib.ss2d_scan_error_string.restype = ctypes.c_char_p
@@ -146,9 +153,9 @@ def _library_bwd() -> ctypes.CDLL:
     _need_cuda("K2")
     lib = ctypes.CDLL(str(build(SOURCE_BWD)))
     fn = lib.ss2d_scan_pair_bwd
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.ss2d_scan_bwd_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.ss2d_scan_bwd_occupancy.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
     lib.ss2d_scan_bwd_occupancy.restype = ctypes.c_int
     lib.ss2d_scan_bwd_error_string.argtypes = [ctypes.c_int]
     lib.ss2d_scan_bwd_error_string.restype = ctypes.c_char_p
@@ -194,16 +201,21 @@ def _library_k5() -> ctypes.CDLL:
 
 
 STREAM_DTYPES = (torch.float32, torch.bfloat16)  # of K1's and K2's x, y, dy and dx
+# The (x, y) pairs K1 is built for, and the (x, dy) pairs K2 is: both float32,
+# both bf16, and bf16 x with float32 y / dy.
+STREAM_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                (torch.bfloat16, torch.float32))
 
 
-def _same_stream_dtype(name, streams):
-    """Raise unless the token streams {name: dtype} share one dtype: the
-    kernels are built for all-float32 and all-bf16 streams."""
-    if len(set(streams.values())) > 1:
-        got = ", ".join(f"{k} {str(v).removeprefix('torch.')}" for k, v in streams.items())
+def _stream_flags(name, x_dtype, other, other_dtype):
+    """(x is bf16, `other` is bf16) for the C entry, or raise on the one pair
+    of stream dtypes the kernels are not built for: float32 x with a bf16
+    `other` (y or dy), which no preset or yml asks for."""
+    if (x_dtype, other_dtype) not in STREAM_PAIRS:
         raise NotImplementedError(
-            f"{name}: the kernel takes float32 or bf16 streams alike, got {got}; "
-            "compute_dtype != scan_dtype on the card waits for ROADMAP queue 1, item 16")
+            f"{name}: the kernel is not built for float32 x with bfloat16 {other}; it takes "
+            "x and {0} both float32, both bfloat16, or bfloat16 x with float32 {0}".format(other))
+    return int(x_dtype == torch.bfloat16), int(other_dtype == torch.bfloat16)
 
 
 def _check_tensors(name, x, tensors, streams=()):
@@ -262,7 +274,7 @@ def _launch_k1(x, wx, dtw, bias, A, dsk, out_dtype):
     _check_inputs("ss2d_scan_pair", x, _pair_shapes(x, wx, dtw, bias, A, dsk), MAX_D, ("x",))
     if out_dtype not in STREAM_DTYPES:
         raise ValueError(f"ss2d_scan_pair: out_dtype must be float32 or bfloat16, got {out_dtype}")
-    _same_stream_dtype("ss2d_scan_pair", {"x": x.dtype, "y": out_dtype})
+    x_bf16, y_bf16 = _stream_flags("ss2d_scan_pair", x.dtype, "y", out_dtype)
     b, length, d = x.shape
     r, n = dtw.shape[1], A.shape[1]
     lib = _library()
@@ -280,7 +292,7 @@ def _launch_k1(x, wx, dtw, bias, A, dsk, out_dtype):
         err = lib.ss2d_scan_pair(
             x.data_ptr(), wx.data_ptr(), dtw.data_ptr(), bias.data_ptr(), A.data_ptr(),
             dsk.data_ptr(), y.data_ptr(), state.data_ptr(), sumda.data_ptr(), xdbl.data_ptr(),
-            b, length, d, n, r, CHUNK, plan["smem_scan"], x.dtype == torch.bfloat16, stream)
+            b, length, d, n, r, CHUNK, plan["smem_scan"], x_bf16, y_bf16, stream)
     if err != 0:
         raise RuntimeError(f"ss2d_scan_pair launch failed: {lib.ss2d_scan_error_string(err).decode()}")
     ss2d_scan_pair.launches += 1
@@ -304,9 +316,9 @@ def ss2d_scan_pair(x, wx, dtw, bias, A, dsk, return_carries=False, variant="twop
     x: (B, L, D) token stream, float32 or bf16; wx: (2, D, R+2N); dtw: (2, R,
     D); bias, dsk: (2, D); A: (2, N, D), negative; the weights float32.
     Returns y (B, 2, L, D), float32 or `out_dtype` (float32 or bf16; on the
-    card x's dtype, as K1 takes streams of one dtype): member 0
-    scanned forward, member 1 in reverse, both in token order. Both the
-    kernel and the plain version work in chunks of `CHUNK` tokens. With
+    card (x, y) is one of `STREAM_PAIRS`): member 0 scanned forward, member 1
+    in reverse, both in token order. Both the kernel and the plain version
+    work in chunks of `CHUNK` tokens. With
     `return_carries` also the chunk-entry states (B, 2, nc, N, D) and the
     chunks' sums of da (B, 2, nc, D), detached. Differentiable: when an input
     requires grad the call goes through `SS2DScanPair`, whose backward is K2.
@@ -430,14 +442,16 @@ def k1_plan(B, L, D, N, R, T, sms):
             "grid_prefix": grid_prefix, "xdbl_shape": (B, 2, L, JP)}
 
 
-def k1_occupancy(D=64, R=2, bf16=False, T=CHUNK):
-    """What the card reports for K1's kernels (N = 16) at the launch's
-    threads and shared memory: {threads, smem_scan, blocks_per_sm_pass1,
-    blocks_per_sm_replay, prefix_threads, blocks_per_sm_prefix} from
-    `cudaOccupancyMaxActiveBlocksPerMultiprocessor`, registers included."""
+def k1_occupancy(D=64, R=2, streams=STREAM_PAIRS[0], T=CHUNK):
+    """What the card reports for K1's kernels (N = 16) on the (x, y) dtypes
+    `streams` at the launch's threads and shared memory: {threads, smem_scan,
+    blocks_per_sm_pass1, blocks_per_sm_replay, prefix_threads,
+    blocks_per_sm_prefix} from `cudaOccupancyMaxActiveBlocksPerMultiprocessor`,
+    registers included."""
+    flags = _stream_flags("k1_occupancy", streams[0], "y", streams[1])
     lib = _library()
     out = (ctypes.c_int * 6)()
-    err = lib.ss2d_scan_occupancy(D_STATE, R, D, T, int(bf16), out)
+    err = lib.ss2d_scan_occupancy(D_STATE, R, D, T, *flags, out)
     if err != 0:
         raise RuntimeError(f"ss2d_scan_occupancy failed: {lib.ss2d_scan_error_string(err).decode()}")
     keys = ("threads", "smem_scan", "blocks_per_sm_pass1", "blocks_per_sm_replay",
@@ -470,14 +484,15 @@ def k2_plan(B, L, D, N, R, T, sms):
             "gx": max(1, min(B * -(-L // T), sms * main))}
 
 
-def k2_occupancy(R=2, bf16=False, T=CHUNK):
-    """What the card reports for K2's kernels (N = 16) at the launch's
-    threads and shared memory: {threads, smem_local, smem_main,
-    blocks_per_sm_local, blocks_per_sm_main} from
+def k2_occupancy(R=2, streams=STREAM_PAIRS[0], T=CHUNK):
+    """What the card reports for K2's kernels (N = 16) on the (x, dy) dtypes
+    `streams` at the launch's threads and shared memory: {threads,
+    smem_local, smem_main, blocks_per_sm_local, blocks_per_sm_main} from
     `cudaOccupancyMaxActiveBlocksPerMultiprocessor`, registers included."""
+    flags = _stream_flags("k2_occupancy", streams[0], "dy", streams[1])
     lib = _library_bwd()
     out = (ctypes.c_int * 5)()
-    err = lib.ss2d_scan_bwd_occupancy(D_STATE, R, T, int(bf16), out)
+    err = lib.ss2d_scan_bwd_occupancy(D_STATE, R, T, *flags, out)
     if err != 0:
         raise RuntimeError(f"ss2d_scan_bwd_occupancy failed: {lib.ss2d_scan_bwd_error_string(err).decode()}")
     keys = ("threads", "smem_local", "smem_main", "blocks_per_sm_local", "blocks_per_sm_main")
@@ -543,7 +558,8 @@ def ss2d_scan_pair_bwd(x, wx, dtw, bias, A, dsk, state, sumda, dy):
     (B, 2, L, D), float32 or bf16. Returns (dx, dwx, ddtw, dbias, dA, ddsk),
     dx (B, L, D) in x's dtype, each member's rounded to it and the two added
     in it, the rest float32 in the layouts of wx, dtw, bias, A and dsk.
-    On the card x and dy share one dtype.
+    On the card (x, dy) is one of `STREAM_PAIRS`: bf16 x takes float32 or
+    bf16 dy, float32 x float32 dy.
     The sums over tokens and batch are taken in a fixed order: the same bits
     every run. Counts its kernel launches in `ss2d_scan_pair_bwd.launches`.
     """
@@ -558,7 +574,7 @@ def ss2d_scan_pair_bwd(x, wx, dtw, bias, A, dsk, state, sumda, dy):
     shapes.update(state=(state, (b, 2, nc, n, d)), sumda=(sumda, (b, 2, nc, d)),
                   dy=(dy, (b, 2, length, d)))
     _check_inputs("ss2d_scan_pair_bwd", x, shapes, MAX_D_BWD, ("x", "dy"))
-    _same_stream_dtype("ss2d_scan_pair_bwd", {"x": x.dtype, "dy": dy.dtype})
+    flags = _stream_flags("ss2d_scan_pair_bwd", x.dtype, "dy", dy.dtype)
     lib = _library_bwd()
     j = r + 2 * n
     rows = j + r + 1 + n + 1  # dwx | ddtw | dbias | dA | ddsk
@@ -574,7 +590,7 @@ def ss2d_scan_pair_bwd(x, wx, dtw, bias, A, dsk, state, sumda, dy):
             x.data_ptr(), wx.data_ptr(), dtw.data_ptr(), bias.data_ptr(), A.data_ptr(),
             dsk.data_ptr(), state.data_ptr(), sumda.data_ptr(), dy.data_ptr(),
             dx.data_ptr(), gcar.data_ptr(), part.data_ptr(), sums.data_ptr(),
-            b, length, d, n, r, CHUNK, gx, x.dtype == torch.bfloat16, stream)
+            b, length, d, n, r, CHUNK, gx, *flags, stream)
     if err != 0:
         raise RuntimeError("ss2d_scan_pair_bwd launch failed: "
                            f"{lib.ss2d_scan_bwd_error_string(err).decode()}")

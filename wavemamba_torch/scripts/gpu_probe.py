@@ -27,8 +27,10 @@ from __future__ import annotations
 import ctypes
 import functools
 import json
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -114,10 +116,12 @@ def _library() -> ctypes.CDLL:
     for name, args in (("gpu_probe_flat", [p, p, p, i, i, i, i, p]),
                        ("gpu_probe_shaped", [p, p, i, i, i, i, p]),
                        ("gpu_probe_exp", [p, p, p, i, i, i, i, p]),
-                       ("gpu_probe_nsum", [p, p, p, i, i, i, i, i, p]),
+                       ("gpu_probe_nsum", [p, p, p, i, i, i, i, i, i, p]),
                        ("gpu_probe_mxu_seg", [p, p, i, i, i, p])):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, ctypes.c_int
+    lib.gpu_probe_nsum_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.gpu_probe_nsum_occupancy.restype = ctypes.c_int
     lib.gpu_probe_error_string.argtypes = [ctypes.c_int]
     lib.gpu_probe_error_string.restype = ctypes.c_char_p
     return lib
@@ -173,12 +177,36 @@ def probe_exp(x, a, K=16):
     return out
 
 
+NSUM_THREADS, NSUM_V, NSUM_K_TILE = 128, 8, 192  # P4's block, d a thread, k a table
+
+
+def nsum_plan(G, T, N, D2):
+    """P4's launch geometry (`csrc/gpu_probe.cu:nsum`), from shapes alone: a
+    block of `threads` holds one t and `g_per_block` g; a thread holds `V` d
+    of one (g, t) as V / 4 chunks of 4 (one 16-byte access a row each), chunk
+    v at d = 4 (col + v cols), where col < `cols` = D2 / V is its place in the
+    row; `blocks` is the grid (T, ceil(G / g_per_block)); `smem_bytes` the
+    table of c(t, n) + k for `k_tile` values of k. The source refuses a
+    launch whose `g_per_block` is not this plan's."""
+    if N != 16 or D2 % NSUM_V or not NSUM_V <= D2 <= NSUM_V * NSUM_THREADS:
+        raise ValueError(f"nsum_plan: P4 takes N=16 and D2 a multiple of {NSUM_V} up to "
+                         f"{NSUM_V * NSUM_THREADS}; got N={N}, D2={D2}")
+    cols = D2 // NSUM_V
+    gpb = NSUM_THREADS // cols
+    return {"threads": NSUM_THREADS, "V": NSUM_V, "cols": cols, "g_per_block": gpb,
+            "blocks": (T, -(-G // gpb)), "k_tile": NSUM_K_TILE,
+            "smem_bytes": 4 * NSUM_K_TILE * N}
+
+
 def probe_nsum(x, c, K=24):
     """P4: acc(t, d) = sum over k < K and n of x(t, n, d) * (c(t, n) + k),
     broadcast over n. x (G, T, N*D2), c (T, N) -> (G, T, N*D2)."""
     if x.device.type == "cpu":
         return probe_nsum_plain(x, c, K)
-    out = _launch("nsum", (x, c), x.shape, x.shape[0], T, N, D2, K)
+    if x.data_ptr() % 16:  # the kernel reads and writes 16 bytes at a time
+        x = x.clone()
+    plan = nsum_plan(x.shape[0], T, N, D2)
+    out = _launch("nsum", (x, c), x.shape, x.shape[0], T, N, D2, K, plan["g_per_block"])
     probe_nsum.launches += 1
     return out
 
@@ -320,6 +348,74 @@ def run_all(grid=GRID):
     return rows
 
 
+def _cuobjdump() -> str:
+    nvcc = Path(scan_cuda._nvcc())
+    return str(nvcc.with_name("cuobjdump"))
+
+
+def sass_loop(kernel="nsum", library=None):
+    """The hottest loop of `kernel` in the built probe library, from
+    `cuobjdump -sass`: of the innermost loops (a branch back to an earlier
+    address, and the instructions from there to it, holding no other such
+    loop), the one that holds the most FFMAs. Returns {"ffma", "lds",
+    "instructions", "per_fma": issued instructions a multiply-add,
+    "ffma_one_bank": the FFMAs whose register sources that the operand reuse
+    cache does not hold fall in one of the two register banks (even or odd
+    register numbers), "opcodes": {opcode: count}}. Needs the CUDA toolkit,
+    not a card."""
+    library = library or scan_cuda.build(scan_cuda.SOURCE_PROBE)
+    sass = subprocess.run([_cuobjdump(), "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    fn = next(part for part in sass.split("Function : ")[1:]
+              if re.match(rf"\S*{len(kernel)}{kernel}E", part))
+    code, loops = [], []  # (address, opcode, operands) in order; (first, last) address of each loop
+    for ln in fn.splitlines():
+        op = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*)", ln)
+        if not op:
+            continue
+        addr = int(op.group(1), 16)
+        code.append((addr, op.group(2), op.group(3)))
+        target = re.search(r"\bBRA\s+(?:`\()?0x([0-9a-f]+)", ln)
+        if target and int(target.group(1), 16) <= addr:  # a backward branch closes a loop
+            loops.append((int(target.group(1), 16), addr))
+    inner = [(lo, hi) for lo, hi in loops
+             if not any((lo, hi) != (a, b) and lo <= a and b <= hi for a, b in loops)]
+    bodies = [[(o, args) for a, o, args in code if lo <= a <= hi] for lo, hi in inner]
+    best = max(bodies, key=lambda body: sum(o == "FFMA" for o, _ in body), default=None)
+    if not best or all(o != "FFMA" for o, _ in best):
+        raise RuntimeError(f"sass_loop: no loop with FFMAs in {kernel}")
+    opcodes, one_bank = {}, 0
+    for op, args in best:
+        opcodes[op] = opcodes.get(op, 0) + 1
+        if op == "FFMA":  # FFMA d, a, b, c: the sources not marked .reuse
+            banks = [int(r) % 2 for r in re.findall(r"\bR(\d+)\b(?!\.reuse)", args.split(",", 1)[1])]
+            one_bank += len(banks) > len(set(banks))
+    ffma = opcodes["FFMA"]
+    return {"ffma": ffma, "lds": sum(n for op, n in opcodes.items() if op.startswith("LDS")),
+            "instructions": len(best), "per_fma": len(best) / ffma, "ffma_one_bank": one_bank,
+            "opcodes": opcodes}
+
+
+def nsum_resources():
+    """P4's resources on this card: threads, static shared memory and the
+    blocks and warps an SM that the occupancy query reports, registers and
+    spill bytes from the build's `-Xptxas -v` report, and `sass_loop`."""
+    lib = _library()
+    out = (ctypes.c_int * 3)()
+    err = lib.gpu_probe_nsum_occupancy(out)
+    if err != 0:
+        raise RuntimeError(f"gpu_probe_nsum_occupancy failed: {lib.gpu_probe_error_string(err).decode()}")
+    library = scan_cuda.build(scan_cuda.SOURCE_PROBE)
+    log = library.with_suffix(".log").read_text()
+    entry = log[log.index("4nsumE"):]  # from nsum's "Compiling entry function" line on
+    registers = int(re.search(r"Used (\d+) registers", entry).group(1))
+    spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+    return {"threads": out[0], "smem_bytes": out[1], "blocks_per_sm": out[2],
+            "warps_per_sm": out[2] * out[0] // 32, "registers": registers,
+            "spill_store_bytes": int(spills.group(1)), "spill_load_bytes": int(spills.group(2)),
+            "sass_loop": sass_loop("nsum", library)}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("gpu_probe: torch.cuda.is_available() is False; the probes measure the card")
@@ -328,6 +424,7 @@ def main():
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     for row in run_all():
         print(json.dumps({**row, "device": smi}), flush=True)
+    print(json.dumps({"probe": "nsum", **nsum_resources()}), flush=True)
     print(smi, flush=True)
 
 
