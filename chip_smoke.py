@@ -464,8 +464,9 @@ def phase_device():
         """Registers and spills of each kernel of the build, as `-Xptxas -v`
         reports them; of a templated kernel, the shipped instantiation's
         (`shipped` in its mangled name: <16, 2> is K1's and K2's dt_rank, <16,
-        64> K4's 64 channels a block), named with its pass and stream dtypes
-        where it has them (K1: [pass, x, y]; K2: [x, dy])."""
+        64> K4's 64 channels a block; K3's <16> keeps both passes), named
+        with its pass and stream dtypes where it has them (K1: [pass, x, y];
+        K2: [x, dy]; K3: [pass])."""
         lines = lib.with_suffix(".log").read_text().splitlines()
         out = []
         for i, ln in enumerate(lines):
@@ -484,7 +485,7 @@ def phase_device():
           "libraries": [os.path.relpath(lib, ROOT) for lib in libs],
           "k1_ptxas": ptxas(libs[0], ["chunk_scan", "chunk_prefix"]),
           "k2_ptxas": ptxas(libs[1], ["bwd_local", "bwd_prefix", "bwd_main", "bwd_reduce"]),
-          "k3_ptxas": ptxas(libs[2], ["scan_chunk", "chunk_prefix"]),
+          "k3_ptxas": ptxas(libs[2], ["selective_chunk", "selective_prefix"], "ILi16E"),
           "k4_ptxas": ptxas(libs[3], ["bwd_local", "bwd_prefix", "bwd_main", "bwd_reduce"], "ILi16ELi64E"),
           "k5_ptxas": ptxas(libs[4], ["chunk_scan_ssd", "chunk_prefix"]),
           "chain_ptxas": ptxas(libs[5], ["chain_kernel"]),
@@ -561,30 +562,35 @@ def clocks_under_load(call, seconds=1.0):
     return float(np.median([s[0] for s in samples])), float(np.median([s[1] for s in samples]))
 
 
-def k1_geometry(plan, occ):
-    """K1's launch geometry for a `k1` row: `scan_cuda.k1_plan`'s blocks and
-    residency beside what the card reports for the same launch
-    (`scan_cuda.k1_occupancy`, registers included). Fails where the launch's
-    threads or shared memory are not the plan's, or where the card lets fewer
-    blocks of a kernel reside than planned."""
-    kernels = {"chunk_scan<false>": ("pass1", "scan"), "chunk_scan<true>": ("replay", "scan"),
-               "chunk_prefix": ("prefix", "prefix")}
+def scan_geometry(kernel, names, plan, occ):
+    """The launch geometry of K1's or K3's three kernels (`names`: pass 1,
+    the replay, the chunk prefix) for a `k1` / `k3` row: the plan's blocks and
+    residency (`scan_cuda.k1_plan` / `k3_plan`) beside what the card reports
+    for the same launch (`k1_occupancy` / `k3_occupancy`, registers
+    included). Fails where the launch's threads or shared memory are not the
+    plan's, or where the card lets fewer blocks of a kernel reside than
+    planned."""
+    pass1, replay, prefix = names
+    kernels = {pass1: ("pass1", "scan"), replay: ("replay", "scan"), prefix: ("prefix", "prefix")}
     check(all(occ[k] == plan[k] for k in ("threads", "smem_scan", "prefix_threads")),
-          f"K1 launches {occ} as k1_plan planned {plan}")
+          f"{kernel} launches {occ} as {kernel.lower()}_plan planned {plan}")
     blocks = {name: occ[f"blocks_per_sm_{own}"] for name, (own, _) in kernels.items()}
-    threads = {"chunk_scan<false>": plan["threads"], "chunk_scan<true>": plan["threads"],
-               "chunk_prefix": plan["prefix_threads"]}
+    threads = {pass1: plan["threads"], replay: plan["threads"], prefix: plan["prefix_threads"]}
     for name, (_, planned) in kernels.items():
         check(blocks[name] >= plan[f"blocks_per_sm_{planned}"],
-              f"K1 {name}: {blocks[name]} blocks an SM, {plan[f'blocks_per_sm_{planned}']} planned")
+              f"{kernel} {name}: {blocks[name]} blocks an SM, {plan[f'blocks_per_sm_{planned}']} planned")
     return {"threads": threads,
-            "smem_bytes": {"chunk_scan": plan["smem_scan"], "chunk_prefix": plan["smem_prefix"]},
+            "smem_bytes": {pass1.split("<")[0]: plan["smem_scan"], prefix: plan["smem_prefix"]},
             "blocks_per_sm": blocks,
-            "warps_per_sm": {name: blocks[name] * threads[name] // 32 for name in kernels},
+            "warps_per_sm": {name: blocks[name] * -(-threads[name] // 32) for name in kernels},
             "planned_warps_per_sm": {name: plan[f"warps_per_sm_{planned}"]
                                      for name, (_, planned) in kernels.items()},
             "grid_scan": list(plan["grid_scan"]), "waves_scan": plan["waves_scan"],
             "grid_prefix": list(plan["grid_prefix"])}
+
+
+def k1_geometry(plan, occ):
+    return scan_geometry("K1", ("chunk_scan<false>", "chunk_scan<true>", "chunk_prefix"), plan, occ)
 
 
 F32_STREAMS = (torch.float32, torch.float32)  # (x, y) or (x, dy) dtypes of the float32 rows
@@ -911,6 +917,33 @@ def timed_once(fn):
 
 SCAN_OUTPUTS = ("du", "ddelta", "dA", "dBs", "dCs", "dD_skip", "ddelta_bias")
 K4_PHASES = ("local", "prefix", "main", "reduce")
+K3_PHASES = ("pass1", "prefix", "replay")
+K3_KERNELS = ("selective_chunk<false>", "selective_chunk<true>", "selective_prefix")
+
+
+def k3_phase_of(kernel):
+    """Which of K3's three kernels a profiler name is: pass 1
+    (`selective_chunk<16, false>`), the chunk prefix (`selective_prefix`), or
+    the replay (`selective_chunk<16, true>`); None for any other kernel."""
+    if "selective_prefix" in kernel:
+        return "prefix"
+    if "selective_chunk<" in kernel:
+        return "replay" if "true" in kernel else "pass1"
+    return None
+
+
+def k3_geometry(plan, occ):
+    return scan_geometry("K3", K3_KERNELS, plan, occ)
+
+
+def k3_row_geometry(B, L):
+    """`k3_geometry` at a k3 row's shape (K=4, D=64, N=16) on this card."""
+    from wavemamba_torch.ops.scan_cuda import CHUNK, k3_occupancy, k3_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return k3_geometry(k3_plan(B, 4, L, 64, 16, CHUNK, sms), k3_occupancy(D=64, L=L))
+
+
 def k4_row_geometry(B, L):
     """`k4_geometry` at a k4 row's shape (K=4, D=64, N=16) on this card."""
     from wavemamba_torch.ops.scan_cuda import CHUNK, k4_occupancy, k4_plan
@@ -946,7 +979,11 @@ def phase_k3_k4():
     for name, B, L, backward in cases:
         args = scan_inputs(rs, B, L)
         y, state, sumda = selective_scan_cuda(*args, return_carries=True)
+        again = selective_scan_cuda(*args, return_carries=True)
         torch.cuda.synchronize()
+        for key, g, g2 in zip(("y", "state", "sumda"), (y, state, sumda), again):
+            check(torch.equal(g, g2), f"K3 {name} {key}: the same bits on a second run")
+        del again
         (y_plain, state_plain, sumda_plain), plain_ms = timed_once(
             lambda: selective_scan_plain(*args, return_carries=True))
         err = {"y": float((y - y_plain).abs().max()), "state": float((state - state_plain).abs().max()),
@@ -955,10 +992,13 @@ def phase_k3_k4():
         check(max(err.values()) <= K3_ATOL, f"K3 {name}: y and carries {err} <= {K3_ATOL}")
         row = {"phase": "k3", "case": name, "B": B, "K": 4, "L": L, "D": 64, "N": 16,
                "max_abs_err": err["y"], "carries_err": err, "tol": K3_ATOL,
-               "y_max_abs": float(y_plain.abs().max())}
+               "y_max_abs": float(y_plain.abs().max()), "geometry": k3_row_geometry(B, L)}
         del y, y_plain, sumda_plain
         if name != "ragged":
-            row["ms"] = cuda_ms(lambda: selective_scan_cuda(*args), 10)
+            call = lambda: selective_scan_cuda(*args)
+            row["ms"] = cuda_ms(call, 10)
+            row["phases_ms"] = kernel_phases(call, k3_phase_of, K3_PHASES, "K3")
+            row["clocks_sm_mhz"], row["power_draw_w"] = clocks_under_load(call)
             row["plain_ms"] = plain_ms
             row["bound_ms"], row["bound_by"], row["bound_unit"] = k3_bound(B, 4, L, 64, 16)
         row["launches"] = selective_scan_cuda.launches
@@ -2278,11 +2318,11 @@ def profile_rows(fn):
 
 def profiled_launches(rows, counted):
     """K1's and K3's launches as the profile recorded them (each call runs
-    one replay kernel: `chunk_scan<..., true, ...>`, `scan_chunk<16, true>`)
+    one replay kernel: `chunk_scan<..., true, ...>`, `selective_chunk<16, true>`)
     beside their wrappers' counts, and whether the profile is short: it
     recorded fewer than the wrappers launched, so its busy time may read low
     and its idle share high. A short profile is flagged, not failed."""
-    replays = {"k1": "chunk_scan<", "k3": "scan_chunk<"}
+    replays = {"k1": "chunk_scan<", "k3": "selective_chunk<"}
     recorded = {k: sum(n for _, n, name in rows if pat in name and "true" in name)
                 for k, pat in replays.items()}
     return {"profiled_launches": recorded, "wrapper_launches": counted,
@@ -2313,7 +2353,7 @@ def phase_profile(model, x, forward_ms, run, pipe, fused, fast, fast_fused, trai
               "unprofiled_ms": unprofiled_ms, "idle_share_unprofiled": 1.0 - busy_ms / unprofiled_ms,
               "k1_ms": named("chunk_scan", "(anonymous namespace)::chunk_prefix("),
               "k2_ms": k2_ms, "k2_share_of_busy": k2_ms / busy_ms,
-              "k3_ms": named("scan_chunk", "wm::chunk_prefix("),
+              "k3_ms": named("selective_chunk<", "selective_prefix("),
               "k4_ms": adjoint if what == "train_step_unfused" else 0.0,
               "flip_ms": named("flip"),
               # dtype casts and other copies (the bf16 path casts each weight where it is used)
@@ -2538,7 +2578,9 @@ def main():
         "max_abs_err": max(max(r["carries_err"].values()) for r in k3_rows),
         "ms": k3_level1["ms"], "plain_ms": k3_level1["plain_ms"],
         "bound_ms": k3_level1["bound_ms"], "bound_by": k3_level1["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None,
+        **{k: k3_level1["geometry"][k] for k in ("threads", "smem_bytes", "warps_per_sm")},
+        "ms_levels": [r["ms"] for r in k3_rows if "ms" in r]}, {
         "name": "selective_scan_cuda_bwd (K4)", "route": "cuda",
         "source": "wavemamba_torch/csrc/selective_scan_bwd.cu",
         "replaces": "wavemamba_tpu/ops/scan_pallas.py:317", "launches": pipe["launches"]["k4"],

@@ -70,7 +70,7 @@ def test_profiled_launches_flag_a_short_profile():
     fewer of them than the wrappers launched is flagged."""
     rows = [(9.0, 27, "void (anonymous namespace)::chunk_scan<16, 2, true, float, float>(...)"),
             (8.0, 28, "void (anonymous namespace)::chunk_scan<16, 2, false, float, float>(...)"),
-            (1.0, 14, "void wm::scan_chunk<16, true>(...)")]
+            (1.0, 14, "void (anonymous namespace)::selective_chunk<16, true>(...)")]
     got = chip_smoke.profiled_launches(rows, {"k1": 28, "k3": 14})
     assert got["profiled_launches"] == {"k1": 27, "k3": 14} and got["short_profile"]
     whole = chip_smoke.profiled_launches(rows, {"k1": 27, "k3": 14})

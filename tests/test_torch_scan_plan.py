@@ -160,7 +160,7 @@ def test_chip_smoke_geometry_fails_short_of_the_plan(key, value, match):
      "replay"),
     ("(anonymous namespace)::chunk_prefix(float const*, float*, float const*, int, int, int)", "prefix"),
     ("void (anonymous namespace)::chunk_scan_ssd<16, 2>(float const*)", None),  # K5
-    ("void (anonymous namespace)::scan_chunk<16, false>(float const*)", None),  # K3
+    ("void (anonymous namespace)::selective_chunk<16, false>(float const*)", None),  # K3
 ])
 def test_chip_smoke_names_each_of_k1s_kernels(kernel, phase):
     """The k1 rows' `phases_ms` sum the profiler's device time by these names."""

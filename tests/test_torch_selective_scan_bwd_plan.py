@@ -145,8 +145,9 @@ def test_chip_smoke_geometry_fails_short_of_the_plan(key, value, match):
      "prefix"),
     ("void (anonymous namespace)::bwd_main<16, 64>(float const*, float const*)", "main"),
     ("(anonymous namespace)::bwd_reduce(float const*, float*, int, int)", "reduce"),
-    ("wm::chunk_prefix(float const*, float*, float const*, int, int, int)", None),  # K3
-    ("void (anonymous namespace)::scan_chunk<16, true>(float const*)", None),  # K3
+    ("(anonymous namespace)::selective_prefix(float const*, float*, float const*, int, int, int, int)",
+     None),  # K3
+    ("void (anonymous namespace)::selective_chunk<16, true>(float const*)", None),  # K3
 ])
 def test_chip_smoke_names_each_of_k4s_kernels(kernel, phase):
     """The k4 rows' `phases_ms` sum the profiler's device time by these names."""

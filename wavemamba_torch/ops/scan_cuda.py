@@ -19,7 +19,11 @@ and its backward (K3, K4), and K1's function in the segment-local (SSD) form
 builds `csrc/conv_chain.cu`, the conv-chain kernel of
 `ops/conv_fused_cuda.py` (K6 / K7), and `csrc/gpu_probe.cu`, the probes of
 `scripts/gpu_probe.py` (P1-P5). The note at the top of each
-source says what bounds the kernel and how it is laid out. A source is
+source says what bounds the kernel and how it is laid out. `k1_plan`,
+`k2_plan`, `k3_plan` and `k4_plan` give K1-K4's launch geometry from shapes
+alone (K3: a quad of threads per channel, 256-thread blocks over a chunk, a
+stream and 64 channels, and a prefix with a worker for every 8 chunks), and
+`k1_occupancy` ... `k4_occupancy` what the card lets reside. A source is
 compiled for sm_90a with `nvcc` at the first launch, into
 `build/wavemamba_torch/` keyed by a hash of the source, the headers beside it
 and the compiler flags, and loaded with ctypes. Importing this module needs
@@ -48,6 +52,7 @@ import contextlib
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -78,7 +83,7 @@ D_STATE = 16  # the one state width the kernels are compiled for
 MAX_DT_RANK = 4
 MAX_D = 128  # K1: a block scans 64 channels, two blocks a chunk above 64
 MAX_D_BWD = 64  # K2: a block holds 2 x 64 channels, four threads each
-MAX_D_K3 = 256  # K3: D threads per block
+MAX_D_K3 = 256  # K3: a block scans 64 channels, a quad of threads each; up to four groups
 MAX_D_K4 = 128  # K4: a block holds 64 channels (D <= 64) or 128, a quad of threads each
 MAX_STREAMS = 65535  # K3, K4: B*K is a grid's second dimension
 CHUNK = 64  # tokens per block of the kernels, and the plain versions' chunk on the CPU
@@ -167,8 +172,10 @@ def _library_k3() -> ctypes.CDLL:
     _need_cuda("K3")
     lib = ctypes.CDLL(str(build(SOURCE_K3)))
     fn = lib.selective_scan_fwd_f32
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.selective_scan_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.selective_scan_occupancy.restype = ctypes.c_int
     lib.selective_scan_error_string.argtypes = [ctypes.c_int]
     lib.selective_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -390,6 +397,7 @@ K2_THREADS = 2 * MAX_D_BWD * 4  # a quad of threads per (direction, channel)
 SMEM_PER_SM = 233_472  # an H100 SM's shared memory: 228 KB
 SMEM_RESERVED = 1_024  # the runtime's share of each resident block
 THREADS_PER_SM = 2_048
+BLOCKS_PER_SM = 32
 K1_GROUP = 64  # channels a chunk_scan block scans
 K1_THREADS = 2 * K1_GROUP * 2  # both directions, a quad of threads per channel pair
 K1_PREFIX_LANES, K1_PREFIX_WORKERS = 16, 64  # chunk_prefix: (n, d) lanes x workers a block
@@ -399,8 +407,29 @@ K1_SCAN_BLOCKS, K1_PREFIX_BLOCKS = 3, 1
 
 
 def _resident(threads, smem):
-    """Blocks an SM holds by its 2,048 threads and 228 KB of shared memory."""
-    return min(THREADS_PER_SM // threads, SMEM_PER_SM // (smem + SMEM_RESERVED))
+    """Blocks an SM holds by its 2,048 threads, 32 blocks and 228 KB of shared
+    memory."""
+    return min(THREADS_PER_SM // threads, BLOCKS_PER_SM, SMEM_PER_SM // (smem + SMEM_RESERVED))
+
+
+def _scan_plan(threads, smem_scan, scan_blocks, grid_scan, prefix_threads, prefix_blocks,
+               grid_prefix, sms):
+    """What K1's and K3's plans share: pass 1 and the replay on `threads` a
+    block and `smem_scan` bytes of dynamic shared memory, the chunk prefix on
+    `prefix_threads` a block and its two static arrays, sized for
+    K1_PREFIX_LANES x K1_PREFIX_WORKERS. For each, the blocks and warps an SM
+    that shared memory, 2,048 threads, 32 blocks and the kernel's launch
+    bounds (`scan_blocks`, `prefix_blocks`) let reside, and the scan's blocks
+    against what `sms` SMs hold at once (`waves_scan`)."""
+    smem_prefix = 4 * 2 * K1_PREFIX_LANES * K1_PREFIX_WORKERS
+    scan = min(_resident(threads, smem_scan), scan_blocks)
+    prefix = min(_resident(prefix_threads, smem_prefix), prefix_blocks)
+    return {"threads": threads, "smem_scan": smem_scan, "blocks_per_sm_scan": scan,
+            "warps_per_sm_scan": scan * -(-threads // 32), "grid_scan": grid_scan,
+            "waves_scan": math.prod(grid_scan) / (sms * scan),
+            "prefix_threads": prefix_threads, "smem_prefix": smem_prefix,
+            "blocks_per_sm_prefix": prefix, "warps_per_sm_prefix": prefix * -(-prefix_threads // 32),
+            "grid_prefix": grid_prefix}
 
 
 def k1_plan(B, L, D, N, R, T, sms):
@@ -427,19 +456,10 @@ def k1_plan(B, L, D, N, R, T, sms):
     groups = -(-D // K1_GROUP)
     width, J, JP = K1_GROUP * groups + 4, R + 2 * N, 4 + 2 * N
     smem_scan = 4 * (T * width + 2 * T * JP + max(2 * J * width, 2 * T * K1_GROUP))
-    prefix_threads = K1_PREFIX_LANES * K1_PREFIX_WORKERS
-    smem_prefix = 4 * 2 * prefix_threads
-    scan = min(_resident(K1_THREADS, smem_scan), K1_SCAN_BLOCKS)
-    prefix = min(_resident(prefix_threads, smem_prefix), K1_PREFIX_BLOCKS)
-    nc = -(-L // T)
-    grid_scan = (nc, B, groups)
-    grid_prefix = (-(-N * D // K1_PREFIX_LANES), 2, B)
-    return {"threads": K1_THREADS, "smem_scan": smem_scan, "blocks_per_sm_scan": scan,
-            "warps_per_sm_scan": scan * K1_THREADS // 32, "grid_scan": grid_scan,
-            "waves_scan": nc * B * groups / (sms * scan),
-            "prefix_threads": prefix_threads, "smem_prefix": smem_prefix,
-            "blocks_per_sm_prefix": prefix, "warps_per_sm_prefix": prefix * prefix_threads // 32,
-            "grid_prefix": grid_prefix, "xdbl_shape": (B, 2, L, JP)}
+    plan = _scan_plan(K1_THREADS, smem_scan, K1_SCAN_BLOCKS, (-(-L // T), B, groups),
+                      K1_PREFIX_LANES * K1_PREFIX_WORKERS, K1_PREFIX_BLOCKS,
+                      (-(-N * D // K1_PREFIX_LANES), 2, B), sms)
+    return {**plan, "xdbl_shape": (B, 2, L, JP)}
 
 
 def k1_occupancy(D=64, R=2, streams=STREAM_PAIRS[0], T=CHUNK):
@@ -496,6 +516,58 @@ def k2_occupancy(R=2, streams=STREAM_PAIRS[0], T=CHUNK):
     if err != 0:
         raise RuntimeError(f"ss2d_scan_bwd_occupancy failed: {lib.ss2d_scan_bwd_error_string(err).decode()}")
     keys = ("threads", "smem_local", "smem_main", "blocks_per_sm_local", "blocks_per_sm_main")
+    return dict(zip(keys, out))
+
+
+K3_GROUP = 64  # channels a selective_chunk block scans
+K3_THREADS = 4 * K3_GROUP  # a quad of threads per channel
+K3_SCAN_BLOCKS = 4  # resident blocks an SM selective_chunk's launch bounds ask for
+K3_PREFIX_BATCH = 8  # chunks a selective_prefix worker loads at once, one worker for each
+
+
+def k3_plan(B, K, L, D, N, T, sms):
+    """K3's launch geometry, from shapes alone (the kernel's source,
+    `csrc/selective_scan.cu`, sizes its tiles by the same sums, and refuses a
+    launch whose shared memory is not this plan's).
+
+    selective_chunk (pass 1 and the replay) runs `threads` a block on a grid
+    of (chunks, B * K streams, channel groups of 64); its dynamic shared
+    memory `smem_scan` holds B and C of the chunk's T tokens and (da, u) of
+    each (token, channel of the group). selective_prefix runs one block per
+    K1_PREFIX_LANES (n, d) lanes of each stream, with a worker a lane for
+    every K3_PREFIX_BATCH chunks up to K1_PREFIX_WORKERS (`prefix_threads`),
+    on static shared memory `smem_prefix`; its launch bounds hold it to 32
+    registers, so threads and shared memory set its residency. For each, the
+    blocks and warps an SM that shared memory, 2,048 threads and the register
+    budget of the kernel's launch bounds let reside (the registers used are
+    the card's to report: `k3_occupancy`), and selective_chunk's blocks
+    against what `sms` SMs hold at once (`waves_scan`)."""
+    if N != D_STATE or not 1 <= D <= MAX_D_K3:
+        raise ValueError(f"k3_plan: K3 takes N={D_STATE}, D<={MAX_D_K3}; got N={N}, D={D}")
+    if not 1 <= T <= CHUNK:
+        raise ValueError(f"k3_plan: K3 takes chunks of 1 <= T <= {CHUNK} tokens; got T={T}")
+    nc = -(-L // T)
+    smem_scan = 4 * (T * 2 * N + 2 * T * K3_GROUP)
+    workers = min(K1_PREFIX_WORKERS, -(-nc // K3_PREFIX_BATCH))
+    return _scan_plan(K3_THREADS, smem_scan, K3_SCAN_BLOCKS, (nc, B * K, -(-D // K3_GROUP)),
+                      K1_PREFIX_LANES * workers, BLOCKS_PER_SM,
+                      (-(-N * D // K1_PREFIX_LANES), B * K), sms)
+
+
+def k3_occupancy(D=64, L=65_536, T=CHUNK):
+    """What the card reports for K3's kernels (N = 16) at the launch's
+    threads and shared memory for D channels and L tokens a stream (which
+    set selective_prefix's workers): {threads, smem_scan,
+    blocks_per_sm_pass1, blocks_per_sm_replay, prefix_threads,
+    blocks_per_sm_prefix} from `cudaOccupancyMaxActiveBlocksPerMultiprocessor`,
+    registers included."""
+    lib = _library_k3()
+    out = (ctypes.c_int * 6)()
+    err = lib.selective_scan_occupancy(D_STATE, D, L, T, out)
+    if err != 0:
+        raise RuntimeError(f"selective_scan_occupancy failed: {lib.selective_scan_error_string(err).decode()}")
+    keys = ("threads", "smem_scan", "blocks_per_sm_pass1", "blocks_per_sm_replay",
+            "prefix_threads", "blocks_per_sm_prefix")
     return dict(zip(keys, out))
 
 
@@ -644,21 +716,26 @@ def _check_scan_inputs(name, u, tensors, max_d):
 def _launch_k3(u, delta, A, Bs, Cs, D_skip, delta_bias):
     """K3 on CUDA tensors: y, and the scratch it leaves behind for K4, `state`
     (B, K, nc, N, D), the state entering each chunk, and `sumda` (B, K, nc, D),
-    each chunk's sum of da."""
+    each chunk's sum of da. The launch takes `k3_plan`'s shared memory (the
+    source refuses any other)."""
     args = (u, delta, A, Bs, Cs, D_skip, delta_bias)
     _check_scan_inputs("selective_scan_cuda", u, _scan_shapes(*args), MAX_D_K3)
     b, k, length, d = u.shape
     n = A.shape[-1]
     lib = _library_k3()
+    plan = k3_plan(b, k, length, d, n, CHUNK, _sm_count(u.device.index))
+    # The kernel reads the inputs 16 bytes at a time: a view that starts off a
+    # 16-byte boundary is copied.
+    args = tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in args)
     nc = -(-length // CHUNK)
     y = torch.empty_like(u)
     state = torch.empty((b, k, nc, n, d), device=u.device, dtype=torch.float32)
     sumda = torch.empty((b, k, nc, d), device=u.device, dtype=torch.float32)
-    with torch.cuda.device(u.device):
+    with _on_device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.selective_scan_fwd_f32(
             *(t.data_ptr() for t in args), y.data_ptr(), state.data_ptr(), sumda.data_ptr(),
-            b, k, length, d, n, CHUNK, stream)
+            b, k, length, d, n, CHUNK, plan["smem_scan"], stream)
     if err != 0:
         raise RuntimeError("selective_scan_cuda launch failed: "
                            f"{lib.selective_scan_error_string(err).decode()}")
