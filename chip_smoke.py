@@ -91,7 +91,9 @@ and prints one JSON line per phase:
  10. probe   the probes P1-P5 (`wavemamba_torch/scripts/gpu_probe.py`,
              `csrc/gpu_probe.cu`) at the TPU probes' K and at a K that makes
              each compute-bound, against their plain versions, the same bits
-             twice: Gop/s, ms, bound, plain and library times.
+             twice: Gop/s, ms, bound, plain and library times; P1's, P3's and
+             P4's registers, warps an SM and hot loop (SASS), the SM clock
+             and power under P1's and P3's compute-bound load.
  11. serve_fast the same two requests with `WaveMambaConfig.fast()` (bf16,
              K1 on bf16 token streams): 28 K1 launches a forward, each on
              bf16 x and y, latency, forward time, peak memory, PSNR against
@@ -2255,16 +2257,25 @@ def phase_train_yml(phase):
 def phase_probe():
     """P1-P5 (`wavemamba_torch.scripts.gpu_probe.run_all`): each at the TPU
     probe's K and at `K_COMPUTE`. Its launches: the timed ones (the
-    comparison's are left out). P4's rows also carry its registers, spills,
-    warps an SM and the issued instructions a multiply-add of its inner loop
-    (`gpu_probe.nsum_resources`)."""
+    comparison's and the clock windows' are left out). P1's, P3's and P4's
+    rows also carry their registers, spills, warps an SM and their hot
+    loop's SASS (`gpu_probe.probe_resources`); P1's and P3's rows at
+    `K_COMPUTE` the SM clock and power draw under their load."""
     from wavemamba_torch.scripts import gpu_probe
 
     rows = gpu_probe.run_all()
-    nsum = gpu_probe.nsum_resources()
+    resources = {name: gpu_probe.probe_resources(name) for name in gpu_probe.RESOURCE_KERNELS}
+    for name in ("flat", "exp"):
+        args = tuple(torch.from_numpy(a).cuda() for a in gpu_probe.probe_inputs(name))
+        K = gpu_probe.K_COMPUTE[name]
+        row = next(r for r in rows if r["probe"] == name and r["K"] == K)
+        row["clocks_sm_mhz"], row["power_draw_w"] = clocks_under_load(
+            lambda: gpu_probe.WRAPPERS[name](*args, K=K))
+        del args
+        torch.cuda.empty_cache()
     for row in rows:
-        if row["probe"] == "nsum":
-            row["resources"] = nsum
+        if row["probe"] in resources:
+            row["resources"] = resources[row["probe"]]
         emit({"phase": "probe", **row})
         check(row["launches"] > 0, f"probe {row['probe']} K={row['K']} launched")
     return rows
@@ -2519,7 +2530,8 @@ def main():
             **({"resources": first["resources"]} if "resources" in first else {}),
             "at_compute_K": None if len(rows) == 1 else {
                 k: rows[1][k] for k in ("K", "ms", "gops", "plain_ms", "bound_ms", "bound_by",
-                                        "library_ms")}})
+                                        "library_ms", "clocks_sm_mhz", "power_draw_w")
+                if k in rows[1]}})
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "ss2d_scan_pair (K1)", "route": "cuda", "source": "wavemamba_torch/csrc/ss2d_scan.cu",

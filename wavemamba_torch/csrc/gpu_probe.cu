@@ -20,17 +20,25 @@
 // block is 4 MB in device memory, not VMEM, so P1, P2, P4 and P5 are bound by
 // bytes (each element read and written once) and P3 by the SFU. The probes'
 // own K, made larger, moves P1-P4 to their pipes; P5 has no K and stays bound
-// by bytes. Design: one element (P1, P3), one (r, n, d) (P2) or four d of one
-// (g, t) (P4, see `nsum`) per thread with the whole chain in registers, so
-// each byte crosses the bus once; P5 one warp per 16 columns of a segment.
-// The K loops are unrolled (the TPU probes' Python loops unroll at trace
-// time), so the loop's own counter and branch do not take the issue slots the
-// probed operations need. P5 splits x into hi + lo, both TF32 (the 0/1
-// triangle is exact in TF32, so the two products are what 3xTF32 needs): the
-// prefix then agrees with the float32 one to its rounding, not to TF32's
-// 10-bit mantissa, at no cost a bytes-bound kernel would notice.
+// by bytes. Design: the whole chain of an element in registers, so each byte
+// crosses the bus once. P1 and P3 (see `stream_tiles`) stream: persistent
+// blocks, as many as the card holds resident, walk tiles of 4 g x 4
+// consecutive elements a thread and load the next tile while the current
+// one's 16 independent chains run, so the bytes overlap the arithmetic and
+// no step waits on its predecessor's latency; P1's four g share an a, which
+// its FFMAs take from the operand reuse cache; P3 steps as exp(y a) = ex2(y a
+// log2 e), one FMUL and one `ex2.approx` (MUFU.EX2), what K1's and K3's
+// decays issue. P2 one (r, n, d) and P4 eight d of one (g, t) (see `nsum`)
+// per thread; P5 one warp per 16 columns of a segment. The K loops are
+// unrolled (the TPU probes' Python loops unroll at trace time), so the
+// loop's own counter and branch do not take the issue slots the probed
+// operations need. P5 splits x into hi + lo, both TF32 (the 0/1 triangle is
+// exact in TF32, so the two products are what 3xTF32 needs): the prefix then
+// agrees with the float32 one to its rounding, not to TF32's 10-bit
+// mantissa, at no cost a bytes-bound kernel would notice.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -43,17 +51,165 @@ constexpr int kNsumThreads = 128;  // P4: threads a block
 constexpr int kNsumBlocks = 3;     // P4: resident blocks an SM its launch bounds ask for
 constexpr int kNsumV = 8;          // P4: d a thread owns, two 16-byte chunks
 constexpr int kNsumKTile = 192;    // P4: values of k a block tabulates c + k for at once
+constexpr int kStreamThreads = 256;  // P1, P3: threads a block
+constexpr int kStreamBlocks = 3;     // P1, P3: resident blocks an SM their launch bounds ask for
+constexpr int kStreamV = 4;          // P1, P3: consecutive elements of a g a thread, one float4
+constexpr int kStreamGs = 4;         // P1, P3: g a tile holds, at the same in-block offsets
+constexpr int kStreamTile = kStreamThreads * kStreamV;  // in-block offsets a tile covers
+constexpr int kStreamUnroll = 16;    // P1, P3: steps of the K loop between two of its tests
 
-__global__ void __launch_bounds__(kThreads) flat(
-    const float* __restrict__ x, const float* __restrict__ a, float* __restrict__ out,
-    size_t n, size_t block, int K) {
-  const size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const float xv = x[i], av = a[i % block];
-  float y = xv;
-#pragma unroll 8
-  for (int k = 0; k < K; ++k) y = fmaf(y, av, xv);
-  out[i] = y;
+// P1 and P3 over the T x ND elements of each g, as tiles of kStreamGs g by
+// kStreamTile in-block offsets (the last group of g and the last offsets
+// ragged). Thread i of tile (p, j) holds the kStreamV consecutive elements at
+// in-block offset j kStreamTile + kStreamV i of g = kStreamGs p + h, h <
+// kStreamGs: one 16-byte access of x[g] and out[g] each, one of a for all of
+// them, and the a offset is the in-block offset itself. Tile (p, j) is number
+// p tiles_per_g + j; block b walks b, b + gridDim.x, ... (as
+// `scripts/gpu_probe.py:stream_plan` plans them), carrying j into p, so the
+// walk takes 32-bit adds and no division beyond two at its start. The next
+// tile's x and a are loaded before the current tile's chains run and are in
+// flight while they do: with as many blocks as the card holds resident (the
+// grid) each SM keeps 48-64 KB of x in flight, more than HBM's rate times its
+// latency asks, at K = 48 (P1) and 16 (P3), where the bytes bound. A thread's
+// kStreamGs x kStreamV elements are as many independent chains (see
+// `FmaChains`, `ExpChains` for their order). x and out stream past L2
+// (`.cs`), which keeps the 4 MB of a that every g reads.
+struct Tile {
+  float4 x[kStreamGs], a;
+};
+
+__device__ __forceinline__ Tile load_tile(const float* __restrict__ x, const float* __restrict__ a,
+                                          int G, int per_g, int p, int off) {
+  Tile t;
+  t.a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int h = 0; h < kStreamGs; ++h) t.x[h] = t.a;
+  if (off < per_g) {
+    t.a = __ldg(reinterpret_cast<const float4*>(a + off));
+#pragma unroll
+    for (int h = 0; h < kStreamGs; ++h) {
+      const int g = p * kStreamGs + h;
+      if (g < G) t.x[h] = __ldcs(reinterpret_cast<const float4*>(x + (size_t)g * per_g + off));
+    }
+  }
+  return t;
+}
+
+template <class Chains>
+__device__ __forceinline__ void stream_tiles(const float* __restrict__ x, const float* __restrict__ a,
+                                             float* __restrict__ out, int G, int per_g,
+                                             int tiles_per_g, int K) {
+  const int P = (G + kStreamGs - 1) / kStreamGs;  // g groups
+  const int lane = threadIdx.x * kStreamV;        // the thread's offset in a tile
+  const int dp = gridDim.x / tiles_per_g, dj = gridDim.x - dp * tiles_per_g;  // one step of the walk
+  int p = blockIdx.x / tiles_per_g, j = blockIdx.x - p * tiles_per_g;  // the first tile: p < P
+  int off = j * kStreamTile + lane;
+  Tile cur = load_tile(x, a, G, per_g, p, off);
+  while (p < P) {
+    int pn = p + dp, jn = j + dj;
+    if (jn >= tiles_per_g) {
+      jn -= tiles_per_g;
+      ++pn;
+    }
+    const int offn = jn * kStreamTile + lane;
+    const Tile next = load_tile(x, a, G, per_g, pn, offn);  // past the last group: a only
+    if (off < per_g) {
+      float4 y[kStreamGs];
+      Chains::run(y, cur.x, cur.a, K);
+#pragma unroll
+      for (int h = 0; h < kStreamGs; ++h) {
+        const int g = p * kStreamGs + h;
+        if (g < G) __stcs(reinterpret_cast<float4*>(out + (size_t)g * per_g + off), y[h]);
+      }
+    }
+    p = pn;
+    j = jn;
+    off = offn;
+    cur = next;
+  }
+}
+
+// P1: y = x; K times y = y a + x. The kStreamGs chains of one component
+// (one in-block offset, so one a) run together, K steps at a time,
+// kStreamUnroll steps between two tests of the loop: each FFMA waits on the
+// one kStreamGs = 4 instructions back, what its latency asks, and a stays in
+// the operand reuse cache for all of them, so an FFMA reads y and x, in
+// registers of the two banks, not three registers (three fresh reads held
+// an FFMA to ~2/3 of the pipe).
+struct FmaChains {
+  __device__ static __forceinline__ void run(float4 (&y)[kStreamGs], const float4 (&x)[kStreamGs],
+                                             const float4& a, int K) {
+    float yc[4][kStreamGs], xc[4][kStreamGs];
+#pragma unroll
+    for (int h = 0; h < kStreamGs; ++h) {
+      xc[0][h] = x[h].x;
+      xc[1][h] = x[h].y;
+      xc[2][h] = x[h].z;
+      xc[3][h] = x[h].w;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float ac = c == 0 ? a.x : c == 1 ? a.y : c == 2 ? a.z : a.w;
+#pragma unroll
+      for (int h = 0; h < kStreamGs; ++h) yc[c][h] = xc[c][h];
+      int k = K;
+      for (; k >= kStreamUnroll; k -= kStreamUnroll) {
+#pragma unroll
+        for (int u = 0; u < kStreamUnroll; ++u)
+#pragma unroll
+          for (int h = 0; h < kStreamGs; ++h) yc[c][h] = fmaf(yc[c][h], ac, xc[c][h]);
+      }
+#pragma unroll 1
+      for (; k > 0; --k)
+#pragma unroll
+        for (int h = 0; h < kStreamGs; ++h) yc[c][h] = fmaf(yc[c][h], ac, xc[c][h]);
+    }
+#pragma unroll
+    for (int h = 0; h < kStreamGs; ++h) y[h] = make_float4(yc[0][h], yc[1][h], yc[2][h], yc[3][h]);
+  }
+};
+
+__device__ __forceinline__ float ex2(float v) {  // 2^v on the SFU: MUFU.EX2, a few ulp
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// P3: y = x; K times y = exp(y a) = 2^(y b), b = a log2(e) once an element:
+// an FMUL and a MUFU.EX2 a step, all 4 kStreamGs chains a step, kStreamUnroll
+// steps between two tests of the loop, so the SFU, not the issue slots or
+// the ex2's latency, sets the pace. y a lies in [-0.5, 0] for the probe's
+// inputs, so the chain contracts and ex2's few-ulp error does not grow with K.
+struct ExpChains {
+  __device__ static __forceinline__ void step(float4 (&y)[kStreamGs], const float4& b) {
+#pragma unroll
+    for (int h = 0; h < kStreamGs; ++h) {
+      y[h].x = ex2(y[h].x * b.x);
+      y[h].y = ex2(y[h].y * b.y);
+      y[h].z = ex2(y[h].z * b.z);
+      y[h].w = ex2(y[h].w * b.w);
+    }
+  }
+  __device__ static __forceinline__ void run(float4 (&y)[kStreamGs], const float4 (&x)[kStreamGs],
+                                             const float4& a, int K) {
+    constexpr float kLog2e = 1.4426950408889634f;
+    const float4 b = make_float4(a.x * kLog2e, a.y * kLog2e, a.z * kLog2e, a.w * kLog2e);
+#pragma unroll
+    for (int h = 0; h < kStreamGs; ++h) y[h] = x[h];
+    int k = K;
+    for (; k >= kStreamUnroll; k -= kStreamUnroll) {
+#pragma unroll
+      for (int u = 0; u < kStreamUnroll; ++u) step(y, b);
+    }
+#pragma unroll 1
+    for (; k > 0; --k) step(y, b);
+  }
+};
+
+__global__ void __launch_bounds__(kStreamThreads, kStreamBlocks) flat(
+    const float* __restrict__ x, const float* __restrict__ a, float* __restrict__ out, int G,
+    int per_g, int tiles_per_g, int K) {
+  stream_tiles<FmaChains>(x, a, out, G, per_g, tiles_per_g, K);
 }
 
 __global__ void __launch_bounds__(kThreads) shaped(
@@ -77,16 +233,10 @@ __global__ void __launch_bounds__(kThreads) shaped(
   out[i] = pa + pb;
 }
 
-__global__ void __launch_bounds__(kThreads) expchain(
-    const float* __restrict__ x, const float* __restrict__ a, float* __restrict__ out,
-    size_t n, size_t block, int K) {
-  const size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const float av = a[i % block];
-  float y = x[i];
-#pragma unroll 8
-  for (int k = 0; k < K; ++k) y = expf(y * av);
-  out[i] = y;
+__global__ void __launch_bounds__(kStreamThreads, kStreamBlocks) expchain(
+    const float* __restrict__ x, const float* __restrict__ a, float* __restrict__ out, int G,
+    int per_g, int tiles_per_g, int K) {
+  stream_tiles<ExpChains>(x, a, out, G, per_g, tiles_per_g, K);
 }
 
 // P4. A block holds one t and `gpb` g (g_per_block = kNsumThreads / (D2 /
@@ -230,14 +380,68 @@ extern "C" {
 // (T, ND) with ND = N * D2. Each returns a cudaError_t; the caller has checked
 // the shapes (P2, P5: T a multiple of 8; P4: N == 16; P5: ND a multiple of 16).
 
+// P1's and P3's geometry on the current device: out[0] threads a block, out[1]
+// consecutive elements of a g a thread, out[2] the resident blocks an SM of
+// `expchain` (exp != 0) or `flat` as cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// reports them (registers included), out[3] the device's SMs, out[4] the g a
+// tile holds. Returns a cudaError_t.
+int gpu_probe_stream_occupancy(int exp, int* out) {
+  out[0] = kStreamThreads;
+  out[1] = kStreamV;
+  out[4] = kStreamGs;
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(out + 3, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  return exp ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, expchain, kStreamThreads, 0)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, flat, kStreamThreads, 0);
+}
+
+// P1 and P3: x, out (G, T, ND), a (T, ND), each starting on a 16-byte
+// boundary; T ND a multiple of kStreamV. `threads`, `V`, `gs` and `grid` are the
+// launch as the caller planned it (`scripts/gpu_probe.py:stream_plan`): it is
+// refused unless they are this source's block, elements of a g a thread, g a
+// tile, and the tiles or the blocks the device holds resident, whichever is fewer. The
+// occupancy query is made once a kernel and device.
+static int stream_launch(int exp, const void* x, const void* a, void* out, int G, int T, int ND,
+                         int K, int threads, int V, int gs, int grid, void* stream) {
+  const long long per_g = (long long)T * ND, tiles_per_g = (per_g + kStreamTile - 1) / kStreamTile;
+  const long long tiles = (G + kStreamGs - 1) / kStreamGs * tiles_per_g;
+  if (G < 1 || T < 1 || ND < 1 || K < 0 || per_g % kStreamV || per_g > INT_MAX - kStreamTile ||
+      G > INT_MAX - kStreamGs || tiles > INT_MAX) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int kDevices = 64;
+  static int resident[2][kDevices];  // blocks the device holds resident, 0 until queried
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kDevices) return cudaErrorInvalidDevice;
+  if (!resident[exp][dev]) {
+    int occ[5];
+    err = static_cast<cudaError_t>(gpu_probe_stream_occupancy(exp, occ));
+    if (err != cudaSuccess) return err;
+    resident[exp][dev] = occ[2] * occ[3];
+  }
+  if (threads != kStreamThreads || V != kStreamV || gs != kStreamGs ||
+      grid != (tiles < resident[exp][dev] ? tiles : resident[exp][dev])) {
+    return cudaErrorInvalidConfiguration;
+  }
+  if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(a) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16) {
+    return cudaErrorMisalignedAddress;
+  }
+  const auto kernel = exp ? expchain : flat;
+  kernel<<<grid, kStreamThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(a), static_cast<float*>(out), G,
+      (int)per_g, (int)tiles_per_g, K);
+  return cudaGetLastError();
+}
+
 // P1: x, out (G, T, ND); a (T, ND).
 int gpu_probe_flat(const void* x, const void* a, void* out, int G, int T, int ND, int K,
-                   void* stream) {
-  const size_t block = (size_t)T * ND, n = (size_t)G * block;
-  flat<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(a), static_cast<float*>(out), n,
-      block, K);
-  return cudaGetLastError();
+                   int threads, int V, int gs, int grid, void* stream) {
+  return stream_launch(0, x, a, out, G, T, ND, K, threads, V, gs, grid, stream);
 }
 
 // P2: x (G, T, ND); out (G, T / 8, ND).
@@ -251,12 +455,8 @@ int gpu_probe_shaped(const void* x, void* out, int G, int T, int ND, int K, void
 
 // P3: x, out (G, T, ND); a (T, ND).
 int gpu_probe_exp(const void* x, const void* a, void* out, int G, int T, int ND, int K,
-                  void* stream) {
-  const size_t block = (size_t)T * ND, n = (size_t)G * block;
-  expchain<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(a), static_cast<float*>(out), n,
-      block, K);
-  return cudaGetLastError();
+                  int threads, int V, int gs, int grid, void* stream) {
+  return stream_launch(1, x, a, out, G, T, ND, K, threads, V, gs, grid, stream);
 }
 
 // P4: x, out (G, T, N, D2), both starting on a 16-byte boundary; c (T, N).

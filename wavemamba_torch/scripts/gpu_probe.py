@@ -9,8 +9,9 @@ TPU probe's K and at a K that makes it compute-bound on an H100 (`K_COMPUTE`;
 P5 has no K). It prints one JSON line per run: Gop/s, ms per call, the
 kernel against its plain version (the same bits twice), the bound and what
 sets it, the plain version's time and, for P4 and P5, one PyTorch call that
-computes the same function; then the card's name and power limit. It needs a
-card and exits non-zero without one.
+computes the same function; then P1's, P3's and P4's resources (registers,
+warps an SM, the hot loop's SASS) and the card's name and power limit. It
+needs a card and exits non-zero without one.
 
 Each probe is a function of its inputs here (`probe_flat(x, a, K)` ...), where
 the TPU script's builds its inputs and times itself; `probe_inputs` makes the
@@ -49,8 +50,10 @@ K_DEFAULT = {"flat": 48, "shaped": 6, "exp": 16, "nsum": 24}  # the TPU probes' 
 K_COMPUTE = {"flat": 384, "shaped": 192, "exp": 128, "nsum": 192}
 # Kernel against plain on the card, max abs difference over the plain output's
 # max abs: P1 / P2 take an FMA where the plain version rounds the product, K
-# times over; P3 the same expf; P4 sums over n in another order; P5 sums the
-# hi and lo TF32 parts in the tensor core's order.
+# times over; P3 takes exp(y a) as ex2.approx(y (a log2 e)), a few ulp from the
+# plain version's exp, which the chain contracts (y a lies in [-0.5, 0]); P4
+# sums over n in another order; P5 sums the hi and lo TF32 parts in the tensor
+# core's order.
 TOL = {"flat": 1e-4, "shaped": 1e-4, "exp": 1e-5, "nsum": 1e-5, "mxu_seg": 1e-5}
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s, float32
 # operations/s on the FMA pipe (an FMA counted as two), special-function
@@ -113,23 +116,24 @@ def _library() -> ctypes.CDLL:
         raise RuntimeError("the probe kernels need a CUDA device; torch.cuda.is_available() is False")
     lib = ctypes.CDLL(str(scan_cuda.build(scan_cuda.SOURCE_PROBE)))
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name, args in (("gpu_probe_flat", [p, p, p, i, i, i, i, p]),
+    for name, args in (("gpu_probe_flat", [p, p, p, i, i, i, i, i, i, i, i, p]),
                        ("gpu_probe_shaped", [p, p, i, i, i, i, p]),
-                       ("gpu_probe_exp", [p, p, p, i, i, i, i, p]),
+                       ("gpu_probe_exp", [p, p, p, i, i, i, i, i, i, i, i, p]),
                        ("gpu_probe_nsum", [p, p, p, i, i, i, i, i, i, p]),
                        ("gpu_probe_mxu_seg", [p, p, i, i, i, p])):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, ctypes.c_int
     lib.gpu_probe_nsum_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.gpu_probe_nsum_occupancy.restype = ctypes.c_int
+    lib.gpu_probe_stream_occupancy.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.gpu_probe_nsum_occupancy.restype = lib.gpu_probe_stream_occupancy.restype = ctypes.c_int
     lib.gpu_probe_error_string.argtypes = [ctypes.c_int]
     lib.gpu_probe_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(name, tensors, out_shape, *ints):
-    """Check the tensors (float32, contiguous, on one CUDA device, x first,
-    (G, T, ND)), launch `gpu_probe_<name>` and return its output."""
+def _check(name, tensors):
+    """Refuse what the kernels do not take: x first, (G, T, ND); every
+    tensor float32, contiguous, on x's CUDA device."""
     x = tensors[0]
     if x.device.type != "cuda":
         raise ValueError(f"probe_{name}: unsupported device {x.device}")
@@ -138,6 +142,11 @@ def _launch(name, tensors, out_shape, *ints):
     for t in tensors:
         if t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
             raise ValueError(f"probe_{name}: inputs must be contiguous float32 on {x.device}")
+
+
+def _run(name, tensors, out_shape, *ints):
+    """Launch `gpu_probe_<name>` on checked tensors and return its output."""
+    x = tensors[0]
     lib = _library()
     out = torch.empty(out_shape, device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
@@ -149,11 +158,71 @@ def _launch(name, tensors, out_shape, *ints):
     return out
 
 
+def _launch(name, tensors, out_shape, *ints):
+    """Check the tensors (`_check`), launch `gpu_probe_<name>` and return its output."""
+    _check(name, tensors)
+    return _run(name, tensors, out_shape, *ints)
+
+
+# P1's and P3's block, consecutive elements of a g a thread, g a tile
+STREAM_THREADS, STREAM_V, STREAM_GS = 256, 4, 4
+
+
+def stream_plan(G, T, ND, sm_count, blocks_per_sm):
+    """P1's and P3's launch geometry (`csrc/gpu_probe.cu:flat`, `expchain`),
+    from shapes and the card's residency: a tile holds `g_per_tile` g (the
+    last group fewer where G is not a multiple) at `tile` in-block offsets, and a
+    thread of it `V` consecutive elements of each of its g at the same
+    offsets (one 16-byte access each of x and out a g, one of a for all);
+    `tiles_per_g` tiles cover a group's T x ND offsets (the last one
+    ragged), and `grid` persistent blocks, as many as the card holds
+    resident (`sm_count` x `blocks_per_sm`) but no more than the `tiles`,
+    walk them in steps of `grid`, at most `tiles_per_block` each. The
+    source refuses a launch whose threads, V, g a tile or grid are not this
+    plan's."""
+    per_g = T * ND
+    tile = STREAM_THREADS * STREAM_V
+    tiles_per_g = -(-per_g // tile)
+    tiles = -(-G // STREAM_GS) * tiles_per_g
+    if G < 1 or per_g < 1 or per_g % STREAM_V or per_g > 2**31 - 1 - tile or tiles > 2**31 - 1 \
+            or sm_count < 1 or blocks_per_sm < 1:
+        raise ValueError(f"stream_plan: P1 / P3 take G >= 1 and T * ND a multiple of {STREAM_V} "
+                         f"with 32-bit tile indices; got G={G}, T={T}, ND={ND} on {sm_count} SMs "
+                         f"x {blocks_per_sm} blocks")
+    grid = min(tiles, sm_count * blocks_per_sm)
+    return {"threads": STREAM_THREADS, "V": STREAM_V, "g_per_tile": STREAM_GS, "tile": tile,
+            "tiles_per_g": tiles_per_g, "tiles": tiles, "grid": grid,
+            "tiles_per_block": -(-tiles // grid)}
+
+
+@functools.cache
+def _stream_resident(name, device):
+    """(SMs, resident blocks an SM) of P1's (`flat`) or P3's (`exp`) kernel
+    on a CUDA device, from the source's occupancy query."""
+    lib = _library()
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = lib.gpu_probe_stream_occupancy(int(name == "exp"), out)
+    if err != 0:
+        raise RuntimeError(f"probe_{name}'s occupancy query failed: "
+                           f"{lib.gpu_probe_error_string(err).decode()}")
+    return out[3], out[2]
+
+
+def _launch_stream(name, x, a, K):
+    """P1 or P3 on the card at `stream_plan`'s geometry for x's device."""
+    _check(name, (x, a))
+    x, a = (t.clone() if t.data_ptr() % 16 else t for t in (x, a))  # 16-byte accesses
+    plan = stream_plan(x.shape[0], T, ND, *_stream_resident(name, x.device))
+    return _run(name, (x, a), x.shape, x.shape[0], T, ND, K, plan["threads"], plan["V"],
+                plan["g_per_tile"], plan["grid"])
+
+
 def probe_flat(x, a, K=48):
     """P1: y = x; K times y = y * a + x. x (G, T, ND), a (T, ND) -> (G, T, ND)."""
     if x.device.type == "cpu":
         return probe_flat_plain(x, a, K)
-    out = _launch("flat", (x, a), x.shape, x.shape[0], T, ND, K)
+    out = _launch_stream("flat", x, a, K)
     probe_flat.launches += 1
     return out
 
@@ -172,7 +241,7 @@ def probe_exp(x, a, K=16):
     """P3: y = x; K times y = exp(y * a). x (G, T, ND), a (T, ND)."""
     if x.device.type == "cpu":
         return probe_exp_plain(x, a, K)
-    out = _launch("exp", (x, a), x.shape, x.shape[0], T, ND, K)
+    out = _launch_stream("exp", x, a, K)
     probe_exp.launches += 1
     return out
 
@@ -269,7 +338,7 @@ def bound(name, grid, K=None):
     times = {"hbm": 4 * (n + out + extra) / HBM_BYTES_S, "fma": 0.0, "sfu": 0.0, "tensor": 0.0}
     if name in ("flat", "shaped", "nsum"):
         times["fma"] = ops(name, grid, K) / F32_OPS_S
-    if name == "exp":  # one ex2 per exp on the SFU; the multiply and the range reduction on the FMA pipe
+    if name == "exp":  # one ex2 per exp on the SFU; the multiply by a log2(e) on the FMA pipe
         times["sfu"], times["fma"] = n * K / SFU_OPS_S, n * K / F32_OPS_S
     if name == "mxu_seg":  # one 8-deep product per output
         times["tensor"] = 2 * S * n / TF32_OPS_S
@@ -353,19 +422,17 @@ def _cuobjdump() -> str:
     return str(nvcc.with_name("cuobjdump"))
 
 
-def sass_loop(kernel="nsum", library=None):
-    """The hottest loop of `kernel` in the built probe library, from
-    `cuobjdump -sass`: of the innermost loops (a branch back to an earlier
-    address, and the instructions from there to it, holding no other such
-    loop), the one that holds the most FFMAs. Returns {"ffma", "lds",
-    "instructions", "per_fma": issued instructions a multiply-add,
-    "ffma_one_bank": the FFMAs whose register sources that the operand reuse
-    cache does not hold fall in one of the two register banks (even or odd
-    register numbers), "opcodes": {opcode: count}}. Needs the CUDA toolkit,
-    not a card."""
-    library = library or scan_cuda.build(scan_cuda.SOURCE_PROBE)
-    sass = subprocess.run([_cuobjdump(), "-sass", str(library)], capture_output=True, text=True,
-                          check=True, timeout=300).stdout
+def parse_sass_loop(sass, kernel, opcode="FFMA"):
+    """The hottest loop of `kernel` in a `cuobjdump -sass` listing: of the
+    innermost loops (a branch back to an earlier address, and the
+    instructions from there to it, holding no other such loop), the one that
+    holds the most `opcode` instructions. Returns {"opcode", "count": its
+    `opcode` instructions, "instructions", "per_op": issued instructions an
+    `opcode`, "ffma", "lds", "per_fma": issued instructions a multiply-add
+    (None without FFMAs), "ffma_one_bank": the FFMAs whose register sources
+    that the operand reuse cache does not hold fall in one of the two
+    register banks (even or odd register numbers), "opcodes": {opcode:
+    count}}."""
     fn = next(part for part in sass.split("Function : ")[1:]
               if re.match(rf"\S*{len(kernel)}{kernel}E", part))
     code, loops = [], []  # (address, opcode, operands) in order; (first, last) address of each loop
@@ -381,39 +448,65 @@ def sass_loop(kernel="nsum", library=None):
     inner = [(lo, hi) for lo, hi in loops
              if not any((lo, hi) != (a, b) and lo <= a and b <= hi for a, b in loops)]
     bodies = [[(o, args) for a, o, args in code if lo <= a <= hi] for lo, hi in inner]
-    best = max(bodies, key=lambda body: sum(o == "FFMA" for o, _ in body), default=None)
-    if not best or all(o != "FFMA" for o, _ in best):
-        raise RuntimeError(f"sass_loop: no loop with FFMAs in {kernel}")
+    best = max(bodies, key=lambda body: sum(o == opcode for o, _ in body), default=None)
+    if not best or all(o != opcode for o, _ in best):
+        raise RuntimeError(f"sass_loop: no loop with {opcode} in {kernel}")
     opcodes, one_bank = {}, 0
     for op, args in best:
         opcodes[op] = opcodes.get(op, 0) + 1
         if op == "FFMA":  # FFMA d, a, b, c: the sources not marked .reuse
             banks = [int(r) % 2 for r in re.findall(r"\bR(\d+)\b(?!\.reuse)", args.split(",", 1)[1])]
             one_bank += len(banks) > len(set(banks))
-    ffma = opcodes["FFMA"]
-    return {"ffma": ffma, "lds": sum(n for op, n in opcodes.items() if op.startswith("LDS")),
-            "instructions": len(best), "per_fma": len(best) / ffma, "ffma_one_bank": one_bank,
+    ffma = opcodes.get("FFMA", 0)
+    return {"opcode": opcode, "count": opcodes[opcode], "instructions": len(best),
+            "per_op": len(best) / opcodes[opcode], "ffma": ffma,
+            "lds": sum(n for op, n in opcodes.items() if op.startswith("LDS")),
+            "per_fma": len(best) / ffma if ffma else None, "ffma_one_bank": one_bank,
             "opcodes": opcodes}
 
 
-def nsum_resources():
-    """P4's resources on this card: threads, static shared memory and the
-    blocks and warps an SM that the occupancy query reports, registers and
-    spill bytes from the build's `-Xptxas -v` report, and `sass_loop`."""
+def sass_loop(kernel="nsum", library=None, opcode="FFMA"):
+    """`parse_sass_loop` of `kernel` in the built probe library, from
+    `cuobjdump -sass`. Needs the CUDA toolkit, not a card."""
+    library = library or scan_cuda.build(scan_cuda.SOURCE_PROBE)
+    sass = subprocess.run([_cuobjdump(), "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    return parse_sass_loop(sass, kernel, opcode)
+
+
+# The probes whose resources are read: their kernel and the opcode of its hot loop.
+RESOURCE_KERNELS = {"flat": ("flat", "FFMA"), "exp": ("expchain", "MUFU.EX2"),
+                    "nsum": ("nsum", "FFMA")}
+
+
+def probe_resources(name):
+    """P1's, P3's or P4's resources on this card: threads, the blocks and
+    warps an SM that the occupancy query reports, registers and spill bytes
+    from the build's `-Xptxas -v` report, and `sass_loop` of its kernel
+    picked by its opcode (`RESOURCE_KERNELS`); P4 also its static shared
+    memory, P1 and P3 the elements of a g a thread (`V`), the g a tile and
+    the persistent grid at `GRID` blocks."""
+    kernel, opcode = RESOURCE_KERNELS[name]
     lib = _library()
-    out = (ctypes.c_int * 3)()
-    err = lib.gpu_probe_nsum_occupancy(out)
+    out = (ctypes.c_int * 5)()
+    err = (lib.gpu_probe_nsum_occupancy(out) if name == "nsum"
+           else lib.gpu_probe_stream_occupancy(int(name == "exp"), out))
     if err != 0:
-        raise RuntimeError(f"gpu_probe_nsum_occupancy failed: {lib.gpu_probe_error_string(err).decode()}")
+        raise RuntimeError(f"{kernel}'s occupancy query failed: {lib.gpu_probe_error_string(err).decode()}")
     library = scan_cuda.build(scan_cuda.SOURCE_PROBE)
     log = library.with_suffix(".log").read_text()
-    entry = log[log.index("4nsumE"):]  # from nsum's "Compiling entry function" line on
+    entry = log[log.index(f"{len(kernel)}{kernel}E"):]  # from its "Compiling entry function" line on
     registers = int(re.search(r"Used (\d+) registers", entry).group(1))
     spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
-    return {"threads": out[0], "smem_bytes": out[1], "blocks_per_sm": out[2],
-            "warps_per_sm": out[2] * out[0] // 32, "registers": registers,
-            "spill_store_bytes": int(spills.group(1)), "spill_load_bytes": int(spills.group(2)),
-            "sass_loop": sass_loop("nsum", library)}
+    row = {"kernel": kernel, "threads": out[0], "blocks_per_sm": out[2],
+           "warps_per_sm": out[2] * out[0] // 32, "registers": registers,
+           "spill_store_bytes": int(spills.group(1)), "spill_load_bytes": int(spills.group(2))}
+    if name == "nsum":
+        row["smem_bytes"] = out[1]
+    else:
+        row["V"], row["sm_count"], row["g_per_tile"] = out[1], out[3], out[4]
+        row["grid"] = stream_plan(GRID, T, ND, out[3], out[2])["grid"]
+    return {**row, "sass_loop": sass_loop(kernel, library, opcode)}
 
 
 def main():
@@ -424,7 +517,8 @@ def main():
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     for row in run_all():
         print(json.dumps({**row, "device": smi}), flush=True)
-    print(json.dumps({"probe": "nsum", **nsum_resources()}), flush=True)
+    for name in RESOURCE_KERNELS:
+        print(json.dumps({"probe": name, **probe_resources(name)}), flush=True)
     print(smi, flush=True)
 
 
