@@ -42,8 +42,13 @@ and prints one JSON line per phase:
   3d. k5     kernel K5 (`ss2d_scan_pair(..., variant='ssd')`, K1's function in
              the segment-local form) against its plain version and against K1,
              y and carries, at the three scan lengths of a 1080p forward, a
-             ragged length and a column stream, the same bits twice; times and
-             bounds.
+             ragged length and a column stream; on bf16 x with bf16 y and with
+             float32 y against the plain version at level 3 and the ragged
+             length, timed at level 1; the same bits twice; times and bounds,
+             `phases_ms` (pass 1, chunk prefix, replay), the SM clock and power
+             draw under its load, the launch geometry held against
+             `scan_cuda.k5_plan`, and the issued instructions a MUFU of each
+             pass's hot loop (SASS).
   3e. chain  the conv-chain kernel (`csrc/conv_chain.cu`, tensor cores) from
              both entry points, K6 (`fused_chain`, 2-D tiles) and K7
              (`fused_chain_band`, row bands), against `fused_chain_plain`, for
@@ -509,6 +514,18 @@ def k1_phase_of(kernel):
     return None
 
 
+def k5_phase_of(kernel):
+    """Which of K5's three kernels a profiler name is: pass 1
+    (`chunk_scan_ssd<..., false, ...>`), the chunk prefix, or the replay
+    (`chunk_scan_ssd<..., true, ...>`); None for any other kernel. K1 names
+    its prefix alike: a profile that holds K5 holds no K1."""
+    if "chunk_prefix" in kernel:
+        return "prefix"
+    if "chunk_scan_ssd<" in kernel:
+        return "replay" if "true" in kernel else "pass1"
+    return None
+
+
 # Profiler sessions a measurement takes at most: torch.profiler may record
 # none of a session's kernels (two sessions in a row recorded none of K1's
 # in one run), and the next session takes the measurement again.
@@ -607,12 +624,12 @@ def k1_row_geometry(B, L, streams):
     return k1_geometry(k1_plan(B, L, 64, 16, 2, CHUNK, sms), k1_occupancy(D=64, R=2, streams=streams))
 
 
-def k1_timings(row, call):
-    """A timed k1 row's device times: `ms` (CUDA events, median of 20),
-    `phases_ms` (K1's three kernels, torch.profiler), and the SM clock and
-    power draw while it runs."""
+def k1_timings(row, call, phase_of=k1_phase_of, kernel="K1"):
+    """A timed k1 (or k5) row's device times: `ms` (CUDA events, median of
+    20), `phases_ms` (the kernel's three kernels, torch.profiler), and the SM
+    clock and power draw while it runs."""
     row["ms"] = cuda_ms(call, 20)
-    row["phases_ms"] = kernel_phases(call, k1_phase_of, K1_PHASES, "K1")
+    row["phases_ms"] = kernel_phases(call, phase_of, K1_PHASES, kernel)
     row["clocks_sm_mhz"], row["power_draw_w"] = clocks_under_load(call)
 
 
@@ -1040,9 +1057,45 @@ def phase_k3_k4():
     return k3_rows, k4_rows
 
 
+K5_KERNELS = ("chunk_scan_ssd<false>", "chunk_scan_ssd<true>", "chunk_prefix")
+K5_OUTPUTS = ("y", "state", "sumda")
+
+
+def k5_geometry(plan, occ):
+    return scan_geometry("K5", K5_KERNELS, plan, occ)
+
+
+def k5_row_geometry(B, L, streams):
+    """`k5_geometry` at a k5 row's shape (D=64, N=16, R=2, sub 8) and (x, y)
+    dtypes on this card."""
+    from wavemamba_torch.ops.scan_cuda import CHUNK, k5_occupancy, k5_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return k5_geometry(k5_plan(B, L, 64, 16, 2, CHUNK, 8, sms), k5_occupancy(D=64, R=2, streams=streams))
+
+
+def k5_loops():
+    """Issued instructions a MUFU in the hot loops of K5's two passes (the
+    float32 build, R = 2), from the library's SASS."""
+    from wavemamba_torch.ops import scan_cuda
+    from wavemamba_torch.scripts.gpu_probe import sass_loop
+    from wavemamba_torch.scripts.k5_variants import TEMPLATES
+
+    lib = scan_cuda.build(scan_cuda.SOURCE_K5)
+    return {name: {k: v for k, v in sass_loop("chunk_scan_ssd", lib, "MUFU", tag).items()
+                   if k != "opcodes"} for name, tag in TEMPLATES[False].items()}
+
+
 def phase_k5():
-    """K5 at K1's shapes: against its plain version (y, carries; the level-1
-    plain run, timed, is the one compared) and against K1 on the same inputs."""
+    """K5 at K1's shapes: on float32 streams against its plain version (y,
+    carries; the level-1 plain run, timed, is the one compared) and against
+    K1 on the same inputs, at the three levels of a 1080p forward, a ragged
+    length and a column stream; on bf16 x with bf16 y and with float32 y
+    against the plain version on the same bf16 x at level 3 and the ragged
+    length (y within one bf16 step of it with bf16 y, within K5_ATOL with
+    float32 y; the carries within K5_ATOL), and timed at level 1. Every row
+    the same bits twice; the timed ones with `phases_ms`, the SM clock and
+    power under load, and the launch geometry against `scan_cuda.k5_plan`."""
     from wavemamba_torch.ops.scan import ss2d_scan_pair_plain
     from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair, ss2d_scan_pair_ssd
 
@@ -1062,27 +1115,79 @@ def phase_k5():
         torch.cuda.synchronize()
         plain, plain_ms = timed_once(lambda: ss2d_scan_pair_plain(*args, return_carries=True,
                                                                   variant="ssd", sub=8))
-        keys = ("y", "state", "sumda")
-        err = {k: float((g - p_).abs().max()) for k, g, p_ in zip(keys, got, plain)}
-        vs_k1 = {k: float((g - p_).abs().max()) for k, g, p_ in zip(keys, got, k1)}
+        err = {k: float((g - p_).abs().max()) for k, g, p_ in zip(K5_OUTPUTS, got, plain)}
+        vs_k1 = {k: float((g - p_).abs().max()) for k, g, p_ in zip(K5_OUTPUTS, got, k1)}
         check(all(bool(torch.isfinite(g).all()) for g in got), f"K5 {name}: finite")
         check(all(torch.equal(g, g2) for g, g2 in zip(got, again)), f"K5 {name}: the same bits twice")
         check(max(err.values()) <= K5_ATOL, f"K5 {name}: against its plain version {err}")
         check(max(vs_k1.values()) <= K5_ATOL, f"K5 {name}: against K1 {vs_k1}")
         row = {"phase": "k5", "case": name, "B": 1, "L": h * w, "D": 64, "N": 16, "R": 2, "sub": 8,
                "max_abs_err": err["y"], "carries_err": err, "vs_k1_err": vs_k1, "tol": K5_ATOL,
-               "y_max_abs": float(plain[0].abs().max())}
+               "y_max_abs": float(plain[0].abs().max()),
+               "geometry": k5_row_geometry(1, h * w, F32_STREAMS)}
+        del got, again, k1, plain
         if name == "level1":  # the one plain run timed, as K1's
             row["plain_ms"] = plain_ms
+            row["sass_loop"] = k5_loops()
         if not columns and name != "ragged":
-            row["ms"] = cuda_ms(lambda: ss2d_scan_pair(*args, variant="ssd"), 20)
+            k1_timings(row, lambda: ss2d_scan_pair(*args, variant="ssd"), k5_phase_of, "K5")
             row["k1_ms"] = cuda_ms(lambda: ss2d_scan_pair(*args), 20)
             row["bound_ms"], row["bound_by"], row["bound_unit"] = k5_bound(1, h * w, 64, 16, 2)
             row["k1_bound_ms"] = k1_bound(1, h * w, 64, 16, 2)[0]
         row["launches"] = ss2d_scan_pair_ssd.launches
         emit(row)
         rows.append(row)
-        del got, again, k1, plain, args
+        del args
+    for y_dtype in (torch.bfloat16, torch.float32):
+        rows += k5_bf16_rows(rs, y_dtype)
+    return rows
+
+
+def k5_bf16_rows(rs, y_dtype):
+    """`phase_k5`'s rows on bf16 x with `y_dtype` y (`_bf16`: bf16, the fast
+    presets' pair; `_mixed`: float32, the proc ymls')."""
+    from wavemamba_torch.ops.scan import ss2d_scan_pair_plain
+    from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair, ss2d_scan_pair_ssd
+
+    mixed = y_dtype == torch.float32
+    tag = "mixed" if mixed else "bf16"
+    rows = []
+    (h1, w1), (h3, w3) = LEVELS_1080P[0], LEVELS_1080P[2]
+    for name, L in ((f"level3_{tag}", h3 * w3), (f"ragged_{tag}", 34560 + 37), (f"level1_{tag}", h1 * w1)):
+        args = pair_inputs(rs, 1, L)
+        args = (args[0].to(torch.bfloat16),) + args[1:]
+        call = lambda **kw: ss2d_scan_pair(*args, variant="ssd", out_dtype=y_dtype, **kw)
+        got, again = call(return_carries=True), call(return_carries=True)
+        torch.cuda.synchronize()
+        check(got[0].dtype == y_dtype and all(bool(torch.isfinite(g.float()).all()) for g in got),
+              f"K5 {name}: {y_dtype}, finite")
+        check(all(torch.equal(g, g2) for g, g2 in zip(got, again)), f"K5 {name}: the same bits twice")
+        row = {"phase": "k5", "case": name, "B": 1, "L": L, "D": 64, "N": 16, "R": 2, "sub": 8,
+               "x": "bfloat16", "y": str(y_dtype).removeprefix("torch.")}
+        if not name.startswith("level1"):  # the plain version at level 1 takes seconds
+            plain = ss2d_scan_pair_plain(*args, return_carries=True, variant="ssd", sub=8,
+                                         out_dtype=y_dtype)
+            err = {k: float((g.float() - p_.float()).abs().max()) for k, g, p_ in zip(K5_OUTPUTS, got, plain)}
+            check(max(err["state"], err["sumda"]) <= K5_ATOL, f"K5 {name}: carries {err}")
+            if mixed:
+                check(err["y"] <= K5_ATOL, f"K5 {name}: max abs err {err} <= {K5_ATOL}")
+                row["tol"] = K5_ATOL
+            else:
+                excess, share = bf16_excess(got[0], plain[0], K5_ATOL)
+                check(excess <= 0, f"K5 {name}: beyond one bf16 step of the plain version by {excess}")
+                row.update(share_differing=share, tol=f"one bf16 step + {K5_ATOL}")
+            row.update(max_abs_err=err["y"], carries_err=err, y_max_abs=float(plain[0].float().abs().max()))
+            del plain
+        else:
+            x32 = args[0].float()
+            row["geometry"] = k5_row_geometry(1, L, (torch.bfloat16, y_dtype))
+            k1_timings(row, lambda: call(), k5_phase_of, "K5")
+            row["f32_ms"] = cuda_ms(lambda: ss2d_scan_pair(x32, *args[1:], variant="ssd"), 20)
+            row["bound_ms"], row["bound_by"], row["bound_unit"] = k5_bound(1, L, 64, 16, 2)
+        row["launches"] = ss2d_scan_pair_ssd.launches
+        emit(row)
+        rows.append(row)
+        del got, again, args
     return rows
 
 
@@ -2497,7 +2602,10 @@ def main():
     k2_level1 = k2_rows[0]
     k3_level1 = next(r for r in k3_rows if r["case"] == "train_level1")
     k4_level1 = next(r for r in k4_rows if r["case"] == "train_level1")
-    k5_level1 = k5_rows[0]
+    k5_f32 = [r for r in k5_rows if "x" not in r]
+    k5_level1 = k5_f32[0]
+    k5_bf16, k5_mixed = (next(r for r in k5_rows if r["case"] == f"level1_{tag}")
+                         for tag in ("bf16", "mixed"))
     # K6 / K7: one call of the slowest chain of a 1080p forward, paconv_chain
     # at level 1, float32 at the top and bf16 in `bf16`; the `chain` lines
     # hold every wrapper's. Errors: the worst of each dtype's rows.
@@ -2610,11 +2718,23 @@ def main():
         "replaces": "wavemamba_tpu/ops/scan_pallas.py:578", "launches": k5_rows[-1]["launches"],
         "launches_note": "every launch of the k5 phase (comparisons and timing): no configuration "
                          "selects K5, so no model path runs it",
-        "max_abs_err": max(max(r["carries_err"].values()) for r in k5_rows),
-        "max_abs_err_vs_k1": max(max(r["vs_k1_err"].values()) for r in k5_rows),
+        "variants": "x and y float32; both bfloat16; bfloat16 x with float32 y",
+        "max_abs_err": max(max(r["carries_err"].values()) for r in k5_f32),
+        "max_abs_err_vs_k1": max(max(r["vs_k1_err"].values()) for r in k5_f32),
         "ms": k5_level1["ms"], "plain_ms": k5_level1["plain_ms"],
         "bound_ms": k5_level1["bound_ms"], "bound_by": k5_level1["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None,
+        **{k: k5_level1["geometry"][k] for k in ("threads", "smem_bytes", "warps_per_sm")},
+        "ms_levels": [r["ms"] for r in k5_f32 if "ms" in r],
+        "phases_ms": [r["phases_ms"] for r in k5_f32 if "ms" in r],
+        **{k: k5_level1[k] for k in ("clocks_sm_mhz", "power_draw_w", "sass_loop")},
+        **{tag: {**{k: r[k] for k in ("ms", "f32_ms", "phases_ms", "bound_ms", "bound_by",
+                                       "clocks_sm_mhz", "power_draw_w")},
+                 "max_abs_err": max(max(r["carries_err"].values()) for r in k5_rows
+                                    if r.get("y") == y and "carries_err" in r),
+                 **({"share_differing": max(r["share_differing"] for r in k5_rows
+                                            if "share_differing" in r)} if tag == "bf16" else {})}
+           for tag, y, r in (("bf16", "bfloat16", k5_bf16), ("mixed", "float32", k5_mixed))}}, {
         "name": "fused_chain (K6)", "route": "cuda", "source": "wavemamba_torch/csrc/conv_chain.cu",
         "replaces": "wavemamba_tpu/experimental/conv_fused.py:96", "launches": fused["k6_launches"],
         "launches_note": "one 1152x1920 forward of the fused route under chain_route('tile')",

@@ -61,8 +61,8 @@ def test_plan_counts_the_shared_memory_of_the_source():
     """The tiles of `csrc/ss2d_scan.cu`: the x tile [T][W] with W = 64 x groups
     + 4, x_dbl [2][T][4 + 2N], and one region for wx [2][R + 2N][W] (pass 1)
     and then da [2][T][64]; chunk_prefix's two [64][16] arrays. The source's
-    constants, and the resident blocks its launch bounds ask for, are the
-    plan's."""
+    constants (some in the header it shares with K5, `ss2d_scan_common.cuh`),
+    and the resident blocks its launch bounds ask for, are the plan's."""
     T = 64
     for D, R, W in ((64, 2, 68), (128, 4, 132), (1, 1, 68)):
         J = R + 32
@@ -70,7 +70,7 @@ def test_plan_counts_the_shared_memory_of_the_source():
         assert scan_cuda.k1_plan(1, 1000, D, 16, R, T, H100_SMS)["smem_scan"] == want
     assert scan_cuda.k1_plan(1, 1000, 128, 16, 4, T, H100_SMS)["smem_scan"] == 90_240
     assert scan_cuda.k1_plan(1, 1000, 64, 16, 2, T, H100_SMS)["smem_prefix"] == 4 * 2 * 64 * 16
-    source = scan_cuda.SOURCE.read_text()
+    source = scan_cuda.SOURCE.read_text() + (scan_cuda.CSRC / "ss2d_scan_common.cuh").read_text()
     const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", source).group(1))
     assert const("kGroup") == scan_cuda.K1_GROUP
     assert (const("kPrefixLanes"), const("kPrefixWorkers")) == \

@@ -7,237 +7,304 @@
 // processing order (k = 0 forward, k = 1 in reverse), with f32 state:
 //   clocal_t = sum of da over the segment up to t   (inclusive)
 //   G_t      = exp(clocal_t * A)                    (n, d)
-//   bhat_t   = (da_t * u_t * B_t) / G_t             a divide, not exp(-m)
+//   bhat_t   = da_t * u_t * B_t / G_t
 //   cums_t   = sum of bhat over the segment up to t
 //   h_t      = G_t * (H + cums_t),  H the state entering the segment
 //   y_t      = sum_n C_t[n] * h_t[n] + dsk * u_t
 // and the segment hands on h at its last token, G_last * (H + cums_last).
 // Mathematically h_t is K1's; the rounding differs. f32 bounds the form:
 // max |A| * (sum of da over a segment) must stay below ~88, or G underflows
-// and bhat overflows (scan_pallas.py:567-575). Nothing here clamps or
+// and 1 / G overflows (scan_pallas.py:567-575). Nothing here clamps or
 // rescales: that would compute another function.
 //
-// What bounds it on an H100: per token, direction and (n, d) one exp and one
-// reciprocal (inside the IEEE divide) on the special-function units, 16 per
-// SM per clock, against ~8 FMA-pipe operations; the SFU sets the bound, twice
-// K1's.
+// What bounds it on an H100 (`chip_smoke.py:k5_bound`): the special-function
+// units, 16 results per SM per clock against 128 FMA lanes. The form needs G
+// and 1 / G per token, direction and (n, d), twice K1's exps. A design
+// parallel over L needs more: pass 1 takes 1 / G at every token and G at each
+// segment's last (1 + 1/S), the replay both at every token, 3.125 SFU results
+// a (token, direction, n, d) at S = 8 against the bound's 2: ~0.86 ms at a
+// 1080p forward's level 1, 1.55x the bound.
 //
-// Design: K1's three phases and layouts. chunk_scan_ssd<false> scans each
-// chunk of T tokens from h = 0 segment by segment and writes its end state
-// and its sum of da; chunk_prefix (as in K1) turns end states into entering
-// states; chunk_scan_ssd<true> replays every chunk from its entering state
-// and writes y. The reverse member is index arithmetic; a ragged chunk is
-// masked, and its segments start at its first processed token (the true tail
-// of the stream for the reverse member: the TPU kernel pads L at the end
-// instead, so its reverse member's first segment begins on pad tokens; the
-// two differ in rounding only).
+// Design: K1's (ss2d_scan.cu), whose staging, projection, da and chunk prefix
+// it shares through ss2d_scan_common.cuh. chunk_scan_ssd<false> stages the x
+// tile and wx, projects x_dbl of both directions once and leaves it in the
+// scratch `xdbl`, computes da in parallel, and scans each chunk of T tokens
+// from h = 0 segment by segment; it writes the chunk's end state and its sum
+// of da. chunk_prefix turns end states into entering states; chunk_scan_ssd
+// <true> reads x_dbl back, replays every chunk from its entering state and
+// writes y. A quad of threads holds a channel pair of one direction, four of
+// the 16 states each: a token's B and C, read once a thread, serve 8 states,
+// and y's sums over n are two xor-shuffles in the quad in a fixed order (the
+// same inputs give the same bits). Each exponential is one ex2.approx.ftz:
+// G = 2^(clocal * A log2 e) and 1 / G = 2^-(clocal * A log2 e), no divide
+// (the TPU kernel divides by G to spare its vector unit an exp; the value
+// and the overflow bound are the same), and pass 1 takes G only at a
+// segment's last token. The token loop, unrolled by 4, issues ~5.5
+// instructions a MUFU in either pass, under the 8 cycles a warp's MUFU holds
+// the SFU. The segments of a chunk start at its
+// first processed token: for the reverse member of a ragged chunk that is
+// the stream's true tail (the TPU kernel pads L at the end, so its reverse
+// member's first segment begins on pad tokens; the two differ in rounding
+// only).
+//
+// Token streams as K1's: x float32 or bf16, widened as it is staged; y
+// float32 or bf16, rounded once. Built for (f32, f32), (bf16, bf16) and
+// (bf16 x, f32 y); f32 x with bf16 y is refused. Weights, state, the scratch
+// and every operation stay float32.
 
 #include <cuda_runtime.h>
-#include <math.h>
+#include <stdint.h>
+
+#include "ss2d_scan_common.cuh"
 
 namespace {
 
-constexpr int kRPad = 4;            // x_dbl row: [dt (R <= 4, padded) | B (N) | C (N)]
-constexpr int kPrefixWorkers = 32;  // workers per lane in chunk_prefix
+constexpr int kScanBlocks = 3;  // resident blocks an SM the launch bounds ask for
 
-__device__ __forceinline__ float softplus(float v) {
-  // torch.nn.functional.softplus (threshold 20): above it log1p(exp(v)) == v in f32.
-  return v > 20.f ? v : log1pf(expf(v));
-}
-
-template <int N, int R, bool REPLAY>
-__global__ void __launch_bounds__(256) chunk_scan_ssd(
-    const float* __restrict__ x, const float* __restrict__ wx,
+template <int N, int R, bool REPLAY, typename TX, typename TY>
+__global__ void __launch_bounds__(kThreads, kScanBlocks) chunk_scan_ssd(
+    const TX* __restrict__ x, const float* __restrict__ wx,
     const float* __restrict__ dtw, const float* __restrict__ bias,
     const float* __restrict__ A, const float* __restrict__ dsk,
-    float* __restrict__ state, float* __restrict__ sumda, float* __restrict__ y,
-    int L, int D, int T, int S, int nc) {
-  constexpr int J = R + 2 * N;
+    float* __restrict__ state, float* __restrict__ sumda, float* __restrict__ xdbl,
+    TY* __restrict__ y, int L, int D, int T, int S, int nc) {
   constexpr int JP = kRPad + 2 * N;
+  constexpr int NQ = N / kQuad;
+  static_assert(NQ == 4, "a thread holds 4 states of each of its 2 channels");
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* xd = smem;                   // [2][T][JP] x_dbl of both directions
-  float* xs = smem + 2 * T * JP;      // [T][D+1] x tile
-  const int DP = D + 1;
-  const int c = blockIdx.x, b = blockIdx.y;
+  const int W = tile_width(D);
+  float* xs = reinterpret_cast<float*>(smem4);  // [T][W] x
+  float* xd = xs + T * W;                       // [2][T][JP] x_dbl
+  float* wxs = xd + 2 * T * JP;                 // [2][J][W] wx, then
+  float* das = wxs;                             // [2][T][kGroup] da
+  const int c = blockIdx.x, b = blockIdx.y, g0 = blockIdx.z * kGroup;
   const int l0 = c * T;
   const int tc = min(T, L - l0);
+  const int tid = threadIdx.x;
 
-  const float* xb = x + ((size_t)b * L + l0) * D;
-  for (int i = threadIdx.x; i < tc * D; i += blockDim.x) {
-    xs[(i / D) * DP + i % D] = xb[i];
-  }
-  __syncthreads();
+  stage_chunk<N, R, REPLAY>(x, wx, dtw, bias, xdbl, xs, xd, wxs, b, l0, tc, g0, L, D, T, W);
 
-  for (int p = threadIdx.x; p < 2 * tc; p += blockDim.x) {
-    const int k = p / tc, t = p - k * tc;
-    const float* w = wx + (size_t)k * D * J;
-    const float* xr = xs + t * DP;
-    float acc[J];
+  // Direction k, channels g0 + 2p and g0 + 2p + 1, states 4q .. 4q + 3.
+  const int k = tid >> 7, q = tid & 3, p = (tid >> 2) & (kPairs - 1);
+  const int dl = 2 * p;
+  const size_t ci = ((size_t)b * 2 + k) * nc + c;  // (b, k, chunk)
+  float An[2][NQ], H[2][NQ], dk[2];
 #pragma unroll
-    for (int j = 0; j < J; ++j) acc[j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float xv = xr[d];
+  for (int e = 0; e < 2; ++e) {
+    const int d = g0 + dl + e;
+    const bool on = d < D;
+    dk[e] = on ? dsk[k * D + d] : 0.f;
 #pragma unroll
-      for (int j = 0; j < J; ++j) acc[j] = fmaf(xv, __ldg(w + d * J + j), acc[j]);
+    for (int i = 0; i < NQ; ++i) {
+      const size_t n = kQuad * q + i;
+      An[e][i] = on ? A[((size_t)k * N + n) * D + d] * kLog2e : 0.f;
+      H[e][i] = REPLAY && on ? state[(ci * N + n) * D + d] : 0.f;
     }
-    float* o = xd + (k * T + t) * JP;
-#pragma unroll
-    for (int j = 0; j < R; ++j) o[j] = acc[j];
-#pragma unroll
-    for (int j = 0; j < 2 * N; ++j) o[kRPad + j] = acc[R + j];
   }
-  __syncthreads();
+  const bool writer = q < 2 && g0 + dl + (q & 1) < D;
+  float sda[2] = {0.f, 0.f};
+  // Token t0 first, then one row on (forward) or back (reverse) a token.
+  const int t0 = k == 0 ? 0 : tc - 1, dir = k == 0 ? 1 : -1;
+  const float* dap = das + (k * T + t0) * kGroup + dl;
+  const float* up = xs + t0 * W + g0 + dl;
+  const float* xq = xd + (k * T + t0) * JP + kRPad + kQuad * q;
+  TY* yp = y + (((size_t)b * 2 + k) * L + l0 + t0) * D + g0 + dl + (q & 1);
+  const int dstep = dir * kGroup, ustep = dir * W, xstep = dir * JP, ystep = dir * D;
 
-  const int k = threadIdx.x / D, d = threadIdx.x - k * D;
-  float An[N], H[N], cums[N], wdt[R];
+  for (int s0 = 0; s0 < tc; s0 += S) {  // a segment: S tokens, fewer at a ragged chunk's end
+    const int s1 = min(tc, s0 + S);
+    float cl[2] = {0.f, 0.f};  // clocal of each channel
+    float cums[2][NQ], h[2][NQ];
 #pragma unroll
-  for (int n = 0; n < N; ++n) An[n] = A[((size_t)k * N + n) * D + d];
+    for (int i = 0; i < NQ; ++i) cums[0][i] = cums[1][i] = 0.f;
+#pragma unroll 4
+    for (int s = s0; s < s1; ++s) {
+      const float2 da = *reinterpret_cast<const float2*>(dap);
+      const float2 u = *reinterpret_cast<const float2*>(up);
+      const float4 bv = *reinterpret_cast<const float4*>(xq);
+      const float bs[4] = {bv.x, bv.y, bv.z, bv.w};
+      cl[0] += da.x;
+      cl[1] += da.y;
+      const float w[2] = {da.x * u.x, da.y * u.y};
+      float m[2][NQ];  // clocal * A log2 e: G = 2^m, 1 / G = 2^-m
 #pragma unroll
-  for (int r = 0; r < R; ++r) wdt[r] = dtw[((size_t)k * R + r) * D + d];
-  const float bk = bias[k * D + d];
-  const float dk = dsk[k * D + d];
-  const size_t ci = ((size_t)b * 2 + k) * nc + c;
-  float* st = state + ci * N * D + d;
+      for (int e = 0; e < 2; ++e) {
 #pragma unroll
-  for (int n = 0; n < N; ++n) H[n] = REPLAY ? st[(size_t)n * D] : 0.f;
-  float* yb = y + (((size_t)b * 2 + k) * L + l0) * D + d;
-  float sda = 0.f, cl = 0.f;
-
-  for (int s = 0; s < tc; ++s) {
-    if (s % S == 0) {  // a segment starts
-      cl = 0.f;
+        for (int i = 0; i < NQ; ++i) {
+          m[e][i] = cl[e] * An[e][i];
+          cums[e][i] = fmaf(w[e] * bs[i], ex2(-m[e][i]), cums[e][i]);
+        }
+      }
+      if (REPLAY) {
+        const float4 cv = *reinterpret_cast<const float4*>(xq + N);
+        const float cs[4] = {cv.x, cv.y, cv.z, cv.w};
+        float a[2] = {0.f, 0.f};
 #pragma unroll
-      for (int n = 0; n < N; ++n) cums[n] = 0.f;
+        for (int e = 0; e < 2; ++e) {
+#pragma unroll
+          for (int i = 0; i < NQ; ++i) {
+            h[e][i] = ex2(m[e][i]) * (H[e][i] + cums[e][i]);
+            a[e] = fmaf(cs[i], h[e][i], a[e]);
+          }
+        }
+        // Lanes q = 0, 2 end with channel 0's sum over the quad, q = 1, 3 with
+        // channel 1's; the two lanes of a channel add the same pairs.
+        const bool odd = q & 1;
+        float sum = (odd ? a[1] : a[0]) + __shfl_xor_sync(kFull, odd ? a[0] : a[1], 1);
+        sum += __shfl_xor_sync(kFull, sum, 2);
+        const float yv = fmaf(odd ? dk[1] : dk[0], odd ? u.y : u.x, sum);
+        if (writer) store_f32(yp, yv);
+        yp += ystep;
+      } else {
+        sda[0] += da.x;
+        sda[1] += da.y;
+      }
+      dap += dstep;
+      up += ustep;
+      xq += xstep;
     }
-    const int t = k == 0 ? s : tc - 1 - s;
-    const float* q = xd + (k * T + t) * JP;
-    float dt = bk;
+    // The segment hands on h at its last token: the replay has it, pass 1
+    // takes its one G here.
 #pragma unroll
-    for (int r = 0; r < R; ++r) dt = fmaf(q[r], wdt[r], dt);
-    const float da = softplus(dt);
-    const float u = xs[t * DP + d];
-    const float w = da * u;
-    cl += da;
-    sda += da;
-    const bool last = s % S == S - 1 || s == tc - 1;  // the segment ends here
-    float acc = 0.f;
+    for (int e = 0; e < 2; ++e) {
 #pragma unroll
-    for (int n = 0; n < N; ++n) {
-      const float G = expf(cl * An[n]);
-      cums[n] += (w * q[kRPad + n]) / G;
-      if (REPLAY || last) {
-        const float h = G * (H[n] + cums[n]);
-        if (REPLAY) acc = fmaf(q[kRPad + N + n], h, acc);
-        if (last) H[n] = h;
+      for (int i = 0; i < NQ; ++i) {
+        H[e][i] = REPLAY ? h[e][i] : ex2(cl[e] * An[e][i]) * (H[e][i] + cums[e][i]);
       }
     }
-    if (REPLAY) yb[(size_t)t * D] = fmaf(dk, u, acc);
   }
   if (!REPLAY) {
 #pragma unroll
-    for (int n = 0; n < N; ++n) st[(size_t)n * D] = H[n];
-    sumda[ci * D + d] = sda;
-  }
-}
-
-// Entering state of every chunk, in place of its end state: K1's chunk_prefix.
-__global__ void __launch_bounds__(32 * kPrefixWorkers) chunk_prefix(
-    const float* __restrict__ A, float* __restrict__ state,
-    const float* __restrict__ sumda, int ND, int D, int nc) {
-  __shared__ float agg_a[kPrefixWorkers][32];
-  __shared__ float agg_h[kPrefixWorkers][32];
-  const int lane = threadIdx.x, w = threadIdx.y;
-  const int nd = blockIdx.x * 32 + lane;
-  const int k = blockIdx.y, b = blockIdx.z;
-  const bool valid = nd < ND;
-  const int d = nd % D;
-  const float a_nd = valid ? A[(size_t)k * ND + nd] : 0.f;
-  const size_t base = ((size_t)b * 2 + k) * nc;
-  const int seg = (nc + kPrefixWorkers - 1) / kPrefixWorkers;
-  const int p0 = min(nc, w * seg), p1 = min(nc, p0 + seg);
-
-  float pa = 1.f, ph = 0.f;
-  if (valid) {
-    for (int p = p0; p < p1; ++p) {
-      const size_t ci = base + (k == 0 ? p : nc - 1 - p);
-      const float a = expf(a_nd * sumda[ci * D + d]);
-      ph = fmaf(a, ph, state[ci * ND + nd]);
-      pa *= a;
+    for (int e = 0; e < 2; ++e) {
+      const int d = g0 + dl + e;
+      if (d >= D) continue;
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) state[(ci * N + kQuad * q + i) * D + d] = H[e][i];
+      if (q == 0) sumda[ci * D + d] = sda[e];
     }
   }
-  agg_a[w][lane] = pa;
-  agg_h[w][lane] = ph;
-  __syncthreads();
-  if (!valid) return;
-
-  float hc = 0.f;
-  for (int v = 0; v < w; ++v) hc = fmaf(agg_a[v][lane], hc, agg_h[v][lane]);
-  for (int p = p0; p < p1; ++p) {
-    const size_t ci = base + (k == 0 ? p : nc - 1 - p);
-    const float a = expf(a_nd * sumda[ci * D + d]);
-    const float he = state[ci * ND + nd];
-    state[ci * ND + nd] = hc;
-    hc = fmaf(a, hc, he);
-  }
 }
 
-template <int N, int R>
-cudaError_t launch(const float* x, const float* wx, const float* dtw,
+template <int N, int R, typename TX, typename TY>
+cudaError_t set_smem(int D, int T) {
+  const int smem = (int)sizeof(float) * scan_smem_floats(D, N, R, T);
+  cudaError_t e = cudaFuncSetAttribute(chunk_scan_ssd<N, R, false, TX, TY>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(chunk_scan_ssd<N, R, true, TX, TY>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <int N, int R, typename TX, typename TY>
+cudaError_t launch(const TX* x, const float* wx, const float* dtw,
                    const float* bias, const float* A, const float* dsk,
-                   float* y, float* state, float* sumda,
+                   TY* y, float* state, float* sumda, float* xdbl,
                    int B, int L, int D, int T, int S, cudaStream_t stream) {
   const int nc = (L + T - 1) / T;
-  const size_t smem = sizeof(float) * ((size_t)2 * T * (kRPad + 2 * N) + (size_t)T * (D + 1));
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(chunk_scan_ssd<N, R, false>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(chunk_scan_ssd<N, R, true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid(nc, B);
-  chunk_scan_ssd<N, R, false><<<grid, 2 * D, smem, stream>>>(
-      x, wx, dtw, bias, A, dsk, state, sumda, y, L, D, T, S, nc);
-  cudaError_t e = cudaGetLastError();
+  const size_t smem = sizeof(float) * scan_smem_floats(D, N, R, T);
+  cudaError_t e = set_smem<N, R, TX, TY>(D, T);
   if (e != cudaSuccess) return e;
-  const dim3 pgrid((N * D + 31) / 32, 2, B), pblock(32, kPrefixWorkers);
-  chunk_prefix<<<pgrid, pblock, 0, stream>>>(A, state, sumda, N * D, D, nc);
+  const dim3 grid(nc, B, (D + kGroup - 1) / kGroup);
+  chunk_scan_ssd<N, R, false, TX, TY><<<grid, kThreads, smem, stream>>>(
+      x, wx, dtw, bias, A, dsk, state, sumda, xdbl, y, L, D, T, S, nc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  chunk_scan_ssd<N, R, true><<<grid, 2 * D, smem, stream>>>(
-      x, wx, dtw, bias, A, dsk, state, sumda, y, L, D, T, S, nc);
+  const dim3 pgrid((N * D + kPrefixLanes - 1) / kPrefixLanes, 2, B);
+  chunk_prefix<<<pgrid, dim3(kPrefixLanes, kPrefixWorkers), 0, stream>>>(A, state, sumda, N * D, D, nc);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  chunk_scan_ssd<N, R, true, TX, TY><<<grid, kThreads, smem, stream>>>(
+      x, wx, dtw, bias, A, dsk, state, sumda, xdbl, y, L, D, T, S, nc);
   return cudaGetLastError();
+}
+
+template <typename TX, typename TY>
+cudaError_t launch_r(const void* x, const void* wx, const void* dtw, const void* bias,
+                     const void* A, const void* dsk, void* y, void* state, void* sumda,
+                     void* xdbl, int B, int L, int D, int R, int T, int S, cudaStream_t s) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto m = [](void* p) { return static_cast<float*>(p); };
+  const TX* xt = static_cast<const TX*>(x);
+  TY* yt = static_cast<TY*>(y);
+#define WM_LAUNCH(RR)                                                                       \
+  return launch<16, RR>(xt, f(wx), f(dtw), f(bias), f(A), f(dsk), yt, m(state), m(sumda), \
+                        m(xdbl), B, L, D, T, S, s)
+  switch (R) {
+    case 1: WM_LAUNCH(1);
+    case 2: WM_LAUNCH(2);
+    case 3: WM_LAUNCH(3);
+    case 4: WM_LAUNCH(4);
+    default: return cudaErrorInvalidValue;
+  }
+#undef WM_LAUNCH
+}
+
+// out: as ss2d_scan_occupancy's (ss2d_scan.cu), for chunk_scan_ssd.
+template <int N, int R, typename TX, typename TY>
+cudaError_t occupancy(int D, int T, int* out) {
+  cudaError_t e = set_smem<N, R, TX, TY>(D, T);
+  if (e != cudaSuccess) return e;
+  out[0] = kThreads;
+  out[1] = (int)sizeof(float) * scan_smem_floats(D, N, R, T);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, chunk_scan_ssd<N, R, false, TX, TY>,
+                                                    kThreads, out[1]);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 3, chunk_scan_ssd<N, R, true, TX, TY>,
+                                                    kThreads, out[1]);
+  if (e != cudaSuccess) return e;
+  out[4] = kPrefixThreads;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 5, chunk_prefix, kPrefixThreads, 0);
+}
+
+template <typename TX, typename TY>
+cudaError_t occupancy_r(int R, int D, int T, int* out) {
+  switch (R) {
+    case 1: return occupancy<16, 1, TX, TY>(D, T, out);
+    case 2: return occupancy<16, 2, TX, TY>(D, T, out);
+    case 3: return occupancy<16, 3, TX, TY>(D, T, out);
+    case 4: return occupancy<16, 4, TX, TY>(D, T, out);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// As ss2d_scan_pair_f32 (ss2d_scan.cu), plus S, the segment length
-// (1 <= S <= T). Returns a cudaError_t; the caller has checked N == 16,
-// 1 <= R <= 4 and 2 * D <= 256.
-int ss2d_scan_pair_ssd_f32(const void* x, const void* wx, const void* dtw,
-                           const void* bias, const void* A, const void* dsk,
-                           void* y, void* state, void* sumda,
-                           int B, int L, int D, int N, int R, int T, int S, void* stream) {
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(wx);
-  const float* tf = static_cast<const float*>(dtw);
-  const float* bf = static_cast<const float*>(bias);
-  const float* af = static_cast<const float*>(A);
-  const float* sf = static_cast<const float*>(dsk);
-  float* yf = static_cast<float*>(y);
-  float* stf = static_cast<float*>(state);
-  float* df = static_cast<float*>(sumda);
+// As ss2d_scan_pair (ss2d_scan.cu), plus S, the segment length, which divides
+// T. `smem` is the dynamic shared memory the caller planned for
+// chunk_scan_ssd (`scan_cuda.k5_plan`): the launch is refused unless it is
+// this source's. Returns a cudaError_t.
+int ss2d_scan_pair_ssd(const void* x, const void* wx, const void* dtw,
+                       const void* bias, const void* A, const void* dsk,
+                       void* y, void* state, void* sumda, void* xdbl,
+                       int B, int L, int D, int N, int R, int T, int S, int smem, int x_bf16,
+                       int y_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N != 16 || S < 1 || S > T) return cudaErrorInvalidValue;
-  switch (R) {
-    case 1: return launch<16, 1>(xf, wf, tf, bf, af, sf, yf, stf, df, B, L, D, T, S, s);
-    case 2: return launch<16, 2>(xf, wf, tf, bf, af, sf, yf, stf, df, B, L, D, T, S, s);
-    case 3: return launch<16, 3>(xf, wf, tf, bf, af, sf, yf, stf, df, B, L, D, T, S, s);
-    case 4: return launch<16, 4>(xf, wf, tf, bf, af, sf, yf, stf, df, B, L, D, T, S, s);
+  if (!takes(N, R, D, T) || S < 1 || T % S ||
+      smem != (int)sizeof(float) * scan_smem_floats(D, N, R, T)) {
+    return cudaErrorInvalidValue;
+  }
+  if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(wx) % 16) {
+    return cudaErrorMisalignedAddress;
+  }
+#define WM_ARGS x, wx, dtw, bias, A, dsk, y, state, sumda, xdbl, B, L, D, R, T, S, s
+  switch (stream_pair(x_bf16, y_bf16)) {
+    case 0: return launch_r<float, float>(WM_ARGS);
+    case 1: return launch_r<__nv_bfloat16, __nv_bfloat16>(WM_ARGS);
+    case 2: return launch_r<__nv_bfloat16, float>(WM_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
+#undef WM_ARGS
+}
+
+// As ss2d_scan_occupancy (ss2d_scan.cu), for K5's kernels.
+int ss2d_scan_ssd_occupancy(int N, int R, int D, int T, int x_bf16, int y_bf16, int* out) {
+  if (!takes(N, R, D, T)) return cudaErrorInvalidValue;
+  switch (stream_pair(x_bf16, y_bf16)) {
+    case 0: return occupancy_r<float, float>(R, D, T, out);
+    case 1: return occupancy_r<__nv_bfloat16, __nv_bfloat16>(R, D, T, out);
+    case 2: return occupancy_r<__nv_bfloat16, float>(R, D, T, out);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -15,15 +15,17 @@ and its backward (K3, K4), and K1's function in the segment-local (SSD) form
 `csrc/selective_scan_bwd.cu`; `SelectiveScan` joins them as the counterpart of
 `wavemamba_tpu/ops/scan.py:_scan_pallas_diff`. `ss2d_scan_pair_ssd` replaces
 `ss2d_scan_fused(variant='ssd')` (`_fused_kernel_ssd`), source
-`csrc/ss2d_scan_ssd.cu`; it has no backward, as on the TPU. `build_all` also
+`csrc/ss2d_scan_ssd.cu` (K1's layout, whose staging and chunk prefix it
+shares through `csrc/ss2d_scan_common.cuh`); it has no backward, as on the
+TPU. `build_all` also
 builds `csrc/conv_chain.cu`, the conv-chain kernel of
 `ops/conv_fused_cuda.py` (K6 / K7), and `csrc/gpu_probe.cu`, the probes of
 `scripts/gpu_probe.py` (P1-P5). The note at the top of each
-source says what bounds the kernel and how it is laid out. `k1_plan`,
-`k2_plan`, `k3_plan` and `k4_plan` give K1-K4's launch geometry from shapes
-alone (K3: a quad of threads per channel, 256-thread blocks over a chunk, a
-stream and 64 channels, and a prefix with a worker for every 8 chunks), and
-`k1_occupancy` ... `k4_occupancy` what the card lets reside. A source is
+source says what bounds the kernel and how it is laid out. `k1_plan` ...
+`k5_plan` give K1-K5's launch geometry from shapes alone (K3: a quad of
+threads per channel, 256-thread blocks over a chunk, a stream and 64
+channels, and a prefix with a worker for every 8 chunks; K5: K1's), and
+`k1_occupancy` ... `k5_occupancy` what the card lets reside. A source is
 compiled for sm_90a with `nvcc` at the first launch, into
 `build/wavemamba_torch/` keyed by a hash of the source, the headers beside it
 and the compiler flags, and loaded with ctypes. Importing this module needs
@@ -34,8 +36,8 @@ A CPU tensor takes the plain versions (`ops/scan.py:ss2d_scan_pair_plain`,
 `selective_scan_plain_bwd`, and `ss2d_scan_pair_plain(..., variant='ssd')`
 for K5); a CUDA tensor launches the kernel or raises.
 
-K1 and K2 take bf16 token streams in three pairs (`STREAM_PAIRS`): x and y
-(K2: x and dx, and dy) all float32, all bf16 (the bf16 presets), or bf16 x
+K1, K2 and K5 take bf16 token streams in three pairs (`STREAM_PAIRS`): x and
+y (K2: x and dx, and dy) all float32, all bf16 (the bf16 presets), or bf16 x
 with float32 y / dy (`compute_dtype: bfloat16` with the default `scan_dtype:
 float32`, as the proc and proc512 ymls train). float32 x with bf16 y / dy is
 refused on the card (on the CPU the plain versions take any mix). y is
@@ -43,7 +45,7 @@ rounded once from float32, dx once per member and once for the pair's sum,
 in x's dtype, as the TPU kernel's; the weights and all arithmetic stay
 float32.
 K3 and K4 take bf16 streams by widening them to float32 before the launch,
-as the JAX wrapper does before its `pallas_call`; K5 takes float32 only.
+as the JAX wrapper does before its `pallas_call`.
 """
 
 from __future__ import annotations
@@ -199,16 +201,18 @@ def _library_k4() -> ctypes.CDLL:
 def _library_k5() -> ctypes.CDLL:
     _need_cuda("K5")
     lib = ctypes.CDLL(str(build(SOURCE_K5)))
-    fn = lib.ss2d_scan_pair_ssd_f32
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn = lib.ss2d_scan_pair_ssd
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.ss2d_scan_ssd_occupancy.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    lib.ss2d_scan_ssd_occupancy.restype = ctypes.c_int
     lib.ss2d_scan_ssd_error_string.argtypes = [ctypes.c_int]
     lib.ss2d_scan_ssd_error_string.restype = ctypes.c_char_p
     return lib
 
 
-STREAM_DTYPES = (torch.float32, torch.bfloat16)  # of K1's and K2's x, y, dy and dx
-# The (x, y) pairs K1 is built for, and the (x, dy) pairs K2 is: both float32,
+STREAM_DTYPES = (torch.float32, torch.bfloat16)  # of K1's, K2's and K5's x, y, dy and dx
+# The (x, y) pairs K1 and K5 are built for, and the (x, dy) pairs K2 is: both float32,
 # both bf16, and bf16 x with float32 y / dy.
 STREAM_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
                 (torch.bfloat16, torch.float32))
@@ -273,19 +277,21 @@ def _on_device(device):
     return torch.cuda.device(device)
 
 
-def _launch_k1(x, wx, dtw, bias, A, dsk, out_dtype):
-    """K1 on CUDA tensors: y in `out_dtype`, and what it leaves behind for K2,
-    `state` (B, 2, nc, N, D), the state entering each chunk, and `sumda`
-    (B, 2, nc, D), each chunk's sum of da. The launch takes `k1_plan`'s shared
-    memory (the source refuses any other) and its x_dbl scratch."""
-    _check_inputs("ss2d_scan_pair", x, _pair_shapes(x, wx, dtw, bias, A, dsk), MAX_D, ("x",))
+def _launch_pair(name, library, plan_of, x, wx, dtw, bias, A, dsk, out_dtype, *sub):
+    """K1 (or, with `sub`, K5) on CUDA tensors: y in `out_dtype`, and what it
+    leaves behind for K2, `state` (B, 2, nc, N, D), the state entering each
+    chunk, and `sumda` (B, 2, nc, D), each chunk's sum of da. `library`
+    loads the kernel's source, whose C entry is named `name`; the launch
+    takes the shared memory of `plan_of` (`k1_plan` or `k5_plan`; the source
+    refuses any other) and its x_dbl scratch."""
+    _check_inputs(name, x, _pair_shapes(x, wx, dtw, bias, A, dsk), MAX_D, ("x",))
     if out_dtype not in STREAM_DTYPES:
-        raise ValueError(f"ss2d_scan_pair: out_dtype must be float32 or bfloat16, got {out_dtype}")
-    x_bf16, y_bf16 = _stream_flags("ss2d_scan_pair", x.dtype, "y", out_dtype)
+        raise ValueError(f"{name}: out_dtype must be float32 or bfloat16, got {out_dtype}")
+    x_bf16, y_bf16 = _stream_flags(name, x.dtype, "y", out_dtype)
     b, length, d = x.shape
     r, n = dtw.shape[1], A.shape[1]
-    lib = _library()
-    plan = k1_plan(b, length, d, n, r, CHUNK, _sm_count(x.device.index))
+    lib = library()
+    plan = plan_of(b, length, d, n, r, CHUNK, *sub, _sm_count(x.device.index))
     # The kernel reads x and wx 16 bytes at a time: a view that starts off a
     # 16-byte boundary is copied.
     x, wx = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, wx))
@@ -296,13 +302,13 @@ def _launch_k1(x, wx, dtw, bias, A, dsk, out_dtype):
     xdbl = torch.empty(plan["xdbl_shape"], device=x.device, dtype=torch.float32)
     with _on_device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ss2d_scan_pair(
+        err = getattr(lib, name)(
             x.data_ptr(), wx.data_ptr(), dtw.data_ptr(), bias.data_ptr(), A.data_ptr(),
             dsk.data_ptr(), y.data_ptr(), state.data_ptr(), sumda.data_ptr(), xdbl.data_ptr(),
-            b, length, d, n, r, CHUNK, plan["smem_scan"], x_bf16, y_bf16, stream)
+            b, length, d, n, r, CHUNK, *sub, plan["smem_scan"], x_bf16, y_bf16, stream)
     if err != 0:
-        raise RuntimeError(f"ss2d_scan_pair launch failed: {lib.ss2d_scan_error_string(err).decode()}")
-    ss2d_scan_pair.launches += 1
+        message = getattr(lib, name.replace("_pair", "") + "_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: {message}")
     return y, state, sumda
 
 
@@ -313,7 +319,10 @@ def _forward(x, wx, dtw, bias, A, dsk, out_dtype=None):
                                     out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"ss2d_scan_pair: unsupported device {x.device}")
-    return _launch_k1(x, wx, dtw, bias, A, dsk, out_dtype or torch.float32)
+    y, state, sumda = _launch_pair("ss2d_scan_pair", _library, k1_plan, x, wx, dtw, bias, A, dsk,
+                                   out_dtype or torch.float32)
+    ss2d_scan_pair.launches += 1
+    return y, state, sumda
 
 
 def ss2d_scan_pair(x, wx, dtw, bias, A, dsk, return_carries=False, variant="twopass", sub=8,
@@ -336,9 +345,8 @@ def ss2d_scan_pair(x, wx, dtw, bias, A, dsk, return_carries=False, variant="twop
     """
     args = (x, wx, dtw, bias, A, dsk)
     if variant == "ssd":
-        if x.dtype != torch.float32 or out_dtype not in (None, torch.float32):
-            raise NotImplementedError("ss2d_scan_pair(variant='ssd') (K5) takes float32 streams")
-        return ss2d_scan_pair_ssd(*args, sub=sub, return_carries=return_carries)
+        return ss2d_scan_pair_ssd(*args, sub=sub, return_carries=return_carries,
+                                  out_dtype=out_dtype)
     if variant != "twopass":
         raise ValueError(f"unknown variant {variant!r}; known: 'twopass', 'ssd'")
     if return_carries:
@@ -351,12 +359,15 @@ def ss2d_scan_pair(x, wx, dtw, bias, A, dsk, return_carries=False, variant="twop
 ss2d_scan_pair.launches = 0
 
 
-def ss2d_scan_pair_ssd(x, wx, dtw, bias, A, dsk, sub=8, return_carries=False):
+def ss2d_scan_pair_ssd(x, wx, dtw, bias, A, dsk, sub=8, return_carries=False, out_dtype=None):
     """K1's function by kernel K5, the segment-local (SSD) factorization in
-    segments of `sub` tokens (dividing `CHUNK`). Arguments, y and carries as
-    `ss2d_scan_pair`'s. f32 bounds the form: max |A| times the sum of da over a
-    segment must stay below ~88. No backward, as on the TPU: a call that would
-    need one raises. Counts its kernel launches in `ss2d_scan_pair_ssd.launches`.
+    segments of `sub` tokens (dividing `CHUNK`). Arguments, y (in `out_dtype`),
+    carries and the stream pairs the card takes as `ss2d_scan_pair`'s. f32
+    bounds the form: max |A| times the sum of da over a segment must stay
+    below ~88. No backward, as on the TPU: a call that would need one raises.
+    The launch takes `k5_plan`'s shared memory (the source refuses any other)
+    and its x_dbl scratch. Counts its kernel launches in
+    `ss2d_scan_pair_ssd.launches`.
     """
     args = (x, wx, dtw, bias, A, dsk)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
@@ -365,29 +376,15 @@ def ss2d_scan_pair_ssd(x, wx, dtw, bias, A, dsk, sub=8, return_carries=False):
     if not 1 <= sub <= CHUNK or CHUNK % sub:
         raise ValueError(f"ss2d_scan_pair_ssd: sub={sub} must divide {CHUNK}")
     if x.device.type == "cpu":
-        out = ss2d_scan_pair_plain(*args, chunk=CHUNK, return_carries=True, variant="ssd", sub=sub)
+        out = ss2d_scan_pair_plain(*args, chunk=CHUNK, return_carries=True, variant="ssd", sub=sub,
+                                   out_dtype=out_dtype)
         return out if return_carries else out[0]
     if x.device.type != "cuda":
         raise ValueError(f"ss2d_scan_pair_ssd: unsupported device {x.device}")
-    _check_inputs("ss2d_scan_pair_ssd", x, _pair_shapes(*args), MAX_D)
-    b, length, d = x.shape
-    r, n = dtw.shape[1], A.shape[1]
-    lib = _library_k5()
-    nc = -(-length // CHUNK)
-    y = torch.empty((b, 2, length, d), device=x.device, dtype=torch.float32)
-    state = torch.empty((b, 2, nc, n, d), device=x.device, dtype=torch.float32)
-    sumda = torch.empty((b, 2, nc, d), device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ss2d_scan_pair_ssd_f32(
-            x.data_ptr(), wx.data_ptr(), dtw.data_ptr(), bias.data_ptr(), A.data_ptr(),
-            dsk.data_ptr(), y.data_ptr(), state.data_ptr(), sumda.data_ptr(),
-            b, length, d, n, r, CHUNK, sub, stream)
-    if err != 0:
-        raise RuntimeError("ss2d_scan_pair_ssd launch failed: "
-                           f"{lib.ss2d_scan_ssd_error_string(err).decode()}")
+    out = _launch_pair("ss2d_scan_pair_ssd", _library_k5, k5_plan, *args, out_dtype or torch.float32,
+                       sub)
     ss2d_scan_pair_ssd.launches += 1
-    return (y, state, sumda) if return_carries else y
+    return out if return_carries else out[0]
 
 
 ss2d_scan_pair_ssd.launches = 0
@@ -402,8 +399,10 @@ K1_GROUP = 64  # channels a chunk_scan block scans
 K1_THREADS = 2 * K1_GROUP * 2  # both directions, a quad of threads per channel pair
 K1_PREFIX_LANES, K1_PREFIX_WORKERS = 16, 64  # chunk_prefix: (n, d) lanes x workers a block
 # The resident blocks an SM each kernel's launch bounds ask for: its register
-# budget a thread is 65,536 over threads x blocks.
+# budget a thread is 65,536 over threads x blocks. K5's chunk_scan_ssd as K1's
+# chunk_scan; both run the same chunk_prefix.
 K1_SCAN_BLOCKS, K1_PREFIX_BLOCKS = 3, 1
+K5_SCAN_BLOCKS = 3
 
 
 def _resident(threads, smem):
@@ -448,15 +447,23 @@ def k1_plan(B, L, D, N, R, T, sms):
     `k1_occupancy`), and chunk_scan's blocks against what `sms` SMs hold at
     once (`waves_scan`). `xdbl_shape` is the scratch where pass 1 leaves x_dbl
     for the replay."""
+    return _pair_plan("K1", B, L, D, N, R, T, sms, K1_SCAN_BLOCKS)
+
+
+def _pair_plan(kernel, B, L, D, N, R, T, sms, scan_blocks):
+    """`k1_plan` for K1's or K5's source (`kernel`), whose scan blocks
+    `scan_blocks` reside on an SM by their launch bounds."""
+    name = f"{kernel.lower()}_plan"
     if N != D_STATE or not 1 <= R <= MAX_DT_RANK or not 1 <= D <= MAX_D:
-        raise ValueError(f"k1_plan: K1 takes N={D_STATE}, 1<=R<={MAX_DT_RANK}, D<={MAX_D}; "
+        raise ValueError(f"{name}: {kernel} takes N={D_STATE}, 1<=R<={MAX_DT_RANK}, D<={MAX_D}; "
                          f"got N={N}, R={R}, D={D}")
     if not 4 <= T <= 64 or T % 4:
-        raise ValueError(f"k1_plan: K1 takes chunks of T <= 64 tokens, a multiple of 4; got T={T}")
+        raise ValueError(f"{name}: {kernel} takes chunks of T <= 64 tokens, a multiple of 4; "
+                         f"got T={T}")
     groups = -(-D // K1_GROUP)
     width, J, JP = K1_GROUP * groups + 4, R + 2 * N, 4 + 2 * N
     smem_scan = 4 * (T * width + 2 * T * JP + max(2 * J * width, 2 * T * K1_GROUP))
-    plan = _scan_plan(K1_THREADS, smem_scan, K1_SCAN_BLOCKS, (-(-L // T), B, groups),
+    plan = _scan_plan(K1_THREADS, smem_scan, scan_blocks, (-(-L // T), B, groups),
                       K1_PREFIX_LANES * K1_PREFIX_WORKERS, K1_PREFIX_BLOCKS,
                       (-(-N * D // K1_PREFIX_LANES), 2, B), sms)
     return {**plan, "xdbl_shape": (B, 2, L, JP)}
@@ -468,15 +475,38 @@ def k1_occupancy(D=64, R=2, streams=STREAM_PAIRS[0], T=CHUNK):
     blocks_per_sm_pass1, blocks_per_sm_replay, prefix_threads,
     blocks_per_sm_prefix} from `cudaOccupancyMaxActiveBlocksPerMultiprocessor`,
     registers included."""
-    flags = _stream_flags("k1_occupancy", streams[0], "y", streams[1])
-    lib = _library()
+    return _pair_occupancy("k1_occupancy", _library, "ss2d_scan", D, R, streams, T)
+
+
+def _pair_occupancy(name, library, prefix, D, R, streams, T):
+    """`k1_occupancy` from K1's or K5's library, whose C functions are named
+    from `prefix` (`ss2d_scan`, `ss2d_scan_ssd`)."""
+    flags = _stream_flags(name, streams[0], "y", streams[1])
+    lib = library()
     out = (ctypes.c_int * 6)()
-    err = lib.ss2d_scan_occupancy(D_STATE, R, D, T, *flags, out)
+    err = getattr(lib, f"{prefix}_occupancy")(D_STATE, R, D, T, *flags, out)
     if err != 0:
-        raise RuntimeError(f"ss2d_scan_occupancy failed: {lib.ss2d_scan_error_string(err).decode()}")
+        message = getattr(lib, f"{prefix}_error_string")(err).decode()
+        raise RuntimeError(f"{prefix}_occupancy failed: {message}")
     keys = ("threads", "smem_scan", "blocks_per_sm_pass1", "blocks_per_sm_replay",
             "prefix_threads", "blocks_per_sm_prefix")
     return dict(zip(keys, out))
+
+
+def k5_plan(B, L, D, N, R, T, S, sms):
+    """K5's launch geometry, from shapes alone: K1's (`k1_plan`; the source,
+    `csrc/ss2d_scan_ssd.cu`, shares K1's tiles and chunk prefix and refuses a
+    launch whose shared memory is not this plan's), and `sub`, the segment of
+    S tokens, which divides the chunk of T."""
+    if not 1 <= S <= T or T % S:
+        raise ValueError(f"k5_plan: sub={S} must divide the chunk of T={T} tokens")
+    return {**_pair_plan("K5", B, L, D, N, R, T, sms, K5_SCAN_BLOCKS), "sub": S}
+
+
+def k5_occupancy(D=64, R=2, streams=STREAM_PAIRS[0], T=CHUNK):
+    """What the card reports for K5's kernels (N = 16) on the (x, y) dtypes
+    `streams`, with the keys of `k1_occupancy`."""
+    return _pair_occupancy("k5_occupancy", _library_k5, "ss2d_scan_ssd", D, R, streams, T)
 
 
 def k2_plan(B, L, D, N, R, T, sms):

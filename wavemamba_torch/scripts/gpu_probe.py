@@ -422,19 +422,23 @@ def _cuobjdump() -> str:
     return str(nvcc.with_name("cuobjdump"))
 
 
-def parse_sass_loop(sass, kernel, opcode="FFMA"):
+def parse_sass_loop(sass, kernel, opcode="FFMA", template="E"):
     """The hottest loop of `kernel` in a `cuobjdump -sass` listing: of the
     innermost loops (a branch back to an earlier address, and the
     instructions from there to it, holding no other such loop), the one that
-    holds the most `opcode` instructions. Returns {"opcode", "count": its
-    `opcode` instructions, "instructions", "per_op": issued instructions an
-    `opcode`, "ffma", "lds", "per_fma": issued instructions a multiply-add
+    holds the most `opcode` instructions (`opcode` itself or any of its
+    variants: "MUFU" counts MUFU.EX2 and MUFU.RCP). `template` picks one
+    instantiation of a templated kernel by the mangled name's text after the
+    kernel's name (`ILi16ELi2ELb1EffE` for <16, 2, true, float, float>; "E",
+    the default, a kernel that is no template). Returns {"opcode", "count":
+    its `opcode` instructions, "instructions", "per_op": issued instructions
+    an `opcode`, "ffma", "lds", "per_fma": issued instructions a multiply-add
     (None without FFMAs), "ffma_one_bank": the FFMAs whose register sources
     that the operand reuse cache does not hold fall in one of the two
     register banks (even or odd register numbers), "opcodes": {opcode:
     count}}."""
     fn = next(part for part in sass.split("Function : ")[1:]
-              if re.match(rf"\S*{len(kernel)}{kernel}E", part))
+              if re.match(rf"\S*{len(kernel)}{kernel}{template}", part))
     code, loops = [], []  # (address, opcode, operands) in order; (first, last) address of each loop
     for ln in fn.splitlines():
         op = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*)", ln)
@@ -448,8 +452,9 @@ def parse_sass_loop(sass, kernel, opcode="FFMA"):
     inner = [(lo, hi) for lo, hi in loops
              if not any((lo, hi) != (a, b) and lo <= a and b <= hi for a, b in loops)]
     bodies = [[(o, args) for a, o, args in code if lo <= a <= hi] for lo, hi in inner]
-    best = max(bodies, key=lambda body: sum(o == opcode for o, _ in body), default=None)
-    if not best or all(o != opcode for o, _ in best):
+    hits = lambda body: sum(o == opcode or o.startswith(opcode + ".") for o, _ in body)
+    best = max(bodies, key=hits, default=None)
+    if not best or not hits(best):
         raise RuntimeError(f"sass_loop: no loop with {opcode} in {kernel}")
     opcodes, one_bank = {}, 0
     for op, args in best:
@@ -458,20 +463,20 @@ def parse_sass_loop(sass, kernel, opcode="FFMA"):
             banks = [int(r) % 2 for r in re.findall(r"\bR(\d+)\b(?!\.reuse)", args.split(",", 1)[1])]
             one_bank += len(banks) > len(set(banks))
     ffma = opcodes.get("FFMA", 0)
-    return {"opcode": opcode, "count": opcodes[opcode], "instructions": len(best),
-            "per_op": len(best) / opcodes[opcode], "ffma": ffma,
+    return {"opcode": opcode, "count": hits(best), "instructions": len(best),
+            "per_op": len(best) / hits(best), "ffma": ffma,
             "lds": sum(n for op, n in opcodes.items() if op.startswith("LDS")),
             "per_fma": len(best) / ffma if ffma else None, "ffma_one_bank": one_bank,
             "opcodes": opcodes}
 
 
-def sass_loop(kernel="nsum", library=None, opcode="FFMA"):
-    """`parse_sass_loop` of `kernel` in the built probe library, from
-    `cuobjdump -sass`. Needs the CUDA toolkit, not a card."""
+def sass_loop(kernel="nsum", library=None, opcode="FFMA", template="E"):
+    """`parse_sass_loop` of `kernel` in a built library (the probes' by
+    default), from `cuobjdump -sass`. Needs the CUDA toolkit, not a card."""
     library = library or scan_cuda.build(scan_cuda.SOURCE_PROBE)
     sass = subprocess.run([_cuobjdump(), "-sass", str(library)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    return parse_sass_loop(sass, kernel, opcode)
+    return parse_sass_loop(sass, kernel, opcode, template)
 
 
 # The probes whose resources are read: their kernel and the opcode of its hot loop.
