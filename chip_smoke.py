@@ -77,12 +77,19 @@ and prints one JSON line per phase:
              plain backward; the same for K3 + K4 on the unfused route.
   7. train   a seeded fresh model, the settings of
              `options/train_wavemamba_uhdll.yml` (AdamW, cosine schedule, L1 +
-             0.1 FFT, batch 8 of 512x512, float32), one warm-up step and six
-             steps on a seeded synthetic batch: launches of K1 and K2 per
-             step, ms per step, images/s, peak memory, the loss falls, EMA
-             and lr follow their formulas.
-  8. resume  the training state saved after step 3, restored into a fresh
-             trainer, takes step 4 again: the same loss and parameters.
+             0.1 FFT, batch 8 of 512x512, float32), under each block
+             recompute policy in turn: none, 'full' and 'save_scan' (the
+             yml's: it sets no `remat`), each from the same init: loss and
+             every gradient (held against no recompute's), then one warm-up
+             step and six steps on a seeded synthetic batch: launches of K1
+             and K2 per step (28 / 28, 56 / 28 and 28 / 28), ms per step,
+             images/s, peak memory, the loss falls, EMA and lr follow their
+             formulas. Then 'full' and 'save_scan' in twenty alternating
+             steps (`train_policies`): 'save_scan' may not be slower a step
+             by more than the spread of 'full''s steps.
+  8. resume  the 'save_scan' training state saved after step 3, restored into
+             a fresh trainer, takes step 4 again: the same loss and
+             parameters.
   9. pipeline the path of `python -m wavemamba_torch.pipelines.train` with
              `network_g.scan_impl: pallas`, from an options dict as a yml parses
              to (this script needs no PyYAML): `build_model` -> a seeded
@@ -112,14 +119,23 @@ and prints one JSON line per phase:
  12. train_fast / train_mixed the xxl4 yml's (bf16 compute and scan) and
              the proc512 yml's (bf16 compute, float32 scan) `network_g` and
              `train` sections
-             through `build_model` and the loader on a seeded uint8 dataset,
-             1 + 6 steps on one batch of 8 x 512x512: 28 K1 + 28 K2 a step
-             on bf16 streams (train_mixed: bf16 x, float32 y and dy), ms a
-             step, images/s, peak memory, the loss falls; before them, for
+             through `build_model` and the yml's loader on a seeded uint8
+             dataset (train_fast: the device-resident dataset,
+             `cache_on_device: true`; train_mixed: the host loader), with the
+             ymls' block recompute ('save_scan'), 1 + 6 steps on one batch of
+             8 x 512x512: 28 K1 + 28 K2 a step on bf16 streams (train_mixed:
+             bf16 x, float32 y and dy), ms a step, images/s, peak memory, the
+             loss falls; before them, for
              each mix, loss and gradients with K1 + K2 against the plain scan
              and backward at 128x128 (`grad` routes `fast` and `mixed`), both
              read against the float32 plain route's gradients as bf16 noise,
              and a planted K2 fault that the check must catch.
+ 12b. device_cache the xxl4 yml's device-resident dataset at its scale:
+             3,200 seeded uint8 pairs of 512x512 (400 where the host cannot
+             hold them, said on the line) staged on the card, the staging
+             seconds, bytes on the card, ms a batch of 8; the first batches
+             of an epoch against the same loader on CPU tensors and against
+             numpy's crop and dihedral modes, bit for bit.
  13. profile device time by kernel (torch.profiler) over one 1152x1920
              forward of each conv route, of `fast()` and of
              `fast(conv_impl="fused")`, one training step of the fused scan
@@ -140,8 +156,7 @@ of a training step: y to the float32 rows' tolerance, dx within one bf16
 step, the same bits twice. Then
 the `kernels` line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, and the script exits non-zero without the last line. It needs
-one card and exits non-zero where CUDA is missing. `--remat` trains with
-block recompute, to measure it; the step fits an 80 GB card without.
+one card and exits non-zero where CUDA is missing.
 """
 
 from __future__ import annotations
@@ -260,13 +275,25 @@ GRAD_FAST_SCAN_RTOL = 0.1
 GRAD_FAST_PLANT = 0.25
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS, EMA_DECAY = 8, 512, 6, 0.999
 PIPELINE_STEPS = 4
+# 'save_scan' against 'full' in alternating steps of the two trainers
+# (`phase_train`). Both steps are host-bound, and a shared host spreads a
+# step's time by 30-90 ms between turns, more than the few ms that K1's
+# launches are worth: the turns decide only beyond that spread.
+POLICY_TURNS = 20
 TRAIN_LENGTHS = [65536, 16384, 4096]  # tokens per image at the three LFSS levels of 512x512
 SCHEDULER = {"type": "CosineAnnealingRestartCyclicLR", "periods": [100, 100000],
              "restart_weights": [1, 1], "eta_mins": [0.0005, 0.0000001]}
 LEVELS_1080P = [(576, 960), (288, 480), (144, 240)]  # token grid of each LFSS level
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """Print one JSON line; a phase's line also gets `t_s`, the seconds since
+    the script started, so that each phase's share of the run shows."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -562,12 +589,14 @@ def kernel_phases(call, phase_of, phases, what, reps=5):
 
 def clocks_under_load(call, seconds=1.0):
     """(SM clock MHz, power draw W): the medians of nvidia-smi's samples,
-    every 50 ms, while `call` runs back to back for `seconds` (the first
-    sample, taken as the load starts, left out)."""
+    every 50 ms, while `call` runs back to back for `seconds`. The load starts
+    once nvidia-smi has given its first sample, which is left out: its start
+    can take longer than the load."""
     smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
                             "--format=csv,noheader,nounits", "-lms", "50"],
                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
     try:
+        smi.stdout.readline()
         t0 = time.perf_counter()
         while time.perf_counter() - t0 < seconds:
             for _ in range(10):
@@ -576,7 +605,7 @@ def clocks_under_load(call, seconds=1.0):
     finally:
         smi.terminate()
         out = smi.communicate(timeout=30)[0]
-    samples = [[float(v) for v in ln.split(",")] for ln in out.splitlines()[1:] if ln.count(",") == 1]
+    samples = [[float(v) for v in ln.split(",")] for ln in out.splitlines() if ln.count(",") == 1]
     check(len(samples) > 0, "nvidia-smi sampled the clock under load")
     return float(np.median([s[0] for s in samples])), float(np.median([s[1] for s in samples]))
 
@@ -1579,7 +1608,7 @@ def phase_model(model):
 
 class PlainScanPair(torch.autograd.Function):
     """The plain scan with the plain backward, on whatever device: what K1 +
-    K2 (`scan_cuda.SS2DScanPair`) are held against in the `grad` phase."""
+    K2 (the op `scan_cuda.ss2d_scan_pair_fwd`) are held against in the `grad` phase."""
 
     @staticmethod
     def forward(ctx, x, wx, dtw, bias, A, dsk, out_dtype):
@@ -1752,36 +1781,45 @@ def phase_grad(route):
     check(bool(planted_failures), f"the check misses K2's dA off by {GRAD_FAST_PLANT}")
 
 
-def train_setup(remat, seed=21):
+# The uhdll yml's recompute, and the two it is read against: none, the
+# 'full' policy (K1 again in the recompute) and 'save_scan', which every
+# shipped train yml runs (the default: they set no `remat` / `remat_policy`).
+# K1 and K2 launches a step under each.
+TRAIN_POLICIES = {None: (28, 28), "full": (56, 28), "save_scan": (28, 28)}
+
+
+def train_setup(policy, seed=21):
+    """A trainer with the uhdll yml's settings, recomputing blocks under
+    `policy` (None: no recompute)."""
     from wavemamba_torch.models import init_network
     from wavemamba_torch.train.trainer import TrainConfig, create_train_state, make_train_step
 
     tcfg = TrainConfig(lr=5e-4, weight_decay=1e-3, betas=(0.9, 0.99), scheduler=SCHEDULER,
                        pixel_weight=1.0, fft_weight=0.1, ema_decay=EMA_DECAY)
-    model = init_network({"type": "WaveMamba", "remat": remat},
-                         torch.Generator().manual_seed(seed), device="cuda")
+    net = {"type": "WaveMamba", "remat": policy is not None}
+    if policy is not None:
+        net["remat_policy"] = policy
+    model = init_network(net, torch.Generator().manual_seed(seed), device="cuda")
     return create_train_state(model, tcfg), make_train_step(tcfg), tcfg
 
 
-def phase_train(remat):
-    """One warm-up step and TRAIN_STEPS steps at full width and depth on one
-    fixed seeded batch of TRAIN_BATCH images, with block recompute if `remat`.
-    A step that does not fit the card's memory fails the run. Returns what the
-    later phases need."""
+def train_run(policy, lq, gt):
+    """Loss and every gradient of the seeded fresh model on the batch, then one
+    warm-up step and TRAIN_STEPS steps on it, recomputing under `policy`. A
+    step that does not fit the card's memory fails the run."""
     from wavemamba_torch.checkpoint import save_training_state
     from wavemamba_torch.models import param_count
     from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair, ss2d_scan_pair_bwd
     from wavemamba_torch.train.trainer import make_lr
 
-    batch = TRAIN_BATCH
-    state, step, tcfg = train_setup(remat)
-    lq, gt = synthetic_batch(22, batch, TRAIN_SIZE)
+    state, step, tcfg = train_setup(policy)
+    check(param_count(state.model) == 1_512_718, "the shipped config has 1,512,718 parameters")
+    check(state.model.cfg.remat == (policy is not None), f"remat under {policy}")
+    grad_loss, grads = model_grads(state.model, tcfg, lq, gt)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state, m = step(state, lq, gt)  # warm-up: cuDNN plans, the allocator's pool
     warm_loss = float(m["total"])
-    check(param_count(state.model) == 1_512_718, "the shipped config has 1,512,718 parameters")
-    per_step = 2 * 2 * sum(state.model.cfg.n_l_blocks)  # pairs scanned in a forward
-    k1_per_step = per_step * (2 if remat else 1)  # the recompute runs K1 again
     lr = make_lr(tcfg)
     named = dict(state.model.named_parameters())
     states_dir = os.path.join(ROOT, "build", "chip_smoke", "training_states")
@@ -1810,21 +1848,101 @@ def phase_train(remat):
     k1_launches, k2_launches = ss2d_scan_pair.launches, ss2d_scan_pair_bwd.launches  # read after
     peak = torch.cuda.max_memory_allocated()
 
+    k1_per_step, k2_per_step = TRAIN_POLICIES[policy]
     check(all(np.isfinite(losses)) and np.isfinite(warm_loss), "losses finite")
     check(losses[-1] < warm_loss, f"the loss fell on the repeated batch: {warm_loss} -> {losses[-1]}")
-    check(k2_launches == per_step * TRAIN_STEPS == 28 * TRAIN_STEPS,
-          f"{k2_launches} K2 launches in {TRAIN_STEPS} steps")
-    check(k1_launches == k1_per_step * TRAIN_STEPS, f"{k1_launches} K1 launches in {TRAIN_STEPS} steps")
+    check((k1_launches, k2_launches) == (k1_per_step * TRAIN_STEPS, k2_per_step * TRAIN_STEPS),
+          f"{k1_launches} K1 / {k2_launches} K2 launches in {TRAIN_STEPS} steps under {policy}")
     check(state.step == TRAIN_STEPS + 1, "the step count")
     ms = float(np.median(times))
-    emit({"phase": "train", "batch": batch, "size": [TRAIN_SIZE, TRAIN_SIZE], "remat": remat,
-          "steps": TRAIN_STEPS, "loss_first": warm_loss, "losses": losses, "step_ms": times,
-          "ms_per_step": ms, "images_per_s": batch / ms * 1e3, "peak_memory_bytes": peak,
-          "k1_launches": k1_launches, "k2_launches": k2_launches,
-          "k1_per_step": k1_per_step, "k2_per_step": per_step, "lr": lr(TRAIN_STEPS)})
-    return dict(state=state, step=step, tcfg=tcfg, lq=lq, gt=gt, remat=remat, saved=saved,
-                ms_per_step=ms,
-                k1_launches=k1_launches, k2_launches=k2_launches)
+    return dict(state=state, step=step, tcfg=tcfg, lq=lq, gt=gt, policy=policy, saved=saved,
+                ms_per_step=ms, step_ms=times, losses=losses, warm_loss=warm_loss, peak=peak,
+                grad_loss=grad_loss, grads=grads, k1_launches=k1_launches,
+                k2_launches=k2_launches, lr=lr(TRAIN_STEPS))
+
+
+def phase_train():
+    """The trainer at full width and depth on one fixed seeded batch of
+    TRAIN_BATCH images, under each of TRAIN_POLICIES in turn, from the same
+    seeded init: ms a step, peak memory, K1 / K2 launches a step, the loss,
+    and the gradients under 'full' and 'save_scan' against those without
+    recompute (GRAD_RTOL of each gradient's max). Returns the runs by
+    policy; the 'save_scan' one, the shipped ymls' setting, serves the later
+    phases."""
+    lq, gt = synthetic_batch(22, TRAIN_BATCH, TRAIN_SIZE)
+    runs = {}
+    for policy in TRAIN_POLICIES:
+        run = runs[policy] = train_run(policy, lq, gt)
+        row = {"phase": "train", "batch": TRAIN_BATCH, "size": [TRAIN_SIZE, TRAIN_SIZE],
+               "remat": policy is not None, "remat_policy": policy, "steps": TRAIN_STEPS,
+               "loss_first": run["warm_loss"], "losses": run["losses"], "step_ms": run["step_ms"],
+               "ms_per_step": run["ms_per_step"], "images_per_s": TRAIN_BATCH / run["ms_per_step"] * 1e3,
+               "peak_memory_bytes": run["peak"], "k1_launches": run["k1_launches"],
+               "k2_launches": run["k2_launches"],
+               "k1_per_step": run["k1_launches"] / TRAIN_STEPS,
+               "k2_per_step": run["k2_launches"] / TRAIN_STEPS, "lr": run["lr"],
+               "grad_loss": run["grad_loss"]}
+        if policy is not None:
+            base = runs[None]
+            worst = max((float((run["grads"][n] - g).abs().max()) / (float(g.abs().max()) + 1e-30), n)
+                        for n, g in base["grads"].items())
+            loss_rel = abs(run["grad_loss"] - base["grad_loss"]) / abs(base["grad_loss"])
+            row.update(vs_no_recompute={"loss_rel_err": loss_rel, "worst_grad_rel_err": worst[0],
+                                        "worst_grad": worst[1], "grad_tol": GRAD_RTOL,
+                                        "loss_tol": GRAD_LOSS_RTOL,
+                                        "equal_bits": all(torch.equal(run["grads"][n], g)
+                                                          for n, g in base["grads"].items())})
+            row["ms_vs_no_recompute"] = run["ms_per_step"] - base["ms_per_step"]
+            if policy == "save_scan":
+                row["ms_vs_full"] = run["ms_per_step"] - runs["full"]["ms_per_step"]
+                row["peak_vs_full_bytes"] = run["peak"] - runs["full"]["peak"]
+        emit(row)
+        if policy is not None:
+            check(loss_rel <= GRAD_LOSS_RTOL, f"{policy}: loss {loss_rel} <= {GRAD_LOSS_RTOL} of no recompute's")
+            check(worst[0] <= GRAD_RTOL, f"{policy}: gradient of {worst[1]} {worst[0]} <= {GRAD_RTOL}")
+            del run["grads"]
+    del runs[None]["grads"]
+    compare_policies(runs, lq, gt)
+    return runs
+
+
+def compare_policies(runs, lq, gt):
+    """'save_scan' against 'full' in POLICY_TURNS turns of one step each, the
+    order alternating, so that both meet the same state of the machine (the
+    runs above come one after the other): the median step of each, their
+    spread (the distance between quartiles), the turns 'save_scan' won, and
+    the K1 / K2 launches of every step. The verdict is 'faster' or 'slower'
+    where the medians differ by more than 'full''s spread, else
+    'unresolved'. Fails where 'save_scan' is slower."""
+    from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair, ss2d_scan_pair_bwd
+
+    times = {"full": [], "save_scan": []}
+    for turn in range(POLICY_TURNS):
+        for policy in ("full", "save_scan") if turn % 2 == 0 else ("save_scan", "full"):
+            run = runs[policy]
+            ss2d_scan_pair.launches = ss2d_scan_pair_bwd.launches = 0
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            run["state"], m = run["step"](run["state"], lq, gt)
+            end.record()
+            end.synchronize()
+            times[policy].append(start.elapsed_time(end))
+            check(np.isfinite(float(m["total"])), f"{policy}: loss finite in turn {turn}")
+            check((ss2d_scan_pair.launches, ss2d_scan_pair_bwd.launches) == TRAIN_POLICIES[policy],
+                  f"{policy}: {ss2d_scan_pair.launches} K1 / {ss2d_scan_pair_bwd.launches} K2 "
+                  f"launches in turn {turn}")
+    full, save = (float(np.median(times[p])) for p in ("full", "save_scan"))
+    spread = {p: float(np.subtract(*np.percentile(times[p], [75, 25]))) for p in times}
+    verdict = ("faster" if save < full - spread["full"] else
+               "slower" if save > full + spread["full"] else "unresolved")
+    emit({"phase": "train_policies", "batch": TRAIN_BATCH, "size": [TRAIN_SIZE, TRAIN_SIZE],
+          "turns": POLICY_TURNS, "full_ms": times["full"], "save_scan_ms": times["save_scan"],
+          "full_ms_per_step": full, "save_scan_ms_per_step": save, "ms_vs_full": save - full,
+          "spread_ms": spread,
+          "save_scan_won": int(np.sum(np.less(times["save_scan"], times["full"]))),
+          "verdict": verdict})
+    check(verdict != "slower",
+          f"'save_scan' {save} ms a step against 'full' {full}, beyond the spread {spread['full']}")
 
 
 def phase_resume(run):
@@ -1836,7 +1954,7 @@ def phase_resume(run):
     saved = run["saved"]
     path = find_resume_state(os.path.dirname(saved["path"]))
     check(path == saved["path"], f"find_resume_state finds {saved['path']}")
-    fresh, step, _ = train_setup(run["remat"], seed=99)
+    fresh, step, _ = train_setup(run["policy"], seed=99)
     fresh = restore_training_state(path, fresh)
     check(fresh.step == 3, "the restored step count")
     fresh, m = step(fresh, run["lq"], run["gt"])
@@ -2242,13 +2360,19 @@ def phase_serve_fast_fused(model, fast, stock):
     return dict(launches=launches[0], k1_launches=launches[2], forward_ms=forward_ms)
 
 
-def _yml_train_opt(name, seed, network_g, train):
-    """An options dict as `parse_options` hands on a train yml's `network_g`
-    and `train` sections, without block recompute, from a seeded init."""
+def _yml_train_opt(name, seed, network_g, train, train_set):
+    """An options dict as `parse_options` hands on a train yml's `network_g`,
+    `train` and `datasets.train` sections (the data itself is made here),
+    from a seeded init. Block recompute as the ymls say: on, 'save_scan'."""
     root = os.path.join(ROOT, "build", "chip_smoke", "experiments", name)
     return {
         "name": name, "model_type": "FeMaSRModel", "scale": 1, "manual_seed": seed,
-        "is_train": True, "device": "cuda", "network_g": {**network_g, "remat": False},
+        "is_train": True, "device": "cuda", "network_g": network_g,
+        "datasets": {"train": {"name": name, "type": "PairedImageDataset", "phase": "train",
+                               "scale": 1, "io_backend": {"type": "disk"}, "gt_size": TRAIN_SIZE,
+                               "geometric_augs": True, "batch_size_per_gpu": TRAIN_BATCH,
+                               "num_worker_per_gpu": 8, "dataset_enlarge_ratio": 1,
+                               "cache_in_ram": True, "transfer_dtype": "uint8", **train_set}},
         "path": {"pretrain_network_g": None, "resume_state": None, "experiments_root": root,
                  "models": os.path.join(root, "models"),
                  "training_states": os.path.join(root, "training_states"),
@@ -2274,23 +2398,23 @@ _PROC_NETWORK_G = {"type": "WaveMamba", "in_chn": 3, "wf": 32, "n_l_blocks": [1,
 
 def fast_train_opt(seed):
     """`options/train_wavemamba_proc_bsrgan_xxl4.yml`'s sections (bf16
-    compute and scan streams)."""
+    compute and scan streams; the device-resident dataset)."""
     return _yml_train_opt("train_fast", seed, {**_PROC_NETWORK_G, "scan_dtype": "bfloat16"},
-                          _yml_train_section(1e-4, [600, 5400], [0.0001, 0.0000001], 6000))
+                          _yml_train_section(1e-4, [600, 5400], [0.0001, 0.0000001], 6000),
+                          {"cache_on_device": True})
 
 
 def mixed_train_opt(seed):
     """`options/train_wavemamba_proc512.yml`'s sections (bf16 compute, no
-    `scan_dtype`: float32 scan streams)."""
+    `scan_dtype`: float32 scan streams; the host loader)."""
     return _yml_train_opt("train_mixed", seed, _PROC_NETWORK_G,
-                          _yml_train_section(2e-4, [300, 2700], [0.0002, 0.0000001], 3000))
+                          _yml_train_section(2e-4, [300, 2700], [0.0002, 0.0000001], 3000), {})
 
 
 # The phases that train from a shipped yml's sections: its path, its options,
-# and the (x, y) dtypes each of its 28 K1 calls a step must see. Block
-# recompute is off in both (`remat: False`): the port's recompute is the
-# 'full' policy, which runs K1 twice a step, where the ymls' JAX default
-# 'save_scan' keeps the scan's outputs (ROADMAP queue 1, item 6).
+# and the (x, y) dtypes each of its 28 K1 calls a step must see. Both recompute
+# their blocks as the ymls do (neither sets `remat`: on, 'save_scan'), so K1
+# runs 28 times a step, its outputs kept across the recompute.
 TRAIN_YMLS = {
     "train_fast": ("options/train_wavemamba_proc_bsrgan_xxl4.yml", fast_train_opt, 41,
                    ("torch.bfloat16", "torch.bfloat16"),
@@ -2301,12 +2425,44 @@ TRAIN_YMLS = {
 }
 
 
+def yml_train_loader(opt, train_set):
+    """The train loader of the yml's `datasets.train` section over the seeded
+    in-memory pairs, chosen as `pipelines.train` chooses it: the
+    device-resident dataset where `cache_on_device` is set (staged from the
+    decoded arrays; this host needs no OpenCV), else the threaded host loader
+    behind `device_prefetch`. Returns (the loader, its first batch)."""
+    from wavemamba_torch.data import (
+        DeviceCachedLoader,
+        EnlargedSampler,
+        ThreadedLoader,
+        device_prefetch,
+    )
+
+    dataset_opt = opt["datasets"]["train"]
+    sampler = EnlargedSampler(len(train_set), 1, 0, ratio=dataset_opt["dataset_enlarge_ratio"])
+    if dataset_opt.get("cache_on_device"):
+        items = train_set.items
+        loader = DeviceCachedLoader.from_arrays(
+            [it["lq"] for it in items], [it["gt"] for it in items], items, dataset_opt,
+            TRAIN_BATCH, sampler=sampler, seed=opt["manual_seed"], device="cuda")
+        loader.set_epoch(0)
+        return loader, next(iter(loader))
+    loader = ThreadedLoader(train_set, batch_size=TRAIN_BATCH, sampler=sampler,
+                            num_workers=dataset_opt["num_worker_per_gpu"], drop_last=True,
+                            seed=opt["manual_seed"])
+    loader.set_epoch(0)
+    batches = device_prefetch(loader, "cuda")
+    batch = next(batches)
+    batches.close()
+    return loader, batch
+
+
 def phase_train_yml(phase):
     """bf16 training through the yml path (`TRAIN_YMLS[phase]`): `build_model`
-    on the yml's sections, a seeded uint8 dataset through the sampler,
-    `ThreadedLoader` and `device_prefetch`, then one warm-up step and
+    on the yml's sections with its block recompute ('save_scan'), a seeded
+    uint8 dataset through the sampler and the yml's loader (`yml_train_loader`:
+    the device-resident dataset for the xxl4 yml), then one warm-up step and
     TRAIN_STEPS steps on the first batch, repeated."""
-    from wavemamba_torch.data import EnlargedSampler, ThreadedLoader, device_prefetch
     from wavemamba_torch.models.wavemamba import set_scan
     from wavemamba_torch.ops import scan_cuda
     from wavemamba_torch.runner import build_model
@@ -2314,22 +2470,23 @@ def phase_train_yml(phase):
     yml, make_opt, seed, streams_want, streams_note = TRAIN_YMLS[phase]
     opt = make_opt(seed=seed)
     model = build_model(opt)
+    cfg = model.model.cfg
     check(all(p.dtype == torch.float32 for p in model.model.parameters()), "float32 parameters")
+    check((cfg.remat, cfg.remat_policy) == (True, "save_scan"), f"{phase}: recompute as the yml says")
     train_set = SyntheticPairs(16, TRAIN_SIZE, seed=seed + 1, uint8=True)
-    loader = ThreadedLoader(train_set, batch_size=TRAIN_BATCH,
-                            sampler=EnlargedSampler(len(train_set), 1, 0, ratio=1), num_workers=4,
-                            drop_last=True, seed=seed)
-    loader.set_epoch(0)
-    batches = device_prefetch(loader, "cuda")
-    batch = next(batches)
-    batches.close()
+    loader, batch = yml_train_loader(opt, train_set)
+    device_cache = bool(opt["datasets"]["train"].get("cache_on_device"))
+    check(getattr(loader, "yields_device_batches", False) == device_cache,
+          f"{phase}: the {'device-resident' if device_cache else 'host'} loader, got {type(loader).__name__}")
     check(batch["lq"].dtype == torch.uint8 and batch["lq"].is_cuda, "uint8 batches on the card")
     streams = ScanDtypes()
     set_scan(model.model, streams)
     torch.cuda.reset_peak_memory_stats()
     warm_loss = float(model.optimize_parameters(batch)["total"])  # warm-up
-    check(streams.calls == [streams_want] * 28,
-          f"K1's streams in a {phase} step: {sorted(set(streams.calls))}")
+    # The hook sees each call: the forward's 28, and the recompute's 28, which
+    # the op answers from its saved outputs.
+    check(streams.calls == [streams_want] * 56,
+          f"K1's streams in a {phase} step: {len(streams.calls)} calls, {sorted(set(streams.calls))}")
     set_scan(model.model, scan_cuda.ss2d_scan_pair)
     wrappers = (scan_cuda.ss2d_scan_pair, scan_cuda.ss2d_scan_pair_bwd)
     for w in wrappers:  # the main path's counts start here
@@ -2348,15 +2505,126 @@ def phase_train_yml(phase):
     ms = float(np.median(times))
     net = opt["network_g"]
     emit({"phase": phase, "yml": yml, "compute_dtype": net["compute_dtype"],
-          "scan_dtype": net.get("scan_dtype", "float32 (the default)"), "remat": net["remat"],
+          "scan_dtype": net.get("scan_dtype", "float32 (the default)"), "remat": cfg.remat,
+          "remat_policy": cfg.remat_policy, "loader": type(loader).__name__,
           "batch": TRAIN_BATCH, "size": [TRAIN_SIZE, TRAIN_SIZE], "steps": TRAIN_STEPS,
           "loss_first": warm_loss, "losses": losses, "step_ms": times, "ms_per_step": ms,
           "images_per_s": TRAIN_BATCH / ms * 1e3, "peak_memory_bytes": peak, "k1_launches": k1,
-          "k2_launches": k2, "k1_streams": streams_note})
+          "k2_launches": k2, "k1_per_step": k1 / TRAIN_STEPS, "k2_per_step": k2 / TRAIN_STEPS,
+          "k1_streams": streams_note})
     check(all(np.isfinite(losses)) and np.isfinite(warm_loss), "losses finite")
     check(losses[-1] < warm_loss, f"the loss fell on the repeated batch: {warm_loss} -> {losses[-1]}")
     check((k1, k2) == (28 * TRAIN_STEPS, 28 * TRAIN_STEPS), f"{k1} K1 / {k2} K2 launches in {TRAIN_STEPS} steps")
     return dict(k1_launches=k1, k2_launches=k2, ms_per_step=ms, model=model, batch=batch)
+
+
+# The xxl4 yml's dataset: 3,200 pairs of 512x512 (its comment: "3200x512^2x3
+# uint8 x2 ~= 4.8 GB staged in HBM"); 400 pairs where the host cannot hold it.
+CACHE_PAIRS, CACHE_PAIRS_CUT = 3200, 400
+CACHE_CHECK_BATCHES, CACHE_TIMED_BATCHES = 4, 50
+
+
+def np_dihedral(img, mode):
+    """`transforms.data_augmentation`'s mode of an HWC image, in numpy."""
+    rot = np.rot90(img, k=mode // 2)
+    return np.flipud(rot) if mode % 2 else rot
+
+
+def host_bytes_available():
+    """MemAvailable of /proc/meminfo, in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def phase_device_cache(seed=61):
+    """The xxl4 yml's device-resident dataset at its own scale: seeded uint8
+    pairs staged on the card by `DeviceCachedLoader.from_arrays`, the staging
+    seconds, the bytes on the card and the ms a batch of TRAIN_BATCH; one
+    epoch's first batches against the same loader on CPU tensors and against
+    numpy's crop and dihedral modes, bit for bit."""
+    from wavemamba_torch.data import DeviceCachedLoader, EnlargedSampler
+
+    opt = fast_train_opt(seed)
+    dataset_opt = opt["datasets"]["train"]
+    pairs = CACHE_PAIRS
+    need = 2 * pairs * TRAIN_SIZE * TRAIN_SIZE * 3
+    available = host_bytes_available()
+    if available < 3 * need:  # the arrays, and room for the rest of the run
+        pairs = CACHE_PAIRS_CUT
+    shape = (pairs, TRAIN_SIZE, TRAIN_SIZE, 3)
+    t0 = time.perf_counter()
+    # uniform bytes, drawn 8 at a time (uint8 draws took 23 s for the 5 GB)
+    words = np.random.default_rng(seed).integers(0, 2**64 - 1, need // 16, dtype=np.uint64,
+                                                 endpoint=True)
+    gt = words.view(np.uint8).reshape(shape)
+    lq = gt >> 2  # a darker copy
+    make_s = time.perf_counter() - t0
+    paths = [{"lq_path": f"synthetic/lq/{i:04d}.png", "gt_path": f"synthetic/gt/{i:04d}.png"}
+             for i in range(pairs)]
+    loaders = {}
+    for device in ("cuda", "cpu"):
+        sampler = EnlargedSampler(pairs, 1, 0, ratio=dataset_opt["dataset_enlarge_ratio"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaders[device] = DeviceCachedLoader.from_arrays(
+            lq, gt, paths, dataset_opt, TRAIN_BATCH, sampler=sampler, seed=opt["manual_seed"],
+            device=device, budget_gb=dataset_opt.get("device_cache_budget_gb", 8.0))
+        torch.cuda.synchronize()
+        if device == "cuda":
+            stage_s = time.perf_counter() - t0
+    card, host = loaders["cuda"], loaders["cpu"]
+    check(card.lq_all.is_cuda and card.nbytes == 2 * lq.nbytes, "the dataset is on the card")
+    for loader in (card, host):
+        loader.set_epoch(0)
+
+    # One epoch's first batches: the card's against the CPU tensors' and numpy's.
+    indices = np.asarray(list(iter(card.sampler)))
+    draws = np.random.RandomState(opt["manual_seed"] ^ 0x5EED)
+    checked = []
+    for b, got, want in zip(range(CACHE_CHECK_BATCHES), card, host):
+        idx = indices[b * TRAIN_BATCH:(b + 1) * TRAIN_BATCH]
+        tops = draws.randint(0, card.crop_max_top + 1, size=TRAIN_BATCH)
+        lefts = draws.randint(0, card.crop_max_left + 1, size=TRAIN_BATCH)
+        modes = draws.randint(1, 8, size=TRAIN_BATCH)
+        np_lq = np.stack([np_dihedral(lq[i, t:t + TRAIN_SIZE, l:l + TRAIN_SIZE], m)
+                          for i, t, l, m in zip(idx, tops, lefts, modes)])
+        np_gt = np.stack([np_dihedral(gt[i, t:t + TRAIN_SIZE, l:l + TRAIN_SIZE], m)
+                          for i, t, l, m in zip(idx, tops, lefts, modes)])
+        same = {"vs_cpu": all(torch.equal(got[k].cpu(), want[k]) for k in ("lq", "gt")),
+                "vs_numpy": all(np.array_equal(got[k].cpu().numpy(), ref)
+                                for k, ref in (("lq", np_lq), ("gt", np_gt))),
+                "paths": got["lq_path"] == want["lq_path"] == [paths[i]["lq_path"] for i in idx],
+                "modes": sorted(set(modes.tolist()))}
+        checked.append(same)
+        check(got["lq"].is_cuda and got["lq"].dtype == torch.uint8
+              and tuple(got["lq"].shape) == (TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
+              "uint8 NHWC batches on the card")
+        check(same["vs_cpu"] and same["vs_numpy"] and same["paths"],
+              f"device_cache batch {b}: bit for bit against the CPU loader and numpy: {same}")
+    del host, loaders
+
+    # ms a batch: the host's draws, their one copy to the card and the gathers.
+    batches = iter(card)
+    next(batches)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(CACHE_TIMED_BATCHES):
+        next(batches)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / CACHE_TIMED_BATCHES
+    emit({"phase": "device_cache", "yml": TRAIN_YMLS["train_fast"][0], "pairs": pairs,
+          "size": [TRAIN_SIZE, TRAIN_SIZE], "batch": TRAIN_BATCH,
+          "cut": None if pairs == CACHE_PAIRS else
+          f"{CACHE_PAIRS} pairs need {need} B and the host has {available} B available",
+          "host_bytes_available": available, "make_s": make_s, "stage_s": stage_s,
+          "bytes_on_card": card.nbytes, "stage_gb_per_s": card.nbytes / stage_s / 1e9,
+          "ms_per_batch": ms, "batches_per_epoch": len(card), "checked_batches": checked})
+    del card
+    torch.cuda.empty_cache()
 
 
 def phase_probe():
@@ -2445,11 +2713,11 @@ def profiled_launches(rows, counted):
             "short_profile": any(recorded[k] < counted[k] for k in replays)}
 
 
-def phase_profile(model, x, forward_ms, run, pipe, fused, fast, fast_fused, train_fast, train_mixed):
+def phase_profile(model, x, forward_ms, runs, pipe, fused, fast, fast_fused, train_fast, train_mixed):
     """Device time by kernel over one 1152x1920 forward of each conv route
     (stock convs, and the fused chains: K7), of `fast()` and of
     `fast(conv_impl="fused")`, one training step of the fused scan route
-    (K1 + K2), of the unfused route (K3 + K4, through the runner), of the
+    (K1 + K2) under each recompute policy (`runs`), of the unfused route (K3 + K4, through the runner), of the
     bf16 yml (`train_fast`) and of the proc512 yml (`train_mixed`), and the
     share of each one's wall time in which the card ran no kernel; beside
     each, K1's and K3's launches as the profile recorded them and as their
@@ -2493,8 +2761,14 @@ def phase_profile(model, x, forward_ms, run, pipe, fused, fast, fast_fused, trai
            image=[1152, 1920])
     report("forward_fused", *profile_rows(lambda: wavemamba_apply(fused["model"], x)),
            fused["forward_ms"], image=[1152, 1920])
-    train = report("train_step", *profile_rows(lambda: run["step"](run["state"], run["lq"], run["gt"])),
-           run["ms_per_step"], batch=run["lq"].shape[0], size=[TRAIN_SIZE, TRAIN_SIZE], remat=run["remat"])
+    steps = {}
+    for policy, what in ((None, "train_step"), ("full", "train_step_full"),
+                         ("save_scan", "train_step_save_scan")):
+        r = runs[policy]
+        steps[what] = report(what, *profile_rows(lambda: r["step"](r["state"], r["lq"], r["gt"])),
+                             r["ms_per_step"], batch=TRAIN_BATCH, size=[TRAIN_SIZE, TRAIN_SIZE],
+                             remat_policy=policy)
+    run = runs["save_scan"]
     batch = {"lq": run["lq"], "gt": run["gt"]}
     report("train_step_unfused", *profile_rows(lambda: pipe["model"].optimize_parameters(batch)),
            pipe["ms_per_step"], batch=run["lq"].shape[0], size=[TRAIN_SIZE, TRAIN_SIZE], remat=False)
@@ -2504,14 +2778,14 @@ def phase_profile(model, x, forward_ms, run, pipe, fused, fast, fast_fused, trai
            fast_fused["forward_ms"], image=[1152, 1920])
     fast_step = report("train_step_fast", *profile_rows(lambda: train_fast["model"].optimize_parameters(
         train_fast["batch"])), train_fast["ms_per_step"], batch=TRAIN_BATCH, size=[TRAIN_SIZE, TRAIN_SIZE],
-        remat=False)
+        remat_policy="save_scan")
     mixed_step = report("train_step_mixed", *profile_rows(lambda: train_mixed["model"].optimize_parameters(
         train_mixed["batch"])), train_mixed["ms_per_step"], batch=TRAIN_BATCH, size=[TRAIN_SIZE, TRAIN_SIZE],
-        remat=False)
+        remat_policy="save_scan")
     # K2's device time in each fused training step, beside the step's.
     return {what: {k: r[k] for k in ("k2_ms", "busy_ms", "k2_share_of_busy", "wall_ms", "unprofiled_ms",
                                      "idle_share_unprofiled", "short_profile")}
-            for what, r in (("train_step", train), ("train_step_fast", fast_step),
+            for what, r in (*steps.items(), ("train_step_fast", fast_step),
                             ("train_step_mixed", mixed_step))}
 
 
@@ -2531,11 +2805,7 @@ def kernel_errors(k1_rows, k1_bf16_rows, k2_rows, k2_bf16_rows):
 
 
 def main():
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--remat", action="store_true",
-                        help="block recompute in the train phase (to measure it; the step "
-                             "fits an 80 GB card without)")
-    args = parser.parse_args()
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
     t_start = time.perf_counter()
@@ -2568,9 +2838,10 @@ def main():
     phase_model(model)
     phase_grad("fused")
     phase_grad("unfused")
-    run = phase_train(args.remat)
+    runs = phase_train()
+    run = runs["save_scan"]
     phase_resume(run)
-    pipe = phase_pipeline(run["ms_per_step"])
+    pipe = phase_pipeline(runs[None]["ms_per_step"])  # both without recompute
     probe_rows = phase_probe()
     from wavemamba_torch.models.wavemamba import WaveMambaConfig
 
@@ -2587,7 +2858,8 @@ def main():
     phase_grad("mixed")
     train_fast = phase_train_yml("train_fast")
     train_mixed = phase_train_yml("train_mixed")
-    k2_steps = phase_profile(model, x1080, forward_ms, run, pipe, fused, fast, fast_fused, train_fast,
+    phase_device_cache()
+    k2_steps = phase_profile(model, x1080, forward_ms, runs, pipe, fused, fast, fast_fused, train_fast,
                              train_mixed)
     bench = phase_bench()
 
@@ -2600,6 +2872,8 @@ def main():
     # probe path's timed calls.
     level1 = k1_rows[0]
     k2_level1 = k2_rows[0]
+    # the train path's launches: its three policies' runs, each counted from 0
+    train_k1, train_k2 = (sum(r[k] for r in runs.values()) for k in ("k1_launches", "k2_launches"))
     k3_level1 = next(r for r in k3_rows if r["case"] == "train_level1")
     k4_level1 = next(r for r in k4_rows if r["case"] == "train_level1")
     k5_f32 = [r for r in k5_rows if "x" not in r]
@@ -2644,9 +2918,10 @@ def main():
     emit({"kernels": [{
         "name": "ss2d_scan_pair (K1)", "route": "cuda", "source": "wavemamba_torch/csrc/ss2d_scan.cu",
         "replaces": "wavemamba_tpu/ops/scan_pallas.py:705",
-        "launches": launches + run["k1_launches"] + fast["launches"] + train_fast["k1_launches"]
+        "launches": launches + train_k1 + fast["launches"] + train_fast["k1_launches"]
         + fast_fused["k1_launches"] + train_mixed["k1_launches"],
-        "launches_serve": launches, "launches_train": run["k1_launches"],
+        "launches_serve": launches, "launches_train": train_k1,
+        "launches_train_by_policy": {str(p): r["k1_launches"] for p, r in runs.items()},
         "launches_serve_fast": fast["launches"], "launches_train_fast": train_fast["k1_launches"],
         "launches_serve_fast_fused": fast_fused["k1_launches"],
         "launches_train_mixed": train_mixed["k1_launches"],
@@ -2672,8 +2947,10 @@ def main():
         "name": "ss2d_scan_pair_bwd (K2)", "route": "cuda",
         "source": "wavemamba_torch/csrc/ss2d_scan_bwd.cu",
         "replaces": "wavemamba_tpu/ops/scan_pallas.py:952",
-        "launches": run["k2_launches"] + train_fast["k2_launches"] + train_mixed["k2_launches"],
-        "launches_train": run["k2_launches"], "launches_train_fast": train_fast["k2_launches"],
+        "launches": train_k2 + train_fast["k2_launches"] + train_mixed["k2_launches"],
+        "launches_train": train_k2,
+        "launches_train_by_policy": {str(p): r["k2_launches"] for p, r in runs.items()},
+        "launches_train_fast": train_fast["k2_launches"],
         "launches_train_mixed": train_mixed["k2_launches"],
         "variants": "x, dy and dx float32; all bfloat16 on the fast training path; bfloat16 x and "
                     "dx with float32 dy on the proc ymls' path (train_mixed)",

@@ -49,13 +49,33 @@ def test_bf16_chain_errors_allow_one_step():
 @pytest.mark.parametrize("phase", ["train_fast", "train_mixed"])
 def test_yml_train_phases_take_the_ymls_sections(phase):
     """The card run holds no PyYAML: its options dicts repeat the shipped
-    ymls' `network_g` and `train` sections, block recompute off."""
+    ymls' `network_g` and `train` sections as they are (block recompute on,
+    'save_scan', as the ymls leave it) and their `datasets.train` settings
+    (`cache_on_device` among them); only the data is made there."""
     yml, make_opt, seed, streams, _ = chip_smoke.TRAIN_YMLS[phase]
     opt, want = make_opt(seed), yaml_load(str(REPO / yml))
-    assert opt["network_g"] == {**want["network_g"], "remat": False}
+    assert opt["network_g"] == want["network_g"]
     assert opt["train"] == want["train"]
     cfg = config_from_opt(opt["network_g"])
     assert streams == (f"torch.{cfg.compute_dtype}", f"torch.{cfg.scan_dtype}")
+    assert (cfg.remat, cfg.remat_policy) == (True, "save_scan")
+    got, want_set = opt["datasets"]["train"], want["datasets"]["train"]
+    for key, value in want_set.items():
+        if key not in ("name", "dataroot_gt", "dataroot_lq"):
+            assert got[key] == value, key
+    assert got.get("cache_on_device", False) == want_set.get("cache_on_device", False)
+
+
+@pytest.mark.parametrize("mode", range(8))
+def test_np_dihedral_is_the_host_augmentation(mode):
+    """`device_cache`'s numpy transcription of the dihedral modes is the JAX
+    package's host `data_augmentation`, mode for mode."""
+    import numpy as np
+
+    from wavemamba_tpu.data.transforms import data_augmentation
+
+    img = np.arange(4 * 4 * 3, dtype=np.uint8).reshape(4, 4, 3)
+    np.testing.assert_array_equal(chip_smoke.np_dihedral(img, mode), data_augmentation(img, mode))
 
 
 def test_template_tags_name_each_instantiation():

@@ -271,9 +271,9 @@ def test_the_proc_ymls_scan_bf16_tokens_into_float32_y(yml):
     from wavemamba_torch.utils.options import yaml_load
 
     opt = yaml_load(os.path.join(REPO, "options", yml))["network_g"]
-    with pytest.warns(UserWarning, match="remat_policy"):  # the ymls train with recompute
-        cfg = config_from_opt(opt)
+    cfg = config_from_opt(opt)
     assert (cfg.compute_dtype, cfg.scan_dtype, cfg.scan_impl) == ("bfloat16", "float32", "pallas_fused")
+    assert (cfg.remat, cfg.remat_policy) == (True, "save_scan")  # the ymls train with recompute
     model = init_network({**opt, "remat": False}, torch.Generator().manual_seed(5), device="cpu",
                          train=False)
     scan = _RecordingScan()

@@ -251,10 +251,13 @@ def test_network_g_keys_are_honoured_or_refused():
     bf16 = config_from_opt({**base, "compute_dtype": "bfloat16", "scan_dtype": "bfloat16"})
     assert (bf16.compute_dtype, bf16.scan_dtype) == ("bfloat16", "bfloat16")
     for key, value, match in [("conv1x1_as_conv", ["ffn"], "item 15"),
-                              ("remat_policy", "save_scan", "item 6"),
                               ("scan_impl", "seq_sharded", "item 9")]:
         with pytest.raises(NotImplementedError, match=match):
             config_from_opt({**base, key: value})
+    # remat_policy is a field: both of the JAX package's policies, its default too
+    assert config_from_opt(base).remat_policy == jwm.WaveMambaConfig().remat_policy == "save_scan"
+    for policy in ("save_scan", "full"):
+        assert config_from_opt({**base, "remat_policy": policy}).remat_policy == policy
     from wavemamba_torch.models import init_network
 
     fused_bf16 = config_from_opt({**base, "conv_impl": "fused", "compute_dtype": "bfloat16"})
@@ -274,25 +277,22 @@ def test_network_g_keys_are_honoured_or_refused():
         config_from_opt({"type": "ART"})
 
 
-@pytest.mark.parametrize("extra,warns", [({"remat": True}, True), ({}, True),
-                                         ({"remat": True, "remat_policy": "full"}, False),
-                                         ({"remat": False}, False)])
-def test_config_from_opt_names_the_remat_policy_it_runs(extra, warns):
-    """With remat on (as given, or by default) and no remat_policy, the port
-    recomputes whole blocks where the JAX package would take 'save_scan':
-    `config_from_opt` says so in one warning. `remat_policy: full`, or remat
-    off, is silent."""
+@pytest.mark.parametrize("extra", [{"remat": True}, {}, {"remat": True, "remat_policy": "full"},
+                                   {"remat": False}])
+def test_config_from_opt_names_the_remat_policy_it_runs(extra):
+    """The port runs the JAX package's recompute policies, so `config_from_opt`
+    warns about none of them, and the config holds the policy and the remat
+    switch that the JAX config of the same dict holds ('save_scan' where
+    the dict names none)."""
     from wavemamba_torch.models import config_from_opt
 
     base = {"type": "WaveMamba", "wf": 16, "n_l_blocks": [1, 1, 1], "n_h_blocks": [1, 1, 1]}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         cfg = config_from_opt({**base, **extra})
-    said = [str(w.message) for w in caught if "remat_policy" in str(w.message)]
-    assert cfg.remat == extra.get("remat", True)
-    assert len(said) == (1 if warns else 0), said
-    if warns:
-        assert "'full'" in said[0] and "save_scan" in said[0] and "item 6" in said[0]
+    assert [str(w.message) for w in caught if "remat" in str(w.message)] == []
+    want = jwm.WaveMambaConfig(wf=16, n_l_blocks=(1, 1, 1), n_h_blocks=(1, 1, 1), **extra)
+    assert (cfg.remat, cfg.remat_policy) == (want.remat, want.remat_policy)
 
 
 def test_load_network_points_elsewhere_for_jax_artifacts(tmp_path):

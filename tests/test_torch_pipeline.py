@@ -33,6 +33,7 @@ from wavemamba_torch.runner import RestorationModel, build_model, train_config_f
 from wavemamba_torch.utils import options as toptions
 from wavemamba_tpu import data as jdata
 from wavemamba_tpu import runner as jrunner
+from wavemamba_tpu.data.device_cache import DeviceCachedLoader as JaxDeviceCachedLoader
 from wavemamba_tpu.models import build_network as jbuild_network
 from wavemamba_tpu.models import init_for
 from wavemamba_tpu.utils import misc as jmisc
@@ -371,17 +372,26 @@ def _totals(lines):
     return [float(m.group(1)) for ln in lines if (m := re.search(r"total: (\S+)", ln))]
 
 
-def test_train_then_test_pipeline_end_to_end(synth_data, tmp_path):
-    # The JAX package's side: its dataset, sampler, loader and runner as its
-    # train pipeline wires them, seeded alike, for three steps; without the
-    # pipeline's 8-device mesh, whose SPMD compile alone takes minutes here.
+def _train_against_jax(synth_data, tmp_path, cache_on_device):
+    """Six steps of the port's train pipeline from JAX's initial weights, the
+    first three held against the JAX package's (rtol 3e-4). The JAX side is
+    its dataset, sampler, loader and runner as its train pipeline wires them,
+    seeded alike, for three steps; without the pipeline's 8-device mesh,
+    whose SPMD compile alone takes minutes here. With `cache_on_device` both
+    sides draw from their device-resident loaders (the same batches, bit for
+    bit: tests/test_torch_device_cache.py), else from their host loaders.
+    Returns the port's model, its log lines, its options and its arguments."""
     jopt = _e2e_opt(synth_data, 8, 3, val=False)
     jopt["is_train"] = True
     jmisc.set_random_seed(jopt["manual_seed"])
     jtrain = jopt["datasets"]["train"]
     jset = jdata.build_dataset({**jtrain, "phase": "train", "scale": 1})
-    jloader = jdata.ThreadedLoader(jset, batch_size=8, num_workers=1, drop_last=True, seed=0,
-                                   sampler=jdata.EnlargedSampler(len(jset), 1, 0, 8))
+    sampler = jdata.EnlargedSampler(len(jset), 1, 0, 8)
+    if cache_on_device:
+        jloader = JaxDeviceCachedLoader(jset, batch_size=8, seed=0, sampler=sampler)
+    else:
+        jloader = jdata.ThreadedLoader(jset, batch_size=8, num_workers=1, drop_last=True, seed=0,
+                                       sampler=sampler)
     jloader.set_epoch(0)
     jmodel = jrunner.build_model(jopt)
     want = [float(jmodel.optimize_parameters(batch)["total"])
@@ -394,7 +404,7 @@ def test_train_then_test_pipeline_end_to_end(synth_data, tmp_path):
     sd = convert.state_dict_from_jax(jax.tree_util.tree_map(np.asarray, params))
     torch.save({"params": sd}, tmp_path / "init.pth")
 
-    opt = _e2e_opt(synth_data, 8, 6, cache_on_device=True)
+    opt = _e2e_opt(synth_data, 8, 6, cache_on_device=cache_on_device)
     opt["path"]["pretrain_network_g"] = str(tmp_path / "init.pth")
     opt_path = tmp_path / "opt.yml"
     opt_path.write_text(yaml.safe_dump(opt))
@@ -403,8 +413,25 @@ def test_train_then_test_pipeline_end_to_end(synth_data, tmp_path):
     got = _totals(lines)
     assert len(got) == 6
     np.testing.assert_allclose(got[:3], want, rtol=3e-4)
-    assert any("cache_on_device unavailable" in ln and "using host loader" in ln for ln in lines)
     assert all(m.scan_impl == "pallas" for m in model.model.modules() if hasattr(m, "scan_impl"))
+    assert not any("cache_on_device unavailable" in ln for ln in lines)
+    staged = any("cache_on_device: dataset staged on cpu" in ln for ln in lines)
+    assert staged == cache_on_device
+    return model, lines, opt, opt_path, args
+
+
+def test_train_pipeline_from_the_device_cache_matches_jax(synth_data, tmp_path):
+    """`cache_on_device: true` on both sides: the port's device-resident
+    loader (on the CPU here) against JAX's `DeviceCachedLoader`."""
+    _train_against_jax(synth_data, tmp_path, cache_on_device=True)
+
+
+def test_train_then_test_pipeline_end_to_end(synth_data, tmp_path):
+    # The host loaders on both sides (`ThreadedLoader` + `device_prefetch`),
+    # as the shipped ymls without `cache_on_device` train; then the saved
+    # outputs, a resume and the test pipeline.
+    model, lines, opt, opt_path, args = _train_against_jax(synth_data, tmp_path,
+                                                           cache_on_device=False)
 
     exp = tmp_path / "experiments" / "tiny_e2e"
     assert {"net_g_3.pth", "net_g_6.pth", "net_g_latest.pth", "net_g_ema_6.pth",

@@ -112,15 +112,16 @@ def test_plain_bwd_matches_autograd_of_plain_forward(B, L, D, N, R, chunk):
 
 
 def test_function_gradcheck_float64():
-    """The Function (plain forward with carries, plain backward on the CPU) in
-    float64 on a tiny case with a ragged tail (70 = 64 + 6)."""
+    """The op `ss2d_scan_pair_fwd` (plain forward with carries, plain backward
+    on the CPU) in float64 on a tiny case with a ragged tail (70 = 64 + 6)."""
     args, _ = _pair_inputs(7, 1, 70, 3, 2, 1, dtype=np.float64)
     targs = [torch.from_numpy(a).requires_grad_() for a in args]
-    assert torch.autograd.gradcheck(scan_cuda.SS2DScanPair.apply, targs, eps=1e-6, atol=1e-6)
+    y_of = lambda *a: scan_cuda.ss2d_scan_pair_fwd(*a)[0]
+    assert torch.autograd.gradcheck(y_of, targs, eps=1e-6, atol=1e-6)
 
 
 def test_wrapper_is_differentiable_and_counts_nothing_on_the_cpu():
-    """`ss2d_scan_pair` goes through the Function when an input requires grad
+    """`ss2d_scan_pair` goes through the op when an input requires grad
     and gives the gradients of the plain backward; no launch is counted."""
     args, dy = _pair_inputs(8, 2, 90, 16, 4, 2)
     targs = [torch.from_numpy(a).requires_grad_() for a in args]

@@ -5,7 +5,7 @@ evaluate).
 One rule for every key of a `network_g` dict, whoever passes it (the inference
 CLI, the trainer, the yml pipelines): a field of `WaveMambaConfig` is honoured
 (the architecture, `scan_impl`, `scan_chunk`, `scan_sub`, `remat`,
-`conv_impl`, `compute_dtype`, `scan_dtype`); an execution knob of the JAX
+`remat_policy`, `conv_impl`, `compute_dtype`, `scan_dtype`); an execution knob of the JAX
 package that the port does not run yet is accepted at the value of the path
 the port does run and raises `NotImplementedError`, naming where it waits in
 ROADMAP.md, at any other; any other key raises `KeyError`. Nothing is dropped
@@ -17,14 +17,13 @@ model to train (`init_network`, the trainer, `pipelines.train`) refuses it. It
 runs under either `compute_dtype`: in bf16 the chains take and return bf16
 activations.
 
-`remat` recomputes whole blocks (the JAX package's 'full' policy); the JAX
-default policy, 'save_scan', is not ported. A dict that turns `remat` on (it
-is on by default) and names no `remat_policy` gets a warning saying so."""
+`remat` (on by default) recomputes the blocks in the backward pass under
+`remat_policy`, the JAX package's default 'save_scan' or 'full'
+(`models/wavemamba.py`), as the shipped train ymls train."""
 
 from __future__ import annotations
 
 import dataclasses
-import warnings
 
 import torch
 
@@ -42,7 +41,6 @@ from wavemamba_torch.models.wavemamba import (
 # The JAX package's execution knobs that the port does not run yet: the values
 # it accepts (what the port does anyway) and where the others wait.
 _NOT_PORTED = {
-    "remat_policy": (("full",), "queue 1, item 6 (the save_scan policy)"),
     "conv1x1_as_conv": (((), []), "queue 1, item 15 (a TPU layout policy for the 1x1 convs)"),
     "scan_mesh": ((None,), "queue 1, item 9 (multi-GPU)"),
     "scan_mesh_axis": (("data",), "queue 1, item 9 (multi-GPU)"),
@@ -69,12 +67,7 @@ def config_from_opt(opt: dict) -> WaveMambaConfig:
                                           f"for ROADMAP {where}; the port runs {accepted[0]!r}")
         else:
             raise KeyError(f"unknown network_g key {key!r}")
-    cfg = WaveMambaConfig(**kw)
-    if cfg.remat and "remat_policy" not in opt:
-        warnings.warn("network_g gives no remat_policy: the port recomputes whole blocks ('full'), "
-                      "where the JAX package's default is 'save_scan'; set remat_policy: full to "
-                      "say so, or see ROADMAP queue 1, item 6", stacklevel=2)
-    return cfg
+    return WaveMambaConfig(**kw)
 
 
 def build_network(opt: dict, state_dict: dict, device="cuda") -> WaveMamba:

@@ -39,8 +39,14 @@ package's presets.
 
 With `cfg.remat` every LFSS and HFE block runs under
 `torch.utils.checkpoint`: the backward pass recomputes the block's forward
-(the scan included) instead of keeping its activations, the JAX package's
-'full' remat policy. Its 'save_scan' policy is not ported.
+instead of keeping its activations, under `cfg.remat_policy`, as the JAX
+package's `_maybe_remat` does. 'save_scan' (the default) keeps the outputs of
+the fused scan's op (`scan_cuda.ss2d_scan_pair_fwd`: y, the chunk-entry
+states and the chunks' sums of da) from the block's forward, and the
+recompute takes them back (`scan_cuda.save_scan_contexts`) while it
+recomputes everything else, so K1 runs once a step; with any other
+`scan_impl`, and in HFE blocks (which hold no scan), it recomputes the whole
+block, as 'full' always does, K1 included.
 """
 
 from __future__ import annotations
@@ -69,11 +75,12 @@ from wavemamba_torch.ops.nn import (
     l2_normalize,
 )
 from wavemamba_torch.ops.scan import selective_scan
-from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair
+from wavemamba_torch.ops.scan_cuda import save_scan_contexts, ss2d_scan_pair
 
 _ROWS, _COLS = [0, 2], [1, 3]  # direction pairs: row-major and column-major fwd/rev
 SCAN_IMPLS = ("pallas_fused", "pallas", "chunked", "par", "ref")
 CONV_IMPLS = ("xla", "fused")
+REMAT_POLICIES = ("save_scan", "full")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -107,8 +114,11 @@ class WaveMambaConfig:
     scan_chunk: int = 256
     scan_sub: int = 32
     # Recompute every LFSS and HFE block in the backward pass instead of
-    # keeping its activations.
+    # keeping its activations; 'save_scan' keeps the fused scan's outputs
+    # across the recompute, 'full' recomputes everything (see the module
+    # docstring).
     remat: bool = True
+    remat_policy: str = "save_scan"
     # 'fused' runs the conv chains as fused chain kernels (K7), inference
     # only; 'xla' (the JAX package's name) is the stock, differentiable route.
     conv_impl: str = "xla"
@@ -160,6 +170,8 @@ class WaveMambaConfig:
             raise ValueError(f"unknown scan_impl {self.scan_impl!r}; known: {SCAN_IMPLS}")
         if self.conv_impl not in CONV_IMPLS:
             raise ValueError(f"unknown conv_impl {self.conv_impl!r}; known: {CONV_IMPLS}")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}; known: {REMAT_POLICIES}")
         for key in ("compute_dtype", "scan_dtype"):
             if getattr(self, key) not in DTYPES:
                 raise ValueError(f"unknown {key} {getattr(self, key)!r}; known: {tuple(DTYPES)}")
@@ -443,18 +455,29 @@ def _conv3x3(conv, x, conv_fused):
     return cf.dense3x3(conv, x) if conv_fused else conv(x)
 
 
+def _remat(cfg: WaveMambaConfig, has_scan: bool):
+    """How a block recomputes: None (it does not), 'full', or 'save_scan'
+    where the block holds the fused scan (`_maybe_remat` of the JAX model)."""
+    if not cfg.remat:
+        return None
+    if cfg.remat_policy == "save_scan" and has_scan and cfg.scan_impl == "pallas_fused":
+        return "save_scan"
+    return "full"
+
+
 def _run_block(blk, remat, *args):
-    """`blk(*args)`, recomputed in the backward pass when `remat` is on."""
-    if remat and torch.is_grad_enabled():
-        return checkpoint(blk, *args, use_reentrant=False, preserve_rng_state=False)
-    return blk(*args)
+    """`blk(*args)`, recomputed in the backward pass as `remat` (`_remat`) says."""
+    if remat is None or not torch.is_grad_enabled():
+        return blk(*args)
+    context = {"context_fn": save_scan_contexts} if remat == "save_scan" else {}
+    return checkpoint(blk, *args, use_reentrant=False, preserve_rng_state=False, **context)
 
 
 class DownFRG(nn.Module):
     def __init__(self, cfg: WaveMambaConfig, n_l, n_h):
         super().__init__()
         c = cfg.wf
-        self.remat = cfg.remat
+        self.l_remat, self.h_remat = _remat(cfg, True), _remat(cfg, False)
         self.l_conv = Conv2d(2 * c, c, 3, padding=1)
         self.l_blk = nn.ModuleList(LFSSBlock(cfg) for _ in range(n_l))
         self.h_fusion = SKFF(c)
@@ -468,10 +491,10 @@ class DownFRG(nn.Module):
         ll, hl, lh, hh = self.haar(x)
         ll = _conv3x3(self.l_conv, torch.cat([ll, x_d], dim=1), self.conv_fused)
         for blk in self.l_blk:
-            ll = _run_block(blk, self.remat, ll)
+            ll = _run_block(blk, self.l_remat, ll)
         xh = self.h_fusion([hl, lh, hh])
         for blk in self.h_blk:
-            xh = _run_block(blk, self.remat, xh, ll)
+            xh = _run_block(blk, self.h_remat, xh, ll)
         return ll, xh
 
 
@@ -479,7 +502,7 @@ class UpFRG(nn.Module):
     def __init__(self, cfg: WaveMambaConfig, n_l, n_h):
         super().__init__()
         c = cfg.wf
-        self.remat = cfg.remat
+        self.l_remat, self.h_remat = _remat(cfg, True), _remat(cfg, False)
         self.l_blk = nn.ModuleList(LFSSBlock(cfg) for _ in range(n_l))
         self.h_out_conv = Conv2d(c, 3 * c, 3, padding=1)
         self.conv_fused = cfg.conv_impl == "fused"
@@ -487,9 +510,9 @@ class UpFRG(nn.Module):
 
     def forward(self, x_l, x_h):
         for blk in self.l_blk:
-            x_l = _run_block(blk, self.remat, x_l)
+            x_l = _run_block(blk, self.l_remat, x_l)
         for blk in self.h_blk:
-            x_h = _run_block(blk, self.remat, x_h, x_l)
+            x_h = _run_block(blk, self.h_remat, x_h, x_l)
         return iwt2_cat(torch.cat([x_l, _conv3x3(self.h_out_conv, x_h, self.conv_fused)], dim=1))
 
 

@@ -7,8 +7,8 @@ and its backward (K3, K4), and K1's function in the segment-local (SSD) form
 `wavemamba_tpu/ops/scan_pallas.py:ss2d_scan_fused` (`_fused_kernel`), source
 `wavemamba_torch/csrc/ss2d_scan.cu`; `ss2d_scan_pair_bwd` replaces
 `ss2d_scan_fused_bwd` (`_fused_bwd_kernel`), source `csrc/ss2d_scan_bwd.cu`;
-`SS2DScanPair` joins them as the counterpart of the custom VJP
-`ss2d_scan_fused_diff`. `selective_scan_cuda` replaces
+the registered op `ss2d_scan_pair_fwd` joins them as the counterpart of the
+custom VJP `ss2d_scan_fused_diff`. `selective_scan_cuda` replaces
 `scan_pallas.py:selective_scan_pallas` (`_scan_kernel`), source
 `csrc/selective_scan.cu`; `selective_scan_cuda_bwd` replaces
 `selective_scan_pallas_bwd` (`_scan_bwd_kernel`), source
@@ -58,9 +58,11 @@ import math
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -325,6 +327,95 @@ def _forward(x, wx, dtw, bias, A, dsk, out_dtype=None):
     return y, state, sumda
 
 
+class _ScanStash:
+    """The outputs of `ss2d_scan_pair_fwd` in one checkpointed block: kept in
+    order by its forward, handed back in that order by each recompute."""
+
+    def __init__(self):
+        self.outputs, self.replaying, self.taken = [], False, 0
+
+    def take(self, compute):
+        if not self.replaying:
+            out = compute()
+            # Aliases, so that autograd's history on the returned tensors is not theirs.
+            self.outputs.append(tuple(t.detach() for t in out))
+            return out
+        if self.taken == len(self.outputs):
+            raise RuntimeError(f"save_scan: the recompute ran the scan op more often than the "
+                               f"forward ({len(self.outputs)} times)")
+        out = self.outputs[self.taken]
+        self.taken += 1
+        return tuple(t.detach() for t in out)
+
+
+class _StashScope:
+    """Makes `stash` the one `ss2d_scan_pair_fwd` answers from on this thread,
+    recording (the forward) or replaying from the first (a recompute)."""
+
+    def __init__(self, stash, replaying):
+        self.stash, self.replaying = stash, replaying
+
+    def __enter__(self):
+        self.outer = getattr(_active_stash, "stash", None)
+        self.stash.replaying, self.stash.taken = self.replaying, 0
+        _active_stash.stash = self.stash
+
+    def __exit__(self, *exc):
+        _active_stash.stash = self.outer
+
+
+# The stash of the checkpointed block being run. The op is reached from inside
+# the block, where no argument can carry it; per thread, as the recompute runs
+# on autograd's.
+_active_stash = threading.local()
+
+
+def save_scan_contexts():
+    """`context_fn` of `torch.utils.checkpoint.checkpoint` (non-reentrant) for
+    the 'save_scan' recompute policy: K1's outputs (y, the chunk-entry states
+    and the chunks' sums of da) are kept from the block's forward and the
+    recompute hands them back, so K1 runs once a step; every other op of the
+    block is recomputed as under 'full', with no per-op dispatch."""
+    stash = _ScanStash()
+    return _StashScope(stash, replaying=False), _StashScope(stash, replaying=True)
+
+
+@torch.library.custom_op("wavemamba_torch::ss2d_scan_pair_fwd", mutates_args=())
+def ss2d_scan_pair_fwd(x: torch.Tensor, wx: torch.Tensor, dtw: torch.Tensor, bias: torch.Tensor,
+                       A: torch.Tensor, dsk: torch.Tensor, out_dtype: Optional[torch.dtype] = None
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 as a registered op, with K2 as its backward: (y, state, sumda) of
+    `ss2d_scan_pair(..., return_carries=True)`, by the kernel on a CUDA tensor
+    and the plain version on a CPU one. y is differentiable; state and sumda,
+    what K2 reads, are not. Inside a block checkpointed under 'save_scan'
+    (`save_scan_contexts`) the forward keeps its three outputs and the
+    block's recompute takes them back, in order, without a launch."""
+    stash = getattr(_active_stash, "stash", None)
+    if stash is None:
+        return _forward(x, wx, dtw, bias, A, dsk, out_dtype)
+    return stash.take(lambda: _forward(x, wx, dtw, bias, A, dsk, out_dtype))
+
+
+def _setup_fwd_context(ctx, inputs, output):
+    x, wx, dtw, bias, A, dsk, _ = inputs
+    _, state, sumda = output
+    ctx.save_for_backward(x, wx, dtw, bias, A, dsk, state, sumda)
+    ctx.mark_non_differentiable(state, sumda)
+    ctx.set_materialize_grads(False)  # no zero tensors for the carries' absent gradients
+
+
+def _fwd_backward(ctx, dy, _dstate, _dsumda):
+    """K2: the gradients in each input's dtype (dx in x's, the weights' float32);
+    none where y has none."""
+    if dy is None:
+        return (None,) * 7
+    return ss2d_scan_pair_bwd(*ctx.saved_tensors, dy.contiguous()) + (None,)
+
+
+torch.library.register_autograd("wavemamba_torch::ss2d_scan_pair_fwd", _fwd_backward,
+                                setup_context=_setup_fwd_context)
+
+
 def ss2d_scan_pair(x, wx, dtw, bias, A, dsk, return_carries=False, variant="twopass", sub=8,
                    out_dtype=None):
     """Fused projection + scan of one SS2D direction pair.
@@ -337,8 +428,10 @@ def ss2d_scan_pair(x, wx, dtw, bias, A, dsk, return_carries=False, variant="twop
     work in chunks of `CHUNK` tokens. With
     `return_carries` also the chunk-entry states (B, 2, nc, N, D) and the
     chunks' sums of da (B, 2, nc, D), detached. Differentiable: when an input
-    requires grad the call goes through `SS2DScanPair`, whose backward is K2.
-    Counts its kernel launches in `ss2d_scan_pair.launches`.
+    requires grad the call goes through the op `ss2d_scan_pair_fwd`, whose
+    backward is K2. Counts its kernel launches in `ss2d_scan_pair.launches`:
+    a call that a 'save_scan' recompute answers from the forward's outputs
+    (`save_scan_contexts`) launches nothing and counts nothing.
 
     variant='ssd' computes the same function by K5 (`ss2d_scan_pair_ssd`),
     segments of `sub` tokens; 'twopass' is K1.
@@ -352,7 +445,7 @@ def ss2d_scan_pair(x, wx, dtw, bias, A, dsk, return_carries=False, variant="twop
     if return_carries:
         return _forward(*args, out_dtype)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return SS2DScanPair.apply(*args, out_dtype)
+        return ss2d_scan_pair_fwd(*args, out_dtype)[0]
     return _forward(*args, out_dtype)[0]
 
 
@@ -703,22 +796,6 @@ def ss2d_scan_pair_bwd(x, wx, dtw, bias, A, dsk, state, sumda, dy):
 
 
 ss2d_scan_pair_bwd.launches = 0
-
-
-class SS2DScanPair(torch.autograd.Function):
-    """`ss2d_scan_pair` with K2 as its backward: the forward keeps the inputs,
-    the chunk-entry states and the chunk decays; nothing else is saved. The
-    gradients come in each input's dtype (dx in x's, the weights' float32)."""
-
-    @staticmethod
-    def forward(ctx, x, wx, dtw, bias, A, dsk, out_dtype=None):
-        y, state, sumda = _forward(x, wx, dtw, bias, A, dsk, out_dtype)
-        ctx.save_for_backward(x, wx, dtw, bias, A, dsk, state, sumda)
-        return y
-
-    @staticmethod
-    def backward(ctx, dy):
-        return ss2d_scan_pair_bwd(*ctx.saved_tensors, dy.contiguous()) + (None,)
 
 
 def _scan_shapes(u, delta, A, Bs, Cs, D_skip, delta_bias):

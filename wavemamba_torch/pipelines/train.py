@@ -7,6 +7,8 @@ only way onto it; without the flag a host without CUDA raises). The batch is
 `batch_size_per_gpu`. Losses stay on the device; the host reads them at
 `print_freq` only. Checkpoints are `.pth` and `.state` files
 (`checkpoint.py`); `--auto_resume` continues from the highest saved state.
+With `cache_on_device: true` the train set is staged on the device once
+(`data/device_cache.py`) and its batches are drawn there.
 """
 
 from __future__ import annotations
@@ -15,7 +17,13 @@ import os
 import time
 
 from wavemamba_torch.checkpoint import find_resume_state
-from wavemamba_torch.data import EnlargedSampler, ThreadedLoader, build_dataset, device_prefetch
+from wavemamba_torch.data import (
+    DeviceCachedLoader,
+    EnlargedSampler,
+    ThreadedLoader,
+    build_dataset,
+    device_prefetch,
+)
 from wavemamba_torch.runner import build_model
 from wavemamba_torch.utils.logger import (
     AvgTimer,
@@ -38,12 +46,24 @@ def create_train_val_dataloader(opt, logger):
                                       dataset_opt.get("dataset_enlarge_ratio", 1))
             batch = dataset_opt.get("batch_size_per_gpu", 1)
             if dataset_opt.get("cache_on_device"):
-                logger.warning("cache_on_device unavailable (the device-resident dataset, "
-                               "data/device_cache.py, is not ported: ROADMAP queue 1, item 7); "
-                               "using host loader")
-            train_loader = ThreadedLoader(train_set, batch_size=batch, sampler=sampler,
-                                          num_workers=dataset_opt.get("num_worker_per_gpu", 4),
-                                          drop_last=True, seed=opt.get("manual_seed"))
+                # The device-resident dataset (data/device_cache.py); a dataset
+                # that does not qualify (shapes, mean/std, the budget) takes the
+                # threaded host loader, as in the JAX package. Any other error
+                # propagates.
+                try:
+                    train_loader = DeviceCachedLoader(
+                        train_set, batch_size=batch, sampler=sampler, seed=opt.get("manual_seed"),
+                        device=opt.get("device", "cuda"),
+                        budget_gb=dataset_opt.get("device_cache_budget_gb", 8.0))
+                    logger.info(f"cache_on_device: dataset staged on {train_loader.device} "
+                                f"({train_loader.nbytes / 2**20:.0f} MiB); per-step host work is "
+                                "index RNG only")
+                except ValueError as e:
+                    logger.warning(f"cache_on_device unavailable ({e}); using host loader")
+            if train_loader is None:
+                train_loader = ThreadedLoader(train_set, batch_size=batch, sampler=sampler,
+                                              num_workers=dataset_opt.get("num_worker_per_gpu", 4),
+                                              drop_last=True, seed=opt.get("manual_seed"))
             iters_per_epoch = len(train_loader)
             if iters_per_epoch == 0:
                 raise ValueError(
@@ -99,9 +119,15 @@ def train_pipeline(root_path, args=None):
     epoch = start_iter // max(len(train_loader), 1)
     logger.info(f"Start training from iter {current_iter}")
     start = time.time()
+    # A device-resident loader's batches are on the device already: the host
+    # staging thread would only add a queue hop.
+    if getattr(train_loader, "yields_device_batches", False):
+        prefetch = iter
+    else:
+        prefetch = lambda loader: device_prefetch(loader, device)  # noqa: E731
     while current_iter < total_iters:
         train_loader.set_epoch(epoch)
-        for batch in device_prefetch(train_loader, device):
+        for batch in prefetch(train_loader):
             data_timer.record()
             if current_iter >= total_iters:
                 break
