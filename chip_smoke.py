@@ -84,7 +84,10 @@ and prints one JSON line per phase:
              step and six steps on a seeded synthetic batch: launches of K1
              and K2 per step (28 / 28, 56 / 28 and 28 / 28), ms per step,
              images/s, peak memory, the loss falls, EMA and lr follow their
-             formulas. Then 'full' and 'save_scan' in twenty alternating
+             formulas; under 'save_scan' the recompute hands each of the 28
+             ops of the gradients' step the x its forward scanned, bit for
+             bit (`scan_cuda.record_x_digests`). Then 'full' and 'save_scan'
+             in twenty alternating
              steps (`train_policies`): 'save_scan' may not be slower a step
              by more than the spread of 'full''s steps.
   8. resume  the 'save_scan' training state saved after step 3, restored into
@@ -136,6 +139,19 @@ and prints one JSON line per phase:
              seconds, bytes on the card, ms a batch of 8; the first batches
              of an epoch against the same loader on CPU tensors and against
              numpy's crop and dihedral modes, bit for bit.
+ 12c. data   the data layer: the port's dataset generator
+             (`python -m wavemamba_torch.scripts.make_proc_dataset --bsrgan
+             --n-train 16 --n-val 1 --size 512 --seed 2`) twice at once under
+             `build/chip_smoke/`, the two trees the same bytes; meanwhile the
+             native crop (`data/native.py`, built from `native/wavedata.cc`)
+             on 8 seeded uint8 pairs of 2160x3840 against its numpy version bit
+             for bit in modes 0-7 and batched, the host ms of a batch of 8 by
+             the native and the numpy routes, and `filter2d`, `duf_downsample`
+             and `diff_jpeg` (forward and gradient) on CUDA tensors against
+             the CPU, with their ms; then the uhdll yml trains 3 steps from the
+             generated set through `PairedImageDataset`'s native route and the
+             threaded loader under 'save_scan': 28 K1 + 28 K2 a step. Needs
+             OpenCV (the generator's).
  13. profile device time by kernel (torch.profiler) over one 1152x1920
              forward of each conv route, of `fast()` and of
              `fast(conv_impl="fused")`, one training step of the fused scan
@@ -1809,13 +1825,20 @@ def train_run(policy, lq, gt):
     step that does not fit the card's memory fails the run."""
     from wavemamba_torch.checkpoint import save_training_state
     from wavemamba_torch.models import param_count
-    from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair, ss2d_scan_pair_bwd
+    from wavemamba_torch.ops.scan_cuda import record_x_digests, ss2d_scan_pair, ss2d_scan_pair_bwd
     from wavemamba_torch.train.trainer import make_lr
 
     state, step, tcfg = train_setup(policy)
     check(param_count(state.model) == 1_512_718, "the shipped config has 1,512,718 parameters")
     check(state.model.cfg.remat == (policy is not None), f"remat under {policy}")
-    grad_loss, grads = model_grads(state.model, tcfg, lq, gt)
+    # Under 'save_scan' K2 reads the recompute's x beside the forward's
+    # carries: the gradients' step digests both x of each of its 28 ops.
+    with record_x_digests() as x_record:
+        grad_loss, grads = model_grads(state.model, tcfg, lq, gt)
+    x_digests = {"ops": len(x_record.pairs), "matched": x_record.matched()}
+    if policy == "save_scan":
+        check(x_digests == {"ops": 28, "matched": 28},
+              f"save_scan: the recompute hands each op the forward's x, bit for bit: {x_digests}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state, m = step(state, lq, gt)  # warm-up: cuDNN plans, the allocator's pool
@@ -1858,7 +1881,7 @@ def train_run(policy, lq, gt):
     return dict(state=state, step=step, tcfg=tcfg, lq=lq, gt=gt, policy=policy, saved=saved,
                 ms_per_step=ms, step_ms=times, losses=losses, warm_loss=warm_loss, peak=peak,
                 grad_loss=grad_loss, grads=grads, k1_launches=k1_launches,
-                k2_launches=k2_launches, lr=lr(TRAIN_STEPS))
+                k2_launches=k2_launches, lr=lr(TRAIN_STEPS), x_digests=x_digests)
 
 
 def phase_train():
@@ -1894,6 +1917,7 @@ def phase_train():
                                                           for n, g in base["grads"].items())})
             row["ms_vs_no_recompute"] = run["ms_per_step"] - base["ms_per_step"]
             if policy == "save_scan":
+                row["x_digests"] = run["x_digests"]  # ops of a step, and those whose x matched
                 row["ms_vs_full"] = run["ms_per_step"] - runs["full"]["ms_per_step"]
                 row["peak_vs_full_bytes"] = run["peak"] - runs["full"]["peak"]
         emit(row)
@@ -2627,6 +2651,350 @@ def phase_device_cache(seed=61):
     torch.cuda.empty_cache()
 
 
+# The data phase (`phase_data`). The card against the CPU on the same inputs,
+# with the CPU tests' tolerances against the JAX package
+# (`tests/test_torch_data_extra.py`): filter2d and duf_downsample by max abs
+# difference (depthwise sums of <= 441 products of values in [0, 1] with
+# weights that sum to 1, taken in another order); diff_jpeg's output by max
+# abs and its gradient by max abs over the gradient's max abs, both outside
+# the 8x8 (luma) and 16x16 (chroma) blocks where the two devices round a
+# quantized coefficient to different integers (`jpeg_coefficients` within
+# float32 error of a half: the rounding steps there by 0.75 of the table's
+# step, as the function defines). The native crop against its numpy version,
+# bit for bit.
+DATA_OPS_ATOL = 1e-6
+DIFFJPEG_ATOL, DIFFJPEG_GRAD_RTOL = 1e-5, 1e-4
+UHD_HW = (2160, 3840)  # UHD-LL's frames
+NATIVE_PAIRS = 8
+# The generator's arguments: 16 train pairs and one val pair of 512x512 with
+# the BSRGAN toolbox, the bsrgan sets' size and the XL set's seed.
+PROC_ARGS = ["--bsrgan", "--n-train", "16", "--n-val", "1", "--size", "512", "--seed", "2"]
+DATA_TRAIN_STEPS = 3
+
+
+def tree_digests(root):
+    """{relative path: sha256} of every file under `root`."""
+    import hashlib
+
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def start_generator(out):
+    """`python -m wavemamba_torch.scripts.make_proc_dataset` with PROC_ARGS
+    into `out` (emptied first), as a child process."""
+    import shutil
+
+    shutil.rmtree(out, ignore_errors=True)
+    return subprocess.Popen([sys.executable, "-m", "wavemamba_torch.scripts.make_proc_dataset",
+                             "--out", out, *PROC_ARGS], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            env={**os.environ, "PYTHONPATH": ROOT})
+
+
+def host_ms(fn, reps=3):
+    """Median host milliseconds of `fn` over `reps` runs, after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def data_native(seed=71):
+    """The fused C++ crop (`data/native.py`, built from `native/wavedata.cc`)
+    on NATIVE_PAIRS seeded uint8 pairs of UHD-LL's size at the train crop
+    (TRAIN_SIZE): `paired_crop_augment` in each dihedral mode and
+    `batch_paired_crop_augment` (threaded, and on one thread) against their
+    numpy versions bit for bit; the host ms of a batch by the native batch
+    call, by the dataset's native route (a call an item) and by its numpy
+    route (the whole frame to float32, crop, turn, channel swap)."""
+    import random
+
+    from wavemamba_torch.data import native
+    from wavemamba_torch.data.transforms import paired_random_crop, random_augmentation
+
+    t0 = time.perf_counter()
+    check(native.available(), "the native crop builds from native/wavedata.cc and loads")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    gts = [rng.integers(0, 256, (*UHD_HW, 3), dtype=np.uint8) for _ in range(NATIVE_PAIRS)]
+    lqs = [g >> 3 for g in gts]  # a darker copy
+    S = TRAIN_SIZE
+    modes = []
+    for mode, (g, q) in enumerate(zip(gts, lqs)):
+        top, left = int(rng.integers(0, UHD_HW[0] - S + 1)), int(rng.integers(0, UHD_HW[1] - S + 1))
+        got = native.paired_crop_augment(g, q, top, left, S, mode)
+        want = native.paired_crop_augment_plain(g, q, top, left, S, mode)
+        modes.append(all(np.array_equal(a, b) for a, b in zip(got, want)))
+    batch_seed = int(rng.integers(0, 2**63))
+    got = native.batch_paired_crop_augment(gts, lqs, S, seed=batch_seed)
+    one_thread = native.batch_paired_crop_augment(gts, lqs, S, seed=batch_seed, n_threads=1)
+    draws = native.batch_draws([UHD_HW[0]] * NATIVE_PAIRS, [UHD_HW[1]] * NATIVE_PAIRS, S, batch_seed)
+    want = [native.paired_crop_augment_plain(g, q, t, l, S, m) for g, q, (t, l, m) in zip(gts, lqs, draws)]
+    batch_same = (all(np.array_equal(got[0][i], w[0]) and np.array_equal(got[1][i], w[1])
+                      for i, w in enumerate(want))
+                  and all(np.array_equal(a, b) for a, b in zip(got, one_thread)))
+
+    def dataset_native():  # PairedImageDataset's native route, an item at a time
+        random.seed(seed)
+        out = []
+        for g, q in zip(gts, lqs):
+            top, left = random.randint(0, UHD_HW[0] - S), random.randint(0, UHD_HW[1] - S)
+            out.append(native.paired_crop_augment(g, q, top, left, S, random.randint(1, 7)))
+        return out
+
+    def dataset_numpy():  # its numpy route, the same draws
+        random.seed(seed)
+        out = []
+        for g, q in zip(gts, lqs):
+            fg, fq = paired_random_crop(g.astype(np.float32) / 255.0, q.astype(np.float32) / 255.0,
+                                        S, 1)
+            fg, fq = random_augmentation(fg, fq)
+            out.append((np.ascontiguousarray(fg[..., ::-1]), np.ascontiguousarray(fq[..., ::-1])))
+        return out
+
+    # The numpy route divides by 255 where the C++ pass multiplies by 1/255:
+    # the same crops, within a float32 rounding.
+    route_err = max(float(np.abs(a - b).max()) for pair_n, pair_p in zip(dataset_native(), dataset_numpy())
+                    for a, b in zip(pair_n, pair_p))
+    row = {"pairs": NATIVE_PAIRS, "frame": list(UHD_HW), "gt_size": S, "build_s": build_s,
+           "modes_bit_equal": modes, "batch_bit_equal": batch_same,
+           "numpy_route_max_abs_err": route_err,
+           "host_ms_batch": {"native_batch": host_ms(lambda: native.batch_paired_crop_augment(
+               gts, lqs, S, seed=batch_seed)), "native_items": host_ms(dataset_native),
+               "numpy": host_ms(dataset_numpy)}}
+    check(all(modes), f"paired_crop_augment against its numpy version in modes 0-7: {modes}")
+    check(batch_same, "batch_paired_crop_augment against its numpy version and on one thread")
+    check(route_err <= 2.0 ** -23, f"the numpy route's items within a float32 rounding: {route_err}")
+    return row
+
+
+def data_device_ops(seed=72):
+    """filter2d (a shared 21x21 kernel and per-sample ones), duf_downsample
+    and diff_jpeg (forward and gradient) on CUDA tensors against the same
+    functions on the CPU, and the ms of each on the card."""
+    from wavemamba_torch.data.data_util import duf_downsample
+    from wavemamba_torch.data.degradations import gaussian_kernel
+    from wavemamba_torch.ops.diffjpeg import diff_jpeg, jpeg_coefficients
+    from wavemamba_torch.utils.img_process_util import filter2d
+
+    rs = np.random.RandomState(seed)
+    img = torch.from_numpy(rs.rand(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3).astype(np.float32))
+    shared = torch.from_numpy(gaussian_kernel(21, 2.0, 4.0, 0.5))
+    per_sample = torch.from_numpy(np.stack([gaussian_kernel(21, 0.5 + i, 3.0 - 0.3 * i, 0.4 * i)
+                                            for i in range(TRAIN_BATCH)]))
+    frames = torch.from_numpy(rs.rand(7, TRAIN_SIZE, TRAIN_SIZE, 3).astype(np.float32))
+    rows = {}
+    for name, fn, args in (("filter2d_21x21", filter2d, (img, shared)),
+                           ("filter2d_per_sample", filter2d, (img, per_sample)),
+                           ("duf_downsample_x4", lambda x: duf_downsample(x, 13, 4), (frames,))):
+        want = fn(*args)
+        cargs = tuple(a.cuda() for a in args)
+        got = fn(*cargs)
+        check(got.is_cuda and got.shape == want.shape, f"{name} on the card, {tuple(want.shape)}")
+        err = float((got.cpu() - want).abs().max())
+        rows[name] = {"shape": list(want.shape), "max_abs_err": err, "atol": DATA_OPS_ATOL,
+                      "ms": cuda_ms(lambda: fn(*cargs), 20)}
+        check(err <= DATA_OPS_ATOL, f"{name}: card against CPU {err} <= {DATA_OPS_ATOL}")
+
+    # diff_jpeg at quality 50 on x in [0.1, 0.9], the gradient of sum(out * w).
+    x = torch.from_numpy((rs.rand(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3) * 0.8 + 0.1).astype(np.float32))
+    w = torch.from_numpy(rs.randn(*x.shape).astype(np.float32))
+    outs, grads, coefs = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        xd = x.to(dev, copy=True).requires_grad_()
+        out = diff_jpeg(xd, 50)
+        (out * w.to(dev)).sum().backward()
+        outs[dev], grads[dev] = out.detach().cpu(), xd.grad.cpu()
+        coefs[dev] = [torch.round(c.detach()).cpu() for c in jpeg_coefficients(x.to(dev), 50)]
+    b, h, w_ = x.shape[:3]
+    mask = torch.zeros(b, h, w_, dtype=torch.bool)
+    flips = 0
+    for plane, (got, want) in enumerate(zip(coefs["cuda"], coefs["cpu"])):
+        block = 8 if plane == 0 else 16  # pixels a block of the plane spans
+        differs = (got != want).any(dim=(2, 3))  # (B, blocks)
+        flips += int((got != want).sum())
+        grid = differs.reshape(b, h // block, w_ // block)
+        mask |= grid.repeat_interleave(block, 1).repeat_interleave(block, 2)
+    keep = ~mask[..., None].expand_as(x)
+    out_err = float((outs["cuda"] - outs["cpu"]).abs()[keep].max())
+    grad_err = float((grads["cuda"] - grads["cpu"]).abs()[keep].max()) / float(grads["cpu"].abs().max())
+    xc, wc = x.cuda(), w.cuda()
+
+    def fwd_bwd():
+        xg = xc.clone().requires_grad_()
+        (diff_jpeg(xg, 50) * wc).sum().backward()
+
+    rows["diff_jpeg_q50"] = {
+        "shape": list(x.shape), "max_abs_err": out_err, "atol": DIFFJPEG_ATOL,
+        "grad_max_rel_err": grad_err, "grad_rtol": DIFFJPEG_GRAD_RTOL,
+        "coefficients_rounded_apart": flips, "pixels_excluded_share": float(mask.float().mean()),
+        "ms": cuda_ms(lambda: diff_jpeg(xc, 50), 20), "ms_forward_backward": cuda_ms(fwd_bwd, 20)}
+    check(out_err <= DIFFJPEG_ATOL, f"diff_jpeg: card against CPU {out_err} <= {DIFFJPEG_ATOL}")
+    check(grad_err <= DIFFJPEG_GRAD_RTOL,
+          f"diff_jpeg gradient: card against CPU {grad_err} <= {DIFFJPEG_GRAD_RTOL} of its max")
+    return rows
+
+
+def data_train_opt(seed, dataroot):
+    """`options/train_wavemamba_uhdll.yml`'s `network_g`, `train` and
+    `datasets.train` sections as `parse_options` hands them on (block
+    recompute as the yml leaves it: on, 'save_scan'; no `transfer_dtype`, so
+    the train phase takes the native crop), its dataroots pointing at
+    `dataroot`."""
+    root = os.path.join(ROOT, "build", "chip_smoke", "experiments", "data_train")
+    return {
+        "name": "data_train", "model_type": "FeMaSRModel", "scale": 1, "manual_seed": seed,
+        "is_train": True, "device": "cuda",
+        "network_g": {"type": "WaveMamba", "in_chn": 3, "wf": 32, "n_l_blocks": [1, 2, 4],
+                      "n_h_blocks": [1, 1, 2], "ffn_scale": 2.0},
+        "datasets": {"train": {"name": "General_Image_Train", "type": "PairedImageDataset",
+                               "phase": "train", "scale": 1,
+                               "dataroot_gt": os.path.join(dataroot, "train", "gt"),
+                               "dataroot_lq": os.path.join(dataroot, "train", "input"),
+                               "io_backend": {"type": "disk"}, "gt_size": TRAIN_SIZE,
+                               "geometric_augs": True, "batch_size_per_gpu": TRAIN_BATCH,
+                               "num_worker_per_gpu": 8, "dataset_enlarge_ratio": 1}},
+        "path": {"pretrain_network_g": None, "resume_state": None, "experiments_root": root,
+                 "models": os.path.join(root, "models"),
+                 "training_states": os.path.join(root, "training_states"),
+                 "visualization": os.path.join(root, "visualization")},
+        "train": {"optim_g": {"type": "AdamW", "lr": 5e-4, "weight_decay": 1e-3, "betas": [0.9, 0.99]},
+                  "scheduler": {"type": "CosineAnnealingRestartCyclicLR", "periods": [100, 100000],
+                                "restart_weights": [1, 1], "eta_mins": [0.0005, 0.0000001]},
+                  "total_iter": 101000, "warmup_iter": -1,
+                  "pixel_opt": {"type": "L1Loss", "loss_weight": 1.0, "reduction": "mean"},
+                  "fft_opt": {"type": "FFTLoss", "loss_weight": 0.1, "reduction": "mean"}},
+    }
+
+
+def data_train(dataroot, seed=73):
+    """The uhdll yml's sections train DATA_TRAIN_STEPS steps from the
+    generated folder: `build_dataset` (`PairedImageDataset`, whose train phase
+    takes the native crop) -> `EnlargedSampler` -> `ThreadedLoader` ->
+    `device_prefetch` -> `optimize_parameters`, under 'save_scan'. K1 / K2
+    launches are counted from 0 just before the first step and read after
+    the last."""
+    from wavemamba_torch.data import EnlargedSampler, ThreadedLoader, build_dataset, device_prefetch
+    from wavemamba_torch.data import native
+    from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair, ss2d_scan_pair_bwd
+    from wavemamba_torch.runner import build_model
+
+    opt = data_train_opt(seed, dataroot)
+    model = build_model(opt)
+    cfg = model.model.cfg
+    check((cfg.remat, cfg.remat_policy) == (True, "save_scan"), "data_train: recompute as the yml says")
+    dataset_opt = opt["datasets"]["train"]
+    train_set = build_dataset(dataset_opt)
+    sampler = EnlargedSampler(len(train_set), 1, 0, ratio=dataset_opt["dataset_enlarge_ratio"])
+    loader = ThreadedLoader(train_set, batch_size=TRAIN_BATCH, sampler=sampler,
+                            num_workers=dataset_opt["num_worker_per_gpu"], drop_last=True,
+                            seed=opt["manual_seed"])
+    crop, native_items = native.paired_crop_augment, []
+
+    def counted_crop(*args, **kw):  # the dataset's native route calls it once an item
+        native_items.append(1)  # from the loader's threads: append is atomic
+        return crop(*args, **kw)
+
+    def batches():
+        for epoch in range(DATA_TRAIN_STEPS):
+            loader.set_epoch(epoch)
+            prefetch = device_prefetch(loader, "cuda")
+            try:
+                yield from prefetch
+            finally:
+                prefetch.close()
+
+    native.paired_crop_augment = counted_crop
+    stream = batches()
+    try:
+        losses, times = [], []
+        ss2d_scan_pair.launches = ss2d_scan_pair_bwd.launches = 0  # the path's counts start here
+        for _, batch in zip(range(DATA_TRAIN_STEPS), stream):
+            check(batch["lq"].is_cuda and batch["lq"].dtype == torch.float32
+                  and tuple(batch["lq"].shape) == (TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
+                  "float32 NHWC batches of the native crop on the card")
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(float(model.optimize_parameters(batch)["total"]))
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        k1, k2 = ss2d_scan_pair.launches, ss2d_scan_pair_bwd.launches  # read just after
+    finally:
+        stream.close()
+        native.paired_crop_augment = crop
+    check(all(np.isfinite(losses)), f"data_train: losses finite {losses}")
+    check((k1, k2) == (28 * DATA_TRAIN_STEPS, 28 * DATA_TRAIN_STEPS),
+          f"data_train: {k1} K1 / {k2} K2 launches in {DATA_TRAIN_STEPS} steps")
+    check(len(native_items) >= TRAIN_BATCH * DATA_TRAIN_STEPS,
+          f"data_train: the native crop took {len(native_items)} items")
+    return {"yml": "options/train_wavemamba_uhdll.yml", "pairs": len(train_set),
+            "remat_policy": cfg.remat_policy, "loader": type(loader).__name__,
+            "native_items": len(native_items), "steps": DATA_TRAIN_STEPS, "losses": losses,
+            "step_ms": times, "ms_per_step": float(np.median(times)), "k1_launches": k1,
+            "k2_launches": k2, "k1_per_step": k1 / DATA_TRAIN_STEPS, "k2_per_step": k2 / DATA_TRAIN_STEPS}
+
+
+def phase_data():
+    """The data layer on the card's host: the port's dataset generator
+    (`python -m wavemamba_torch.scripts.make_proc_dataset`, PROC_ARGS) twice
+    at once, its two trees byte for byte the same; meanwhile the native crop
+    (`data_native`) and the data layer's device ops (`data_device_ops`); then
+    the uhdll yml trains from the generated set (`data_train`). Needs
+    OpenCV, which the card's host has."""
+    import cv2
+
+    import threading
+
+    t0 = time.perf_counter()
+    outs = [os.path.join(ROOT, "build", "chip_smoke", f"proc_{tag}") for tag in "ab"]
+    procs = [start_generator(out) for out in outs]
+    runs = [{} for _ in procs]
+
+    def wait(proc, run):  # the child's output, and its seconds from the phase's start
+        run["log"] = proc.communicate(timeout=600)[0]
+        run["s"] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait, args=pr, daemon=True) for pr in zip(procs, runs)]
+    try:
+        for waiter in waiters:
+            waiter.start()
+        native_row = data_native()
+        ops_rows = data_device_ops()
+        for waiter in waiters:
+            waiter.join(timeout=600)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    check(all(p.returncode == 0 for p in procs) and all("s" in r for r in runs),
+          f"the generator runs: {[r.get('log', '')[-500:] for r in runs]}")
+    gen_s = [r["s"] for r in runs]
+    trees = [tree_digests(out) for out in outs]
+    pairs = 16 + 1
+    check(len(trees[0]) == 2 * pairs, f"the generator wrote {len(trees[0])} files, want {2 * pairs}")
+    check(trees[0] == trees[1], "the generator's two runs wrote the same bytes")
+    train_row = data_train(outs[0])
+    row = {"phase": "data", "opencv": cv2.__version__, "generator_args": " ".join(PROC_ARGS),
+           "generator_files": len(trees[0]),
+           "generator_s": gen_s, "generator_s_per_pair": [s / pairs for s in gen_s],
+           "generator_note": "two runs at once, beside the native and device-op checks",
+           "native": native_row, "device_ops": ops_rows, "train": train_row,
+           "phase_s": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
 def phase_probe():
     """P1-P5 (`wavemamba_torch.scripts.gpu_probe.run_all`): each at the TPU
     probe's K and at `K_COMPUTE`. Its launches: the timed ones (the
@@ -2859,6 +3227,7 @@ def main():
     train_fast = phase_train_yml("train_fast")
     train_mixed = phase_train_yml("train_mixed")
     phase_device_cache()
+    data = phase_data()
     k2_steps = phase_profile(model, x1080, forward_ms, runs, pipe, fused, fast, fast_fused, train_fast,
                              train_mixed)
     bench = phase_bench()
@@ -2866,7 +3235,8 @@ def main():
     # K1 and K5 at level 1 of the 1080p forward; K2, K3 and K4 at level 1 of
     # the training step. Launches: each path's own, counted from 0 just before
     # it: K1 the serve paths' (float32 and fast) and the training paths'
-    # (fused, fast and mixed) and the fused fast serve path's, K2 the training paths',
+    # (fused, fast, mixed and the data phase's uhdll yml from the generated
+    # set) and the fused fast serve path's, K2 the training paths',
     # K3 and K4 the pipeline path's (steps, validation, the request), K7 the
     # two fused serve paths' (float32 and fast), P1-P5 the
     # probe path's timed calls.
@@ -2919,12 +3289,13 @@ def main():
         "name": "ss2d_scan_pair (K1)", "route": "cuda", "source": "wavemamba_torch/csrc/ss2d_scan.cu",
         "replaces": "wavemamba_tpu/ops/scan_pallas.py:705",
         "launches": launches + train_k1 + fast["launches"] + train_fast["k1_launches"]
-        + fast_fused["k1_launches"] + train_mixed["k1_launches"],
+        + fast_fused["k1_launches"] + train_mixed["k1_launches"] + data["train"]["k1_launches"],
         "launches_serve": launches, "launches_train": train_k1,
         "launches_train_by_policy": {str(p): r["k1_launches"] for p, r in runs.items()},
         "launches_serve_fast": fast["launches"], "launches_train_fast": train_fast["k1_launches"],
         "launches_serve_fast_fused": fast_fused["k1_launches"],
         "launches_train_mixed": train_mixed["k1_launches"],
+        "launches_train_data": data["train"]["k1_launches"],
         "variants": "x and y float32; both bfloat16 on the fast paths; bfloat16 x with float32 y "
                     "on the proc ymls' path (train_mixed)",
         "max_abs_err": errs["K1"]["max_abs_err"],
@@ -2947,11 +3318,13 @@ def main():
         "name": "ss2d_scan_pair_bwd (K2)", "route": "cuda",
         "source": "wavemamba_torch/csrc/ss2d_scan_bwd.cu",
         "replaces": "wavemamba_tpu/ops/scan_pallas.py:952",
-        "launches": train_k2 + train_fast["k2_launches"] + train_mixed["k2_launches"],
+        "launches": train_k2 + train_fast["k2_launches"] + train_mixed["k2_launches"]
+        + data["train"]["k2_launches"],
         "launches_train": train_k2,
         "launches_train_by_policy": {str(p): r["k2_launches"] for p, r in runs.items()},
         "launches_train_fast": train_fast["k2_launches"],
         "launches_train_mixed": train_mixed["k2_launches"],
+        "launches_train_data": data["train"]["k2_launches"],
         "variants": "x, dy and dx float32; all bfloat16 on the fast training path; bfloat16 x and "
                     "dx with float32 dy on the proc ymls' path (train_mixed)",
         "max_abs_err": errs["K2"]["max_abs_err"], "max_rel_err": errs["K2"]["max_rel_err"],

@@ -95,3 +95,20 @@ def test_profiled_launches_flag_a_short_profile():
     assert got["profiled_launches"] == {"k1": 27, "k3": 14} and got["short_profile"]
     whole = chip_smoke.profiled_launches(rows, {"k1": 27, "k3": 14})
     assert not whole["short_profile"]
+
+
+def test_the_data_phase_trains_the_uhdll_yml_as_written(tmp_path):
+    """The data phase's options repeat the uhdll yml's `network_g` and `train`
+    sections and its `datasets.train` settings as they are (no
+    `transfer_dtype`: the native crop; block recompute on, 'save_scan');
+    only the dataroots point at the generated set."""
+    opt = chip_smoke.data_train_opt(73, str(tmp_path))
+    want = yaml_load(str(REPO / "options" / "train_wavemamba_uhdll.yml"))
+    assert opt["network_g"] == want["network_g"] and opt["train"] == want["train"]
+    got_set, want_set = opt["datasets"]["train"], want["datasets"]["train"]
+    for key in ("dataroot_gt", "dataroot_lq"):
+        assert got_set.pop(key) == str(tmp_path / "train" / want_set.pop(key).split("/")[-1])
+    assert {k: v for k, v in got_set.items() if k not in ("phase", "scale")} == want_set
+    cfg = config_from_opt(opt["network_g"])
+    assert (cfg.remat, cfg.remat_policy) == (True, "save_scan")
+    assert chip_smoke.PROC_ARGS[chip_smoke.PROC_ARGS.index("--seed") + 1] == "2"

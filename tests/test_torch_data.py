@@ -27,6 +27,7 @@ from wavemamba_tpu.data import data_util as jdu
 from wavemamba_tpu.data import loader as jloader
 from wavemamba_tpu.data import paired_image_dataset as jds
 from wavemamba_tpu.data import transforms as jtf
+from wavemamba_tpu.utils import file_client as jfc
 from wavemamba_tpu.utils import img_util as jimg
 from wavemamba_tpu.utils import misc as jmisc
 
@@ -114,8 +115,25 @@ def test_single_image_dataset_and_meta_info_match(folders, tmp_path):
     popt = _opt(folders, phase="val", meta_info_file=str(meta))
     want, got = jds.PairedImageDataset(popt), tds.PairedImageDataset(popt)
     assert got.paths == want.paths and len(got) == 2
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tds.PairedImageDataset(_opt(folders, io_backend={"type": "lmdb"}))
+    # The lmdb backend: JAX's refusal of folders not named .lmdb, JAX's pairs
+    # from two `meta_info.txt`, and JAX's ImportError at the first item
+    # (the `lmdb` package is not installed).
+    for ds in (jds, tds):
+        with pytest.raises(ValueError, match="lmdb formats"):
+            ds.PairedImageDataset(_opt(folders, io_backend={"type": "lmdb"}))
+    lmdb_root = tmp_path / "lmdb"
+    for name in ("gt.lmdb", "lq.lmdb"):
+        (lmdb_root / name).mkdir(parents=True)
+        (lmdb_root / name / "meta_info.txt").write_text("001.png (40,48,3) 1\n000.png (40,48,3) 1\n")
+    lopt = _opt(lmdb_root, phase="val", io_backend={"type": "lmdb"})
+    lopt.update(dataroot_gt=str(lmdb_root / "gt.lmdb"), dataroot_lq=str(lmdb_root / "lq.lmdb"))
+    sopt = {"dataroot_lq": lopt["dataroot_lq"], "io_backend": {"type": "lmdb"}}
+    for make in (lambda ds: ds.PairedImageDataset(lopt), lambda ds: ds.SingleImageDataset(sopt)):
+        want, got = make(jds), make(tds)
+        assert got.paths == want.paths and got.io_backend_opt == want.io_backend_opt
+        for ds in (want, got):
+            with pytest.raises(ImportError, match="lmdb"):
+                ds[0]
 
 
 def test_build_dataset_and_threaded_loader_match(folders):
@@ -227,8 +245,9 @@ def test_image_io_matches(folders):
     assert timg.padding(small, small, 16)[0] is small
     batch = np.random.RandomState(0).rand(1, 6, 5, 3).astype(np.float32) * 1.4 - 0.2
     np.testing.assert_array_equal(timg.batch2img(batch), jimg.batch2img(batch))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tfc.FileClient("lmdb", db_paths=["x.lmdb"])
+    for fc in (tfc, jfc):  # the `lmdb` package is not installed: JAX's gate
+        with pytest.raises(ImportError, match="lmdb"):
+            fc.FileClient("lmdb", db_paths=["x.lmdb"])
     with pytest.raises(ValueError, match="not supported"):
         tfc.FileClient("ftp")
     assert "png" not in tfc.FileClient().get_text(__file__)[:20]

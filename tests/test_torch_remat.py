@@ -165,6 +165,28 @@ def test_a_recompute_that_scans_more_than_its_forward_raises():
         stash.take(lambda: out)
 
 
+def test_the_x_digest_record_finds_the_forwards_bits_in_the_recompute(monkeypatch):
+    """Under `record_x_digests` each op that the 'save_scan' recompute answers
+    pairs the digest of its forward's x with that of the x the recompute
+    hands it: one pair an op a step, all equal on the CPU. Off (the default),
+    no digest is taken; a replay handed other bits shows as a mismatch."""
+    with scan_cuda.record_x_digests() as record:
+        _loss_and_grads(monkeypatch, remat=True, remat_policy="save_scan")
+    assert len(record.pairs) == 2 * N_SS2D
+    assert record.matched() == 2 * N_SS2D
+    assert scan_cuda._x_record is None
+    stash, out, x = scan_cuda._ScanStash(), (torch.ones(2),), torch.arange(4.0)
+    stash.take(lambda: out, x)
+    assert stash.x_digests == {}
+    with scan_cuda.record_x_digests() as record:
+        stash = scan_cuda._ScanStash()
+        stash.take(lambda: out, x)
+        stash.replaying = True
+        stash.take(lambda: out, x + 1)
+    assert len(record.pairs) == 1 and record.matched() == 0
+    assert scan_cuda.x_digest(x.bfloat16()) == scan_cuda.x_digest(x.bfloat16().clone())
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_loss_and_grads():
     cfg = jwm.WaveMambaConfig(**SMALL, remat=True, remat_policy="save_scan",

@@ -5,21 +5,27 @@ Train phase: reflect-pad to gt_size, paired random crop, optional 8-way
 dihedral augmentation (`geometric_augs`), RGB HWC output: float32 in [0, 1],
 or uint8 with `transfer_dtype: uint8` (a quarter of the bytes to the card; the
 train step scales on the device). Val/test phase: full images. Items:
-{'lq', 'gt', 'lq_path', 'gt_path'}. The JAX package's fused C++ crop
-(`data/native.py`) is not ported (ROADMAP queue 1, item 7): the train phase
-takes the numpy route, as the JAX package does where its library is missing.
+{'lq', 'gt', 'lq_path', 'gt_path'}. The float32 train phase at scale 1
+without mean / std takes the fused C++ crop (`data/native.py`, `use_native`,
+on by default) where its library builds, else the numpy route; both draw
+the crop and the mode from `random` in the same order. The lmdb backend reads
+the `meta_info.txt` of two `.lmdb` folders and needs the `lmdb` package.
 """
 
 from __future__ import annotations
 
+import random
 import threading
 
 import numpy as np
 
+from wavemamba_torch.data import native
 from wavemamba_torch.data.data_util import (
     paired_paths_from_folder,
+    paired_paths_from_lmdb,
     paired_paths_from_meta_info_file,
     paths_from_folder,
+    paths_from_lmdb,
 )
 from wavemamba_torch.data.transforms import paired_random_crop, random_augmentation
 from wavemamba_torch.utils.file_client import FileClient
@@ -48,8 +54,10 @@ class PairedImageDataset:
 
         folders = [self.lq_folder, self.gt_folder]
         if self.io_backend_opt["type"] == "lmdb":
-            FileClient("lmdb")  # raises: not ported
-        if opt.get("meta_info_file") is not None:
+            self.io_backend_opt["db_paths"] = folders
+            self.io_backend_opt["client_keys"] = ["lq", "gt"]
+            self.paths = paired_paths_from_lmdb(folders, ["lq", "gt"])
+        elif opt.get("meta_info_file") is not None:
             self.paths = paired_paths_from_meta_info_file(
                 folders, ["lq", "gt"], opt["meta_info_file"], self.filename_tmpl)
         else:
@@ -79,8 +87,18 @@ class PairedImageDataset:
         lq_path = self.paths[index]["lq_path"]
         img_gt, img_lq = self._load_u8(gt_path, "gt"), self._load_u8(lq_path, "lq")
 
-        as_uint8 = (self.opt.get("transfer_dtype") == "uint8" and train and scale == 1
-                    and self.mean is None and self.std is None)
+        plain = self.mean is None and self.std is None
+        as_uint8 = self.opt.get("transfer_dtype") == "uint8" and train and scale == 1 and plain
+        if (not as_uint8 and train and scale == 1 and plain and self.opt.get("use_native", True)
+                and native.available()):
+            gt_size = self.opt["gt_size"]
+            if img_gt.shape[0] < gt_size or img_gt.shape[1] < gt_size:
+                img_gt, img_lq = padding(img_gt, img_lq, gt_size)
+            top = random.randint(0, img_gt.shape[0] - gt_size)
+            left = random.randint(0, img_gt.shape[1] - gt_size)
+            mode = random.randint(1, 7) if self.opt.get("geometric_augs") else 0
+            img_gt, img_lq = native.paired_crop_augment(img_gt, img_lq, top, left, gt_size, mode)
+            return {"lq": img_lq, "gt": img_gt, "lq_path": lq_path, "gt_path": gt_path}
         if as_uint8:
             gt_size = self.opt["gt_size"]
             if img_gt.shape[0] < gt_size or img_gt.shape[1] < gt_size:
@@ -114,8 +132,10 @@ class SingleImageDataset:
         self.std = opt.get("std")
         self.lq_folder = opt["dataroot_lq"]
         if self.io_backend_opt["type"] == "lmdb":
-            FileClient("lmdb")  # raises: not ported
-        if opt.get("meta_info_file") is not None:
+            self.io_backend_opt["db_paths"] = [self.lq_folder]
+            self.io_backend_opt["client_keys"] = ["lq"]
+            self.paths = paths_from_lmdb(self.lq_folder)
+        elif opt.get("meta_info_file") is not None:
             import os
 
             with open(opt["meta_info_file"], "r") as fin:

@@ -327,23 +327,70 @@ def _forward(x, wx, dtw, bias, A, dsk, out_dtype=None):
     return y, state, sumda
 
 
-class _ScanStash:
-    """The outputs of `ss2d_scan_pair_fwd` in one checkpointed block: kept in
-    order by its forward, handed back in that order by each recompute."""
+def x_digest(x):
+    """A digest of x's bits: the int64 sum of x read as integers of its
+    width. Equal bits give equal digests."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.float16: torch.int16,
+            torch.float64: torch.int64}[x.dtype]
+    return x.view(ints).sum(dtype=torch.int64)
+
+
+class XDigests:
+    """What `record_x_digests` collects: for each op that a 'save_scan'
+    recompute answers from its forward's outputs, the pair (digest of the x
+    the forward scanned, digest of the x the recompute handed it). K2 reads
+    the recompute's x beside the forward's carries, so the two must be the
+    same bits."""
 
     def __init__(self):
-        self.outputs, self.replaying, self.taken = [], False, 0
+        self.pairs = []
 
-    def take(self, compute):
+    def matched(self) -> int:
+        """The pairs whose digests are equal (reads them from the device)."""
+        return sum(int(a) == int(b) for a, b in self.pairs)
+
+
+# The record that `record_x_digests` has on, or None (the default: no digest
+# is taken). Not per thread: the recompute runs on autograd's thread.
+_x_record: Optional[XDigests] = None
+
+
+@contextlib.contextmanager
+def record_x_digests():
+    """Within the block, each 'save_scan' op digests its x in the forward and
+    again in the recompute's replay (`x_digest`, one small reduction each);
+    yields the `XDigests` that collects the pairs."""
+    global _x_record
+    outer, _x_record = _x_record, XDigests()
+    try:
+        yield _x_record
+    finally:
+        _x_record = outer
+
+
+class _ScanStash:
+    """The outputs of `ss2d_scan_pair_fwd` in one checkpointed block: kept in
+    order by its forward, handed back in that order by each recompute. Under
+    `record_x_digests` also the digest of each forward's x, paired with the
+    replay's."""
+
+    def __init__(self):
+        self.outputs, self.replaying, self.taken, self.x_digests = [], False, 0, {}
+
+    def take(self, compute, x=None):
         if not self.replaying:
             out = compute()
             # Aliases, so that autograd's history on the returned tensors is not theirs.
             self.outputs.append(tuple(t.detach() for t in out))
+            if _x_record is not None and x is not None:
+                self.x_digests[len(self.outputs) - 1] = x_digest(x)
             return out
         if self.taken == len(self.outputs):
             raise RuntimeError(f"save_scan: the recompute ran the scan op more often than the "
                                f"forward ({len(self.outputs)} times)")
         out = self.outputs[self.taken]
+        if _x_record is not None and self.taken in self.x_digests:
+            _x_record.pairs.append((self.x_digests[self.taken], x_digest(x)))
         self.taken += 1
         return tuple(t.detach() for t in out)
 
@@ -393,7 +440,7 @@ def ss2d_scan_pair_fwd(x: torch.Tensor, wx: torch.Tensor, dtw: torch.Tensor, bia
     stash = getattr(_active_stash, "stash", None)
     if stash is None:
         return _forward(x, wx, dtw, bias, A, dsk, out_dtype)
-    return stash.take(lambda: _forward(x, wx, dtw, bias, A, dsk, out_dtype))
+    return stash.take(lambda: _forward(x, wx, dtw, bias, A, dsk, out_dtype), x)
 
 
 def _setup_fwd_context(ctx, inputs, output):
