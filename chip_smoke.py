@@ -152,6 +152,25 @@ and prints one JSON line per phase:
              generated set through `PairedImageDataset`'s native route and the
              threaded loader under 'save_scan': 28 K1 + 28 K2 a step. Needs
              OpenCV (the generator's).
+ 12d. deploy the deployment route (`wavemamba_torch/deploy.py`): right after
+             the builds, `python -m wavemamba_torch.scripts.export_model export`
+             traces two artifacts of the XXL4 checkpoint in child processes
+             that see no card (a build host), while the phases above run: K1's
+             op kept (`--target cuda --allow_custom_calls`) for the 1152x1920
+             bucket with a 240 / 16 tile program, and the `fast` preset with
+             uint8 I/O. Here they load on the card, each program one CUDA
+             graph captured at its first call: the two requests of `serve`'s
+             sizes (new seeded images), each twice, within 1e-5 of the eager
+             forward on the same padded input (bit equality reported) and the
+             same bits on the replay; two dispatches before one fetch; 2160x3840
+             through `tiled` against the eager tiles; K1 in each graph (28 a
+             forward), the replay against the eager forward (CUDA events) and
+             each one's idle share (torch.profiler); the fast uint8 artifact
+             against the float32 one (>= 40 dB); trace, save and load seconds,
+             artifact bytes, first and later request latency, memory after
+             each capture; then `export_model run` twice on a fresh
+             `--compile_cache` (the first process builds K1 there, the
+             second loads it): each one's first request in seconds.
  13. profile device time by kernel (torch.profiler) over one 1152x1920
              forward of each conv route, of `fast()` and of
              `fast(conv_impl="fused")`, one training step of the fused scan
@@ -178,6 +197,7 @@ one card and exits non-zero where CUDA is missing.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import json
 import os
@@ -2995,6 +3015,253 @@ def phase_data():
     return row
 
 
+DEPLOY_DIR = os.path.join(ROOT, "build", "chip_smoke", "deploy")
+DEPLOY_ATOL = 1e-5  # the artifact against the eager forward on the same request, float32
+DEPLOY_BUCKET = (1152, 1920)
+# The artifacts of the deploy phase, as `export_model export` builds them on
+# a host with no card: name -> the CLI's flags beyond -w / -o.
+DEPLOY_EXPORTS = {
+    "xxl4": ["--shapes", "1152x1920", "--target", "cuda", "--allow_custom_calls", "--tile", "240"],
+    "fast_u8": ["--shapes", "1152x1920", "--fast", "--target", "cuda", "--allow_custom_calls",
+                "--io", "uint8"],
+}
+
+
+def start_exports():
+    """`python -m wavemamba_torch.scripts.export_model export` of each of
+    DEPLOY_EXPORTS from CKPT into DEPLOY_DIR, as child processes that see no
+    card (a build host), started together; they trace on the host while the
+    phases before `deploy` run. {name: (process, artifact path, log path)}."""
+    import shutil
+
+    shutil.rmtree(DEPLOY_DIR, ignore_errors=True)
+    os.makedirs(DEPLOY_DIR)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT}
+    jobs = {}
+    for name, flags in DEPLOY_EXPORTS.items():
+        out, log = (os.path.join(DEPLOY_DIR, f"{name}{ext}") for ext in (".wmt", ".log"))
+        with open(log, "w") as f:
+            proc = subprocess.Popen([sys.executable, "-m", "wavemamba_torch.scripts.export_model",
+                                     "export", "-w", CKPT, "-o", out, *flags],
+                                    cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
+        jobs[name] = (proc, out, log)
+    return jobs
+
+
+def stop_exports(jobs):
+    for proc, _, _ in jobs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def wait_exports(jobs, timeout=900):
+    """Wait for each export; raise with its log's end where one failed.
+    {name: (artifact path, the CLI's line)}."""
+    out = {}
+    for name, (proc, path, log) in jobs.items():
+        rc = proc.wait(timeout=timeout)
+        with open(log) as f:
+            text = f.read()
+        check(rc == 0 and os.path.exists(path), f"export {name} exited {rc}: {text[-2000:]}")
+        out[name] = (path, next(ln for ln in text.splitlines() if ln.startswith("wrote ")))
+    return out
+
+
+def check_deploy(row):
+    """Hold the deploy phase's readings to its contract; raise on any miss."""
+    for req in row["requests"]:
+        check(req["max_abs_vs_eager"] <= DEPLOY_ATOL,
+              f"{req['image']}: artifact vs eager {req['max_abs_vs_eager']} > {DEPLOY_ATOL}")
+        check(req["k1_in_graph"] == 28, f"{req['image']}: {req['k1_in_graph']} K1 in the graph")
+    check(row["same_bits_twice"], "the graph's replay gives the same bits twice")
+    check(row["pipelined_matches"], "two dispatches before one fetch give the calls' results")
+    check(row["tiled"]["max_abs_vs_eager_tiled"] <= DEPLOY_ATOL,
+          f"tiled artifact vs eager tiles {row['tiled']['max_abs_vs_eager_tiled']}")
+    check(row["fast_u8"]["psnr_vs_float32_db"] >= FAST_VS_F32_PSNR,
+          f"fast uint8 artifact {row['fast_u8']['psnr_vs_float32_db']} dB < {FAST_VS_F32_PSNR}")
+    check(row["fast_u8"]["k1_in_graph"] == 28, "28 K1 in the fast uint8 graph")
+    cache = row["compile_cache"]
+    check(cache["cold_built_k1"] and not cache["warm_built"],
+          f"the first process builds K1 into the cache, the second builds nothing: {cache}")
+
+
+def first_request_s(text):
+    """The seconds `export_model run` prints for its first frame."""
+    import re
+
+    return float(re.search(r"^\S+\.png: ([\d.]+)s$", text, re.M).group(1))
+
+
+def serve_subprocess(artifact, folder, cache):
+    """`export_model run` of `folder` from `artifact` with `--compile_cache
+    cache`, a fresh process: (first frame's seconds, process seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "wavemamba_torch.scripts.export_model", "run",
+                           "-a", artifact, "-i", folder, "-o", os.path.join(DEPLOY_DIR, "served"),
+                           "--compile_cache", cache], cwd=ROOT, capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": ROOT}, timeout=600)
+    check(proc.returncode == 0, f"export_model run exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return first_request_s(proc.stdout), time.perf_counter() - t0
+
+
+def replay_profile(fn, unprofiled_ms):
+    """Busy time, idle share and K1's replay kernels of one call of `fn`
+    under torch.profiler (`profile_rows`)."""
+    wall_ms, rows, _ = profile_rows(fn)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    k1 = sum(n for _, n, name in rows if "chunk_scan<" in name and "true" in name)
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+            "unprofiled_ms": unprofiled_ms, "idle_share_unprofiled": 1.0 - busy_ms / unprofiled_ms,
+            "k1_launches_profiled": k1, "kernels": sum(r[1] for r in rows)}
+
+
+def phase_deploy(jobs, stock, fast):
+    """The deployment route: the artifacts that `start_exports` traced on the
+    host (the XXL4 checkpoint with K1's op for the 1152x1920 bucket and a
+    240 / 16 tile program; the `fast` preset with uint8 I/O) loaded on the
+    card, each program one CUDA graph. Two seeded requests (1080x1920,
+    720x1280) and a 2160x3840 one through `tiled`, held against the eager
+    forward (`stock`) on the same padded input; the replay against the eager
+    forward in ms and idle share; K1 in each graph; the fast uint8 artifact
+    against the float32 one; and `export_model run` twice on a fresh
+    `--compile_cache` (a cold K1 build, then none). Returns the row, with
+    `k1_launches`: K1's launches on the path (the warm-ups' and each replay's
+    28; a replay does not pass through the wrapper's count)."""
+    from wavemamba_torch.deploy import SUFFIX, _reflect_pad, load_exported
+    from wavemamba_torch.inference import enhance
+    from wavemamba_torch.models.wavemamba import wavemamba_apply
+    from wavemamba_torch.ops import scan_cuda
+
+    t_phase = time.perf_counter()
+    built = wait_exports(jobs)
+    art = {}
+    for name, (path, line) in built.items():
+        t0 = time.perf_counter()
+        model = load_exported(path)
+        art[name] = {"model": model, "load_s": time.perf_counter() - t0,
+                     "bytes": os.path.getsize(path), "cli": line,
+                     **{k: model.manifest["build"][k] for k in ("trace_s", "save_s")}}
+    em, fm = art["xxl4"]["model"], art["fast_u8"]["model"]
+    check(em.manifest["platforms"] == ["cuda"]
+          and em.manifest["config"]["scan_impl"] == "pallas_fused",
+          f"the card artifact keeps K1's op: {em.manifest['platforms']}, {em.manifest['config']}")
+    rs = np.random.RandomState(17)
+    images = [(rs.rand(1, h, w, 3) * 0.12).astype(np.float32)
+              for h, w in [(1080, 1920), (720, 1280)]]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reserved0 = torch.cuda.memory_reserved()
+
+    scan_cuda.ss2d_scan_pair.launches = 0  # the main path's count starts here
+    run = em.runners[DEPLOY_BUCKET]
+    served = []
+    for i, img in enumerate(images * 2):  # each request twice: the first call captures
+        t0 = time.perf_counter()
+        out = em(img)
+        served.append((img, out, time.perf_counter() - t0))
+        if i == 0:
+            reserved = {"bucket": torch.cuda.memory_reserved() - reserved0}
+    wrapper = scan_cuda.ss2d_scan_pair.launches  # read just after the main path
+    peak = torch.cuda.max_memory_allocated()
+    main_launches = run.k1_in_graph * (1 + run.replays)
+    check(wrapper == 2 * run.k1_in_graph and main_launches > 0,
+          f"K1 on the main path: the wrapper counted {wrapper} (the warm-up's and the "
+          f"capture's {run.k1_in_graph} each), {run.replays} replays")
+    requests = []
+    for img, out, s in served[:2]:
+        h, w = img.shape[1:3]
+        x = torch.from_numpy(_reflect_pad(img, *DEPLOY_BUCKET)).cuda()
+        want = wavemamba_apply(stock, x)[:, :h, :w].cpu().numpy()
+        again = next(o for im, o, _ in served[2:] if im is img)
+        requests.append({"image": [h, w], "bucket": list(DEPLOY_BUCKET), "latency_s": s,
+                         "latency_again_s": next(t for im, _, t in served[2:] if im is img),
+                         "max_abs_vs_eager": float(np.abs(out - want).max()),
+                         "bit_equal_eager": bool(np.array_equal(out, want)),
+                         "same_bits_again": bool(np.array_equal(out, again)),
+                         "k1_in_graph": run.k1_in_graph})
+    first = served[0][1]
+    handles = [em.dispatch(images[0]), em.dispatch(images[1])]  # two in flight, then fetch
+    pipelined = [h.fetch() for h in handles]
+    pipelined_matches = bool(np.array_equal(pipelined[0], first)
+                             and np.array_equal(pipelined[1], served[1][1]))
+
+    # Replay against eager, device time by CUDA events, and each one's idle share.
+    x = torch.from_numpy(_reflect_pad(images[0], *DEPLOY_BUCKET)).cuda()
+    replay_ms = cuda_ms(run.graph.replay, 7)
+    eager_ms = cuda_ms(lambda: wavemamba_apply(stock, x), 7)
+    profiles = {"replay": replay_profile(run.graph.replay, replay_ms),
+                "eager": replay_profile(lambda: wavemamba_apply(stock, x), eager_ms)}
+
+    # The tile program: 2160x3840 through `tiled` (its first call captures).
+    big = (np.random.RandomState(18).rand(1, 2160, 3840, 3) * 0.12).astype(np.float32)
+    t0 = time.perf_counter()
+    tiled = em.tiled(big)
+    tiled_first_s = time.perf_counter() - t0
+    reserved["tile"] = torch.cuda.memory_reserved() - reserved0
+    t0 = time.perf_counter()
+    tiled_again = em.tiled(big)
+    tiled_s = time.perf_counter() - t0
+    eager_tiled = enhance(stock, big, None, tile=240)
+    tile_run = em.runners["tile"]
+
+    # fast uint8: bytes in and out, against the float32 artifact's output.
+    u8_in = np.round(images[0] * 255.0).astype(np.uint8)
+    u8_out = fm(u8_in)
+    reserved["fast_u8"] = torch.cuda.memory_reserved() - reserved0
+    f32_ref = np.round(np.clip(em(u8_in.astype(np.float32) / 255.0), 0.0, 1.0) * 255.0)
+    fast_run = fm.runners[DEPLOY_BUCKET]
+    xb = torch.from_numpy(_reflect_pad(images[0], *DEPLOY_BUCKET)).cuda()
+    fast_replay_ms = cuda_ms(fast_run.graph.replay, 7)
+    fast_eager_ms = cuda_ms(lambda: wavemamba_apply(fast, xb), 7) if fast is not None else None
+    # K1 on the artifact route: each graph's warm-up call and its replays
+    # (the capture records K1 into the graph and launches nothing).
+    runners = [r for m in (em, fm) for r in m.runners.values() if r.graph is not None]
+    launches = sum(r.k1_in_graph * (1 + r.replays) for r in runners)
+
+    # --compile_cache: one request in a fresh process, twice on one fresh directory.
+    import cv2
+
+    folder, cache = os.path.join(DEPLOY_DIR, "request"), os.path.join(DEPLOY_DIR, "kernels")
+    os.makedirs(folder)
+    cv2.imwrite(os.path.join(folder, "a.png"), u8_in[0][..., ::-1])
+    torch.cuda.empty_cache()  # room for the child processes
+    cold_s, cold_proc_s = serve_subprocess(built["fast_u8"][0], folder, cache)
+    libs = sorted(os.listdir(cache))
+    warm_s, warm_proc_s = serve_subprocess(built["fast_u8"][0], folder, cache)
+    row = {"phase": "deploy", "suffix": SUFFIX,
+           "artifacts": {k: {kk: vv for kk, vv in v.items() if kk != "model"} for k, v in art.items()},
+           "requests": requests, "same_bits_twice": all(r["same_bits_again"] for r in requests),
+           "pipelined_matches": pipelined_matches, "k1_launches": launches,
+           "k1_launches_main_path": main_launches, "k1_wrapper_count_main_path": wrapper,
+           "replays": {"bucket": run.replays, "tile": tile_run.replays, "fast_u8": fast_run.replays},
+           "peak_memory_bytes_main_path": peak,
+           # memory the allocator holds above the phase's start after each graph's
+           # first call (its warm-up's blocks and its private pool)
+           "reserved_bytes_after_capture": reserved,
+           "forward_ms": {"replay": replay_ms, "eager": eager_ms, "fast_u8_replay": fast_replay_ms,
+                          "fast_eager": fast_eager_ms},
+           "profile": profiles,
+           "tiled": {"image": [2160, 3840], "first_s": tiled_first_s, "s": tiled_s,
+                     "forwards": tile_run.replays // 2,
+                     "same_bits_again": bool(np.array_equal(tiled, tiled_again)),
+                     "max_abs_vs_eager_tiled": float(np.abs(tiled - eager_tiled).max()),
+                     "finite": bool(np.isfinite(tiled).all())},
+           "fast_u8": {"psnr_vs_float32_db": psnr_db(u8_out / 255.0, f32_ref / 255.0),
+                       "max_abs_levels": int(np.abs(u8_out.astype(int) - f32_ref.astype(int)).max()),
+                       "k1_in_graph": fast_run.k1_in_graph, "tol_psnr_db": FAST_VS_F32_PSNR},
+           "compile_cache": {"first_request_cold_s": cold_s, "first_request_warm_s": warm_s,
+                             "process_cold_s": cold_proc_s, "process_warm_s": warm_proc_s,
+                             "cold_built_k1": any(n.startswith("ss2d_scan_") and n.endswith(".so")
+                                                  for n in libs),
+                             "warm_built": sorted(os.listdir(cache)) != libs, "libraries": libs},
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    check_deploy(row)
+    return row
+
+
 def phase_probe():
     """P1-P5 (`wavemamba_torch.scripts.gpu_probe.run_all`): each at the TPU
     probe's K and at `K_COMPUTE`. Its launches: the timed ones (the
@@ -3184,6 +3451,8 @@ def main():
 
     set_parity_mode()
     smi = phase_device()
+    exports = start_exports()  # traced on the host while the phases below run
+    atexit.register(stop_exports, exports)
     k1_rows = phase_k1()
     k1_bf16_rows = phase_k1_bf16()
     k1_mixed_rows = phase_k1_bf16(y_dtype=torch.float32)
@@ -3228,6 +3497,7 @@ def main():
     train_mixed = phase_train_yml("train_mixed")
     phase_device_cache()
     data = phase_data()
+    deploy = phase_deploy(exports, model, fast_model)
     k2_steps = phase_profile(model, x1080, forward_ms, runs, pipe, fused, fast, fast_fused, train_fast,
                              train_mixed)
     bench = phase_bench()
@@ -3289,13 +3559,17 @@ def main():
         "name": "ss2d_scan_pair (K1)", "route": "cuda", "source": "wavemamba_torch/csrc/ss2d_scan.cu",
         "replaces": "wavemamba_tpu/ops/scan_pallas.py:705",
         "launches": launches + train_k1 + fast["launches"] + train_fast["k1_launches"]
-        + fast_fused["k1_launches"] + train_mixed["k1_launches"] + data["train"]["k1_launches"],
+        + fast_fused["k1_launches"] + train_mixed["k1_launches"] + data["train"]["k1_launches"]
+        + deploy["k1_launches"],
         "launches_serve": launches, "launches_train": train_k1,
         "launches_train_by_policy": {str(p): r["k1_launches"] for p, r in runs.items()},
         "launches_serve_fast": fast["launches"], "launches_train_fast": train_fast["k1_launches"],
         "launches_serve_fast_fused": fast_fused["k1_launches"],
         "launches_train_mixed": train_mixed["k1_launches"],
         "launches_train_data": data["train"]["k1_launches"],
+        "launches_deploy": deploy["k1_launches"],
+        "launches_deploy_note": "the artifact route's CUDA graphs: each graph's warm-up and 28 "
+                                "a replay (a replay does not pass through the wrapper's count)",
         "variants": "x and y float32; both bfloat16 on the fast paths; bfloat16 x with float32 y "
                     "on the proc ymls' path (train_mixed)",
         "max_abs_err": errs["K1"]["max_abs_err"],

@@ -112,3 +112,92 @@ def test_the_data_phase_trains_the_uhdll_yml_as_written(tmp_path):
     cfg = config_from_opt(opt["network_g"])
     assert (cfg.remat, cfg.remat_policy) == (True, "save_scan")
     assert chip_smoke.PROC_ARGS[chip_smoke.PROC_ARGS.index("--seed") + 1] == "2"
+
+
+def test_deploy_phase_is_on_the_main_path():
+    """`main` starts the exports right after the builds, runs the deploy
+    phase before the profile, stops the children at exit, and adds the
+    deploy route's K1 launches to the `kernels` line."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index("phase_device()") < src.index("start_exports()") < src.index("phase_k1()")
+    assert "atexit.register(stop_exports, exports)" in src
+    assert src.index("phase_data()") < src.index("phase_deploy(") < src.index("phase_profile(")
+    assert '+ deploy["k1_launches"]' in src
+    for flags in chip_smoke.DEPLOY_EXPORTS.values():
+        assert "--allow_custom_calls" in flags and "--target" in flags
+        assert flags[flags.index("--shapes") + 1] == "x".join(map(str, chip_smoke.DEPLOY_BUCKET))
+
+
+def _deploy_row():
+    return {"requests": [{"image": [1080, 1920], "max_abs_vs_eager": 0.0, "k1_in_graph": 28},
+                         {"image": [720, 1280], "max_abs_vs_eager": 2e-6, "k1_in_graph": 28}],
+            "same_bits_twice": True, "pipelined_matches": True,
+            "tiled": {"max_abs_vs_eager_tiled": 0.0},
+            "fast_u8": {"psnr_vs_float32_db": 51.8, "k1_in_graph": 28},
+            "compile_cache": {"cold_built_k1": True, "warm_built": False}}
+
+
+@pytest.mark.parametrize("fault", [
+    ("requests", 1, "max_abs_vs_eager", 2e-5), ("requests", 0, "k1_in_graph", 0),
+    ("same_bits_twice", None, None, False), ("pipelined_matches", None, None, False),
+    ("tiled", None, "max_abs_vs_eager_tiled", 1e-3), ("fast_u8", None, "psnr_vs_float32_db", 39.9),
+    ("fast_u8", None, "k1_in_graph", 27), ("compile_cache", None, "warm_built", True),
+    ("compile_cache", None, "cold_built_k1", False)])
+def test_deploy_readings_fail_loudly(fault):
+    """A deploy reading out of its contract raises (the script then exits
+    non-zero without its last line); the good readings pass."""
+    chip_smoke.check_deploy(_deploy_row())
+    row = _deploy_row()
+    key, index, field, value = fault
+    if field is None:
+        row[key] = value
+    elif index is None:
+        row[key][field] = value
+    else:
+        row[key][index][field] = value
+    with pytest.raises(RuntimeError, match="check failed"):
+        chip_smoke.check_deploy(row)
+
+
+def test_a_failed_export_raises(tmp_path):
+    """An export child that fails stops the run with its log's end."""
+    import subprocess
+    import sys
+
+    log = tmp_path / "x.log"
+    log.write_text("Traceback: the trace failed\n")
+    proc = subprocess.Popen([sys.executable, "-c", "import sys; sys.exit(3)"])
+    with pytest.raises(RuntimeError, match="exited 3.*the trace failed"):
+        chip_smoke.wait_exports({"x": (proc, str(tmp_path / "x.wmt"), str(log))})
+    assert chip_smoke.first_request_s("artifact: shapes [(1152, 1920)]\na.png: 2.097s\n") == 2.097
+
+
+def test_the_script_exits_nonzero_when_a_phase_fails(tmp_path):
+    """A failed check in the deploy phase escapes `main` (nothing catches
+    it): the process exits non-zero and prints no `ok` line. The card is
+    stubbed, and the first phase runs a deploy phase that fails."""
+    import subprocess
+    import sys
+
+    script = tmp_path / "drive.py"
+    script.write_text(f"""
+import sys
+sys.path.insert(0, {str(REPO)!r})
+import torch
+import chip_smoke as cs
+torch.cuda.is_available = lambda: True
+def failing_deploy(*a, **k):
+    cs.check(False, "the deploy phase's readings")
+# Without a card nothing before the deploy phase can run: the first phase
+# calls it, as main calls it after the others.
+cs.phase_device = lambda: cs.phase_deploy({{}}, None, None)
+cs.phase_deploy = failing_deploy
+cs.main()
+""")
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert "check failed: the deploy phase's readings" in proc.stderr
+    assert '"ok": true' not in proc.stdout

@@ -125,12 +125,19 @@ def test_cli_fast_runs_the_bf16_preset(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["-w", "model.wmx"], ["--lpips_weights", "x.pth"],
-                                  ["--compile_cache", "cache"]])
+                                  ["-w", "model.wmx", "--compile_cache", "cache"]])
 def test_cli_refuses_what_is_not_ported(flag, tmp_path):
+    """`--lpips_weights` waits in ROADMAP; a `.wmx` artifact is the JAX
+    package's, with or without `--compile_cache` (which the port serves: the
+    kernels' build directory), and the refusal names the port's `.wmt`."""
     with pytest.raises(SystemExit) as e:
         tinf.main(["-i", str(tmp_path), "-w", "w.pth", "-o", str(tmp_path / "o"),
                    "--device", "cpu"] + flag)
-    assert "ROADMAP" in str(e.value.code)
+    if "--lpips_weights" in flag:
+        assert "ROADMAP" in str(e.value.code)
+    else:
+        assert "JAX package" in str(e.value.code) and ".wmt" in str(e.value.code)
+    assert not (tmp_path / "cache").exists()
 
 
 def test_cli_raises_without_a_card_unless_asked_for_cpu(tmp_path, monkeypatch):

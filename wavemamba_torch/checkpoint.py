@@ -52,10 +52,15 @@ def load_network(path: str, device="cuda") -> dict:
     Orbax directories and `.wmx` deployment artifacts belong to the JAX
     package and are not read by the port: the JAX package's
     `wavemamba_tpu/convert/torch_export.py:params_to_state_dict` turns an
-    Orbax checkpoint's params into a state dict to save as a `.pth`."""
+    Orbax checkpoint's params into a state dict to save as a `.pth`. The
+    port's own deployment artifacts (`.wmt`) hold programs, and are served by
+    `wavemamba_torch.deploy.load_exported`."""
     if path.endswith(".wmx"):
         raise ValueError(f"{path}: .wmx deployment artifacts belong to the JAX package; the port's "
-                         "own deployment format waits for ROADMAP queue 1, item 10")
+                         "own are .wmt files (wavemamba_torch/deploy.py)")
+    if path.endswith(".wmt"):
+        raise ValueError(f"{path}: a .wmt deployment artifact holds programs, not a state dict; "
+                         "serve it with wavemamba_torch.deploy.load_exported")
     if not path.endswith((".pth", ".pt")):
         raise ValueError(f"{path}: the port reads .pth/.pt weights only; for an Orbax directory, "
                          "make a state dict with the JAX package's "

@@ -9,6 +9,14 @@ in N x N tiles instead (`models/tiling.py`, 16 pixels of context, tiles padded
 to a multiple of 8). Runs in float32 parity mode: TF32 is off for cuDNN
 convolutions and cuBLAS matmuls. `--fast` runs `WaveMambaConfig.fast()`, the
 bf16 preset (K1 on bf16 token streams), on the same path.
+
+`-w` takes a `.wmt` deployment artifact too (`wavemamba_torch/deploy.py`,
+`python -m wavemamba_torch.scripts.export_model export`): the artifact pads to
+its own exported buckets (`--tile`: its tile program) and serves each on the
+card through one CUDA graph; a uint8 artifact takes and gives bytes.
+`--compile_cache DIR` is the directory where the kernels are built and looked
+up, so a later process loads K1 instead of building it. `.wmx` artifacts are
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import numpy as np
 import torch
 
 from wavemamba_torch.checkpoint import load_network
+from wavemamba_torch.deploy import SUFFIX, enable_compilation_cache, load_exported
 from wavemamba_torch.device import resolve_device
 from wavemamba_torch.metrics import build_metric
 from wavemamba_torch.models import build_network
@@ -35,7 +44,6 @@ from wavemamba_torch.utils.misc import scandir
 # Flags of the JAX CLI that the port does not serve yet, and where they wait.
 NOT_PORTED = {
     "lpips_weights": "--lpips_weights waits for ROADMAP queue 1, item 11 (metrics/lpips.py)",
-    "compile_cache": "--compile_cache waits for ROADMAP queue 1, item 10 (deployment)",
 }
 
 
@@ -66,7 +74,8 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("-i", "--input", type=str, required=True, help="input (LQ) image folder")
     parser.add_argument("-g", "--gt", type=str, default=None, help="ground-truth folder")
-    parser.add_argument("-w", "--weight", type=str, required=True, help="checkpoint (.pth)")
+    parser.add_argument("-w", "--weight", type=str, required=True,
+                        help=f"checkpoint (.pth) or deployment artifact ({SUFFIX})")
     parser.add_argument("-o", "--output", type=str, default="results/", help="output folder")
     parser.add_argument("-s", "--out_scale", type=int, default=1, help="output scale (1)")
     parser.add_argument("--suffix", type=str, default="", help="output filename suffix")
@@ -75,7 +84,9 @@ def parse_args(argv=None):
     parser.add_argument("--tile", type=int, default=0,
                         help="tile size; 0 (default) runs the whole image")
     parser.add_argument("--lpips_weights", type=str, default=None, help="(not ported yet)")
-    parser.add_argument("--compile_cache", type=str, default=None, help="(not ported yet)")
+    parser.add_argument("--compile_cache", type=str, default=None, metavar="DIR",
+                        help="directory where the kernels are built and looked up: a later "
+                             "process loads K1 instead of building it")
     parser.add_argument("--no_bucket", action="store_true",
                         help="pad each image to its own 128-multiple instead of shared buckets")
     parser.add_argument("--bucket_waste", type=float, default=1.35,
@@ -95,13 +106,23 @@ def main(argv=None):
         if getattr(args, flag):
             sys.exit(f"not ported: {why}")
     if args.weight.endswith(".wmx"):
-        sys.exit("not ported: .wmx artifacts wait for ROADMAP queue 1, item 10 (deployment)")
+        sys.exit(f"{args.weight}: .wmx artifacts are the JAX package's (wavemamba_tpu/deploy.py); "
+                 f"the port serves its own {SUFFIX} artifacts "
+                 "(python -m wavemamba_torch.scripts.export_model export)")
     set_parity_mode()
     dev = resolve_device(args.device)
-    mk = WaveMambaConfig.fast if args.fast else WaveMambaConfig
-    cfg = mk(wf=args.wf, n_l_blocks=tuple(args.n_l_blocks), n_h_blocks=tuple(args.n_h_blocks))
-    model = build_network({"type": "WaveMamba", **dataclasses.asdict(cfg)},
-                          load_network(args.weight, device=dev), device=dev)
+    if args.compile_cache:
+        enable_compilation_cache(args.compile_cache)
+    artifact = model = None
+    if args.weight.endswith(SUFFIX):
+        # The artifact pads to its own exported buckets: the ladder is not used.
+        artifact = load_exported(args.weight, device=dev)
+    else:
+        mk = WaveMambaConfig.fast if args.fast else WaveMambaConfig
+        cfg = mk(wf=args.wf, n_l_blocks=tuple(args.n_l_blocks), n_h_blocks=tuple(args.n_h_blocks))
+        model = build_network({"type": "WaveMamba", **dataclasses.asdict(cfg)},
+                              load_network(args.weight, device=dev), device=dev)
+    bytes_io = artifact is not None and artifact.io_dtype == "uint8"
 
     psnr = build_metric({"type": "psnr", "crop_border": 1, "test_y_channel": True})
     ssim = build_metric({"type": "ssim", "crop_border": 1, "test_y_channel": True})
@@ -116,9 +137,13 @@ def main(argv=None):
         name = os.path.basename(path)
         img = imread(path)  # BGR uint8
         t0 = time.time()
-        out = enhance(model, img2batch(img), ladder, tile=args.tile)
+        if artifact is not None:
+            batch = img[..., ::-1][None] if bytes_io else img2batch(img)  # RGB
+            out = artifact.tiled(batch) if args.tile else artifact(batch)
+        else:
+            out = enhance(model, img2batch(img), ladder, tile=args.tile)
         line = f"{name}: {time.time() - t0:.3f}s"
-        sr = batch2img(out)  # BGR uint8
+        sr = out[0][..., ::-1] if bytes_io else batch2img(out)  # BGR uint8
         if args.gt:
             gt_path = os.path.join(args.gt, name)
             if os.path.exists(gt_path):
@@ -134,7 +159,7 @@ def main(argv=None):
     for k, v in scores.items():
         if v:
             print(f"avg {k}: {float(np.mean(v)):.4f}")
-    if ladder is not None:
+    if ladder is not None and artifact is None:
         print(f"buckets: {len(ladder.buckets)}")
 
 

@@ -463,6 +463,31 @@ torch.library.register_autograd("wavemamba_torch::ss2d_scan_pair_fwd", _fwd_back
                                 setup_context=_setup_fwd_context)
 
 
+@torch.library.register_fake("wavemamba_torch::ss2d_scan_pair_fwd")
+def _fwd_fake(x, wx, dtw, bias, A, dsk, out_dtype=None):
+    """The op's outputs as `_launch_pair` allocates them, without data: what
+    `torch.export` traces the op by."""
+    b, length, d = x.shape
+    n, nc = A.shape[1], -(-length // CHUNK)
+    return (x.new_empty((b, 2, length, d), dtype=out_dtype or torch.float32),
+            x.new_empty((b, 2, nc, n, d), dtype=torch.float32),
+            x.new_empty((b, 2, nc, d), dtype=torch.float32))
+
+
+def ss2d_scan_pair_op(x, wx, dtw, bias, A, dsk, return_carries=False, variant="twopass", sub=8,
+                      out_dtype=None):
+    """`ss2d_scan_pair` that always goes through the registered op
+    `ss2d_scan_pair_fwd`, with or without autograd, so that `torch.export`
+    keeps K1 as one op node (the deployment artifact's route,
+    `wavemamba_torch/deploy.py`, installs it with `models.wavemamba.set_scan`).
+    The op runs K1 on a CUDA tensor and the plain version on a CPU one, so
+    one traced program runs on both devices. K1 only: variant='ssd' raises."""
+    if variant != "twopass":
+        raise ValueError(f"ss2d_scan_pair_op runs K1 only (variant='twopass'), got {variant!r}")
+    out = ss2d_scan_pair_fwd(x, wx, dtw, bias, A, dsk, out_dtype)
+    return out if return_carries else out[0]
+
+
 def ss2d_scan_pair(x, wx, dtw, bias, A, dsk, return_carries=False, variant="twopass", sub=8,
                    out_dtype=None):
     """Fused projection + scan of one SS2D direction pair.
