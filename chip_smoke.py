@@ -152,7 +152,25 @@ and prints one JSON line per phase:
              generated set through `PairedImageDataset`'s native route and the
              threaded loader under 'save_scan': 28 K1 + 28 K2 a step. Needs
              OpenCV (the generator's).
- 12d. deploy the deployment route (`wavemamba_torch/deploy.py`): right after
+ 12d. parallel multi-GPU on the one card, in child processes (fresh
+             interpreters, never forked from this one): `torchrun --standalone
+             --nproc_per_node=1 -m wavemamba_torch.pipelines.train -opt
+             options/train_wavemamba_uhdll.yml` for 1 + 4 iterations on the
+             data phase's generated set (NCCL at world size 1: the exit code,
+             the log's global batch of 8, the checkpoint); beside it two gloo
+             ranks sharing cuda:0: the yml's trainer at batch_size_per_gpu 4
+             against the ungrouped batch-8 steps (losses, parameters, the
+             ranks' bits), the XXL4 checkpoint with `scan_impl: seq_sharded`
+             at 512x512 against the one-process 'chunked' forward,
+             `tiled_apply_mesh` of the tile phase's 2160x3840 frame against
+             the one-process tiles, the device cache's slices against the
+             one-process global batch, and which collectives gloo runs on CUDA
+             tensors; then a child in an NCCL group of one rank: the grouped
+             steps' parameters equal the ungrouped steps' bit for bit (under
+             deterministic algorithms), and the ms a step with and without the
+             group in turns, 28 K1 + 28 K2 a step. Two ranks on one card are
+             a correctness run, not a scaling figure.
+ 12e. deploy the deployment route (`wavemamba_torch/deploy.py`): right after
              the builds, `python -m wavemamba_torch.scripts.export_model export`
              traces two artifacts of the XXL4 checkpoint in child processes
              that see no card (a build host), while the phases above run: K1's
@@ -3015,6 +3033,464 @@ def phase_data():
     return row
 
 
+PARALLEL_DIR = os.path.join(ROOT, "build", "chip_smoke", "parallel")
+# Steps of the NCCL child's bit check and of the two gloo ranks' check, and
+# timed steps each of the grouped and the ungrouped trainer, in turns whose
+# order alternates (ABBA).
+PARALLEL_STEPS, PARALLEL_TIMED = 3, 12
+# Two gloo ranks (batch 4 each) against the ungrouped batch-8 steps on the
+# same 8 images: only the order of the gradient mean differs. The losses
+# rtol 1e-5, as tests/test_torch_parallel.py's data-parallel step. The
+# parameters 1e-4 absolute, a fifth of the yml's lr (the card read 4.07e-5
+# on 3 of 1,512,718 parameters: AdamW turns a last-bit difference in a
+# near-zero gradient into a fraction of lr). The planted fault, each rank
+# stepping on its own gradients, must land beyond it. The line also counts
+# the parameters beyond 2e-5.
+PARALLEL_LOSS_RTOL, PARALLEL_PARAM_ATOL = 1e-5, 1e-4
+SEQ_ATOL = 3e-5  # the sequence-sharded forward against 'chunked': JAX's tests/test_seq_scan.py
+TILE_MESH_ATOL = 1e-5  # the ranks' tiles against one process's, float32
+PARALLEL_SEQ_SIZE = 512  # the seq-sharded forward gathers y: 566 MB a scan at 1080p level 1
+PARALLEL_BATCH_SEED = 81
+
+
+def child_cmd(fn, *args):
+    """argv of a fresh interpreter that runs `chip_smoke.<fn>(*args)` (as
+    strings): the card is initialised in this process, so children are never
+    forked from it."""
+    return [sys.executable, "-c", f"import sys, chip_smoke; chip_smoke.{fn}(*sys.argv[1:])",
+            *map(str, args)]
+
+
+def start_children(cmds, log_dir, env=None, cwd=ROOT):
+    """Start every {name: argv} at once, each writing its output to
+    `log_dir/<name>.log`."""
+    env = {**os.environ, "PYTHONPATH": ROOT, **(env or {})}
+    os.makedirs(log_dir, exist_ok=True)
+    procs = {}
+    for name, argv in cmds.items():
+        log = os.path.join(log_dir, f"{name}.log")
+        with open(log, "w") as f:
+            procs[name] = (time.perf_counter(), log,
+                           subprocess.Popen(argv, cwd=cwd, env=env, stdout=f,
+                                            stderr=subprocess.STDOUT))
+    return procs
+
+
+def wait_children(procs, timeout=900):
+    """Wait for every child of `start_children`. The first that exits
+    non-zero (or the time limit) stops the others and fails the run with
+    the end of its output. {name: (seconds, output)}."""
+    ends, deadline = {}, time.perf_counter() + timeout
+    try:
+        while len(ends) < len(procs):
+            for name, (t0, _, proc) in procs.items():
+                if name not in ends and proc.poll() is not None:
+                    ends[name] = time.perf_counter() - t0
+            bad = [n for n in ends if procs[n][2].returncode != 0]
+            if bad or time.perf_counter() > deadline:
+                name = bad[0] if bad else next(n for n in procs if n not in ends)
+                with open(procs[name][1]) as f:
+                    text = f.read()
+                check(False, f"child {name} exited {procs[name][2].returncode}: {text[-3000:]}")
+            time.sleep(0.2)
+    finally:
+        stop_children(procs)
+    out = {}
+    for name, (_, log, _) in procs.items():
+        with open(log) as f:
+            out[name] = (ends[name], f.read())
+    return out
+
+
+def stop_children(procs):
+    """Kill every child of `start_children` that is still running."""
+    for _, _, proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def run_children(cmds, log_dir, timeout=900, env=None, cwd=ROOT):
+    """`start_children` then `wait_children`."""
+    return wait_children(start_children(cmds, log_dir, env, cwd), timeout)
+
+
+def parallel_opt(device):
+    """The uhdll yml's `network_g` and `train` sections (block recompute as
+    the yml leaves it: 'save_scan') for a `RestorationModel` on `device`."""
+    opt = data_train_opt(PARALLEL_BATCH_SEED, PARALLEL_DIR)
+    opt["device"] = str(device)
+    return opt
+
+
+def parallel_batches():
+    """PARALLEL_STEPS seeded batches of TRAIN_BATCH x 512x512 on the card."""
+    return [synthetic_batch(PARALLEL_BATCH_SEED + s, TRAIN_BATCH, TRAIN_SIZE)
+            for s in range(PARALLEL_STEPS)]
+
+
+def _numpy_params(model):
+    return {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+
+
+def _timed_step(runner, lq, gt):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = runner.optimize_parameters({"lq": lq, "gt": gt})
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, metrics
+
+
+def parallel_nccl_child(init, out):
+    """A process group of one rank over NCCL: the uhdll yml's trainer steps
+    PARALLEL_STEPS seeded batches without the group (twice, to show the
+    steps repeat) and with it (`make_mesh()`: the gradients through NCCL's
+    all_reduce), under deterministic algorithms, from the same seeded
+    weights; then PARALLEL_TIMED steps of each in turns (ABBA), K1 / K2
+    launches counted over the grouped ones, and the gradient mean timed
+    alone. Writes a pickle to `out`."""
+    import pickle
+    import warnings
+
+    from wavemamba_torch import parallel
+    from wavemamba_torch.inference import set_parity_mode
+    from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair, ss2d_scan_pair_bwd
+    from wavemamba_torch.runner import RestorationModel
+
+    set_parity_mode()
+    device = parallel.initialize(init, 1, 0, device="cuda")
+    mesh = parallel.make_mesh()
+    row = {"backend": torch.distributed.get_backend(), "device": str(device)}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.benchmark = False
+    batches = parallel_batches()
+
+    def run(with_mesh):
+        runner = RestorationModel(parallel_opt(device), mesh=mesh if with_mesh else None)
+        losses = [float(runner.reduce_metrics(runner.optimize_parameters({"lq": lq, "gt": gt}))
+                        ["total"]) for lq, gt in batches]
+        return runner, losses
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        runs = {}
+        for name, with_mesh in (("ungrouped", False), ("ungrouped_again", False), ("grouped", True)):
+            runner, losses = run(with_mesh)
+            runs[name] = (losses, _numpy_params(runner.model))
+            del runner
+            torch.cuda.empty_cache()
+    row["nondeterministic_ops"] = sorted({str(w.message).split(" does not have")[0][:160]
+                                          for w in caught if "deterministic" in str(w.message)})
+    same = lambda a, b: all(np.array_equal(a[1][k], b[1][k]) for k in a[1])  # noqa: E731
+    row["ungrouped_repeats_bitwise"] = same(runs["ungrouped"], runs["ungrouped_again"])
+    row["grouped_equals_ungrouped_bitwise"] = same(runs["grouped"], runs["ungrouped"])
+    row["losses_equal"] = runs["grouped"][0] == runs["ungrouped"][0]
+    row["losses"] = runs["ungrouped"][0]
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.benchmark = True
+    runners = {name: RestorationModel(parallel_opt(device), mesh=m)
+               for name, m in (("ungrouped", None), ("grouped", mesh))}
+    lq, gt = batches[0]
+    for runner in runners.values():  # warm-up
+        _timed_step(runner, lq, gt)
+    ms = {name: [] for name in runners}
+    k1 = k2 = 0
+    for turn in range(PARALLEL_TIMED):
+        for name in sorted(runners, reverse=turn % 2 == 1):
+            runner = runners[name]
+            if name == "grouped":
+                ss2d_scan_pair.launches = ss2d_scan_pair_bwd.launches = 0
+            step_ms, _ = _timed_step(runner, lq, gt)
+            ms[name].append(step_ms)
+            if name == "grouped":
+                k1, k2 = k1 + ss2d_scan_pair.launches, k2 + ss2d_scan_pair_bwd.launches
+    # what the group adds to a step: the mean of the gradients (`parallel.mesh.mean_`:
+    # a concatenation, one all_reduce, a copy back per tensor), timed alone
+    from wavemamba_torch.parallel.mesh import mean_
+
+    grads = [torch.zeros_like(p) for p in runners["grouped"].model.parameters()]
+    row["grad_mean_ms"] = cuda_ms(lambda: mean_(mesh, grads), 20)
+    row.update({"step_ms": ms, "ms_per_step": {k: float(np.median(v)) for k, v in ms.items()},
+                "k1_launches": k1, "k2_launches": k2, "k1_per_step": k1 / PARALLEL_TIMED,
+                "k2_per_step": k2 / PARALLEL_TIMED, "steps_timed": PARALLEL_TIMED})
+    with open(out, "wb") as f:
+        pickle.dump({"row": row, "ungrouped_params": runs["ungrouped"][1]}, f)
+    parallel.dist.shutdown()
+
+
+def gloo_collectives(device):
+    """Which collectives gloo runs on CUDA tensors here, each tried once."""
+    import torch.distributed as dist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    trials = {
+        "broadcast": lambda t: dist.broadcast(t, 0),
+        "all_reduce": lambda t: dist.all_reduce(t),
+        "all_gather": lambda t: dist.all_gather([torch.empty_like(t) for _ in range(world)], t),
+        "all_gather_into_tensor": lambda t: dist.all_gather_into_tensor(
+            t.new_empty(world * t.numel()), t),
+        "reduce_scatter_tensor": lambda t: dist.reduce_scatter_tensor(
+            t.new_empty(t.numel() // world), t),
+    }
+    out = {}
+    for name, fn in trials.items():
+        try:
+            fn(torch.full((4 * world,), float(rank), device=device))
+            torch.cuda.synchronize()
+            out[name] = True
+        except Exception as e:  # noqa: BLE001 - recorded, not relied on
+            out[name] = f"{type(e).__name__}: {str(e)[:200]}"
+    return out
+
+
+def seq_input():
+    rs = np.random.RandomState(91)
+    return (rs.rand(1, PARALLEL_SEQ_SIZE, PARALLEL_SEQ_SIZE, 3) * 0.12).astype(np.float32)
+
+
+def tile_frame():
+    """`phase_tile`'s seeded 2160x3840 request."""
+    return (np.random.RandomState(7).rand(1, 2160, 3840, 3) * 0.12).astype(np.float32)
+
+
+def cache_arrays():
+    """A small synthetic uint8 set: 6 pairs of 64x64 (lq, gt, paths, opt)."""
+    rs = np.random.RandomState(93)
+    gt = rs.randint(0, 256, (6, 64, 64, 3), np.uint8)
+    lq = (gt // 4).astype(np.uint8)
+    paths = [{"lq_path": f"lq{i}", "gt_path": f"gt{i}"} for i in range(6)]
+    opt = {"phase": "train", "gt_size": 32, "scale": 1, "geometric_augs": True}
+    return lq, gt, paths, opt
+
+
+def cache_loader(device, mesh=None):
+    from wavemamba_torch.data import DeviceCachedLoader, EnlargedSampler
+
+    lq, gt, paths, opt = cache_arrays()
+    loader = DeviceCachedLoader.from_arrays(lq, gt, paths, opt, 4, sampler=EnlargedSampler(6, 1, 0, 2),
+                                            seed=7, device=device, mesh=mesh)
+    loader.set_epoch(1)
+    return loader
+
+
+def parallel_gloo_child(init, rank, out_dir):
+    """Rank `rank` of two over gloo, both on cuda:0: (b) PARALLEL_STEPS
+    steps of the uhdll yml's trainer at batch_size_per_gpu 4 (global 8),
+    each rank on its rows of `parallel_batches()`, then the same steps
+    without the mesh (the planted fault: each rank on its own gradients); (c) the XXL4 checkpoint
+    with `scan_impl: seq_sharded` on `seq_input()`; (d) `tiled_apply_mesh`
+    of `tile_frame()` at 240 / 16; (e) the device cache's slices of the
+    global batch; and which collectives gloo runs on CUDA tensors. Writes
+    `rank<r>.pkl` (and rank 0 the arrays) under `out_dir`."""
+    import pickle
+
+    from wavemamba_torch import parallel
+    from wavemamba_torch.checkpoint import load_network
+    from wavemamba_torch.inference import set_parity_mode
+    from wavemamba_torch.models import build_network
+    from wavemamba_torch.models.tiling import tiled_apply_mesh
+    from wavemamba_torch.models.wavemamba import wavemamba_apply
+    from wavemamba_torch.ops.scan_cuda import ss2d_scan_pair, ss2d_scan_pair_bwd
+    from wavemamba_torch.runner import RestorationModel
+
+    rank = int(rank)
+    set_parity_mode()
+    device = parallel.initialize(init, 2, rank, backend="gloo", device="cuda:0")
+    mesh = parallel.make_mesh()
+    row = {"rank": rank, "backend": torch.distributed.get_backend(), "device": str(device),
+           "mesh": repr(mesh), "gloo_cuda_collectives": gloo_collectives(device)}
+    arrays = {}
+    # (b) data parallel on one card
+    runner = RestorationModel(parallel_opt(device), mesh=mesh)
+    losses, ms = [], []
+    ss2d_scan_pair.launches = ss2d_scan_pair_bwd.launches = 0
+    for lq, gt in parallel_batches():
+        batch = parallel.shard_batch(mesh, {"lq": lq, "gt": gt})
+        step_ms, metrics = _timed_step(runner, batch["lq"], batch["gt"])
+        losses.append(float(runner.reduce_metrics(metrics)["total"]))
+        ms.append(step_ms)
+    row["train"] = {"batch_size_per_gpu": int(batch["lq"].shape[0]), "losses": losses,
+                    "step_ms": ms, "k1_launches": ss2d_scan_pair.launches,
+                    "k2_launches": ss2d_scan_pair_bwd.launches}
+    arrays["params"] = _numpy_params(runner.model)
+    del runner
+    # the planted fault: the same steps with each rank on its own gradients
+    runner = RestorationModel(parallel_opt(device))
+    for lq, gt in parallel_batches():
+        runner.optimize_parameters(parallel.shard_batch(mesh, {"lq": lq, "gt": gt}))
+    arrays["params_unaveraged"] = _numpy_params(runner.model)
+    del runner
+    torch.cuda.empty_cache()
+    sd = load_network(CKPT, device=device)
+    # (c) the sequence-sharded forward
+    seq = build_network({"type": "WaveMamba", "scan_impl": "seq_sharded", "scan_mesh": mesh}, sd,
+                        device=device)
+    x = torch.from_numpy(seq_input()).to(device)
+    wavemamba_apply(seq, x[:, :64, :64])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = wavemamba_apply(seq, x)
+    torch.cuda.synchronize()
+    row["seq_sharded"] = {"image": [PARALLEL_SEQ_SIZE] * 2, "ms": (time.perf_counter() - t0) * 1e3}
+    arrays["seq"] = y.cpu().numpy()
+    del seq, y
+    # (d) the sharded tiles, K1 in each
+    stock = build_network({"type": "WaveMamba"}, sd, device=device)
+    tiled_apply_mesh(wavemamba_apply, stock, tile_frame()[:, :240, :480], mesh, tile_size=240,
+                     tile_pad=16)  # warm-up
+    torch.cuda.synchronize()
+    ss2d_scan_pair.launches = 0
+    t0 = time.perf_counter()
+    tiles = tiled_apply_mesh(wavemamba_apply, stock, tile_frame(), mesh, tile_size=240, tile_pad=16)
+    row["tiles"] = {"s": time.perf_counter() - t0, "k1_launches": ss2d_scan_pair.launches}
+    if rank == 0:
+        np.save(os.path.join(out_dir, "tiles.npy"), tiles)
+    del stock
+    # (e) the device cache under the group
+    arrays["cache"] = [(b["lq"].cpu().numpy(), b["gt"].cpu().numpy(), b["lq_path"])
+                       for b in cache_loader(device, mesh)]
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump({"row": row, "arrays": arrays}, f)
+    parallel.barrier()
+    parallel.dist.shutdown()
+
+
+def phase_parallel(stock, smi):
+    """Multi-GPU on the one card. (a) `torchrun --standalone
+    --nproc_per_node=1 -m wavemamba_torch.pipelines.train -opt
+    options/train_wavemamba_uhdll.yml` (NCCL at world size 1) for 1 + 4
+    iterations on the data phase's generated set, beside (b)-(e) on two gloo
+    ranks sharing cuda:0 (`parallel_gloo_child`); then the NCCL child's bit
+    check and step times, alone on the card (`parallel_nccl_child`). This
+    process holds each against its own one-process references."""
+    import pickle
+    import shutil
+
+    from wavemamba_torch.checkpoint import load_network
+    from wavemamba_torch.models import build_network
+    from wavemamba_torch.models.tiling import tiled_apply
+    from wavemamba_torch.models.wavemamba import wavemamba_apply
+    from wavemamba_torch.parallel.dist import local_init_method
+
+    t0 = time.perf_counter()
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    run_dir, gloo_dir = (os.path.join(PARALLEL_DIR, d) for d in ("torchrun", "gloo"))
+    for d in (run_dir, gloo_dir):
+        os.makedirs(d)
+    torch.cuda.empty_cache()
+    proc = os.path.join(ROOT, "build", "chip_smoke", "proc_a")
+    force = [f"datasets:train:dataroot_gt={proc}/train/gt",
+             f"datasets:train:dataroot_lq={proc}/train/input",
+             f"datasets:val:dataroot_gt={proc}/val/gt", f"datasets:val:dataroot_lq={proc}/val/input",
+             "train:total_iter=5", "logger:print_freq=1", "logger:use_tb_logger=false"]
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+                "-m", "wavemamba_torch.pipelines.train", "-opt",
+                os.path.join(ROOT, "options", "train_wavemamba_uhdll.yml"), "--force_yml", *force]
+    init = local_init_method()
+    gloo = {f"gloo_rank{r}": child_cmd("parallel_gloo_child", init, r, gloo_dir) for r in range(2)}
+    procs = start_children({"torchrun": torchrun, **gloo}, PARALLEL_DIR, cwd=run_dir)
+    # one process's references, while the children run
+    sd = load_network(CKPT, device="cuda")
+    chunked = build_network({"type": "WaveMamba", "scan_impl": "chunked"}, sd, device="cuda")
+    seq_want = wavemamba_apply(chunked, torch.from_numpy(seq_input()).cuda()).cpu().numpy()
+    del chunked
+    tiles_want = tiled_apply(
+        lambda t: wavemamba_apply(stock, torch.from_numpy(np.ascontiguousarray(t)).cuda()).cpu().numpy(),
+        tile_frame(), tile_size=240, tile_pad=16)
+    cache_want = [(b["lq"].cpu().numpy(), b["gt"].cpu().numpy(), b["lq_path"])
+                  for b in cache_loader("cuda")]
+    del sd
+    children = wait_children(procs)
+    # (a) the entry point
+    text = children["torchrun"][1]
+    exp = os.path.join(run_dir, "experiments", "001_WaveMamba_UHDLL")
+    iters = sum(1 for ln in text.splitlines() if "iter:" in ln and "lr:(" in ln)
+    row_a = {"command": "torchrun --standalone --nproc_per_node=1 -m wavemamba_torch.pipelines.train "
+                        "-opt options/train_wavemamba_uhdll.yml --force_yml " + " ".join(force),
+             "s": children["torchrun"][0], "iterations_logged": iters,
+             "global_batch_logged": "global batch 8 (1 process(es) x 8)" in text,
+             "nccl_logged": "process group: nccl, 1 rank(s)" in text,
+             "checkpoint": os.path.exists(os.path.join(exp, "models", "net_g_latest.pth"))}
+    check(iters == 5 and row_a["global_batch_logged"] and row_a["nccl_logged"]
+          and row_a["checkpoint"], f"the torchrun entry point: {row_a} {text[-2000:]}")
+    # (b)-(e) the two gloo ranks
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(gloo_dir, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    # the NCCL child, alone on the card
+    nccl_out = os.path.join(PARALLEL_DIR, "nccl.pkl")
+    nccl_s = run_children({"nccl": child_cmd("parallel_nccl_child", local_init_method(),
+                                             nccl_out)},
+                          PARALLEL_DIR, env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})["nccl"][0]
+    with open(nccl_out, "rb") as f:
+        nccl = pickle.load(f)
+    row_n = {**nccl["row"], "s": nccl_s}
+    check(row_n["backend"] == "nccl" and row_n["grouped_equals_ungrouped_bitwise"]
+          and row_n["losses_equal"], f"NCCL at world size 1: the grouped steps' bits {row_n}")
+    check((row_n["k1_per_step"], row_n["k2_per_step"]) == (28, 28),
+          f"{row_n['k1_per_step']} K1 / {row_n['k2_per_step']} K2 a grouped step")
+    want = nccl["ungrouped_params"]
+    b_rows = []
+    for res in ranks:
+        got = res["arrays"]["params"]
+        diff = np.array([np.abs(got[k] - want[k]).max() for k in want])
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(res["row"]["train"]["losses"],
+                                                             row_n["losses"]))
+        fault = res["arrays"]["params_unaveraged"]
+        b_rows.append({**res["row"]["train"], "loss_rel_vs_batch8": loss_rel,
+                       "param_max_abs_vs_batch8": float(diff.max()),
+                       "unaveraged_param_max_abs_vs_batch8": float(max(
+                           np.abs(fault[k] - want[k]).max() for k in want)),
+                       "params_beyond_2e-5": int(sum(int((np.abs(got[k] - want[k]) > 2e-5).sum())
+                                                     for k in want))})
+    same_ranks = all(np.array_equal(ranks[0]["arrays"]["params"][k], ranks[1]["arrays"]["params"][k])
+                     for k in want)
+    seq_err = [float(np.abs(res["arrays"]["seq"] - seq_want).max()) for res in ranks]
+    tiles = np.load(os.path.join(gloo_dir, "tiles.npy"))
+    tile_err = float(np.abs(tiles - tiles_want).max())
+    cache_same = all(
+        np.array_equal(np.concatenate([ranks[0]["arrays"]["cache"][i][j], ranks[1]["arrays"]["cache"][i][j]]),
+                       want_b[j]) for i, want_b in enumerate(cache_want) for j in (0, 1)) and all(
+        ranks[0]["arrays"]["cache"][i][2] + ranks[1]["arrays"]["cache"][i][2] == w[2]
+        for i, w in enumerate(cache_want))
+    row = {"phase": "parallel", "smi": smi, "a_torchrun_nccl": row_a,
+           "a_nccl_world1": row_n,
+           "b_gloo_two_ranks": {"ranks": b_rows, "ranks_same_bits": same_ranks,
+                                "note": "two ranks sharing one card: a correctness run, "
+                                        "not a scaling figure"},
+           "c_seq_sharded": {**ranks[0]["row"]["seq_sharded"], "max_abs_vs_chunked": seq_err,
+                             "atol": SEQ_ATOL},
+           "d_tiles": {"ranks": [res["row"]["tiles"] for res in ranks],
+                       "max_abs_vs_one_process": tile_err, "atol": TILE_MESH_ATOL},
+           "e_device_cache": {"batches": len(cache_want), "slices_equal_global_batch": cache_same},
+           "gloo_cuda_collectives": ranks[0]["row"]["gloo_cuda_collectives"],
+           "children_s": {k: v[0] for k, v in children.items()},
+           "phase_s": time.perf_counter() - t0}
+    row["k1_launches"] = row_n["k1_launches"] + sum(r["k1_launches"] for r in b_rows) + sum(
+        r["k1_launches"] for r in row["d_tiles"]["ranks"])
+    row["k2_launches"] = row_n["k2_launches"] + sum(r["k2_launches"] for r in b_rows)
+    emit(row)
+    for r in b_rows:
+        check(r["loss_rel_vs_batch8"] <= PARALLEL_LOSS_RTOL,
+              f"two gloo ranks' losses against the batch-8 steps: {r['loss_rel_vs_batch8']}")
+        check(r["param_max_abs_vs_batch8"] <= PARALLEL_PARAM_ATOL,
+              f"two gloo ranks' parameters against the batch-8 steps: {r['param_max_abs_vs_batch8']}")
+        check(r["unaveraged_param_max_abs_vs_batch8"] > PARALLEL_PARAM_ATOL,
+              f"the planted fault (unaveraged gradients) is within the tolerance: "
+              f"{r['unaveraged_param_max_abs_vs_batch8']}")
+        check((r["k1_launches"], r["k2_launches"]) == (28 * PARALLEL_STEPS,) * 2,
+              f"a gloo rank's K1 / K2 launches: {r['k1_launches']} / {r['k2_launches']}")
+    check(same_ranks, "the two gloo ranks end with the same parameters")
+    check(max(seq_err) <= SEQ_ATOL, f"the seq-sharded forward against 'chunked': {seq_err}")
+    check(tile_err <= TILE_MESH_ATOL, f"the sharded tiles against one process's: {tile_err}")
+    tiles_n = -(-2160 // 240) * -(-3840 // 240)
+    for r in row["d_tiles"]["ranks"]:
+        check(r["k1_launches"] == 28 * -(-tiles_n // 8), f"a rank's K1 in the tiles: {r}")
+    check(cache_same, "the device cache's slices are the global batch, bit for bit")
+    return row
+
+
 DEPLOY_DIR = os.path.join(ROOT, "build", "chip_smoke", "deploy")
 DEPLOY_ATOL = 1e-5  # the artifact against the eager forward on the same request, float32
 DEPLOY_BUCKET = (1152, 1920)
@@ -3027,45 +3503,26 @@ DEPLOY_EXPORTS = {
 }
 
 
-def start_exports():
-    """`python -m wavemamba_torch.scripts.export_model export` of each of
-    DEPLOY_EXPORTS from CKPT into DEPLOY_DIR, as child processes that see no
-    card (a build host), started together; they trace on the host while the
-    phases before `deploy` run. {name: (process, artifact path, log path)}."""
+def export_cmds():
+    """{name: argv} of `python -m wavemamba_torch.scripts.export_model
+    export` for each of DEPLOY_EXPORTS from CKPT into DEPLOY_DIR (emptied
+    here), for `start_children` with EXPORT_ENV: children that see no card
+    (a build host), started together, which trace on the host while the
+    phases before `deploy` run."""
     import shutil
 
     shutil.rmtree(DEPLOY_DIR, ignore_errors=True)
     os.makedirs(DEPLOY_DIR)
-    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT}
-    jobs = {}
-    for name, flags in DEPLOY_EXPORTS.items():
-        out, log = (os.path.join(DEPLOY_DIR, f"{name}{ext}") for ext in (".wmt", ".log"))
-        with open(log, "w") as f:
-            proc = subprocess.Popen([sys.executable, "-m", "wavemamba_torch.scripts.export_model",
-                                     "export", "-w", CKPT, "-o", out, *flags],
-                                    cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
-        jobs[name] = (proc, out, log)
-    return jobs
+    return {name: [sys.executable, "-m", "wavemamba_torch.scripts.export_model", "export", "-w",
+                   CKPT, "-o", export_path(name), *flags]
+            for name, flags in DEPLOY_EXPORTS.items()}
 
 
-def stop_exports(jobs):
-    for proc, _, _ in jobs.values():
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+EXPORT_ENV = {"CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
 
 
-def wait_exports(jobs, timeout=900):
-    """Wait for each export; raise with its log's end where one failed.
-    {name: (artifact path, the CLI's line)}."""
-    out = {}
-    for name, (proc, path, log) in jobs.items():
-        rc = proc.wait(timeout=timeout)
-        with open(log) as f:
-            text = f.read()
-        check(rc == 0 and os.path.exists(path), f"export {name} exited {rc}: {text[-2000:]}")
-        out[name] = (path, next(ln for ln in text.splitlines() if ln.startswith("wrote ")))
-    return out
+def export_path(name):
+    return os.path.join(DEPLOY_DIR, f"{name}.wmt")
 
 
 def check_deploy(row):
@@ -3117,7 +3574,7 @@ def replay_profile(fn, unprofiled_ms):
 
 
 def phase_deploy(jobs, stock, fast):
-    """The deployment route: the artifacts that `start_exports` traced on the
+    """The deployment route: the artifacts of `export_cmds`, traced on the
     host (the XXL4 checkpoint with K1's op for the 1152x1920 bucket and a
     240 / 16 tile program; the `fast` preset with uint8 I/O) loaded on the
     card, each program one CUDA graph. Two seeded requests (1080x1920,
@@ -3134,9 +3591,11 @@ def phase_deploy(jobs, stock, fast):
     from wavemamba_torch.ops import scan_cuda
 
     t_phase = time.perf_counter()
-    built = wait_exports(jobs)
     art = {}
-    for name, (path, line) in built.items():
+    for name, (_, text) in wait_children(jobs).items():
+        path = export_path(name)
+        check(os.path.exists(path), f"export {name} wrote no artifact: {text[-2000:]}")
+        line = next(ln for ln in text.splitlines() if ln.startswith("wrote "))
         t0 = time.perf_counter()
         model = load_exported(path)
         art[name] = {"model": model, "load_s": time.perf_counter() - t0,
@@ -3227,9 +3686,9 @@ def phase_deploy(jobs, stock, fast):
     os.makedirs(folder)
     cv2.imwrite(os.path.join(folder, "a.png"), u8_in[0][..., ::-1])
     torch.cuda.empty_cache()  # room for the child processes
-    cold_s, cold_proc_s = serve_subprocess(built["fast_u8"][0], folder, cache)
+    cold_s, cold_proc_s = serve_subprocess(export_path("fast_u8"), folder, cache)
     libs = sorted(os.listdir(cache))
-    warm_s, warm_proc_s = serve_subprocess(built["fast_u8"][0], folder, cache)
+    warm_s, warm_proc_s = serve_subprocess(export_path("fast_u8"), folder, cache)
     row = {"phase": "deploy", "suffix": SUFFIX,
            "artifacts": {k: {kk: vv for kk, vv in v.items() if kk != "model"} for k, v in art.items()},
            "requests": requests, "same_bits_twice": all(r["same_bits_again"] for r in requests),
@@ -3451,8 +3910,9 @@ def main():
 
     set_parity_mode()
     smi = phase_device()
-    exports = start_exports()  # traced on the host while the phases below run
-    atexit.register(stop_exports, exports)
+    # the deploy phase's artifacts, traced on the host while the phases below run
+    exports = start_children(export_cmds(), DEPLOY_DIR, env=EXPORT_ENV)
+    atexit.register(stop_children, exports)
     k1_rows = phase_k1()
     k1_bf16_rows = phase_k1_bf16()
     k1_mixed_rows = phase_k1_bf16(y_dtype=torch.float32)
@@ -3497,6 +3957,7 @@ def main():
     train_mixed = phase_train_yml("train_mixed")
     phase_device_cache()
     data = phase_data()
+    par = phase_parallel(model, smi)
     deploy = phase_deploy(exports, model, fast_model)
     k2_steps = phase_profile(model, x1080, forward_ms, runs, pipe, fused, fast, fast_fused, train_fast,
                              train_mixed)
@@ -3506,8 +3967,8 @@ def main():
     # the training step. Launches: each path's own, counted from 0 just before
     # it: K1 the serve paths' (float32 and fast) and the training paths'
     # (fused, fast, mixed and the data phase's uhdll yml from the generated
-    # set) and the fused fast serve path's, K2 the training paths',
-    # K3 and K4 the pipeline path's (steps, validation, the request), K7 the
+    # set) and the fused fast serve path's, K2 the training paths' (K1 and K2
+    # also the parallel phase's child processes, each counted there), K3 and K4 the pipeline path's (steps, validation, the request), K7 the
     # two fused serve paths' (float32 and fast), P1-P5 the
     # probe path's timed calls.
     level1 = k1_rows[0]
@@ -3560,7 +4021,7 @@ def main():
         "replaces": "wavemamba_tpu/ops/scan_pallas.py:705",
         "launches": launches + train_k1 + fast["launches"] + train_fast["k1_launches"]
         + fast_fused["k1_launches"] + train_mixed["k1_launches"] + data["train"]["k1_launches"]
-        + deploy["k1_launches"],
+        + deploy["k1_launches"] + par["k1_launches"],
         "launches_serve": launches, "launches_train": train_k1,
         "launches_train_by_policy": {str(p): r["k1_launches"] for p, r in runs.items()},
         "launches_serve_fast": fast["launches"], "launches_train_fast": train_fast["k1_launches"],
@@ -3568,6 +4029,9 @@ def main():
         "launches_train_mixed": train_mixed["k1_launches"],
         "launches_train_data": data["train"]["k1_launches"],
         "launches_deploy": deploy["k1_launches"],
+        "launches_parallel": par["k1_launches"],
+        "launches_parallel_note": "child processes of the parallel phase: the NCCL rank's "
+                                  "grouped steps, two gloo ranks' steps and sharded tiles",
         "launches_deploy_note": "the artifact route's CUDA graphs: each graph's warm-up and 28 "
                                 "a replay (a replay does not pass through the wrapper's count)",
         "variants": "x and y float32; both bfloat16 on the fast paths; bfloat16 x with float32 y "
@@ -3593,12 +4057,13 @@ def main():
         "source": "wavemamba_torch/csrc/ss2d_scan_bwd.cu",
         "replaces": "wavemamba_tpu/ops/scan_pallas.py:952",
         "launches": train_k2 + train_fast["k2_launches"] + train_mixed["k2_launches"]
-        + data["train"]["k2_launches"],
+        + data["train"]["k2_launches"] + par["k2_launches"],
         "launches_train": train_k2,
         "launches_train_by_policy": {str(p): r["k2_launches"] for p, r in runs.items()},
         "launches_train_fast": train_fast["k2_launches"],
         "launches_train_mixed": train_mixed["k2_launches"],
         "launches_train_data": data["train"]["k2_launches"],
+        "launches_parallel": par["k2_launches"],
         "variants": "x, dy and dx float32; all bfloat16 on the fast training path; bfloat16 x and "
                     "dx with float32 dy on the proc ymls' path (train_mixed)",
         "max_abs_err": errs["K2"]["max_abs_err"], "max_rel_err": errs["K2"]["max_rel_err"],

@@ -121,8 +121,9 @@ def test_deploy_phase_is_on_the_main_path():
     import inspect
 
     src = inspect.getsource(chip_smoke.main)
-    assert src.index("phase_device()") < src.index("start_exports()") < src.index("phase_k1()")
-    assert "atexit.register(stop_exports, exports)" in src
+    assert (src.index("phase_device()") < src.index("start_children(export_cmds()")
+            < src.index("phase_k1()"))
+    assert "atexit.register(stop_children, exports)" in src
     assert src.index("phase_data()") < src.index("phase_deploy(") < src.index("phase_profile(")
     assert '+ deploy["k1_launches"]' in src
     for flags in chip_smoke.DEPLOY_EXPORTS.values():
@@ -163,14 +164,13 @@ def test_deploy_readings_fail_loudly(fault):
 
 def test_a_failed_export_raises(tmp_path):
     """An export child that fails stops the run with its log's end."""
-    import subprocess
     import sys
 
-    log = tmp_path / "x.log"
-    log.write_text("Traceback: the trace failed\n")
-    proc = subprocess.Popen([sys.executable, "-c", "import sys; sys.exit(3)"])
+    jobs = chip_smoke.start_children(
+        {"x": [sys.executable, "-c", "print('Traceback: the trace failed'); raise SystemExit(3)"]},
+        str(tmp_path), env=chip_smoke.EXPORT_ENV)
     with pytest.raises(RuntimeError, match="exited 3.*the trace failed"):
-        chip_smoke.wait_exports({"x": (proc, str(tmp_path / "x.wmt"), str(log))})
+        chip_smoke.phase_deploy(jobs, None, None)
     assert chip_smoke.first_request_s("artifact: shapes [(1152, 1920)]\na.png: 2.097s\n") == 2.097
 
 
@@ -200,4 +200,56 @@ cs.main()
                           timeout=300)
     assert proc.returncode != 0
     assert "check failed: the deploy phase's readings" in proc.stderr
+    assert '"ok": true' not in proc.stdout
+
+
+def test_parallel_phase_is_on_the_main_path():
+    """`main` runs the parallel phase after the data phase (whose generated
+    set it trains from) and before the profile, and adds its children's K1
+    and K2 launches to the `kernels` line."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index("phase_data()") < src.index("phase_parallel(") < src.index("phase_profile(")
+    assert '+ par["k1_launches"]' in src and '+ par["k2_launches"]' in src
+    assert '"launches_parallel": par["k1_launches"]' in src
+    assert '"launches_parallel": par["k2_launches"]' in src
+
+
+def test_a_failed_child_stops_the_others_and_fails_the_script(tmp_path):
+    """A child of the parallel phase that exits non-zero stops the children
+    still running (a rank left alone would wait in a collective) and fails
+    the check with its output's end; run from `main`, the process exits
+    non-zero and prints no `ok` line."""
+    import subprocess
+    import sys
+    import time
+
+    cmds = {"waiting_rank": [sys.executable, "-c", "import time; time.sleep(120)"],
+            "failing_rank": [sys.executable, "-c", "print('rank 1 lost its peer'); raise SystemExit(3)"]}
+    t0 = time.perf_counter()
+    procs = chip_smoke.start_children(cmds, str(tmp_path))
+    with pytest.raises(RuntimeError, match="child failing_rank exited 3: rank 1 lost its peer"):
+        chip_smoke.wait_children(procs, timeout=60)
+    assert time.perf_counter() - t0 < 60
+    assert all(proc.poll() is not None for _, _, proc in procs.values())
+    ok = chip_smoke.run_children({"a": [sys.executable, "-c", "print('fine')"]}, str(tmp_path))
+    assert ok["a"][1] == "fine\n"
+    script = tmp_path / "drive.py"
+    script.write_text(f"""
+import sys
+sys.path.insert(0, {str(REPO)!r})
+import torch
+import chip_smoke as cs
+torch.cuda.is_available = lambda: True
+# Without a card nothing before the parallel phase can run: the first phase
+# starts a child that fails, as the parallel phase's ranks would.
+cs.phase_device = lambda: cs.run_children(
+    {{"gloo_rank1": [sys.executable, "-c", "raise SystemExit(5)"]}}, {str(tmp_path)!r})
+cs.main()
+""")
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert "check failed: child gloo_rank1 exited 5" in proc.stderr
     assert '"ok": true' not in proc.stdout

@@ -250,10 +250,13 @@ def test_network_g_keys_are_honoured_or_refused():
     assert config_from_opt({**base, "conv_impl": "fused"}).conv_impl == "fused"  # inference only
     bf16 = config_from_opt({**base, "compute_dtype": "bfloat16", "scan_dtype": "bfloat16"})
     assert (bf16.compute_dtype, bf16.scan_dtype) == ("bfloat16", "bfloat16")
-    for key, value, match in [("conv1x1_as_conv", ["ffn"], "item 15"),
-                              ("scan_impl", "seq_sharded", "item 9")]:
+    for key, value, match in [("conv1x1_as_conv", ["ffn"], "item 15")]:
         with pytest.raises(NotImplementedError, match=match):
             config_from_opt({**base, key: value})
+    # the sequence-sharded scan and its mesh fields are the JAX package's fields
+    seq = config_from_opt({**base, "scan_impl": "seq_sharded", "scan_mesh": None,
+                           "scan_mesh_axis": "data"})
+    assert (seq.scan_impl, seq.scan_mesh, seq.scan_mesh_axis) == ("seq_sharded", None, "data")
     # remat_policy is a field: both of the JAX package's policies, its default too
     assert config_from_opt(base).remat_policy == jwm.WaveMambaConfig().remat_policy == "save_scan"
     for policy in ("save_scan", "full"):

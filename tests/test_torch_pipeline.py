@@ -251,10 +251,21 @@ def test_validation_sharding_covers_disjoint_halves(tmp_path, monkeypatch):
     s1, _ = model.validation(_fake_loader(4), current_iter=1, num_shards=2, shard_id=1)
     assert full["psnr"] == pytest.approx((s0["psnr"] + s1["psnr"]) / 2, abs=1e-9)
     assert s0["psnr"] != pytest.approx(s1["psnr"], abs=1e-12)
-    # Across processes the metrics would need an all-gather: not there yet.
+    # Across processes each metric's (sum, count) is summed over the group
+    # (`parallel.mesh.world_sum`): as rank 1 of a patched 2-rank world, whose
+    # sum adds rank 0's pairs (images 0 and 2), the average is the whole set's.
     monkeypatch.setattr(runner, "_world", lambda: (2, 1))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        model.validation(_fake_loader(4), current_iter=1)
+    reduced = []
+
+    def two_rank_sum(local):
+        reduced.append(np.array(local))
+        return np.array(local, np.float64) + [[2 * s0["psnr"], 2.0]]
+
+    monkeypatch.setattr(runner, "world_sum", two_rank_sum)
+    both, _ = model.validation(_fake_loader(4), current_iter=1)
+    assert len(reduced) == 1 and reduced[0][0, 1] == 2.0
+    assert reduced[0][0, 0] == pytest.approx(2 * s1["psnr"], abs=1e-9)
+    assert both["psnr"] == pytest.approx(full["psnr"], abs=1e-9)
 
 
 def test_uhd_model_rejects_single_output_net(tmp_path):

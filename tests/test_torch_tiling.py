@@ -54,8 +54,24 @@ def test_tiled_apply_matches_jax(kw):
 
 
 def test_tiled_apply_mesh_waits_for_multi_gpu():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ttiling.tiled_apply_mesh(None, None, None, np.zeros((1, 8, 8, 3)), None)
+    """One rank (no mesh): `tiled_apply_mesh` is `tiled_apply` of the same
+    forward, bit for bit, its tile batch the JAX package's default (8); the
+    ranks' cases are `tests/test_torch_parallel.py`'s."""
+    from wavemamba_torch.models import init_network, wavemamba_apply
+
+    model = init_network(dict(NET), torch.Generator().manual_seed(0), device="cpu", train=False)
+    img = np.random.RandomState(2).rand(1, 40, 56, 3).astype(np.float32)
+    calls = []
+
+    def apply(m, x):
+        calls.append(tuple(x.shape))
+        return wavemamba_apply(m, x)
+
+    got = ttiling.tiled_apply_mesh(apply, model, img, None, tile_size=24, tile_pad=4)
+    want = ttiling.tiled_apply(lambda t: wavemamba_apply(model, torch.from_numpy(t)).numpy(),
+                               img, tile_size=24, tile_pad=4)
+    np.testing.assert_array_equal(got, want)
+    assert calls == [(8, 32, 32, 3)]  # 2 x 3 tiles, one batch padded to 8
     with pytest.raises(ValueError, match="one image"):
         ttiling.tiled_apply(lambda x: x, np.zeros((2, 8, 8, 3)))
 

@@ -11,8 +11,15 @@ dihedral augments match the host path's `paired_random_crop` +
 `random_augmentation` (`data/transforms.py:data_augmentation`'s order of the
 modes); the random streams are numpy's, not python's `random`.
 
-One process, one device: the JAX package's multi-process and `mesh`
-variants wait for multi-GPU (ROADMAP queue 1, item 9).
+With a mesh (`parallel.make_mesh()`, one process a rank), `batch_size` is
+the global batch: every rank stages the whole dataset, draws the same global
+batch from the same seed and an unsharded sampler, and keeps its rows
+`[rank * b, (rank + 1) * b)`, b = batch_size / ranks. The ranks' slices
+together are the JAX package's mesh batches (one process drawing the global
+batch and sharding it over its devices), bit for bit. JAX refuses several
+*processes* because its loader assembles one global array with
+`jax.make_array_from_process_local_data`; here each rank keeps a tensor of
+its own, so a process group is what the mesh variant runs on.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import numpy as np
 import torch
 
 from wavemamba_torch.device import resolve_device
+from wavemamba_torch.parallel.mesh import axis_rank, axis_size
 from wavemamba_torch.utils.file_client import FileClient
 from wavemamba_torch.utils.img_util import imfrombytes
 
@@ -93,7 +101,7 @@ class DeviceCachedLoader:
     yields_device_batches = True
 
     def __init__(self, dataset, batch_size, sampler=None, seed=None, device="cuda",
-                 budget_gb=8.0):
+                 budget_gb=8.0, mesh=None):
         _check_opt(dataset.opt)
         backend = dict(dataset.io_backend_opt)
         client = FileClient(backend.pop("type"), **backend)
@@ -102,22 +110,30 @@ class DeviceCachedLoader:
         lqs = [rgb(rec["lq_path"], "lq") for rec in dataset.paths]
         gts = [rgb(rec["gt_path"], "gt") for rec in dataset.paths]
         self._stage(lqs, gts, dataset.paths, dataset.opt, batch_size, sampler, seed, device,
-                    budget_gb)
+                    budget_gb, mesh)
 
     @classmethod
     def from_arrays(cls, lq_all, gt_all, paths, opt, batch_size, sampler=None, seed=None,
-                    device="cuda", budget_gb=8.0):
+                    device="cuda", budget_gb=8.0, mesh=None):
         """The loader over decoded RGB uint8 images: `lq_all`, `gt_all` lists
         of HWC arrays or (N, H, W, C) arrays, `paths` [{'lq_path', 'gt_path'}]
         one a pair, `opt` the dataset options (`phase`, `gt_size`, `scale`,
         `geometric_augs`, `mean` / `std`)."""
         _check_opt(opt)
         loader = cls.__new__(cls)
-        loader._stage(lq_all, gt_all, paths, opt, batch_size, sampler, seed, device, budget_gb)
+        loader._stage(lq_all, gt_all, paths, opt, batch_size, sampler, seed, device, budget_gb,
+                      mesh)
         return loader
 
-    def _stage(self, lqs, gts, paths, opt, batch_size, sampler, seed, device, budget_gb):
+    def _stage(self, lqs, gts, paths, opt, batch_size, sampler, seed, device, budget_gb, mesh):
         self.batch_size = int(batch_size)
+        self.ranks, self.rank = axis_size(mesh), axis_rank(mesh)
+        if self.batch_size % self.ranks:
+            raise ValueError(f"cache_on_device: global batch {self.batch_size} does not shard "
+                             f"over {self.ranks} ranks")
+        if self.ranks > 1 and getattr(sampler, "num_replicas", 1) != 1:
+            raise ValueError("cache_on_device draws the global batch on every rank: give it an "
+                             "unsharded sampler (EnlargedSampler(n, 1, 0, ratio))")
         self.sampler = sampler
         self.seed = 0 if seed is None else int(seed)
         self._epoch = 0
@@ -183,6 +199,8 @@ class DeviceCachedLoader:
         else:
             indices = np.random.RandomState(self.seed + self._epoch).permutation(self.n)
         rng = np.random.RandomState((self.seed + self._epoch) ^ 0x5EED)
+        local = self.batch_size // self.ranks
+        rows = slice(self.rank * local, (self.rank + 1) * local)  # this rank's share
         for b in range(len(indices) // self.batch_size):
             idx = indices[b * self.batch_size:(b + 1) * self.batch_size]
             tops = rng.randint(0, self.crop_max_top + 1, size=self.batch_size)
@@ -190,6 +208,7 @@ class DeviceCachedLoader:
             # random_augmentation picks a mode in 1..7 (transforms.py)
             modes = (rng.randint(1, 8, size=self.batch_size) if self.geometric_augs
                      else np.zeros(self.batch_size, np.int64))
+            idx, tops, lefts, modes = (a[rows] for a in (idx, tops, lefts, modes))
             lq, gt = self.sample(idx, tops, lefts, modes)
             yield {"lq": lq, "gt": gt,
                    "lq_path": [self.paths[i]["lq_path"] for i in idx],

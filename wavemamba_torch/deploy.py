@@ -81,8 +81,9 @@ def enable_compilation_cache(cache_dir) -> Path:
 
 
 def _clean_config(cfg):
-    """Config echo for the manifest: serializable fields only."""
-    d = dataclasses.asdict(cfg)
+    """Config echo for the manifest: serializable fields only (not
+    `scan_mesh`, a process-local object)."""
+    d = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg) if f.name != "scan_mesh"}
     for k, v in list(d.items()):
         if isinstance(v, tuple):
             d[k] = list(v)

@@ -4,8 +4,9 @@ evaluate).
 
 One rule for every key of a `network_g` dict, whoever passes it (the inference
 CLI, the trainer, the yml pipelines): a field of `WaveMambaConfig` is honoured
-(the architecture, `scan_impl`, `scan_chunk`, `scan_sub`, `remat`,
-`remat_policy`, `conv_impl`, `compute_dtype`, `scan_dtype`); an execution knob of the JAX
+(the architecture, `scan_impl`, `scan_chunk`, `scan_sub`, `scan_mesh`,
+`scan_mesh_axis`, `remat`, `remat_policy`, `conv_impl`, `compute_dtype`,
+`scan_dtype`); an execution knob of the JAX
 package that the port does not run yet is accepted at the value of the path
 the port does run and raises `NotImplementedError`, naming where it waits in
 ROADMAP.md, at any other; any other key raises `KeyError`. Nothing is dropped
@@ -42,8 +43,6 @@ from wavemamba_torch.models.wavemamba import (
 # it accepts (what the port does anyway) and where the others wait.
 _NOT_PORTED = {
     "conv1x1_as_conv": (((), []), "queue 1, item 15 (a TPU layout policy for the 1x1 convs)"),
-    "scan_mesh": ((None,), "queue 1, item 9 (multi-GPU)"),
-    "scan_mesh_axis": (("data",), "queue 1, item 9 (multi-GPU)"),
 }
 
 
@@ -84,7 +83,12 @@ def build_network(opt: dict, state_dict: dict, device="cuda") -> WaveMamba:
 
 
 def refuse_training(cfg: WaveMambaConfig) -> None:
-    """Raise for a config that cannot train: `conv_impl='fused'`."""
+    """Raise for a config that cannot train: `conv_impl='fused'`, or
+    `scan_impl='seq_sharded'` (its gathers have no backward)."""
+    if cfg.scan_impl == "seq_sharded":
+        raise NotImplementedError("scan_impl='seq_sharded' is inference only: the sequence-"
+                                  "sharded scan's gathers have no backward; train with "
+                                  "scan_impl='pallas_fused' (data-parallel over the ranks)")
     if cfg.conv_impl == "fused":
         raise NotImplementedError("conv_impl='fused' is inference only: the fused conv chains have "
                                   "no backward, as in the JAX package; train with conv_impl='xla' "

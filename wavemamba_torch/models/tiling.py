@@ -50,7 +50,33 @@ def tiled_apply(fn, img, tile_size=240, tile_pad=16, pad_multiple=8, tile_batch=
     return result[None, :H, :W]
 
 
-def tiled_apply_mesh(*args, **kwargs):
-    """Tiles sharded over several cards: waits for multi-GPU."""
-    raise NotImplementedError("tiled_apply_mesh (tiles sharded over several cards) waits for "
-                              "multi-GPU, ROADMAP queue 1, item 9")
+def tiled_apply_mesh(apply_fn, model, img, mesh, tile_size=240, tile_pad=16, pad_multiple=8,
+                     tile_batch=None):
+    """`tiled_apply` with every tile batch sharded over the mesh's ranks: each
+    rank enhances its share of the batch with `apply_fn(model, x)` (x: (b, h,
+    w, C) float32 on the model's device; `models.wavemamba_apply`, which on a
+    card runs K1 in every tile), the shares are gathered in rank order, and
+    every rank returns the whole frame, (1, H, W, C) numpy. The JAX
+    package's takes (params, cfg) where the port's model carries both.
+
+    `tile_batch` (default: the largest multiple of the ranks up to 8, at
+    least one tile a rank) is rounded up to a multiple of the ranks, as in
+    the JAX package. Without a mesh it is `tiled_apply` of the same
+    forward."""
+    import torch
+
+    from wavemamba_torch.parallel.mesh import axis_size, gather_rows, shard_batch
+
+    n = axis_size(mesh)
+    if tile_batch is None:
+        tile_batch = max(n, (8 // n) * n) if n <= 8 else n
+    tile_batch = -(-tile_batch // n) * n
+    device = next(model.parameters()).device
+
+    def run(tiles):
+        x = torch.from_numpy(np.ascontiguousarray(shard_batch(mesh, tiles))).to(device)
+        y = apply_fn(model, x)
+        return gather_rows(mesh, y).flatten(0, 1).cpu().numpy()
+
+    return tiled_apply(run, img, tile_size=tile_size, tile_pad=tile_pad,
+                       pad_multiple=pad_multiple, tile_batch=tile_batch)

@@ -78,7 +78,7 @@ from wavemamba_torch.ops.scan import selective_scan
 from wavemamba_torch.ops.scan_cuda import save_scan_contexts, ss2d_scan_pair
 
 _ROWS, _COLS = [0, 2], [1, 3]  # direction pairs: row-major and column-major fwd/rev
-SCAN_IMPLS = ("pallas_fused", "pallas", "chunked", "par", "ref")
+SCAN_IMPLS = ("pallas_fused", "pallas", "chunked", "par", "ref", "seq_sharded")
 CONV_IMPLS = ("xla", "fused")
 REMAT_POLICIES = ("save_scan", "full")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -90,7 +90,9 @@ class WaveMambaConfig:
 
     `scan_impl` keeps the JAX package's names, so its option files select the
     same routes here: 'pallas_fused' is kernels K1 / K2, 'pallas' kernels K3 /
-    K4, 'chunked' | 'par' | 'ref' plain torch ops. The default is
+    K4, 'chunked' | 'par' | 'ref' plain torch ops, 'seq_sharded' the
+    'chunked' scan with its token axis split over the ranks of `scan_mesh`
+    (`parallel/seq_scan.py`, inference only). The default is
     'pallas_fused', not the JAX package's 'chunked': on the card the entry
     points launch a kernel by default, and every `options/*.yml` sets it.
 
@@ -113,6 +115,11 @@ class WaveMambaConfig:
     scan_impl: str = "pallas_fused"
     scan_chunk: int = 256
     scan_sub: int = 32
+    # For scan_impl='seq_sharded': the `DeviceMesh` (`parallel.make_mesh()`)
+    # whose axis `scan_mesh_axis` the token axis L is split over. The other
+    # routes ignore them.
+    scan_mesh: object = None
+    scan_mesh_axis: str = "data"
     # Recompute every LFSS and HFE block in the backward pass instead of
     # keeping its activations; 'save_scan' keeps the fused scan's outputs
     # across the recompute, 'full' recomputes everything (see the module
@@ -163,9 +170,6 @@ class WaveMambaConfig:
         return cls(**kw)
 
     def __post_init__(self):
-        if self.scan_impl == "seq_sharded":
-            raise NotImplementedError("scan_impl='seq_sharded' (the sequence-sharded scan) "
-                                      "waits for multi-GPU, ROADMAP queue 1, item 9")
         if self.scan_impl not in SCAN_IMPLS:
             raise ValueError(f"unknown scan_impl {self.scan_impl!r}; known: {SCAN_IMPLS}")
         if self.conv_impl not in CONV_IMPLS:
@@ -209,6 +213,7 @@ class SS2D(nn.Module):
     def __init__(self, cfg: WaveMambaConfig):
         super().__init__()
         self.scan_impl, self.scan_chunk, self.scan_sub = cfg.scan_impl, cfg.scan_chunk, cfg.scan_sub
+        self.scan_mesh, self.scan_mesh_axis = cfg.scan_mesh, cfg.scan_mesh_axis
         self.scan_dtype = DTYPES[cfg.scan_dtype]
         self.conv_fused = cfg.conv_impl == "fused" and cfg.d_conv == 3
         c, d, n, r = cfg.wf, cfg.d_inner, cfg.d_state, cfg.dt_rank
@@ -249,10 +254,31 @@ class SS2D(nn.Module):
                 self.Ds.view(4, d), self.dt_projs_bias)
         if self.unfused_scan is not None:
             y = self.unfused_scan(*args)
+        elif self.scan_impl == "seq_sharded":
+            y = self._seq_sharded(*args)
         else:
             y = selective_scan(*args, impl=self.scan_impl, chunk=self.scan_chunk,
                                sub=self.scan_sub, scan_dtype=self.scan_dtype)
         return _merge_directions(y, h, w).to(xx.dtype)
+
+    def _seq_sharded(self, xs, dts, A, Bs, Cs, Ds, bias):
+        """The scan with L split over `scan_mesh`, as the JAX model runs it:
+        L zero-padded to a multiple of the axis size (padded tokens come
+        after every real one, so no real output sees them), the padding
+        dropped after."""
+        from wavemamba_torch.parallel.mesh import axis_size
+        from wavemamba_torch.parallel.seq_scan import selective_scan_seq_sharded
+
+        if self.scan_mesh is None:
+            raise ValueError("scan_impl='seq_sharded' requires cfg.scan_mesh "
+                             "(wavemamba_torch.parallel.make_mesh())")
+        length = xs.shape[2]
+        pad = (-length) % axis_size(self.scan_mesh, self.scan_mesh_axis)
+        if pad:
+            xs, dts, Bs, Cs = (F.pad(t, (0, 0, 0, pad)) for t in (xs, dts, Bs, Cs))
+        return selective_scan_seq_sharded(xs, dts, A, Bs, Cs, Ds, bias, self.scan_mesh,
+                                          axis=self.scan_mesh_axis, chunk=self.scan_chunk,
+                                          scan_dtype=self.scan_dtype)[:, :, :length]
 
     def _fused(self, xx):
         """xx: (B, D, H, W) -> (B, H, W, D) in xx's dtype: two direction pairs

@@ -5,6 +5,9 @@
 Runs every dataset of the options through `RestorationModel.validation` on
 the card, or on the CPU with `--device cpu`; writes the images under
 `results/<name>/visualization` and returns {dataset: {metric: average}}.
+Under torchrun (`--nproc_per_node=N`) the ranks share out each dataset's
+images round-robin, each writes the images it enhanced, and every rank
+returns the averages over all of them.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ import os
 import time
 
 from wavemamba_torch.data import ThreadedLoader, build_dataset, device_prefetch
+from wavemamba_torch.parallel import barrier, initialize, is_master, make_mesh
+from wavemamba_torch.parallel.dist import shutdown
 from wavemamba_torch.runner import build_model
 from wavemamba_torch.utils.logger import get_env_info, get_root_logger
 from wavemamba_torch.utils.misc import make_exp_dirs
@@ -21,7 +26,12 @@ from wavemamba_torch.utils.options import dict2str, parse_options
 
 def test_pipeline(root_path, args=None):
     opt, _ = parse_options(root_path, is_train=False, args=args)
-    make_exp_dirs(opt)
+    opt["device"] = str(initialize(device=opt["device"]))  # a process group under torchrun
+    mesh = make_mesh()
+    barrier()
+    if is_master():
+        make_exp_dirs(opt)
+    barrier()
     log_file = os.path.join(opt["path"]["log"], f"test_{opt['name']}_{int(time.time())}.log")
     logger = get_root_logger(log_file=log_file)
     logger.info(get_env_info())
@@ -33,7 +43,7 @@ def test_pipeline(root_path, args=None):
         loaders.append((dataset_opt["name"], ThreadedLoader(test_set, batch_size=1, num_workers=2)))
         logger.info(f"Number of test images in {dataset_opt['name']}: {len(test_set)}")
 
-    model = build_model(opt)
+    model = build_model(opt, mesh)
     results = {}
     for name, loader in loaders:
         logger.info(f"Testing {name}...")
@@ -44,4 +54,7 @@ def test_pipeline(root_path, args=None):
 
 
 if __name__ == "__main__":
-    test_pipeline(os.getcwd())
+    try:
+        test_pipeline(os.getcwd())
+    finally:
+        shutdown()

@@ -1,20 +1,29 @@
 """Training pipeline. The counterpart of `wavemamba_tpu/pipelines/train.py`.
 
     python -m wavemamba_torch.pipelines.train -opt options/train_wavemamba_uhdll.yml
+    torchrun --standalone --nproc_per_node=N -m wavemamba_torch.pipelines.train -opt <yml>
 
 One process drives one device: the card, or the CPU with `--device cpu` (the
-only way onto it; without the flag a host without CUDA raises). The batch is
-`batch_size_per_gpu`. Losses stay on the device; the host reads them at
-`print_freq` only. Checkpoints are `.pth` and `.state` files
+only way onto it; without the flag a host without CUDA raises). Under
+torchrun the processes form a group (`parallel.initialize`: NCCL on the
+cards, gloo with `--device cpu`), rank r on `cuda:LOCAL_RANK`: each loads
+`batch_size_per_gpu` images of its shard of the sampler, so the global batch
+is `batch_size_per_gpu` x ranks, the gradients are averaged over the ranks,
+the logged losses are the global batch's, rank 0 alone makes the experiment
+directory, logs to the file and writes checkpoints. One process without
+torchrun is the one-card run. Losses stay on the device; the host reads them
+at `print_freq` only. Checkpoints are `.pth` and `.state` files
 (`checkpoint.py`); `--auto_resume` continues from the highest saved state.
 With `cache_on_device: true` the train set is staged on the device once
-(`data/device_cache.py`) and its batches are drawn there.
+(`data/device_cache.py`, on every rank) and its batches are drawn there.
 """
 
 from __future__ import annotations
 
 import os
 import time
+
+import torch
 
 from wavemamba_torch.checkpoint import find_resume_state
 from wavemamba_torch.data import (
@@ -24,6 +33,9 @@ from wavemamba_torch.data import (
     build_dataset,
     device_prefetch,
 )
+from wavemamba_torch.parallel import barrier, get_dist_info, initialize, is_master, make_mesh
+from wavemamba_torch.parallel.dist import broadcast_object, shutdown
+from wavemamba_torch.parallel.mesh import axis_size
 from wavemamba_torch.runner import build_model
 from wavemamba_torch.utils.logger import (
     AvgTimer,
@@ -36,31 +48,36 @@ from wavemamba_torch.utils.misc import make_exp_dirs, set_random_seed
 from wavemamba_torch.utils.options import copy_opt_file, dict2str, parse_options
 
 
-def create_train_val_dataloader(opt, logger):
+def create_train_val_dataloader(opt, logger, mesh=None):
     train_loader, val_loader = None, None
     total_iters = int(opt["train"]["total_iter"])
+    rank, world = get_dist_info()
     for phase, dataset_opt in opt["datasets"].items():
         if phase == "train":
             train_set = build_dataset(dataset_opt)
-            sampler = EnlargedSampler(len(train_set), 1, 0,
-                                      dataset_opt.get("dataset_enlarge_ratio", 1))
+            ratio = dataset_opt.get("dataset_enlarge_ratio", 1)
             batch = dataset_opt.get("batch_size_per_gpu", 1)
+            global_batch = batch * axis_size(mesh)
             if dataset_opt.get("cache_on_device"):
-                # The device-resident dataset (data/device_cache.py); a dataset
-                # that does not qualify (shapes, mean/std, the budget) takes the
-                # threaded host loader, as in the JAX package. Any other error
-                # propagates.
+                # The device-resident dataset (data/device_cache.py): every rank
+                # draws the global batch from an unsharded sampler and keeps its
+                # rows. A dataset that does not qualify (shapes, mean/std, the
+                # budget) takes the threaded host loader, as in the JAX package.
+                # Any other error propagates.
                 try:
                     train_loader = DeviceCachedLoader(
-                        train_set, batch_size=batch, sampler=sampler, seed=opt.get("manual_seed"),
-                        device=opt.get("device", "cuda"),
-                        budget_gb=dataset_opt.get("device_cache_budget_gb", 8.0))
+                        train_set, batch_size=global_batch,
+                        sampler=EnlargedSampler(len(train_set), 1, 0, ratio),
+                        seed=opt.get("manual_seed"), device=opt.get("device", "cuda"),
+                        budget_gb=dataset_opt.get("device_cache_budget_gb", 8.0), mesh=mesh)
                     logger.info(f"cache_on_device: dataset staged on {train_loader.device} "
                                 f"({train_loader.nbytes / 2**20:.0f} MiB); per-step host work is "
                                 "index RNG only")
                 except ValueError as e:
                     logger.warning(f"cache_on_device unavailable ({e}); using host loader")
             if train_loader is None:
+                # each rank loads its shard of the sampler, as the reference's DDP ranks do
+                sampler = EnlargedSampler(len(train_set), world, rank, ratio)
                 train_loader = ThreadedLoader(train_set, batch_size=batch, sampler=sampler,
                                               num_workers=dataset_opt.get("num_worker_per_gpu", 4),
                                               drop_last=True, seed=opt.get("manual_seed"))
@@ -71,7 +88,8 @@ def create_train_val_dataloader(opt, logger):
                     f"{batch} (drop_last) yields no batches: raise dataset_enlarge_ratio or "
                     "lower the batch.")
             total_epochs = -(-total_iters // iters_per_epoch)
-            logger.info(f"Training statistics: images {len(train_set)}, batch {batch} (1 device), "
+            logger.info(f"Training statistics: images {len(train_set)}, global batch "
+                        f"{global_batch} ({axis_size(mesh)} process(es) x {batch}), "
                         f"iters/epoch {iters_per_epoch}, total epochs {total_epochs}, "
                         f"total iters {total_iters}")
         elif phase.startswith("val"):
@@ -83,28 +101,41 @@ def create_train_val_dataloader(opt, logger):
 
 def train_pipeline(root_path, args=None):
     opt, parsed = parse_options(root_path, is_train=True, args=args)
+    device = initialize(device=opt["device"])  # a process group under torchrun
+    opt["device"] = str(device)
+    mesh = make_mesh()
+    # every rank takes rank 0's seed (a yml without one draws it per process)
+    opt["manual_seed"] = broadcast_object(opt["manual_seed"])
     set_random_seed(opt["manual_seed"])
 
     # An existing experiment directory is archived only on a fresh start; with
-    # --auto_resume and a saved training state the run resumes in place.
+    # --auto_resume and a saved training state the run resumes in place. Rank 0
+    # makes the directories and the log file; the others wait for them.
     resuming = bool(opt.get("auto_resume")
                     and find_resume_state(opt["path"]["training_states"]) is not None)
-    make_exp_dirs(opt, archive=not resuming)
-    copy_opt_file(parsed.opt, opt["path"]["experiments_root"])
+    barrier()
+    if is_master():
+        make_exp_dirs(opt, archive=not resuming)
+        copy_opt_file(parsed.opt, opt["path"]["experiments_root"])
+    barrier()
     log_file = os.path.join(opt["path"]["log"], f"train_{opt['name']}_{int(time.time())}.log")
     logger = get_root_logger(log_file=log_file)
     logger.info(get_env_info())
     logger.info(dict2str(opt))
+    rank, world = get_dist_info()
+    if mesh is not None:
+        logger.info(f"process group: {torch.distributed.get_backend()}, {world} rank(s), "
+                    f"rank {rank} on {device}")
     tb_logger = None
-    if opt.get("logger", {}).get("use_tb_logger") and "debug" not in opt["name"]:
+    if (is_master() and opt.get("logger", {}).get("use_tb_logger")
+            and "debug" not in opt["name"]):
         try:
             tb_logger = init_tb_logger(os.path.join(opt["path"]["log"], "tb_logger"))
         except Exception as e:
             logger.warning(f"tensorboard unavailable: {e}")
 
-    train_loader, val_loader, total_iters = create_train_val_dataloader(opt, logger)
-    model = build_model(opt)
-    device = model.device
+    train_loader, val_loader, total_iters = create_train_val_dataloader(opt, logger, mesh)
+    model = build_model(opt, mesh)
 
     start_iter = model.resume() if opt.get("auto_resume") else 0
     msg_logger = MessageLogger(opt, start_iter + 1, tb_logger)
@@ -136,6 +167,7 @@ def train_pipeline(root_path, args=None):
             iter_timer.record()
 
             if current_iter % print_freq == 0:
+                metrics = model.reduce_metrics(metrics)  # the global batch's
                 log_vars = {"epoch": epoch, "iter": current_iter,
                             "lrs": [model.current_lr(current_iter)],
                             "time": iter_timer.get_avg_time(),
@@ -162,4 +194,7 @@ def train_pipeline(root_path, args=None):
 
 
 if __name__ == "__main__":
-    train_pipeline(os.getcwd())
+    try:
+        train_pipeline(os.getcwd())
+    finally:
+        shutdown()

@@ -7,8 +7,14 @@ trainer. The counterpart of `wavemamba_tpu/runner.py`.
   * validation with the metrics the options declare, best-metric tracking
   * checkpoint save / resume through `checkpoint.py`
 
-One process, one device: `opt['device']` ('cuda' unless the options say
-'cpu'). Evaluation runs the EMA weights when EMA is on, through
+One process drives one device: `opt['device']` ('cuda' unless the options
+say 'cpu'; under a process group the rank's device, `parallel.initialize`).
+With a mesh (`parallel.make_mesh()`) the model is built from the same seed
+on every rank and replicated from rank 0, after `resume()` too; the train
+step averages the gradients over the mesh; rank 0 alone writes checkpoints,
+and the other ranks wait for it before they read one. Validation shards the
+images round-robin by rank and reduces each metric's (sum, count) over the
+group. Evaluation runs the EMA weights when EMA is on, through
 `torch.func.functional_call`, so the trained weights stay where they are.
 """
 
@@ -33,11 +39,14 @@ from wavemamba_torch.metrics import METRIC_DIRECTION, build_metric
 from wavemamba_torch.models import init_network
 from wavemamba_torch.models.buckets import BucketLadder
 from wavemamba_torch.models.tiling import tiled_apply
+from wavemamba_torch.parallel.dist import barrier, get_dist_info, is_master
+from wavemamba_torch.parallel.mesh import replicate, world_sum
 from wavemamba_torch.train.trainer import (
     TrainConfig,
     create_train_state,
     make_lr,
     make_train_step,
+    mean_metrics,
 )
 from wavemamba_torch.utils.img_util import batch2img, imwrite
 from wavemamba_torch.utils.logger import get_root_logger
@@ -62,12 +71,10 @@ def train_config_from_opt(opt: dict, loss_mode: str = "l1fft") -> TrainConfig:
 
 
 def _world():
-    """(number of processes, this one's rank): torch.distributed's when a
-    process group exists, else one process."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(), dist.get_rank()
-    return 1, 0
+    """(number of processes, this one's rank): the process group's, else one
+    process."""
+    rank, world = get_dist_info()
+    return world, rank
 
 
 def _reflect_pad(x, H, W):
@@ -87,8 +94,9 @@ def _reflect_pad(x, H, W):
 class RestorationModel:
     """The `model_type: FeMaSRModel` runner."""
 
-    def __init__(self, opt: dict, loss_mode: str = "l1fft"):
+    def __init__(self, opt: dict, mesh=None, loss_mode: str = "l1fft"):
         self.opt = opt
+        self.mesh = mesh
         self.logger = get_root_logger()
         self.device = resolve_device(opt.get("device", "cuda"))
         self.is_train = opt.get("is_train", False)
@@ -102,13 +110,14 @@ class RestorationModel:
         if pretrain:
             self.logger.info(f"Loading net_g from {pretrain}")
             self.model.load_state_dict(load_network(pretrain, device=self.device), strict=True)
+        replicate(mesh, self.model)
 
         self.state = None
         self.train_step = None
         if self.is_train:
             self.tcfg = train_config_from_opt(opt, loss_mode=loss_mode)
             self.state = create_train_state(self.model, self.tcfg)
-            self.train_step = make_train_step(self.tcfg)
+            self.train_step = make_train_step(self.tcfg, mesh)
             self._lr = make_lr(self.tcfg)
         else:
             self.model.eval()
@@ -131,6 +140,11 @@ class RestorationModel:
         self.state, metrics = self.train_step(self.state, self._to_device(batch["lq"]),
                                               self._to_device(batch["gt"]))
         return metrics
+
+    def reduce_metrics(self, metrics):
+        """A step's metrics averaged over the mesh: the global batch's (every
+        rank must call it at the same step)."""
+        return mean_metrics(metrics, self.mesh)
 
     def current_params(self, use_ema=True):
         """{name: tensor}: the EMA weights when EMA is on and asked for, else
@@ -233,46 +247,59 @@ class RestorationModel:
 
     @staticmethod
     def _aggregate_val_results(results: dict, num_shards: int) -> dict:
-        """Per-metric value lists -> averages. A single process averages what
-        it evaluated; gathering (sum, count) pairs across processes waits for
-        the process group."""
-        if num_shards > 1 and _world()[0] > 1:
-            raise NotImplementedError("validation sharded across processes (an all-gather of "
-                                      "the metrics' sums) waits for multi-GPU, ROADMAP queue 1, "
-                                      "item 9")
-        return {name: float(np.mean(v)) for name, v in results.items() if v}
+        """This rank's per-metric value lists -> the global averages. One
+        shard, or one process: a plain mean. Several processes: each
+        metric's (sum, count) in float64, summed over the group (JAX's
+        `process_allgather` and sum), so every rank returns the same
+        averages."""
+        if num_shards <= 1 or _world()[0] == 1:
+            return {name: float(np.mean(v)) for name, v in results.items() if v}
+        names = sorted(results)
+        local = [[float(np.sum(results[n])), float(len(results[n]))] for n in names]
+        totals = world_sum(local)
+        return {n: float(totals[i, 0] / totals[i, 1]) for i, n in enumerate(names)
+                if totals[i, 1] > 0}
 
     # ------------------------------------------------------------ checkpoints
     def save(self, current_iter):
-        models_dir = self.opt["path"]["models"]
-        save_network(self.model, models_dir, "net_g", current_iter)
-        if self.state is not None and self.state.ema is not None:
-            save_network(self.state.ema, models_dir, "net_g_ema", current_iter)
-        if self.state is not None:
-            save_training_state(self.state, self.opt["path"]["training_states"], current_iter)
+        """Rank 0 writes (the ranks hold the same state); every rank returns
+        when the files are there."""
+        if is_master():
+            models_dir = self.opt["path"]["models"]
+            save_network(self.model, models_dir, "net_g", current_iter)
+            if self.state is not None and self.state.ema is not None:
+                save_network(self.state.ema, models_dir, "net_g_ema", current_iter)
+            if self.state is not None:
+                save_training_state(self.state, self.opt["path"]["training_states"], current_iter)
+        barrier()
 
     def save_best(self):
-        save_network(self.model, self.opt["path"]["models"], "net_g_best", -1)
+        if is_master():
+            save_network(self.model, self.opt["path"]["models"], "net_g_best", -1)
+        barrier()
 
     def resume(self):
         """Resume from the training state of the highest iteration; returns
-        that iteration, 0 when there is none."""
+        that iteration, 0 when there is none. Every rank waits until rank 0
+        has written, reads the same state, and takes rank 0's."""
+        barrier()
         path = find_resume_state(self.opt["path"]["training_states"])
         if path is None:
             return 0
         self.logger.info(f"Resuming from {path}")
         self.state = restore_training_state(path, self.state)
+        replicate(self.mesh, [self.state.model, self.state.optimizer, self.state.ema])
         return self.state.step
 
 
-def build_model(opt: dict):
+def build_model(opt: dict, mesh=None):
     """`model_type` dispatch: FeMaSRModel / RestorationModel train with L1 +
     FFT; UHDModel with UHDFour's composite loss, which needs a network whose
     forward returns (out, out8): a single-output network raises at the first
-    train step."""
+    train step. `mesh`: see the module docstring."""
     mtype = opt.get("model_type", "FeMaSRModel")
     if mtype in ("FeMaSRModel", "RestorationModel"):
-        return RestorationModel(opt)
+        return RestorationModel(opt, mesh=mesh)
     if mtype == "UHDModel":
-        return RestorationModel(opt, loss_mode="uhd")
+        return RestorationModel(opt, mesh=mesh, loss_mode="uhd")
     raise KeyError(f"Unknown model_type {mtype!r}")

@@ -14,7 +14,16 @@ float32, as in the JAX trainer.
 
 Where the JAX package threads a pytree through a jitted pure function, the
 port keeps a `TrainState` that holds the model, its optimizer and the EMA
-copy, and a step that updates them in place. No mesh argument yet: one card.
+copy, and a step that updates them in place.
+
+Data parallel (`mesh` from `parallel.make_mesh()`): one process a card, each
+rank's batch its shard of the global batch, the parameters replicated
+(`parallel.replicate`). After `backward()` the gradients are averaged over
+the mesh in one all_reduce of their concatenation, before the global-norm
+clip and AdamW: the gradient of the global batch's mean, which the JAX
+step's XLA all-reduce gives. The step runs no `DistributedDataParallel`, so
+nothing hooks the backward in which the 'save_scan' recompute hands K1's
+outputs back (`ops/scan_cuda.py:save_scan_contexts`).
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import torch
 from wavemamba_torch.losses import fft_loss, l1_loss, uhd_loss
 from wavemamba_torch.models import refuse_training
 from wavemamba_torch.models.wavemamba import wavemamba_forward
+from wavemamba_torch.parallel.mesh import gather_rows, mean_, shard_batch
 from wavemamba_torch.train.schedules import build_scheduler, with_warmup
 
 
@@ -154,10 +164,13 @@ def _to_float(batch):
     return batch.float() / 255.0 if batch.dtype == torch.uint8 else batch
 
 
-def make_train_step(tcfg: TrainConfig) -> Callable:
+def make_train_step(tcfg: TrainConfig, mesh=None) -> Callable:
     """step(state, lq, gt) -> (state, metrics): one update of `state` in
-    place. lq, gt: NHWC batches on the model's device, float32 or uint8.
-    The metrics are detached tensors on that device (no host sync here)."""
+    place. lq, gt: NHWC batches on the model's device, float32 or uint8:
+    with a mesh, this rank's shard of the global batch (the gradients are
+    averaged over the mesh, see the module docstring). The metrics are this
+    rank's, detached tensors on that device (no host sync here):
+    `mean_metrics` averages them over the mesh."""
     lr = make_lr(tcfg)
 
     def step(state: TrainState, lq, gt):
@@ -166,6 +179,8 @@ def make_train_step(tcfg: TrainConfig) -> Callable:
         total, metrics = loss_fn(state.model, tcfg, lq, gt)
         total.backward()
         params = list(state.model.parameters())
+        if mesh is not None:
+            mean_(mesh, [p.grad for p in params if p.grad is not None])
         if tcfg.grad_clip:
             clip_by_global_norm(params, tcfg.grad_clip)
         for group in state.optimizer.param_groups:
@@ -182,17 +197,34 @@ def make_train_step(tcfg: TrainConfig) -> Callable:
     return step
 
 
-def make_eval_step() -> Callable:
+def mean_metrics(metrics: dict, mesh=None) -> dict:
+    """The step's metrics averaged over the mesh (one all_reduce): the
+    global batch's, as the JAX step's replicated metrics are. As they are
+    without a mesh. Every rank must call it at the same step."""
+    if mesh is None:
+        return metrics
+    values = [v.detach().float().clone().reshape(1) for v in metrics.values()]
+    mean_(mesh, values)
+    return {k: v[0] for k, v in zip(metrics, values)}
+
+
+def make_eval_step(mesh=None) -> Callable:
     """fwd(model, lq) -> the network's output, no gradient; the model's mode
-    is restored afterwards."""
+    is restored afterwards. With a mesh, lq is the global batch: each rank
+    runs its shard and every rank gets the whole output (the rows gathered
+    in rank order), as the JAX step's sharded output is one global array."""
 
     @torch.no_grad()
     def fwd(model, lq):
         was_training = model.training
         model.eval()
         try:
-            return wavemamba_forward(model, _to_float(lq))
+            out = wavemamba_forward(model, _to_float(shard_batch(mesh, lq)))
         finally:
             model.train(was_training)
+        if mesh is None:
+            return out
+        rows = lambda y: gather_rows(mesh, y).flatten(0, 1)  # noqa: E731
+        return type(out)(map(rows, out)) if isinstance(out, (tuple, list)) else rows(out)
 
     return fwd

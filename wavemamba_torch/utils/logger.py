@@ -91,7 +91,11 @@ def init_tb_logger(log_dir):
 
 def get_root_logger(logger_name="wavemamba_torch", log_level=logging.INFO, log_file=None):
     """The package's logger: a stream handler, and a file handler when the
-    first call names a `log_file`. One process, so every call logs."""
+    first call names a `log_file`. Under a process group, as the JAX
+    package's rule: rank 0 logs so, every other rank logs errors only and
+    opens no file."""
+    from wavemamba_torch.parallel.dist import get_dist_info
+
     logger = logging.getLogger(logger_name)
     if logger_name in initialized_loggers:
         return logger
@@ -100,6 +104,10 @@ def get_root_logger(logger_name="wavemamba_torch", log_level=logging.INFO, log_f
     stream_handler.setFormatter(logging.Formatter(format_str))
     logger.addHandler(stream_handler)
     logger.propagate = False
+    if get_dist_info()[0] != 0:
+        logger.setLevel("ERROR")
+        initialized_loggers.add(logger_name)
+        return logger
     logger.setLevel(log_level)
     if log_file is not None:
         file_handler = logging.FileHandler(log_file, "w")
