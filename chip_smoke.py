@@ -188,7 +188,29 @@ and prints one JSON line per phase:
              artifact bytes, first and later request latency, memory after
              each capture; then `export_model run` twice on a fresh
              `--compile_cache` (the first process builds K1 there, the
-             second loads it): each one's first request in seconds.
+             second loads it): each one's first request in seconds; last,
+             a third artifact, the tile program sharded over two ranks
+             (`--mesh_devices 2`), served by two gloo ranks sharing cuda:0
+             (each its batch-4 share of every tile batch through its own
+             CUDA graph, the shares gathered in rank order) on the same
+             2160x3840 frame: within 1e-6 of the one-process artifact's
+             tiles, the same bits on both ranks, K1 in every tile batch of
+             each, and a planted fault (the shares gathered in swapped
+             order) caught.
+ 12f. art    ART, the second model family, at its default width (dim 48, 8
+             blocks): the uhdll yml with `network_g: {type: ART}` through
+             `pipelines.train` for 1 + 4 iterations at batch 8 of 512x512 from
+             the data phase's generated set, twice in child processes under
+             deterministic algorithms (finite losses, the same parameters'
+             bits, the checkpoint, the final validation); ms a step and peak
+             memory through `build_model`; a 1080x1920 forward timed; a 64x96
+             forward against the CPU. ART runs no kernel of the port.
+ 12g. secondary the VGG19 perceptual and style losses at batch 8 of 512x512,
+             LPIPS at 1080x1920, the R1 and WGAN-GP penalties (and their own
+             gradient) on a small discriminator, each against the CPU on the
+             same seeded weights (no pretrained weights are in the
+             repository); `utils/profiler.trace` around one WaveMamba
+             forward, whose trace must name K1's kernels.
  13. profile device time by kernel (torch.profiler) over one 1152x1920
              forward of each conv route, of `fast()` and of
              `fast(conv_impl="fused")`, one training step of the fused scan
@@ -3491,6 +3513,314 @@ def phase_parallel(stock, smi):
     return row
 
 
+ART_DIR = os.path.join(ROOT, "build", "chip_smoke", "art")
+# ART at 1 + 4 iterations of the uhdll yml (its `network_g` swapped for
+# `{type: ART}`, ARTConfig's defaults: dim 48, 8 blocks), batch 8 of 512x512.
+ART_ITERS = 5
+# ART on the card against the CPU at 64x96, float32 parity (TF32 off): as
+# MODEL_ATOL, cuDNN / cuBLAS against the CPU's sums over 8 blocks.
+ART_CPU_ATOL = 1e-4
+# The secondary pieces on the card against the CPU, float32 parity: the VGG19
+# perceptual and style losses relative (means of sums over up to 4,608 terms
+# a value, taken in another order), LPIPS absolute (a distance of order
+# 0.1-1, an average over the frame), the GAN penalties and the penalty's
+# gradient by their max abs difference over their max abs value.
+VGG_LOSS_RTOL = 1e-4
+LPIPS_ATOL = 1e-5
+GAN_RTOL = 1e-4
+
+
+def art_yml(name, dataroot):
+    """The uhdll yml as a user would edit it for ART: `network_g: {type: ART}`,
+    the generated set as its data, ART_ITERS iterations logged each, the
+    final validation on the generated set's pair, and one loader thread:
+    the dataset draws its crops and modes from Python's global `random` (as
+    JAX's does), so with the yml's 8 threads the batches hang on the
+    threads' order, and two runs differ from the first step. Written under
+    ART_DIR; returns its path."""
+    import yaml
+
+    from wavemamba_torch.utils.options import yaml_load
+
+    opt = yaml_load(os.path.join(ROOT, "options", "train_wavemamba_uhdll.yml"))
+    opt = json.loads(json.dumps(opt))  # plain dicts for the dumper
+    opt["name"] = name
+    opt["network_g"] = {"type": "ART"}
+    for phase, sub in (("train", "train"), ("val", "val")):
+        opt["datasets"][phase]["dataroot_gt"] = os.path.join(dataroot, sub, "gt")
+        opt["datasets"][phase]["dataroot_lq"] = os.path.join(dataroot, sub, "input")
+    opt["datasets"]["train"]["num_worker_per_gpu"] = 1
+    opt["train"]["total_iter"] = ART_ITERS
+    opt["logger"].update({"print_freq": 1, "save_checkpoint_freq": ART_ITERS,
+                          "use_tb_logger": False})
+    path = os.path.join(ART_DIR, f"{name}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(opt, f, sort_keys=False)
+    return path
+
+
+def art_train_child(yml, out):
+    """`pipelines.train` of `yml` under deterministic algorithms in a fresh
+    process (the card's cuBLAS reads CUBLAS_WORKSPACE_CONFIG at its first
+    call): writes the final parameters and the logged losses to `out`."""
+    import pickle
+    import re
+
+    from wavemamba_torch.inference import set_parity_mode
+    from wavemamba_torch.pipelines.train import train_pipeline
+
+    set_parity_mode()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.benchmark = False
+    model = train_pipeline(ART_DIR, ["-opt", yml])
+    log = model.opt["path"]["log"]
+    text = "".join(open(os.path.join(log, f)).read() for f in sorted(os.listdir(log))
+                   if f.endswith(".log"))
+    losses = [float(v) for v in re.findall(r"\btotal: ([-+.\deE]+)", text)]
+    with open(out, "wb") as f:
+        pickle.dump({"params": _numpy_params(model.model), "losses": losses,
+                     "validated": "Validation @ iter" in text,
+                     "checkpoint": os.path.exists(os.path.join(model.opt["path"]["models"],
+                                                               "net_g_latest.pth"))}, f)
+
+
+def phase_art(smi):
+    """ART, the second model family, at its default width on the card: the
+    uhdll yml with `network_g: {type: ART}` through `pipelines.train` for
+    1 + 4 iterations from the data phase's generated set, twice in child
+    processes under deterministic algorithms (finite losses, the same
+    parameters' bits, a checkpoint, the final validation through
+    `runner.test`); then, here, ms a step and peak memory at batch 8 of
+    512x512 through `build_model`, a 1080x1920 forward timed, and a 64x96
+    forward against the CPU. ART runs no kernel of the port."""
+    import pickle
+    import shutil
+
+    from wavemamba_torch.models import ART, ARTConfig, art_apply, param_count
+    from wavemamba_torch.runner import build_model
+
+    t0 = time.perf_counter()
+    shutil.rmtree(ART_DIR, ignore_errors=True)
+    os.makedirs(ART_DIR)
+    proc = os.path.join(ROOT, "build", "chip_smoke", "proc_a")
+    runs = ("art_a", "art_b")
+    ymls = {n: art_yml(n, proc) for n in runs}
+    cmds = {n: child_cmd("art_train_child", ymls[n], os.path.join(ART_DIR, f"{n}.pkl"))
+            for n in runs}
+    children = run_children(cmds, ART_DIR, env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    res = []
+    for n in runs:
+        with open(os.path.join(ART_DIR, f"{n}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    same = all(np.array_equal(res[0]["params"][k], res[1]["params"][k]) for k in res[0]["params"])
+    finite = all(np.isfinite(r["losses"]).all() and len(r["losses"]) == ART_ITERS for r in res)
+    # ms a step and peak memory, at the yml's batch, from build_model
+    opt = data_train_opt(101, proc)
+    opt["network_g"] = {"type": "ART"}
+    torch.cuda.empty_cache()
+    runner = build_model(opt)
+    check(isinstance(runner.model, ART) and runner.cfg == ARTConfig(), f"ART built: {runner.cfg}")
+    lq, gt = synthetic_batch(102, TRAIN_BATCH, TRAIN_SIZE)
+    _timed_step(runner, lq, gt)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ms = [_timed_step(runner, lq, gt)[0] for _ in range(ART_ITERS - 1)]
+    peak_train = torch.cuda.max_memory_allocated()
+    model = runner.model.eval()
+    del runner, lq, gt
+    torch.cuda.empty_cache()
+    # a 1080x1920 forward (the sparse groups hold 17 x 30 = 510 tokens)
+    x = torch.from_numpy((np.random.RandomState(103).rand(1, 1080, 1920, 3) * 0.12)
+                         .astype(np.float32)).cuda()
+    art_apply(model, x)
+    torch.cuda.reset_peak_memory_stats()
+    fwd_ms = cuda_ms(lambda: art_apply(model, x), 3)
+    peak_fwd = torch.cuda.max_memory_allocated()
+    y = art_apply(model, x)
+    # the card against the CPU, same weights, 64x96
+    small = (np.random.RandomState(104).rand(1, 64, 96, 3)).astype(np.float32)
+    cpu = ART(ARTConfig())
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_err = float(np.abs(art_apply(model, torch.from_numpy(small).cuda()).cpu().numpy()
+                           - art_apply(cpu.eval(), torch.from_numpy(small)).numpy()).max())
+    row = {"phase": "art", "smi": smi, "config": dataclasses.asdict(ARTConfig()),
+           "params": param_count(model),
+           "pipeline": {"command": "python -m wavemamba_torch.pipelines.train -opt "
+                                   f"{os.path.relpath(ymls['art_a'], ROOT)}",
+                        "iterations": ART_ITERS, "batch": TRAIN_BATCH, "size": TRAIN_SIZE,
+                        "losses": [r["losses"] for r in res], "runs_same_bits": same,
+                        "validated": [r["validated"] for r in res],
+                        "checkpoint": [r["checkpoint"] for r in res],
+                        "children_s": {k: v[0] for k, v in children.items()}},
+           "ms_per_step": float(np.median(ms)), "step_ms": ms,
+           "images_per_s": TRAIN_BATCH / (float(np.median(ms)) / 1e3),
+           "peak_memory_train_bytes": peak_train,
+           "forward_1080p": {"ms": fwd_ms, "peak_memory_bytes": peak_fwd,
+                             "finite": bool(torch.isfinite(y).all()),
+                             "sparse_group_tokens": (-(-270 // 16)) * (-(-480 // 16))},
+           "cpu_64x96": {"max_abs_err": cpu_err, "atol": ART_CPU_ATOL},
+           "phase_s": time.perf_counter() - t0}
+    emit(row)
+    check(finite, f"ART's losses: {[r['losses'] for r in res]}")
+    check(same, "ART's two deterministic runs end with the same parameters' bits")
+    check(all(r["validated"] and r["checkpoint"] for r in res),
+          "ART's pipeline validates through runner.test and writes its checkpoint")
+    check(row["forward_1080p"]["finite"], "ART's 1080x1920 forward is finite")
+    check(cpu_err <= ART_CPU_ATOL, f"ART on the card against the CPU: {cpu_err}")
+    return row
+
+
+def _rel(a, b):
+    """max |a - b| over max |b| (numpy or tensors)."""
+    a, b = (np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v, np.float64)
+            for v in (a, b))
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _he_conv_weights(net, seed):
+    """He-scaled seeded weights (deep activations stay of order 1; there are
+    no pretrained VGG19 / LPIPS weights in the repository)."""
+    rs = np.random.RandomState(seed)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(torch.from_numpy(rs.randn(*m.weight.shape).astype(np.float32)
+                                                * np.float32(np.sqrt(2.0 / fan_in))))
+                m.bias.copy_(torch.from_numpy(rs.randn(*m.bias.shape).astype(np.float32) * 0.01))
+    return net
+
+
+def _small_disc():
+    """A small conv discriminator for the GAN penalties, seeded."""
+    return _he_conv_weights(torch.nn.Sequential(
+        torch.nn.Conv2d(3, 64, 3, padding=1), torch.nn.LeakyReLU(0.2),
+        torch.nn.Conv2d(64, 128, 4, stride=2, padding=1), torch.nn.LeakyReLU(0.2),
+        torch.nn.Conv2d(128, 1, 3, padding=1)), 111)
+
+
+def phase_secondary(stock, smi):
+    """The secondary pieces on the card, each against the CPU on the same
+    inputs and weights: the VGG19 perceptual and style losses at batch 8 of
+    512x512 (`models/vgg.py`, every tap to conv5_4), LPIPS at 1080x1920
+    (`metrics/lpips.py`), the R1 and WGAN-GP penalties and the penalty's own
+    gradient on a small conv discriminator (`losses/losses.py`); then
+    `utils/profiler.trace` around one WaveMamba forward, whose trace must
+    name K1's kernels. Returns the row with `k1_launches` (the traced
+    forward's)."""
+    import copy
+    import re
+    import shutil
+
+    from wavemamba_torch.losses import gradient_penalty_loss, r1_penalty
+    from wavemamba_torch.metrics.lpips import LPIPS, lpips
+    from wavemamba_torch.models.vgg import VGG19, perceptual_loss
+    from wavemamba_torch.models.wavemamba import wavemamba_apply
+    from wavemamba_torch.ops import scan_cuda
+    from wavemamba_torch.utils import profiler
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    # VGG19 perceptual + style, batch 8 of 512x512
+    vgg = _he_conv_weights(VGG19(), 121).eval()
+    layers = {"conv1_2": 0.1, "conv2_2": 0.1, "conv3_4": 1.0, "conv4_4": 1.0, "conv5_4": 1.0}
+    rs = np.random.RandomState(122)
+    pred, target = (rs.rand(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3).astype(np.float32)
+                    for _ in range(2))
+    vgg_cuda = VGG19().cuda().eval()
+    vgg_cuda.load_state_dict(vgg.state_dict())
+    pc, tc = torch.from_numpy(pred).cuda(), torch.from_numpy(target).cuda()
+
+    def vgg_loss():
+        p, s = perceptual_loss(vgg_cuda, pc, tc, layers, style_weight=1.0)
+        return p, s
+
+    with torch.no_grad():
+        got = vgg_loss()
+        vgg_ms = cuda_ms(vgg_loss, 3)
+        t_cpu = time.perf_counter()
+        want = perceptual_loss(vgg, torch.from_numpy(pred), torch.from_numpy(target), layers,
+                               style_weight=1.0)
+        vgg_cpu_s = time.perf_counter() - t_cpu
+    vgg_row = {"batch": TRAIN_BATCH, "size": TRAIN_SIZE, "layers": layers, "ms": vgg_ms,
+               "cpu_s": vgg_cpu_s, "perceptual": [float(got[0]), float(want[0])],
+               "style": [float(got[1]), float(want[1])],
+               "rel_err": [abs(float(g) / float(w) - 1.0) for g, w in zip(got, want)],
+               "rtol": VGG_LOSS_RTOL}
+    del vgg_cuda, pc, tc
+    torch.cuda.empty_cache()
+    # LPIPS at 1080x1920
+    net = _he_conv_weights(LPIPS(), 123).eval()
+    with torch.no_grad():
+        for lin in net.lins:
+            lin.copy_(torch.from_numpy(np.abs(rs.randn(lin.numel())).astype(np.float32) * 0.1))
+    net_cuda = LPIPS().cuda().eval()
+    net_cuda.load_state_dict(net.state_dict())
+    a = (rs.rand(1, 1080, 1920, 3) * 2 - 1).astype(np.float32)
+    b = np.clip(a + rs.randn(*a.shape).astype(np.float32) * 0.1, -1, 1)
+    ac, bc = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    with torch.no_grad():
+        lp = float(lpips(net_cuda, ac, bc)[0])
+        lp_ms = cuda_ms(lambda: lpips(net_cuda, ac, bc), 5)
+        lp_cpu = float(lpips(net, torch.from_numpy(a), torch.from_numpy(b))[0])
+    lpips_row = {"image": [1080, 1920], "value": [lp, lp_cpu], "abs_err": abs(lp - lp_cpu),
+                 "ms": lp_ms, "atol": LPIPS_ATOL}
+    del net_cuda, ac, bc
+    # R1 and WGAN-GP on a small discriminator, batch 8 of 128x128
+    disc = _small_disc()
+    disc_cuda = copy.deepcopy(disc).cuda()
+    wrap = lambda m: (lambda x: m(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1))  # noqa: E731 NHWC
+    real = rs.rand(TRAIN_BATCH, 128, 128, 3).astype(np.float32)
+    fake = rs.rand(TRAIN_BATCH, 128, 128, 3).astype(np.float32)
+    gan = {}
+    for name, d, dev in (("cuda", disc_cuda, "cuda"), ("cpu", disc, "cpu")):
+        r, f = torch.from_numpy(real).to(dev), torch.from_numpy(fake).to(dev)
+        r1 = r1_penalty(wrap(d), r)
+        gp = gradient_penalty_loss(wrap(d), r, f, torch.Generator().manual_seed(124))
+        g_w = torch.autograd.grad(r1 + gp, d[0].weight)[0]  # the penalties train the discriminator
+        gan[name] = (r1.detach(), gp.detach(), g_w)
+    gan_row = {"batch": TRAIN_BATCH, "size": 128,
+               "r1": [float(gan["cuda"][0]), float(gan["cpu"][0])],
+               "gp": [float(gan["cuda"][1]), float(gan["cpu"][1])],
+               "rel_err": {k: _rel(gan["cuda"][i], gan["cpu"][i])
+                           for i, k in enumerate(("r1", "gp", "grad_first_conv"))},
+               "rtol": GAN_RTOL}
+    # utils/profiler.trace around one forward: K1's kernels by name in the trace
+    trace_dir = os.path.join(ROOT, "build", "chip_smoke", "trace")
+    x = torch.from_numpy((rs.rand(1, 512, 512, 3) * 0.12).astype(np.float32)).cuda()
+    wavemamba_apply(stock, x)
+    k1_names, traced, sessions = [], 0, 0
+    for sessions in range(1, PROFILE_SESSIONS + 1):  # a session may record no device event
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        before = scan_cuda.ss2d_scan_pair.launches
+        with profiler.trace(trace_dir):
+            with profiler.annotate("wavemamba_forward"):
+                wavemamba_apply(stock, x)
+        traced += scan_cuda.ss2d_scan_pair.launches - before
+        files = os.listdir(trace_dir)
+        with open(os.path.join(trace_dir, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        k1_names = sorted({m.group(0) for m in map(re.compile(r"chunk_(scan|prefix)(<[^>]*>)?")
+                                                   .search, kernels) if m})
+        if kernels:
+            break
+    trace_row = {"files": files, "kernels": len(kernels), "k1_kernel_names": k1_names,
+                 "k1_kernels_in_trace": sum("chunk_scan" in n or "chunk_prefix" in n
+                                            for n in kernels),
+                 "k1_launches": traced, "sessions": sessions,
+                 "annotated": any(e.get("name") == "wavemamba_forward" for e in events)}
+    row = {"phase": "secondary", "smi": smi, "vgg19": vgg_row, "lpips": lpips_row,
+           "gan": gan_row, "profiler": trace_row, "k1_launches": traced,
+           "phase_s": time.perf_counter() - t0}
+    emit(row)
+    check(max(vgg_row["rel_err"]) <= VGG_LOSS_RTOL, f"VGG19 losses, card vs CPU: {vgg_row}")
+    check(lpips_row["abs_err"] <= LPIPS_ATOL, f"LPIPS, card vs CPU: {lpips_row}")
+    check(max(gan_row["rel_err"].values()) <= GAN_RTOL, f"GAN penalties, card vs CPU: {gan_row}")
+    check(trace_row["annotated"] and k1_names and trace_row["k1_kernels_in_trace"] > 0,
+          f"the profiler's trace names K1's kernels: {trace_row}")
+    return row
+
+
 DEPLOY_DIR = os.path.join(ROOT, "build", "chip_smoke", "deploy")
 DEPLOY_ATOL = 1e-5  # the artifact against the eager forward on the same request, float32
 DEPLOY_BUCKET = (1152, 1920)
@@ -3500,7 +3830,15 @@ DEPLOY_EXPORTS = {
     "xxl4": ["--shapes", "1152x1920", "--target", "cuda", "--allow_custom_calls", "--tile", "240"],
     "fast_u8": ["--shapes", "1152x1920", "--fast", "--target", "cuda", "--allow_custom_calls",
                 "--io", "uint8"],
+    # the tile program sharded over two ranks (each runs batch 4 of every 8)
+    "xxl4_mesh2": ["--shapes", "1152x1920", "--target", "cuda", "--allow_custom_calls", "--tile",
+                   "240", "--mesh_devices", "2"],
 }
+# The sharded tile program's 2160x3840 frame against the one-process
+# artifact's tiles: max abs (each rank's batch of 4 takes other cuDNN
+# algorithms than a batch of 8, in float32 parity). A planted fault, the two
+# shares gathered in swapped order, must land far beyond it.
+DEPLOY_MESH_ATOL = 1e-6
 
 
 def export_cmds():
@@ -3541,6 +3879,15 @@ def check_deploy(row):
     cache = row["compile_cache"]
     check(cache["cold_built_k1"] and not cache["warm_built"],
           f"the first process builds K1 into the cache, the second builds nothing: {cache}")
+    mesh = row["mesh_tiles"]
+    for r in mesh["ranks"]:
+        check(r["max_abs_vs_one_process"] <= DEPLOY_MESH_ATOL,
+              f"the sharded tile program against the one-process artifact: {r}")
+        check(r["fault_max_abs_vs_one_process"] > 100 * DEPLOY_MESH_ATOL,
+              f"the planted fault (the shares gathered in swapped order) is caught: {r}")
+        check(r["k1_in_graph"] == 28 and r["replays"] == mesh["tile_batches"],
+              f"K1 in every tile batch of the rank: {r}")
+    check(mesh["ranks_same_bits"], "the two ranks return the same frame, bit for bit")
 
 
 def first_request_s(text):
@@ -3596,6 +3943,8 @@ def phase_deploy(jobs, stock, fast):
         path = export_path(name)
         check(os.path.exists(path), f"export {name} wrote no artifact: {text[-2000:]}")
         line = next(ln for ln in text.splitlines() if ln.startswith("wrote "))
+        if name == "xxl4_mesh2":  # served by two ranks at the end of the phase
+            continue
         t0 = time.perf_counter()
         model = load_exported(path)
         art[name] = {"model": model, "load_s": time.perf_counter() - t0,
@@ -3689,6 +4038,8 @@ def phase_deploy(jobs, stock, fast):
     cold_s, cold_proc_s = serve_subprocess(export_path("fast_u8"), folder, cache)
     libs = sorted(os.listdir(cache))
     warm_s, warm_proc_s = serve_subprocess(export_path("fast_u8"), folder, cache)
+    mesh = deploy_mesh(tiled)
+    launches += mesh["k1_launches"]
     row = {"phase": "deploy", "suffix": SUFFIX,
            "artifacts": {k: {kk: vv for kk, vv in v.items() if kk != "model"} for k, v in art.items()},
            "requests": requests, "same_bits_twice": all(r["same_bits_again"] for r in requests),
@@ -3715,10 +4066,94 @@ def phase_deploy(jobs, stock, fast):
                              "cold_built_k1": any(n.startswith("ss2d_scan_") and n.endswith(".so")
                                                   for n in libs),
                              "warm_built": sorted(os.listdir(cache)) != libs, "libraries": libs},
-           "phase_s": time.perf_counter() - t_phase}
+           "mesh_tiles": mesh, "phase_s": time.perf_counter() - t_phase}
     emit(row)
     check_deploy(row)
     return row
+
+
+def deploy_mesh_child(init, rank, want_path, out):
+    """Rank `rank` of two over gloo, both on cuda:0: the `xxl4_mesh2`
+    artifact's sharded tile program serves `want_path`'s frame (its batch-4
+    share of every tile batch of 8 through its own CUDA graph, the shares
+    gathered in rank order), then again with the shares gathered in
+    swapped order (a planted fault). Writes a pickle of the readings."""
+    import hashlib
+    import pickle
+
+    from wavemamba_torch import parallel
+    from wavemamba_torch.deploy import load_exported
+    from wavemamba_torch.inference import set_parity_mode
+    from wavemamba_torch.parallel import mesh as pmesh
+
+    set_parity_mode()
+    device = parallel.initialize(init, 2, int(rank), backend="gloo", device="cuda:0")
+    t0 = time.perf_counter()
+    model = load_exported(export_path("xxl4_mesh2"), device=device)
+    load_s = time.perf_counter() - t0
+    want = np.load(want_path)
+    big = (np.random.RandomState(18).rand(1, 2160, 3840, 3) * 0.12).astype(np.float32)
+    t0 = time.perf_counter()
+    got = model.tiled(big)
+    first_s = time.perf_counter() - t0
+    run = model.runners["tile"]
+    replays = run.replays
+    t0 = time.perf_counter()
+    again = model.tiled(big)
+    again_s = time.perf_counter() - t0
+    gather = pmesh.gather_rows
+    pmesh.gather_rows = lambda mesh, t, axis="data": gather(mesh, t, axis).flip(0)
+    try:
+        fault = model.tiled(big)
+    finally:
+        pmesh.gather_rows = gather
+    row = {"rank": int(rank), "device": str(device), "load_s": load_s, "first_s": first_s,
+           "s": again_s, "replays": replays, "k1_in_graph": run.k1_in_graph,
+           "k1_launches": run.k1_in_graph * (1 + replays),  # the warm-up and the first frame's
+           "tile_rank_batch": model.manifest["tile_rank_batch"],
+           "max_abs_vs_one_process": float(np.abs(got - want).max()),
+           "bit_equal_one_process": bool(np.array_equal(got, want)),
+           "same_bits_again": bool(np.array_equal(got, again)),
+           "fault_max_abs_vs_one_process": float(np.abs(fault - want).max()),
+           "sha256": hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest(),
+           "finite": bool(np.isfinite(got).all())}
+    with open(out, "wb") as f:
+        pickle.dump(row, f)
+    parallel.barrier()
+    parallel.dist.shutdown()
+
+
+def deploy_mesh(want):
+    """The `xxl4_mesh2` artifact (the 240 / 16 tile program sharded over two
+    ranks) served by two gloo ranks sharing cuda:0 (`deploy_mesh_child`) on
+    the deploy phase's 2160x3840 frame, held against `want`, the
+    one-process artifact's tiles of it. Returns the readings, with
+    `k1_launches`: both ranks' warm-ups and replays, 28 each."""
+    import pickle
+
+    from wavemamba_torch.parallel.dist import local_init_method
+
+    t0 = time.perf_counter()
+    mesh_dir = os.path.join(DEPLOY_DIR, "mesh")
+    os.makedirs(mesh_dir, exist_ok=True)
+    want_path = os.path.join(mesh_dir, "want.npy")
+    np.save(want_path, want)
+    torch.cuda.empty_cache()  # room for the ranks' graphs
+    init = local_init_method()
+    outs = [os.path.join(mesh_dir, f"rank{r}.pkl") for r in range(2)]
+    children = run_children({f"mesh_rank{r}": child_cmd("deploy_mesh_child", init, r, want_path,
+                                                        outs[r]) for r in range(2)}, mesh_dir)
+    ranks = []
+    for out in outs:
+        with open(out, "rb") as f:
+            ranks.append(pickle.load(f))
+    tiles = -(-2160 // 240) * -(-3840 // 240)
+    return {"image": [2160, 3840], "tile": 240, "tile_batch": 8, "mesh_devices": 2,
+            "tile_batches": -(-tiles // 8), "ranks": ranks,
+            "ranks_same_bits": ranks[0]["sha256"] == ranks[1]["sha256"],
+            "k1_launches": sum(r["k1_launches"] for r in ranks), "atol": DEPLOY_MESH_ATOL,
+            "children_s": {k: v[0] for k, v in children.items()},
+            "s": time.perf_counter() - t0}
 
 
 def phase_probe():
@@ -3958,6 +4393,8 @@ def main():
     phase_device_cache()
     data = phase_data()
     par = phase_parallel(model, smi)
+    phase_art(smi)
+    secondary = phase_secondary(model, smi)
     deploy = phase_deploy(exports, model, fast_model)
     k2_steps = phase_profile(model, x1080, forward_ms, runs, pipe, fused, fast, fast_fused, train_fast,
                              train_mixed)
@@ -4021,7 +4458,7 @@ def main():
         "replaces": "wavemamba_tpu/ops/scan_pallas.py:705",
         "launches": launches + train_k1 + fast["launches"] + train_fast["k1_launches"]
         + fast_fused["k1_launches"] + train_mixed["k1_launches"] + data["train"]["k1_launches"]
-        + deploy["k1_launches"] + par["k1_launches"],
+        + deploy["k1_launches"] + par["k1_launches"] + secondary["k1_launches"],
         "launches_serve": launches, "launches_train": train_k1,
         "launches_train_by_policy": {str(p): r["k1_launches"] for p, r in runs.items()},
         "launches_serve_fast": fast["launches"], "launches_train_fast": train_fast["k1_launches"],
@@ -4030,10 +4467,14 @@ def main():
         "launches_train_data": data["train"]["k1_launches"],
         "launches_deploy": deploy["k1_launches"],
         "launches_parallel": par["k1_launches"],
+        "launches_secondary": secondary["k1_launches"],
+        "launches_deploy_mesh": deploy["mesh_tiles"]["k1_launches"],
         "launches_parallel_note": "child processes of the parallel phase: the NCCL rank's "
                                   "grouped steps, two gloo ranks' steps and sharded tiles",
         "launches_deploy_note": "the artifact route's CUDA graphs: each graph's warm-up and 28 "
-                                "a replay (a replay does not pass through the wrapper's count)",
+                                "a replay (a replay does not pass through the wrapper's count); "
+                                "with the sharded tile program's two ranks (child processes)",
+        "launches_secondary_note": "the forward traced by utils/profiler.trace",
         "variants": "x and y float32; both bfloat16 on the fast paths; bfloat16 x with float32 y "
                     "on the proc ymls' path (train_mixed)",
         "max_abs_err": errs["K1"]["max_abs_err"],

@@ -4,6 +4,7 @@ yml training phases' options are the shipped ymls' sections; the build log's
 and the profile's readings."""
 
 import importlib.util
+import json
 import pathlib
 
 import pytest
@@ -137,7 +138,10 @@ def _deploy_row():
             "same_bits_twice": True, "pipelined_matches": True,
             "tiled": {"max_abs_vs_eager_tiled": 0.0},
             "fast_u8": {"psnr_vs_float32_db": 51.8, "k1_in_graph": 28},
-            "compile_cache": {"cold_built_k1": True, "warm_built": False}}
+            "compile_cache": {"cold_built_k1": True, "warm_built": False},
+            "mesh_tiles": {"tile_batches": 18, "ranks_same_bits": True, "ranks": [
+                {"max_abs_vs_one_process": 4e-7, "fault_max_abs_vs_one_process": 0.3,
+                 "k1_in_graph": 28, "replays": 18} for _ in range(2)]}}
 
 
 @pytest.mark.parametrize("fault", [
@@ -145,10 +149,17 @@ def _deploy_row():
     ("same_bits_twice", None, None, False), ("pipelined_matches", None, None, False),
     ("tiled", None, "max_abs_vs_eager_tiled", 1e-3), ("fast_u8", None, "psnr_vs_float32_db", 39.9),
     ("fast_u8", None, "k1_in_graph", 27), ("compile_cache", None, "warm_built", True),
-    ("compile_cache", None, "cold_built_k1", False)])
+    ("compile_cache", None, "cold_built_k1", False),
+    ("mesh_tiles", 1, "max_abs_vs_one_process", 2e-6),
+    ("mesh_tiles", 0, "fault_max_abs_vs_one_process", 5e-5),
+    ("mesh_tiles", 1, "replays", 17), ("mesh_tiles", 0, "k1_in_graph", 0),
+    ("mesh_tiles", None, "ranks_same_bits", False)])
 def test_deploy_readings_fail_loudly(fault):
     """A deploy reading out of its contract raises (the script then exits
-    non-zero without its last line); the good readings pass."""
+    non-zero without its last line); the good readings pass. The sharded
+    tile program's (`mesh_tiles`): each rank within 1e-6 of the one-process
+    tiles, the planted swap beyond 100 times that, K1 in every tile batch,
+    the ranks' same bits."""
     chip_smoke.check_deploy(_deploy_row())
     row = _deploy_row()
     key, index, field, value = fault
@@ -156,6 +167,8 @@ def test_deploy_readings_fail_loudly(fault):
         row[key] = value
     elif index is None:
         row[key][field] = value
+    elif key == "mesh_tiles":
+        row[key]["ranks"][index][field] = value
     else:
         row[key][index][field] = value
     with pytest.raises(RuntimeError, match="check failed"):
@@ -201,6 +214,44 @@ cs.main()
     assert proc.returncode != 0
     assert "check failed: the deploy phase's readings" in proc.stderr
     assert '"ok": true' not in proc.stdout
+
+
+def test_art_and_secondary_phases_are_on_the_main_path():
+    """`main` runs ART after the data phase (whose generated set it trains
+    from) and the secondary pieces before the deploy phase, and adds the
+    profiler's traced forward to K1's launches; the deploy phase serves the
+    sharded tile program and adds its ranks' K1."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    assert (src.index("phase_data()") < src.index("phase_art(") < src.index("phase_secondary(")
+            < src.index("phase_deploy(") < src.index("phase_profile("))
+    assert '+ secondary["k1_launches"]' in src
+    assert "deploy_mesh(tiled)" in inspect.getsource(chip_smoke.phase_deploy)
+    assert chip_smoke.DEPLOY_EXPORTS["xxl4_mesh2"][-2:] == ["--mesh_devices", "2"]
+
+
+def test_art_phase_trains_the_uhdll_yml_with_art(tmp_path, monkeypatch):
+    """The ART phase's yml is the uhdll yml with `network_g: {type: ART}`
+    (ARTConfig's defaults), the generated set, ART_ITERS iterations, each
+    logged, one loader thread (the crops' draws in a fixed order); every
+    other section as the yml has it."""
+    monkeypatch.setattr(chip_smoke, "ART_DIR", str(tmp_path))
+    path = chip_smoke.art_yml("art_x", str(tmp_path / "proc"))
+    got = yaml_load(path)
+    want = yaml_load(str(REPO / "options" / "train_wavemamba_uhdll.yml"))
+    from wavemamba_torch.models import ARTConfig
+
+    assert config_from_opt(got["network_g"]) == ARTConfig()
+    assert got["train"]["total_iter"] == chip_smoke.ART_ITERS and got["name"] == "art_x"
+    assert got["logger"]["print_freq"] == 1
+    assert got["datasets"]["train"]["dataroot_gt"] == str(tmp_path / "proc" / "train" / "gt")
+    for key in ("optim_g", "scheduler", "pixel_opt", "fft_opt"):
+        assert dict(got["train"][key]) == dict(want["train"][key])
+    assert got["datasets"]["train"]["batch_size_per_gpu"] == 8
+    assert got["datasets"]["train"]["num_worker_per_gpu"] == 1  # the batches repeat
+    assert got["datasets"]["train"]["gt_size"] == 512
+    assert json.loads(json.dumps(got["val"])) == json.loads(json.dumps(want["val"]))
 
 
 def test_parallel_phase_is_on_the_main_path():

@@ -11,6 +11,13 @@ buckets 32x32 and 64x32 and a tile program) exported with
 `allow_custom_calls=True` for both devices, so each program holds K1's
 registered op, which takes the plain version on a CPU tensor.
 
+The artifact whose tile program is sharded over two ranks (`mesh_devices=2`)
+is served by two gloo rank processes on the CPU
+(`wavemamba_torch.scripts.multiproc_worker --checks artifact`), started once
+by a module fixture, and held against the one-process artifact's tiles
+within 1e-6 (each rank runs the batch-2 program on its half of every batch
+of 4; the JAX package's `tests/test_deploy.py` holds its mesh at 2e-6).
+
 Tolerances: a program's output equals the port's eager `wavemamba_forward`
 bit for bit (the program is the same ops; the eager model's weights do not
 require grad, as the program's inputs do not: on the CPU a convolution whose
@@ -24,6 +31,9 @@ on at most 1e-3 of the values.
 import io
 import json
 import logging
+import os
+import subprocess
+import sys
 import zipfile
 
 import jax
@@ -38,6 +48,8 @@ from wavemamba_torch.models.tiling import tiled_apply
 from wavemamba_torch.models.wavemamba import WaveMambaConfig, wavemamba_forward
 from wavemamba_torch.ops import scan_cuda
 from wavemamba_torch.ops.scan import ss2d_scan_pair_plain
+from wavemamba_torch.parallel.dist import local_init_method
+from wavemamba_torch.scripts import multiproc_worker as W
 
 # The suite runs in several worker processes on a few cores: torch's intra-op
 # threads spin while they wait, and the tiny tensors here gain nothing from them.
@@ -118,6 +130,77 @@ def jax_float32(weights, workdir):
     path = str(workdir / "jax.wmx")
     export_model(weights[1], JaxConfig(**SIZE), [(32, 32)], path, platforms=("cpu",))
     return load_exported(path)
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MESH_ATOL = 1e-6
+
+
+class _MeshRanks:
+    """Two worker ranks started together; `results()` waits for them and
+    loads each rank's pickle, in rank order."""
+
+    def __init__(self, procs, out):
+        self.procs, self.out, self._res = procs, out, None
+
+    def results(self):
+        import pickle
+
+        if self._res is None:
+            logs = [p.communicate(timeout=600)[0] for p in self.procs]
+            for p, log in zip(self.procs, logs):
+                assert p.returncode == 0, log[-4000:]
+            self._res = []
+            for r in range(len(self.procs)):
+                with open(os.path.join(self.out, f"rank{r}.pkl"), "rb") as f:
+                    self._res.append(pickle.load(f))
+        return self._res
+
+
+@pytest.fixture(scope="module")
+def mesh_ranks(weights, workdir):
+    """The float32 and uint8 artifacts with the tile program sharded over two
+    ranks (no whole-frame bucket), served by two gloo ranks on the CPU."""
+    for name, io_dtype in (("mesh", "float32"), ("mesh_u8", "uint8")):
+        manifest = deploy.export_model(weights[0], WaveMambaConfig(**SIZE), [],
+                                       str(workdir / f"{name}.wmt"), allow_custom_calls=True,
+                                       platforms=("cpu", "cuda"), tile=TILE, mesh_devices=2,
+                                       io_dtype=io_dtype)
+    out = str(workdir / "ranks")
+    init = local_init_method()
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""}
+    procs = [subprocess.Popen([sys.executable, "-m", "wavemamba_torch.scripts.multiproc_worker",
+                               "--device", "cpu", "--init", init, "--world", "2", "--rank", str(r),
+                               "--out", out, "--data", str(workdir), "--checks", "artifact"],
+                              cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    ranks = _MeshRanks(procs, out)
+    yield manifest, ranks
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+
+
+# The mesh tests that do not wait for the ranks come first, so that the ranks
+# run beside the tests below.
+
+
+def test_mesh_tile_program_is_traced_at_the_rank_batch(mesh_ranks, workdir):
+    """The program's input is the per-rank batch, (2, 32, 32, 3)."""
+    manifest, _ = mesh_ranks
+    model = deploy.load_exported(str(workdir / "mesh.wmt"), device="cpu")
+    assert model.shapes == [] and model.manifest["tile_rank_batch"] == 2
+    x_node = [n for n in model.runners["tile"].module.graph.nodes if n.op == "placeholder"][-1]
+    assert tuple(x_node.meta["val"].shape) == (2, 32, 32, 3)
+
+
+def test_mesh_tile_program_refuses_one_process(mesh_ranks, workdir):
+    """Without a process group of `mesh_devices` ranks the sharded program
+    raises, as JAX's raises on a host with too few devices; it never runs in
+    one process."""
+    model = deploy.load_exported(str(workdir / "mesh.wmt"), device="cpu")
+    with pytest.raises(ValueError, match=r"exported for 2 devices.*no process group"):
+        model.tiled(W.artifact_image()[0])
 
 
 @pytest.mark.parametrize("length,out_dtype", [(200, None), (64, torch.bfloat16), (1, None)])
@@ -239,12 +322,15 @@ def test_cuda_pinned_export_builds_on_cpu_host(weights, workdir):
 
 
 def test_export_refuses_what_has_no_op(weights, workdir):
-    """mesh_devices > 1 waits for multi-GPU (the JAX package's mesh-sharded
-    tile program); the fused conv chains and K3 / K4 have no registered op."""
+    """The mesh-sharded tile program takes JAX's checks (a tile spec, a tile
+    batch that divides over the devices); the fused conv chains and K3 / K4
+    have no registered op."""
     sd, path = weights[0], str(workdir / "x.wmt")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        deploy.export_model(sd, WaveMambaConfig(**SIZE), [(32, 32)], path, tile=TILE,
-                            mesh_devices=2)
+    with pytest.raises(ValueError, match="shards the tile program"):
+        deploy.export_model(sd, WaveMambaConfig(**SIZE), [(32, 32)], path, mesh_devices=2)
+    with pytest.raises(ValueError, match="must divide"):
+        deploy.export_model(sd, WaveMambaConfig(**SIZE), [(32, 32)], path,
+                            tile={"size": 16, "pad": 8, "batch": 3}, mesh_devices=2)
     with pytest.raises(NotImplementedError, match="conv_impl='fused'"):
         deploy.export_model(sd, WaveMambaConfig(conv_impl="fused", **SIZE), [(32, 32)], path)
     with pytest.raises(NotImplementedError, match="K3 / K4"):
@@ -357,3 +443,23 @@ def test_compile_cache_is_the_kernels_build_directory(tmp_path, monkeypatch):
     first = scan_cuda.build(scan_cuda.SOURCE)
     assert first.parent == cache and first.exists() and len(runs) == 1
     assert scan_cuda.build(scan_cuda.SOURCE) == first and len(runs) == 1
+
+
+def test_mesh_sharded_tile_program_matches_one_process(mesh_ranks, artifact, bytes_artifact):
+    """mesh_devices=2: each rank runs the batch-2 tile program on its half of
+    every batch of 4, the halves gathered in rank order; both ranks return
+    the whole frame, within 1e-6 of the one-process artifact's tiles and the
+    same bits on both ranks (uint8: the same bytes)."""
+    manifest, ranks = mesh_ranks
+    assert manifest["mesh_devices"] == 2 and manifest["tile"]["batch"] == 4
+    assert manifest["tile_rank_batch"] == 2
+    res = ranks.results()
+    x, x8 = W.artifact_image()
+    want, want8 = artifact.tiled(x), bytes_artifact.tiled(x8)
+    for r in res:
+        assert r["artifact_mesh"].shape == x.shape
+        np.testing.assert_allclose(r["artifact_mesh"], want, atol=MESH_ATOL, rtol=0)
+        assert r["artifact_mesh_u8"].dtype == np.uint8
+        np.testing.assert_array_equal(r["artifact_mesh_u8"], want8)
+        assert r["artifact_mesh_replays"] == 0  # the CPU runs the program as it is, no graph
+    np.testing.assert_array_equal(res[0]["artifact_mesh"], res[1]["artifact_mesh"])

@@ -95,6 +95,18 @@ def bytes_k1(pth, workdir):
     return art
 
 
+@pytest.fixture(scope="module")
+def mesh_wmt(pth, workdir):
+    """`export --tile 16 --tile_pad 8 --tile_batch 4 --mesh_devices 2`, K1's
+    op kept for both devices (its programs trace and load in a third of the
+    portable 'par' programs' time): the tile program sharded over two ranks."""
+    art = workdir / "mesh.wmt"
+    cli(["export", "-w", pth, "-o", str(art), "--shapes", "32x32", "--tile", "16", "--tile_pad",
+         "8", "--tile_batch", "4", "--mesh_devices", "2", "--allow_custom_calls", "--platforms",
+         "cpu", "cuda"] + SIZE_FLAGS)
+    return art
+
+
 def test_export_cli_serves_folder(portable, tmp_path, monkeypatch):
     """export -> run: the serving path touches only deploy.py, K1's op and
     image I/O; `--compile_cache` points the kernels' build there."""
@@ -144,10 +156,11 @@ def test_uint8_matches_jax_artifact(bytes_k1, jax_wmx):
         assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3, (diff.max(), (diff > 0).mean())
 
 
-def test_export_cli_target_cuda_builds_pinned_fast_preset(pth, tmp_path):
+def test_export_cli_target_cuda_builds_pinned_fast_preset(pth, mesh_wmt, tmp_path):
     """`--fast --target cuda --allow_custom_calls` on a host without a card
     bakes the card's bf16 preset with K1's op; `run` on the CPU refuses it,
-    naming its platforms; `--mesh_devices 2` waits for multi-GPU."""
+    naming its platforms; `--mesh_devices 2` is passed through to the
+    manifest, and without `--tile` it raises JAX's error."""
     art = tmp_path / "pinned.wmt"
     cli(["export", "-w", pth, "-o", str(art), "--shapes", "32x32", "--fast", "--target", "cuda",
          "--allow_custom_calls", "--io", "uint8"] + SIZE_FLAGS)
@@ -159,9 +172,12 @@ def test_export_cli_target_cuda_builds_pinned_fast_preset(pth, tmp_path):
     lq = _folder(tmp_path / "lq", {"a.png": (20, 26)})
     with pytest.raises(ValueError, match=r"\['cuda'\].*'cpu'"):
         cli(["run", "-a", str(art), "-i", str(lq), "-o", str(tmp_path / "o"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    manifest = _manifest(mesh_wmt)
+    assert manifest["mesh_devices"] == 2 and manifest["tile"]["batch"] == 4
+    assert manifest["tile_rank_batch"] == 2
+    with pytest.raises(ValueError, match="shards the tile program"):
         cli(["export", "-w", pth, "-o", str(tmp_path / "m.wmt"), "--shapes", "32x32",
-             "--tile", "16", "--mesh_devices", "2"] + SIZE_FLAGS)
+             "--mesh_devices", "2"] + SIZE_FLAGS)
 
 
 def test_inference_cli_accepts_wmt_artifact(pth, tmp_path, capsys):
@@ -192,3 +208,40 @@ def test_inference_cli_accepts_wmt_artifact(pth, tmp_path, capsys):
         outs[name] = cv2.imread(str(tmp_path / name / "a.png")).astype(int)
         assert outs[name].shape == (40, 48, 3)
     assert np.abs(outs["art"] - outs["pth"]).max() <= 1
+
+
+def test_inference_serves_a_mesh_artifact_under_torchrun(pth, mesh_wmt, tmp_path):
+    """`torchrun --nproc_per_node=2 -m wavemamba_torch.inference -w mesh.wmt
+    --tile 16` on two gloo CPU ranks: rank 0 alone prints and writes, and
+    the image is the one-process tiles' (the eager model, K1's plain
+    version on the CPU as in the artifact, batches of 4) within one level."""
+    import subprocess
+    import sys
+
+    from wavemamba_torch.checkpoint import load_network
+    from wavemamba_torch.models import build_network
+    from wavemamba_torch.models.tiling import tiled_apply
+    from wavemamba_torch.models.wavemamba import wavemamba_apply
+    from wavemamba_torch.utils.img_util import batch2img, img2batch
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    lq = _folder(tmp_path / "lq", {"a.png": (40, 56)}, seed=3)
+    gt = _folder(tmp_path / "gt", {"a.png": (40, 56)}, seed=4)
+    out = tmp_path / "out"
+    env = {**os.environ, "PYTHONPATH": repo, "OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node=2", "-m", "wavemamba_torch.inference", "-w",
+                           str(mesh_wmt), "-i", str(lq), "-g", str(gt), "-o", str(out), "--tile",
+                           "16", "--device", "cpu"], cwd=repo, env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert sum(ln.startswith("a.png:") for ln in proc.stdout.splitlines()) == 1, proc.stdout
+    assert "avg psnr" in proc.stdout
+    assert os.listdir(out) == ["a.png"]
+    model = build_network({"type": "WaveMamba", **SIZE},
+                          load_network(pth, device="cpu"), device="cpu")
+    img = img2batch(cv2.imread(str(lq / "a.png")))
+    want = batch2img(tiled_apply(lambda t: wavemamba_apply(model, torch.from_numpy(t)).numpy(), img,
+                                 tile_size=16, tile_pad=8, tile_batch=4))
+    got = cv2.imread(str(out / "a.png"))
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1

@@ -127,17 +127,60 @@ def test_cli_fast_runs_the_bf16_preset(tmp_path, capsys, monkeypatch):
 @pytest.mark.parametrize("flag", [["-w", "model.wmx"], ["--lpips_weights", "x.pth"],
                                   ["-w", "model.wmx", "--compile_cache", "cache"]])
 def test_cli_refuses_what_is_not_ported(flag, tmp_path):
-    """`--lpips_weights` waits in ROADMAP; a `.wmx` artifact is the JAX
-    package's, with or without `--compile_cache` (which the port serves: the
-    kernels' build directory), and the refusal names the port's `.wmt`."""
-    with pytest.raises(SystemExit) as e:
-        tinf.main(["-i", str(tmp_path), "-w", "w.pth", "-o", str(tmp_path / "o"),
-                   "--device", "cpu"] + flag)
+    """A `.wmx` artifact is the JAX package's, with or without
+    `--compile_cache` (which the port serves: the kernels' build directory),
+    and the refusal names the port's `.wmt`. `--lpips_weights` is served
+    (`test_cli_scores_lpips`): with `-g`, a weights file that is not there
+    fails before the model loads."""
+    argv = ["-i", str(tmp_path), "-w", "w.pth", "-o", str(tmp_path / "o"), "--device", "cpu"]
     if "--lpips_weights" in flag:
-        assert "ROADMAP" in str(e.value.code)
-    else:
-        assert "JAX package" in str(e.value.code) and ".wmt" in str(e.value.code)
+        with pytest.raises(FileNotFoundError, match="x.pth"):
+            tinf.main(argv + ["-g", str(tmp_path)] + flag)
+        return
+    with pytest.raises(SystemExit) as e:
+        tinf.main(argv + flag)
+    assert "JAX package" in str(e.value.code) and ".wmt" in str(e.value.code)
     assert not (tmp_path / "cache").exists()
+
+
+def test_cli_scores_lpips(tmp_path, capsys):
+    """`--lpips_weights` with `-g`: each line and the averages carry LPIPS,
+    the JAX metric's value on the port's output and the GT (AlexNet-LPIPS
+    weights fabricated in torchvision's layout, seeded; 5e-5 is the
+    printed precision)."""
+    from wavemamba_tpu.models.wavemamba import WaveMambaConfig, init_wavemamba
+    from wavemamba_tpu.train.checkpoint import export_to_pth
+
+    pth = str(tmp_path / "net_g.pth")
+    export_to_pth(init_wavemamba(jax.random.PRNGKey(0),
+                                 WaveMambaConfig(wf=8, n_l_blocks=(1, 1, 1), n_h_blocks=(1, 1, 1))),
+                  pth)
+    rs = np.random.RandomState(1)
+    sd, cin = {}, 3
+    for i, (fi, cout, k) in enumerate(zip([0, 3, 6, 8, 10], [64, 192, 384, 256, 256],
+                                          [11, 5, 3, 3, 3])):
+        sd[f"features.{fi}.weight"] = torch.from_numpy(
+            rs.randn(cout, cin, k, k).astype(np.float32) * np.float32(np.sqrt(2.0 / (k * k * cin))))
+        sd[f"features.{fi}.bias"] = torch.zeros(cout)
+        sd[f"lin{i}.model.1.weight"] = torch.from_numpy(
+            np.abs(rs.randn(1, cout, 1, 1)).astype(np.float32) * 0.1)
+        cin = cout
+    weights = str(tmp_path / "alex.pth")
+    torch.save(sd, weights)
+    lq, gt = tmp_path / "lq", tmp_path / "gt"
+    os.makedirs(lq)
+    os.makedirs(gt)
+    cv2.imwrite(str(lq / "a.png"), rs.randint(0, 60, (64, 72, 3), np.uint8))
+    cv2.imwrite(str(gt / "a.png"), rs.randint(0, 255, (64, 72, 3), np.uint8))
+    tinf.main(["-i", str(lq), "-g", str(gt), "-w", pth, "-o", str(tmp_path / "o"),
+               "--lpips_weights", weights, "--device", "cpu"] + SIZE_FLAGS)
+    out = capsys.readouterr().out
+    line = re.search(r"^a\.png: .* lpips ([\d.]+)$", out, re.M)
+    avg = re.search(r"^avg lpips: ([\d.]+)$", out, re.M)
+    assert line and avg, out
+    want = j_build_metric({"type": "lpips", "weights_path": weights})(
+        cv2.imread(str(tmp_path / "o" / "a.png")), cv2.imread(str(gt / "a.png")))
+    assert abs(float(line[1]) - want) <= 5e-5 and float(avg[1]) == float(line[1])
 
 
 def test_cli_raises_without_a_card_unless_asked_for_cpu(tmp_path, monkeypatch):

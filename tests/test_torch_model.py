@@ -276,8 +276,13 @@ def test_network_g_keys_are_honoured_or_refused():
         config_from_opt({**base, "widht": 3})
     with pytest.raises(ValueError, match="unknown scan_impl"):
         config_from_opt({**base, "scan_impl": "fast"})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        config_from_opt({"type": "ART"})
+    # ART is the second family: its own fields, and no WaveMamba key
+    from wavemamba_torch.models import ARTConfig
+
+    assert config_from_opt({"type": "ART"}) == ARTConfig()
+    assert config_from_opt({"type": "ART", "dim": 16, "num_heads": 2}).out_dim == 64
+    with pytest.raises(KeyError, match="unknown network_g key 'wf'"):
+        config_from_opt({"type": "ART", "wf": 8})
 
 
 @pytest.mark.parametrize("extra", [{"remat": True}, {}, {"remat": True, "remat_policy": "full"},

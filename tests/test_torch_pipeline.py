@@ -280,15 +280,17 @@ def test_uhd_model_rejects_single_output_net(tmp_path):
         model.optimize_parameters(batch)
     with pytest.raises(KeyError, match="Unknown model_type"):
         build_model({**_opt(tmp_path), "model_type": "SRGANModel"})
-    art = _opt(tmp_path)
-    art["network_g"] = {"type": "ART", "dim": 8}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_model(art)
+    # ART builds (the second family) and, with one output, is no UHDModel either
+    art = {**opt, "network_g": {"type": "ART", "dim": 8, "num_heads": 2, "n_blocks": 1}}
+    art_model = build_model(art)
+    assert type(art_model.model).__name__ == "ART" and art_model.tcfg.loss_mode == "uhd"
+    with pytest.raises(TypeError, match="two outputs"):
+        art_model.optimize_parameters(batch)
 
 
 def test_key_metric_build_failure_is_fatal_and_aux_warns(tmp_path):
     opt = _opt(tmp_path)
-    opt["val"]["metrics"]["lpips"] = {"type": "lpips"}  # not ported: the build fails
+    opt["val"]["metrics"]["lpips"] = {"type": "lpips"}  # no weights_path: the build fails
     model = build_model(opt)
     records = []
 
@@ -303,7 +305,7 @@ def test_key_metric_build_failure_is_fatal_and_aux_warns(tmp_path):
     finally:
         model.logger.removeHandler(handler)
     assert "psnr" in avg and "lpips" not in avg
-    assert any("metric lpips skipped" in r for r in records)
+    assert any("metric lpips skipped" in r and "weights_path" in r for r in records)
     opt["val"]["key_metric"] = "lpips"
     with pytest.raises(ValueError, match="key metric 'lpips'"):
         build_model(opt).validation(_fake_loader(), current_iter=1)

@@ -118,8 +118,11 @@ def test_build_loss():
     assert float(fn(p, t)) == float(tlosses.fft_loss(p, t, loss_weight=0.1))
     fn = tlosses.build_loss({"type": "PSNRLoss", "toY": True})
     assert float(fn(p, t)) == float(tlosses.psnr_loss(p, t, to_y=True))
-    with pytest.raises(KeyError, match="GANLoss"):  # the GAN suite is not ported
-        tlosses.build_loss({"type": "GANLoss"})
+    # the GAN suite is in the registry (tests/test_torch_gan_losses.py holds it to JAX)
+    fn = tlosses.build_loss({"type": "GANLoss", "gan_type": "lsgan", "loss_weight": 0.5})
+    assert float(fn(p, True)) == float(tlosses.gan_loss(p, True, gan_type="lsgan", loss_weight=0.5))
+    with pytest.raises(KeyError, match="Unknown loss type 'NopeLoss'"):
+        tlosses.build_loss({"type": "NopeLoss"})
 
 
 # ------------------------------------------------------------------------ schedules

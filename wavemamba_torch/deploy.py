@@ -20,6 +20,14 @@ state-dict order, as the JAX programs take theirs, so the weights are stored
 once, guarded by `params_sha256`, and no program holds a copy. x is NHWC,
 float32 in [0, 1] or, with ``io_dtype='uint8'``, bytes.
 
+With ``mesh_devices=N`` the tile program is traced at the per-rank batch,
+``tile['batch'] // N``, and serves only under a process group of N ranks
+(`torchrun --nproc_per_node=N`, `parallel.initialize`): each rank replays
+its share of every tile batch through its own CUDA graph, the shares are
+gathered in rank order (`parallel.mesh.gather_rows`) and every rank returns
+the whole frame (`models.tiling.tiled_apply_mesh`), as the JAX package's
+program runs under ``NamedSharding(mesh, PartitionSpec('data'))``.
+
 Programs are traced on the CPU. By default the artifact is portable
 (``platforms=('cpu', 'cuda')``): a configured kernel scan
 (``scan_impl='pallas*'``) is swapped for the plain 'par' scan, the same
@@ -53,7 +61,7 @@ import numpy as np
 import torch
 
 from wavemamba_torch.device import resolve_device
-from wavemamba_torch.models.tiling import tiled_apply
+from wavemamba_torch.models.tiling import tiled_apply, tiled_apply_mesh
 from wavemamba_torch.ops import scan_cuda
 
 FORMAT_VERSION = 1
@@ -166,8 +174,10 @@ def export_model(state_dict, cfg, shapes, out_path, *, batch=1, platforms=None,
             also export one fixed-shape tile program, so the artifact serves
             frames larger than any whole-frame bucket through
             `ExportedModel.tiled`.
-        mesh_devices: the JAX package shards the tile program over this many
-            chips; more than 1 waits for multi-GPU and raises.
+        mesh_devices: shard the tile program over this many ranks (needs
+            `tile`, whose batch must divide over them): the program is traced
+            at ``tile['batch'] // mesh_devices`` and served under a process
+            group of that many ranks.
         io_dtype: ``"float32"`` (default) or ``"uint8"``: programs take and
             return bytes, the conversion on the device, quantized exactly
             like the save path (clip to [0, 1], * 255, round half to even).
@@ -175,9 +185,6 @@ def export_model(state_dict, cfg, shapes, out_path, *, batch=1, platforms=None,
     from wavemamba_torch.models import build_network
     from wavemamba_torch.models.wavemamba import set_scan
 
-    if int(mesh_devices) > 1:
-        raise NotImplementedError("mesh_devices > 1 (the tile program sharded over several cards) "
-                                  "waits for multi-GPU, ROADMAP queue 1, item 9")
     if io_dtype not in ("float32", "uint8"):
         raise ValueError(f"io_dtype must be 'float32' or 'uint8', got {io_dtype!r}")
     if cfg.conv_impl == "fused":
@@ -193,6 +200,17 @@ def export_model(state_dict, cfg, shapes, out_path, *, batch=1, platforms=None,
     platforms = tuple(platforms)
     if not platforms or set(platforms) - set(PLATFORMS):
         raise ValueError(f"platforms must be some of {PLATFORMS}, got {platforms}")
+    shapes = [tuple(map(int, s)) for s in shapes]
+    if tile is not None:
+        tile = {"size": int(tile.get("size", 240)), "pad": int(tile.get("pad", 16)),
+                "batch": int(tile.get("batch", 8)),
+                "pad_multiple": int(tile.get("pad_multiple", 8))}
+    mesh_devices = int(mesh_devices)
+    if mesh_devices > 1:
+        if tile is None:
+            raise ValueError("mesh_devices > 1 shards the tile program; pass tile=... as well")
+        if tile["batch"] % mesh_devices:
+            raise ValueError(f"tile batch {tile['batch']} must divide over {mesh_devices} devices")
 
     sd = {k: v.detach().cpu() for k, v in state_dict.items()}
     model = build_network({"type": "WaveMamba", **dataclasses.asdict(cfg)}, sd, device="cpu")
@@ -216,11 +234,6 @@ def export_model(state_dict, cfg, shapes, out_path, *, batch=1, platforms=None,
         build["trace_s"][name], build["save_s"][name] = t1 - t0, time.perf_counter() - t1
         return buf.getvalue()
 
-    shapes = [tuple(map(int, s)) for s in shapes]
-    if tile is not None:
-        tile = {"size": int(tile.get("size", 240)), "pad": int(tile.get("pad", 16)),
-                "batch": int(tile.get("batch", 8)),
-                "pad_multiple": int(tile.get("pad_multiple", 8))}
     manifest = {
         "format_version": FORMAT_VERSION,
         "torch_version": torch.__version__,
@@ -229,7 +242,9 @@ def export_model(state_dict, cfg, shapes, out_path, *, batch=1, platforms=None,
         "batch": int(batch),
         "shapes": [list(s) for s in shapes],
         "tile": tile,
-        "mesh_devices": 1,
+        "mesh_devices": mesh_devices,
+        # the batch of the traced tile program: each rank's share of tile["batch"]
+        "tile_rank_batch": None if tile is None else tile["batch"] // mesh_devices,
         "io_dtype": io_dtype,
         "platforms": list(platforms),
         "placement": _PLACEMENT,
@@ -245,7 +260,8 @@ def export_model(state_dict, cfg, shapes, out_path, *, batch=1, platforms=None,
             zf.writestr(f"programs/{H}x{W}.pt2", trace(f"{H}x{W}", (batch, H, W, cfg.in_chn)))
         if tile is not None:
             ext = _tile_ext(tile["size"], tile["pad"], tile["pad_multiple"])
-            zf.writestr("programs/tile.pt2", trace("tile", (tile["batch"], ext, ext, cfg.in_chn)))
+            zf.writestr("programs/tile.pt2", trace("tile", (tile["batch"] // mesh_devices, ext, ext,
+                                                            cfg.in_chn)))
         manifest["build"] = build
         zf.writestr("manifest.json", json.dumps(manifest, indent=1))
     return manifest
@@ -263,43 +279,54 @@ class _Runner:
         self.graph = self.static_x = self.static_y = None
         self.replays = self.k1_in_graph = 0
 
+    def run(self, x: torch.Tensor):
+        """The program's output for `x` (on the CPU or on the card) on the
+        program's device, enqueued: on the card the graph's static output,
+        which the next replay overwrites (stream order keeps a copy or a
+        collective enqueued before it safe)."""
+        if self.device.type == "cpu":
+            with torch.no_grad():
+                return self.module(self.flat, x)
+        if self.graph is None:
+            self._capture(x)
+        else:
+            self.static_x.copy_(x, non_blocking=True)
+        self.graph.replay()
+        self.replays += 1
+        return self.static_y
+
     def launch(self, x: np.ndarray):
         """Enqueue the program on `x`: (the output on the host, the event
         after its copy there, or None on the CPU)."""
         src = torch.from_numpy(np.ascontiguousarray(x))
         if self.device.type == "cpu":
-            with torch.no_grad():
-                return self.module(self.flat, src), None
-        src = src.pin_memory()
-        if self.graph is None:
-            self._capture(src)
-        else:
-            self.static_x.copy_(src, non_blocking=True)
-        self.graph.replay()
-        self.replays += 1
+            return self.run(src), None
+        y = self.run(src.pin_memory())
         # A pinned buffer per call: the next replay writes the same static
         # output, and stream order keeps it behind this copy.
-        out = torch.empty(self.static_y.shape, dtype=self.static_y.dtype, pin_memory=True)
-        out.copy_(self.static_y, non_blocking=True)
+        out = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+        out.copy_(y, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
         return out, done
 
     def _capture(self, src):
-        self.static_x = torch.empty(src.shape, dtype=src.dtype, device=self.device)
-        self.static_x.copy_(src, non_blocking=True)
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side), torch.no_grad():
-            self.module(self.flat, self.static_x)  # builds K1, settles cuDNN's choices
-        main.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        before = scan_cuda.ss2d_scan_pair.launches
-        with torch.no_grad(), torch.cuda.graph(graph):
-            self.static_y = self.module(self.flat, self.static_x)
-        self.k1_in_graph = scan_cuda.ss2d_scan_pair.launches - before
-        self.graph = graph
+        # on this program's card, whichever is current (ranks that share a host)
+        with torch.cuda.device(self.device):
+            self.static_x = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+            self.static_x.copy_(src, non_blocking=True)
+            main = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side), torch.no_grad():
+                self.module(self.flat, self.static_x)  # builds K1, settles cuDNN's choices
+            main.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            before = scan_cuda.ss2d_scan_pair.launches
+            with torch.no_grad(), torch.cuda.graph(graph):
+                self.static_y = self.module(self.flat, self.static_x)
+            self.k1_in_graph = scan_cuda.ss2d_scan_pair.launches - before
+            self.graph = graph
 
 
 class ExportedModel:
@@ -315,6 +342,7 @@ class ExportedModel:
             self.runners["tile"] = _Runner(tile_program, flat, self.device)
         self.shapes = sorted(programs)
         self.io_dtype = manifest.get("io_dtype", "float32")
+        self._mesh = None  # the process group's mesh, made at the first sharded `tiled`
 
     @classmethod
     def load(cls, path, compile_cache=None, device="cuda"):
@@ -423,9 +451,33 @@ class ExportedModel:
         self._check_platform()
         t = self.manifest["tile"]
         run = self.runners["tile"]
+        geometry = {"tile_size": t["size"], "tile_pad": t["pad"], "pad_multiple": t["pad_multiple"],
+                    "tile_batch": t["batch"]}
+        if self.manifest.get("mesh_devices", 1) > 1:
+            return tiled_apply_mesh(_Runner.run, run, self._to_io(x), self._group_mesh(),
+                                    device=self.device, **geometry)
         return tiled_apply(lambda chunk: _Pending(*run.launch(chunk)).fetch(), self._to_io(x),
-                           tile_size=t["size"], tile_pad=t["pad"],
-                           pad_multiple=t["pad_multiple"], tile_batch=t["batch"])
+                           **geometry)
+
+    def _group_mesh(self):
+        """The mesh of the process group that a sharded tile program serves
+        under: as many ranks as the artifact's `mesh_devices`, or an error
+        (one process never serves it alone)."""
+        import torch.distributed as dist
+
+        from wavemamba_torch.parallel.mesh import axis_size, make_mesh
+
+        n = self.manifest["mesh_devices"]
+        if self._mesh is None:
+            if not (dist.is_available() and dist.is_initialized()):
+                raise ValueError(f"tile program was exported for {n} devices; this process is in "
+                                 f"no process group: serve it from {n} ranks (torchrun "
+                                 f"--nproc_per_node={n}, or parallel.initialize)")
+            self._mesh = make_mesh()
+        if axis_size(self._mesh) != n:
+            raise ValueError(f"tile program was exported for {n} devices; the process group has "
+                             f"{axis_size(self._mesh)} rank(s)")
+        return self._mesh
 
 
 class _Pending:

@@ -16,7 +16,12 @@ its own exported buckets (`--tile`: its tile program) and serves each on the
 card through one CUDA graph; a uint8 artifact takes and gives bytes.
 `--compile_cache DIR` is the directory where the kernels are built and looked
 up, so a later process loads K1 instead of building it. `.wmx` artifacts are
-the JAX package's.
+the JAX package's. An artifact whose tile program is sharded over N ranks
+(`export_model export --tile T --mesh_devices N`) serves `--tile` under
+`torchrun --standalone --nproc_per_node=N -m wavemamba_torch.inference ...`:
+every rank takes its share of each tile batch, and rank 0 alone prints and
+writes. `--lpips_weights` (with `-g`) also scores LPIPS (AlexNet,
+`metrics/lpips.py`) from that state dict.
 """
 
 from __future__ import annotations
@@ -32,20 +37,15 @@ import torch
 
 from wavemamba_torch.checkpoint import load_network
 from wavemamba_torch.deploy import SUFFIX, enable_compilation_cache, load_exported
-from wavemamba_torch.device import resolve_device
 from wavemamba_torch.metrics import build_metric
 from wavemamba_torch.models import build_network
 from wavemamba_torch.models.buckets import BucketLadder, pad_to_shape
 from wavemamba_torch.models.tiling import tiled_apply
 from wavemamba_torch.models.wavemamba import WaveMambaConfig, pad_to_multiple, wavemamba_apply
+from wavemamba_torch.parallel import initialize, is_master
+from wavemamba_torch.parallel.dist import shutdown
 from wavemamba_torch.utils.img_util import batch2img, img2batch, imread, imwrite
 from wavemamba_torch.utils.misc import scandir
-
-# Flags of the JAX CLI that the port does not serve yet, and where they wait.
-NOT_PORTED = {
-    "lpips_weights": "--lpips_weights waits for ROADMAP queue 1, item 11 (metrics/lpips.py)",
-}
-
 
 def set_parity_mode():
     """float32 parity: no TF32 in cuDNN convolutions or cuBLAS matmuls."""
@@ -83,7 +83,8 @@ def parse_args(argv=None):
                         help="max size before splitting (reference parity; unused)")
     parser.add_argument("--tile", type=int, default=0,
                         help="tile size; 0 (default) runs the whole image")
-    parser.add_argument("--lpips_weights", type=str, default=None, help="(not ported yet)")
+    parser.add_argument("--lpips_weights", type=str, default=None,
+                        help="AlexNet LPIPS state-dict path (optional; scored with -g)")
     parser.add_argument("--compile_cache", type=str, default=None, metavar="DIR",
                         help="directory where the kernels are built and looked up: a later "
                              "process loads K1 instead of building it")
@@ -102,15 +103,25 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag, why in NOT_PORTED.items():
-        if getattr(args, flag):
-            sys.exit(f"not ported: {why}")
     if args.weight.endswith(".wmx"):
         sys.exit(f"{args.weight}: .wmx artifacts are the JAX package's (wavemamba_tpu/deploy.py); "
                  f"the port serves its own {SUFFIX} artifacts "
                  "(python -m wavemamba_torch.scripts.export_model export)")
     set_parity_mode()
-    dev = resolve_device(args.device)
+    dev = initialize(device=args.device)  # a process group under torchrun, else this device
+    try:
+        _serve(args, dev)
+    finally:
+        shutdown()
+
+
+def _serve(args, dev):
+    psnr = build_metric({"type": "psnr", "crop_border": 1, "test_y_channel": True})
+    ssim = build_metric({"type": "ssim", "crop_border": 1, "test_y_channel": True})
+    lpips_fn = None
+    if args.gt and args.lpips_weights:  # before the model: a bad path fails at once
+        lpips_fn = build_metric({"type": "lpips", "weights_path": args.lpips_weights},
+                                device=dev)
     if args.compile_cache:
         enable_compilation_cache(args.compile_cache)
     artifact = model = None
@@ -124,15 +135,15 @@ def main(argv=None):
                               load_network(args.weight, device=dev), device=dev)
     bytes_io = artifact is not None and artifact.io_dtype == "uint8"
 
-    psnr = build_metric({"type": "psnr", "crop_border": 1, "test_y_channel": True})
-    ssim = build_metric({"type": "ssim", "crop_border": 1, "test_y_channel": True})
+    say = print if is_master() else (lambda *a, **k: None)  # rank 0 alone prints and writes
     ladder = None if args.no_bucket else BucketLadder(max_waste=args.bucket_waste)
-    os.makedirs(args.output, exist_ok=True)
+    if is_master():
+        os.makedirs(args.output, exist_ok=True)
     if os.path.isfile(args.input):
         paths = [args.input]
     else:
         paths = sorted(scandir(args.input, full_path=True))
-    scores = {"psnr": [], "ssim": []}
+    scores = {"psnr": [], "ssim": [], "lpips": []}
     for path in paths:
         name = os.path.basename(path)
         img = imread(path)  # BGR uint8
@@ -152,15 +163,20 @@ def main(argv=None):
                 scores["psnr"].append(p)
                 scores["ssim"].append(s)
                 line += f"  psnr {p:.4f}  ssim {s:.4f}"
-        print(line, flush=True)
+                if lpips_fn is not None:
+                    lp = lpips_fn(sr, gt)
+                    scores["lpips"].append(lp)
+                    line += f"  lpips {lp:.4f}"
+        say(line, flush=True)
         stem, ext = os.path.splitext(name)
-        imwrite(sr, os.path.join(args.output, f"{stem}{args.suffix}{ext or '.png'}"))
+        if is_master():
+            imwrite(sr, os.path.join(args.output, f"{stem}{args.suffix}{ext or '.png'}"))
 
     for k, v in scores.items():
         if v:
-            print(f"avg {k}: {float(np.mean(v)):.4f}")
+            say(f"avg {k}: {float(np.mean(v)):.4f}")
     if ladder is not None and artifact is None:
-        print(f"buckets: {len(ladder.buckets)}")
+        say(f"buckets: {len(ladder.buckets)}")
 
 
 if __name__ == "__main__":

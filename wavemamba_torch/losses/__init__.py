@@ -1,15 +1,20 @@
 """Loss factory: YAML `{type: L1Loss, loss_weight: 1.0, ...}` -> a configured
-callable. The counterpart of `wavemamba_tpu/losses/__init__.py`, without the
-GAN and perceptual losses (not ported yet)."""
+callable. The counterpart of `wavemamba_tpu/losses/__init__.py`."""
 
 import functools
 
 from wavemamba_torch.losses.losses import (
     charbonnier_loss,
     fft_loss,
+    g_path_regularize,
+    gan_feat_loss,
+    gan_loss,
+    gradient_penalty_loss,
     l1_loss,
     mse_loss,
+    multi_scale_gan_loss,
     psnr_loss,
+    r1_penalty,
     ssim,
     ssim_loss,
     uhd_loss,
@@ -26,6 +31,9 @@ _LOSSES = {
     "FFTLoss": fft_loss,
     "WeightedTVLoss": weighted_tv_loss,
     "SSIMLoss": ssim_loss,
+    "GANLoss": gan_loss,
+    "MultiScaleGANLoss": multi_scale_gan_loss,
+    "GANFeatLoss": gan_feat_loss,
 }
 
 
@@ -39,4 +47,6 @@ def build_loss(opt: dict):
 
 
 __all__ = ["build_loss", "l1_loss", "mse_loss", "charbonnier_loss", "psnr_loss", "fft_loss",
-           "weighted_tv_loss", "ssim", "ssim_loss", "uhd_loss"]
+           "weighted_tv_loss", "ssim", "ssim_loss", "gan_loss", "multi_scale_gan_loss",
+           "gan_feat_loss", "r1_penalty", "g_path_regularize", "gradient_penalty_loss",
+           "uhd_loss"]

@@ -51,18 +51,21 @@ def tiled_apply(fn, img, tile_size=240, tile_pad=16, pad_multiple=8, tile_batch=
 
 
 def tiled_apply_mesh(apply_fn, model, img, mesh, tile_size=240, tile_pad=16, pad_multiple=8,
-                     tile_batch=None):
+                     tile_batch=None, device=None):
     """`tiled_apply` with every tile batch sharded over the mesh's ranks: each
     rank enhances its share of the batch with `apply_fn(model, x)` (x: (b, h,
-    w, C) float32 on the model's device; `models.wavemamba_apply`, which on a
-    card runs K1 in every tile), the shares are gathered in rank order, and
+    w, C) in `img`'s dtype on the model's device; `models.wavemamba_apply`,
+    which on a card runs K1 in every tile), the shares are gathered in rank
+    order, and
     every rank returns the whole frame, (1, H, W, C) numpy. The JAX
     package's takes (params, cfg) where the port's model carries both.
 
     `tile_batch` (default: the largest multiple of the ranks up to 8, at
     least one tile a rank) is rounded up to a multiple of the ranks, as in
     the JAX package. Without a mesh it is `tiled_apply` of the same
-    forward."""
+    forward. `device` (default: where the model's parameters lie) is where a
+    rank's share goes; `model` is anything `apply_fn` takes (the deployment
+    artifact's tile program, `deploy.ExportedModel.tiled`)."""
     import torch
 
     from wavemamba_torch.parallel.mesh import axis_size, gather_rows, shard_batch
@@ -71,7 +74,8 @@ def tiled_apply_mesh(apply_fn, model, img, mesh, tile_size=240, tile_pad=16, pad
     if tile_batch is None:
         tile_batch = max(n, (8 // n) * n) if n <= 8 else n
     tile_batch = -(-tile_batch // n) * n
-    device = next(model.parameters()).device
+    if device is None:
+        device = next(model.parameters()).device
 
     def run(tiles):
         x = torch.from_numpy(np.ascontiguousarray(shard_batch(mesh, tiles))).to(device)

@@ -211,7 +211,7 @@ class RestorationModel:
         metrics = {}
         for name, mopt in metric_opts.items():
             try:
-                metrics[name] = build_metric(dict(mopt))
+                metrics[name] = build_metric(dict(mopt), device=self.device)
             except (ValueError, KeyError, NotImplementedError) as e:
                 if name == key_metric:
                     # Best-model tracking hinges on this metric: a warning

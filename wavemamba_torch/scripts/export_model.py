@@ -135,7 +135,8 @@ def main(argv=None):
                    help="uint8 puts the byte<->float conversion in the program, quantized as "
                         "the PNG save path")
     p.add_argument("--mesh_devices", type=int, default=1,
-                   help="more than 1 (a tile program sharded over cards) waits for multi-GPU")
+                   help="shard the tile program over this many ranks (needs --tile; served "
+                        "under torchrun --nproc_per_node=N by `inference --tile`)")
     p.add_argument("--wf", type=int, default=32)
     p.add_argument("--n_l_blocks", type=int, nargs="+", default=[1, 2, 4])
     p.add_argument("--n_h_blocks", type=int, nargs="+", default=[1, 1, 2])

@@ -30,9 +30,13 @@ caller holds them against the JAX package and against one process):
   val       validation sharded round-robin, the (sum, count) reduce
   cache     the device cache's slices of the global batch (`--data`/pngs)
   pipeline  `train_pipeline` on `--data`/train.yml (which ranks write)
+  artifact  the tile programs of `--data`/mesh.wmt and mesh_u8.wmt (exported
+            with `mesh_devices` = the world) served through
+            `ExportedModel.tiled` on `artifact_image()` and its bytes
 
 `--checks` names the ones to run (default: all but `pipeline`, which runs
-where `--data` holds `train.yml`). Prints "MULTIPROC WORKER <rank> OK".
+where `--data` holds `train.yml`, and `artifact`). Prints "MULTIPROC WORKER
+<rank> OK".
 """
 
 from __future__ import annotations
@@ -93,6 +97,12 @@ def model_images():
 
 def tile_image():
     return np.random.RandomState(1).rand(1, 96, 128, 3).astype(np.float32)
+
+
+def artifact_image():
+    """A frame larger than the artifact's buckets: (float32, its bytes)."""
+    x = np.random.RandomState(3).rand(1, 40, 56, 3).astype(np.float32)
+    return x, np.round(x * 255.0).astype(np.uint8)
 
 
 def val_images(n=5, shape=(24, 24)):
@@ -229,6 +239,14 @@ def run_checks(checks, device, data, rank, world):
         loader.set_epoch(1)
         res["cache"] = [{"lq": b["lq"].cpu().numpy(), "gt": b["gt"].cpu().numpy(),
                          "lq_path": b["lq_path"]} for b in loader]
+
+    if "artifact" in checks:
+        from wavemamba_torch.deploy import load_exported
+
+        for name, x in zip(("mesh", "mesh_u8"), artifact_image()):
+            model = load_exported(os.path.join(data, f"{name}.wmt"), device=device)
+            res[f"artifact_{name}"] = model.tiled(x)
+            res[f"artifact_{name}_replays"] = model.runners["tile"].replays
 
     if "pipeline" in checks:
         from wavemamba_torch import runner
