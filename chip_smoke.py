@@ -152,6 +152,28 @@ and prints one JSON line per phase:
              generated set through `PairedImageDataset`'s native route and the
              threaded loader under 'save_scan': 28 K1 + 28 K2 a step. Needs
              OpenCV (the generator's).
+ 12c2. scripts the ported scripts, each as users run it (`python -m
+             wavemamba_torch.scripts.<name>`) in a child process on the card, on
+             the data phase's generated sets: `dataset_manifest` writes and
+             verifies a set and exits 1 on a copy with one flipped byte;
+             `merge_datasets` merges the two sets (pairs summed, the merge
+             verifies); `cross_val_ckpts` runs the eight shipped checkpoints
+             on a 128x128 crop of the val pair (XXL4's PSNR within 0.01 dB
+             of the same forward on the CPU);
+             `tiled_localize` and `tiled_fidelity` give finite readings; the
+             xxl4 yml trains 2 iterations through `pipelines.train`, each saved
+             and validated, and `eval_run_ckpts` on that experiment gives the
+             run's logged validations, `post_train_eval` loads its best
+             checkpoint strictly (card against CPU within MODEL_ATOL) and
+             `metrics_sweep` scores the restored sample as the port's metrics
+             do here; `trace_topops` tables a trace of one 512x512 forward
+             (K1's kernels: 28 K1 x 3 calls, `short_profile` where the
+             profiler kept fewer); then, each alone on the card,
+             `conv1x1_sweep` (the four `conv1x1_as_conv` variants of `fast()`
+             at 1080x1920: ms, 28 K1 a forward, >= 40 dB from float32) and
+             `chain_tune` (K7 at band_h 8 / 16 / 32 / 64 against the stock
+             modules and the plain chains, bf16, 544x960; `fast()` against
+             `fast(conv_impl="fused")` at 1088x1920).
  12d. parallel multi-GPU on the one card, in child processes (fresh
              interpreters, never forked from this one): `torchrun --standalone
              --nproc_per_node=1 -m wavemamba_torch.pipelines.train -opt
@@ -3055,6 +3077,282 @@ def phase_data():
     return row
 
 
+SCRIPTS_DIR = os.path.join(ROOT, "build", "chip_smoke", "scripts")
+# The shipped yml whose runs a user evaluates (bf16, EMA, started from the
+# XXL3 checkpoint), cut to SCRIPTS_ITERS iterations that each save and
+# validate, on the data phase's generated set.
+SCRIPTS_YML = os.path.join(ROOT, "options", "train_wavemamba_proc_bsrgan_xxl4.yml")
+SCRIPTS_ITERS = 2
+# The side of the validation crop that cross_val_ckpts and post_train_eval
+# read: both are checked against the full-width model on the host's CPU.
+SCRIPTS_CROP = 128
+# cross_val_ckpts' XXL4 row against the same forward on the CPU, in dB.
+CROSS_VAL_DB = 0.01
+# K1's kernels a call in a trace: pass 1 and the replay (`chunk_scan`, one
+# row once normalized) and the chunk prefix.
+K1_TRACE_KERNELS = 3
+K1_PER_FORWARD = 28
+
+
+def script_cmd(name, *args):
+    """argv of `python -m wavemamba_torch.scripts.<name> *args`, as users run it."""
+    return [sys.executable, "-m", f"wavemamba_torch.scripts.{name}", *map(str, args)]
+
+
+def run_script(name, *args):
+    """Run a script to its end here (host-only scripts): (exit code, output)."""
+    r = subprocess.run(script_cmd(name, *args), cwd=ROOT, capture_output=True, text=True,
+                       env={**os.environ, "PYTHONPATH": ROOT}, timeout=300)
+    return r.returncode, r.stdout + r.stderr
+
+
+def script_launches(text):
+    """The `launches: {...}` line a script prints: its wrappers' counts."""
+    lines = [ln for ln in text.splitlines() if ln.startswith("launches: ")]
+    check(bool(lines), f"a script printed no launches line: {text[-2000:]}")
+    return json.loads(lines[-1].split(": ", 1)[1])
+
+
+def script_json(text, key):
+    """The JSON line a script prints that holds `key`."""
+    for line in text.splitlines():
+        if line.startswith("{") and f'"{key}"' in line:
+            return json.loads(line)
+    check(False, f"no {key} line in: {text[-2000:]}")
+
+
+def scripts_train_yml(dataroot):
+    """SCRIPTS_YML as a user would cut it for a short run on `dataroot`: every
+    iteration logs, saves and validates; one loader thread. Written under
+    SCRIPTS_DIR; returns its path."""
+    import yaml
+
+    from wavemamba_torch.utils.options import yaml_load
+
+    opt = json.loads(json.dumps(yaml_load(SCRIPTS_YML)))  # plain dicts for the dumper
+    opt["name"] = "scripts_run"
+    for phase in ("train", "val"):
+        opt["datasets"][phase]["dataroot_gt"] = os.path.join(dataroot, phase, "gt")
+        opt["datasets"][phase]["dataroot_lq"] = os.path.join(dataroot, phase, "input")
+    opt["datasets"]["train"]["num_worker_per_gpu"] = 1
+    opt["path"]["pretrain_network_g"] = os.path.join(ROOT, opt["path"]["pretrain_network_g"])
+    opt["train"]["total_iter"] = SCRIPTS_ITERS
+    opt["val"]["val_freq"] = 1
+    opt["logger"].update({"print_freq": 1, "save_checkpoint_freq": 1, "use_tb_logger": False})
+    path = os.path.join(SCRIPTS_DIR, "scripts_run.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(opt, f, sort_keys=False)
+    return path
+
+
+def phase_scripts(stock, smi):
+    """The ported root and measurement scripts, each run as users run it
+    (`python -m wavemamba_torch.scripts.<name>`) in a child process on the
+    card, on the data phase's generated sets, their printed lines read and
+    checked: `dataset_manifest` (write, verify, a flipped byte exits 1),
+    `merge_datasets` (the two sets, pairs summed, the merge verifies),
+    `cross_val_ckpts` (the eight shipped checkpoints; XXL4 against the same
+    forward on the CPU here), `tiled_localize` and `tiled_fidelity` (finite
+    readings), a short run of the xxl4 yml through `pipelines.train`, then
+    `eval_run_ckpts` (its numbers are the run's logged validations) and
+    `post_train_eval` (strict load; the card against the CPU), `metrics_sweep`
+    over the restored sample (the port's metrics here), `trace_topops` over
+    `utils/profiler.trace` of one 512x512 forward (K1's kernels, 28 K1 x 3),
+    and, each alone on the card, `conv1x1_sweep` (four variants, 28 K1 a
+    forward, >= FAST_VS_F32_PSNR from float32) and `chain_tune` (every band_h
+    that runs within the chain phase's bf16 tolerance of the plain chains).
+    Returns the row with the phase's K1 and K7 launches (the scripts' own
+    counts and the traced forward's)."""
+    import glob
+    import re
+    import shutil
+
+    import cv2
+
+    from wavemamba_torch.metrics import calculate_psnr, calculate_ssim
+    from wavemamba_torch.models.wavemamba import WaveMambaConfig
+    from wavemamba_torch.scripts import common
+    from wavemamba_torch.utils.img_util import imread
+
+    t0 = time.perf_counter()
+    shutil.rmtree(SCRIPTS_DIR, ignore_errors=True)
+    os.makedirs(SCRIPTS_DIR)
+    logs = os.path.join(SCRIPTS_DIR, "logs")
+    proc_a, proc_b = (os.path.join(ROOT, "build", "chip_smoke", f"proc_{t}") for t in "ab")
+    src_in, src_gt = (sorted(glob.glob(os.path.join(proc_a, "val", sub, "*.png")))[0]
+                      for sub in ("input", "gt"))
+    exp = os.path.join(SCRIPTS_DIR, "experiments", "scripts_run")
+    # The val pair's top-left SCRIPTS_CROP square, for the scripts whose
+    # checks run the full-width model on the host's CPU too.
+    small = os.path.join(SCRIPTS_DIR, "val_crop")
+    crop_in, crop_gt = (os.path.join(small, "val", sub, os.path.basename(src_in))
+                        for sub in ("input", "gt"))
+    for path, src in ((crop_in, src_in), (crop_gt, src_gt)):
+        os.makedirs(os.path.dirname(path))
+        cv2.imwrite(path, cv2.imread(src)[:SCRIPTS_CROP, :SCRIPTS_CROP])
+    # The card's scripts that need no finished run, beside a short training run.
+    first = start_children({
+        "train": [sys.executable, "-m", "wavemamba_torch.pipelines.train", "-opt",
+                  scripts_train_yml(proc_a)],
+        "cross_val_ckpts": script_cmd("cross_val_ckpts", "--val_root", small, "-n", 6),
+        "tiled_localize": script_cmd("tiled_localize", "--input", src_in),
+        "tiled_fidelity": script_cmd("tiled_fidelity", "--val_dir",
+                                     os.path.join(proc_a, "val", "input")),
+    }, logs, cwd=SCRIPTS_DIR)
+    atexit.register(stop_children, first)
+    # Meanwhile, the host-only scripts.
+    rc_w, out_w = run_script("dataset_manifest", "write", proc_a, "--generator-args",
+                             " ".join(PROC_ARGS))
+    rc_v, out_v = run_script("dataset_manifest", "verify", proc_a)
+    flipped = os.path.join(SCRIPTS_DIR, "proc_a_flipped")
+    shutil.copytree(proc_a, flipped)
+    victim = sorted(glob.glob(os.path.join(flipped, "val", "gt", "*.png")))[0]
+    with open(victim, "r+b") as f:
+        f.seek(100)
+        byte = f.read(1)
+        f.seek(100)
+        f.write(bytes([byte[0] ^ 1]))
+    rc_f, out_f = run_script("dataset_manifest", "verify", flipped)
+    n_files = len(json.load(open(os.path.join(proc_a, "MANIFEST.json")))["files"])
+    manifest_row = {"files": n_files, "write": out_w.strip(), "verify": out_v.strip(),
+                    "flipped_exit": rc_f, "flipped": out_f.strip()}
+    check(rc_w == 0 and rc_v == 0 and out_v.startswith(f"ok: {n_files} files") and n_files == 34,
+          f"dataset_manifest write / verify: {manifest_row}")
+    check(rc_f == 1 and out_f.startswith("FAIL: 1 modified, 0 missing"),
+          f"dataset_manifest catches a flipped byte: {manifest_row}")
+    merged = os.path.join(SCRIPTS_DIR, "merged")
+    rc_m, out_m = run_script("merge_datasets", proc_a, proc_b, "--out", merged)
+    rc_mv, out_mv = run_script("dataset_manifest", "verify", merged)
+    pairs = {d: len(os.listdir(os.path.join(d, "train", "gt"))) for d in (proc_a, proc_b, merged)}
+    merge_row = {"pairs": list(pairs.values()), "verify": out_mv.strip(), "exit": [rc_m, rc_mv]}
+    check(rc_m == 0 and rc_mv == 0 and pairs[merged] == pairs[proc_a] + pairs[proc_b]
+          and len(os.listdir(os.path.join(merged, "train", "input"))) == pairs[merged]
+          and out_mv.startswith(f"ok: {2 * pairs[merged]} files"), f"merge_datasets: {merge_row} {out_m}")
+    # cross_val_ckpts' XXL4 row, here on the CPU: the same forward and PSNR
+    t_cpu = time.perf_counter()
+    cpu_model = common.load_model(CKPT, WaveMambaConfig(), "cpu")
+    images = [(common.read_rgb(crop_in), common.read_rgb(crop_gt))]
+    xxl4_cpu_db = float(np.mean([common.psnr(np.clip(common.restore(cpu_model, x), 0, 1), g)
+                                 for x, g in images]))
+    cpu_s = time.perf_counter() - t_cpu
+    del cpu_model
+    outs = wait_children(first, timeout=600)
+    texts = {name: text for name, (_, text) in outs.items()}
+    seconds = {name: s for name, (s, _) in outs.items()}
+    cross = {m.group(1): float(m.group(2)) for m in
+             re.finditer(r"ckpt (\d+): PSNR ([-+\w.]+) dB \(n=\d+\)", texts["cross_val_ckpts"])}
+    cross_row = {"psnr_db": cross, "xxl4_cpu_db": xxl4_cpu_db, "cpu_s": cpu_s, "images": len(images),
+                 "xxl4_abs_db": abs(cross.get("011", float("nan")) - xxl4_cpu_db), "tol_db": CROSS_VAL_DB}
+    check(len(cross) == 8 and all(np.isfinite(v) for v in cross.values())
+          and cross_row["xxl4_abs_db"] <= CROSS_VAL_DB, f"cross_val_ckpts: {cross_row}")
+    local = {int(m.group(1)): [float(v) for v in m.groups()[1:]] for m in re.finditer(
+        r"tile=(\d+): PSNR ([-+\w.]+) dB  mean\|d\| seam-band ([-+\w.]+) vs interior ([-+\w.]+)",
+        texts["tiled_localize"])}
+    check(sorted(local) == [64, 128] and np.isfinite(list(local.values())).all(),
+          f"tiled_localize: {local} {texts['tiled_localize'][-1500:]}")
+    fidelity = script_json(texts["tiled_fidelity"], "tiled_fidelity")["tiled_fidelity"]
+    check(fidelity["finite"] and all(np.isfinite(fidelity[k]) for k in ("psnr", "max_abs")),
+          f"tiled_fidelity: {fidelity}")
+    logged = {}
+    for log in glob.glob(os.path.join(exp, "train_*.log")):
+        with open(log) as f:
+            for m in re.finditer(r"Validation @ iter (\d+) \([\d.]+s\): psnr: ([-\d.]+), ssim: ([-\d.]+)",
+                                 f.read()):
+                logged.setdefault(int(m.group(1)), (m.group(2), m.group(3)))
+    check(sorted(logged) == list(range(1, SCRIPTS_ITERS + 1)),
+          f"the run validated at every iteration: {logged} {texts['train'][-1500:]}")
+
+    # The run's checkpoints; the trace of one forward, here.
+    x = torch.from_numpy((np.random.RandomState(131).rand(1, 512, 512, 3) * 0.12)
+                         .astype(np.float32)).cuda()
+    trace_dir = os.path.join(SCRIPTS_DIR, "trace")
+    _, _, traced, sessions = trace_forward(stock, x, trace_dir)
+    samples, exported = os.path.join(SCRIPTS_DIR, "samples"), os.path.join(SCRIPTS_DIR, "exported.pth")
+    second = run_children({
+        "eval_run_ckpts": script_cmd("eval_run_ckpts", exp, "--root", SCRIPTS_DIR, "--work_dir",
+                                     os.path.join(SCRIPTS_DIR, "eval_work")),
+        "post_train_eval": script_cmd("post_train_eval", "--exp", exp, "--out", exported, "--val",
+                                      os.path.join(small, "val"), "--n-samples", 1, "--prefix",
+                                      "scripts", "--samples_dir", samples),
+        "trace_topops": script_cmd("trace_topops", trace_dir, "--top", 0),
+    }, logs, timeout=600, cwd=SCRIPTS_DIR)
+    for name, (s, text) in second.items():
+        texts[name], seconds[name] = text, s
+    evaluated = {m.group(1): (m.group(2), m.group(3)) for m in re.finditer(
+        r"^(net_g(?:_ema)?_\d+): psnr=([-\d.]+), ssim=([-\d.]+)", texts["eval_run_ckpts"], re.M)}
+    pairs_ev = {it: (evaluated.get(f"net_g_ema_{it}"), logged[it]) for it in logged}
+    eval_row = {"labels": sorted(evaluated), "ema_vs_logged": pairs_ev,
+                "same_digits": all(a == b for a, b in pairs_ev.values()),
+                "best": [ln for ln in texts["eval_run_ckpts"].splitlines() if ln.startswith("BEST by")]}
+    check(len(evaluated) == 2 * SCRIPTS_ITERS and eval_row["best"]
+          and all(a is not None and max(abs(float(p) - float(q)) for p, q in zip(a, b)) <= 1e-4
+                  for a, b in pairs_ev.values()),
+          f"eval_run_ckpts gives the run's logged validations: {eval_row}")
+    post = texts["post_train_eval"]
+    m = re.search(r"img0: \w+ vs cpu max\|d\|=([-+\w.]+)", post)
+    post_row = {"strict_load": "strict load ok" in post, "max_abs_vs_cpu": float(m.group(1)) if m else None,
+                "atol": MODEL_ATOL, "exported": os.path.exists(exported)}
+    check(post_row["strict_load"] and post_row["exported"] and post_row["max_abs_vs_cpu"] is not None
+          and post_row["max_abs_vs_cpu"] <= MODEL_ATOL, f"post_train_eval: {post_row} {post[-1500:]}")
+    rows_t = [ln.split() for ln in texts["trace_topops"].splitlines()
+              if ln.endswith("%") and len(ln.split()) == 4]
+    k1_calls = sum(int(r[2]) for r in rows_t if r[0] in ("chunk_scan", "chunk_prefix"))
+    want_calls = K1_TRACE_KERNELS * (traced // sessions)
+    trace_row = {"rows": len(rows_t), "k1_kernel_calls": k1_calls, "want": want_calls,
+                 "k1_rows": [r for r in rows_t if r[0].startswith("chunk_")], "top": rows_t[:5],
+                 "k1_launches": traced, "sessions": sessions,
+                 "short_profile": k1_calls < want_calls,
+                 "total": [ln for ln in texts["trace_topops"].splitlines() if "total device" in ln]}
+    check(0 < k1_calls <= want_calls and want_calls == K1_TRACE_KERNELS * K1_PER_FORWARD,
+          f"trace_topops finds K1's kernels: {trace_row} {texts['trace_topops'][-1500:]}")
+    # metrics_sweep over the restored sample against its GT, and the same metrics here
+    name = os.path.basename(crop_gt)
+    for sub, src in (("pred", os.path.join(samples, "scripts_00_restored.png")), ("gt", crop_gt)):
+        os.makedirs(os.path.join(SCRIPTS_DIR, "sweep", sub))
+        shutil.copy(src, os.path.join(SCRIPTS_DIR, "sweep", sub, name))
+    rc_s, out_s = run_script("metrics_sweep", "-p", os.path.join(SCRIPTS_DIR, "sweep", "pred"),
+                             "-g", os.path.join(SCRIPTS_DIR, "sweep", "gt"), "-m", "psnr", "ssim",
+                             "-o", os.path.join(SCRIPTS_DIR, "sweep", "metrics.csv"))
+    swept = {m.group(1): float(m.group(2)) for m in re.finditer(r"Average (\w+): ([-\d.]+)", out_s)}
+    pred, gt = (imread(os.path.join(SCRIPTS_DIR, "sweep", sub, name)) for sub in ("pred", "gt"))
+    here = {"psnr": calculate_psnr(pred, gt, crop_border=0, test_y_channel=False),
+            "ssim": calculate_ssim(pred, gt, crop_border=0, test_y_channel=False)}
+    sweep_row = {"sweep": swept, "here": here}
+    check(rc_s == 0 and sorted(swept) == ["psnr", "ssim"]
+          and all(abs(swept[k] - here[k]) <= 1e-6 for k in here), f"metrics_sweep: {sweep_row} {out_s}")
+
+    # The measurements, each alone on the card.
+    # five forwards a timed rep (the script's default is JAX's ten)
+    third = run_children({"conv1x1_sweep": script_cmd("conv1x1_sweep", "--iters", 5)}, logs,
+                         timeout=600)
+    third.update(run_children({"chain_tune": script_cmd("chain_tune")}, logs, timeout=600))
+    for name, (s, text) in third.items():
+        texts[name], seconds[name] = text, s
+    sweep = script_json(texts["conv1x1_sweep"], "conv1x1_sweep")["conv1x1_sweep"]
+    check(len(sweep) == 4 and all(r["finite"] and r["k1_per_forward"] == K1_PER_FORWARD
+                                  and r["psnr_vs_float32"] >= FAST_VS_F32_PSNR for r in sweep),
+          f"conv1x1_sweep: {sweep}")
+    tune = script_json(texts["chain_tune"], "chain_tune")
+    tol = lambda e: (e["vs_plain"]["share_beyond_step"] <= 1.0 - CHAIN_TIGHT_SHARE  # noqa: E731
+                     and e["vs_plain"]["excess_over_step"] <= CHAIN_LOOSE_REL)
+    check(all("fail" not in r["band"]["16"] for r in tune["chain_tune"])
+          and all(tol(e) for r in tune["chain_tune"] for e in r["band"].values() if "fail" not in e)
+          and all("ms" in f for f in tune["forward"].values()),
+          f"chain_tune: {tune}")
+    counts = {name: script_launches(texts[name]) for name in texts  # the scripts on the card
+              if name not in ("train", "trace_topops")}
+    row = {"phase": "scripts", "smi": smi, "manifest": manifest_row, "merge": merge_row,
+           "cross_val_ckpts": cross_row, "tiled_localize": local, "tiled_fidelity": fidelity,
+           "eval_run_ckpts": eval_row, "post_train_eval": post_row, "trace_topops": trace_row,
+           "metrics_sweep": sweep_row, "conv1x1_sweep": sweep, "chain_tune": tune,
+           "launches_by_script": counts, "child_s": seconds,
+           "k1_launches": traced + sum(c["K1"] for c in counts.values()),
+           "k7_launches": sum(c["K7"] for c in counts.values()),
+           "phase_s": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
 PARALLEL_DIR = os.path.join(ROOT, "build", "chip_smoke", "parallel")
 # Steps of the NCCL child's bit check and of the two gloo ranks' check, and
 # timed steps each of the grouped and the ungrouped trainer, in turns whose
@@ -3698,6 +3996,36 @@ def _small_disc():
         torch.nn.Conv2d(128, 1, 3, padding=1)), 111)
 
 
+def trace_forward(model, x, trace_dir):
+    """`utils/profiler.trace` around one forward of `model` on `x` (annotated
+    'wavemamba_forward') into `trace_dir` (emptied first); a session that
+    recorded none of K1's kernels (CUPTI may drop a session's records) is
+    taken again, up to PROFILE_SESSIONS times. Returns
+    (the trace's files, its events, K1's launches as the wrapper counted them
+    over every session, sessions)."""
+    import shutil
+
+    from wavemamba_torch.models.wavemamba import wavemamba_apply
+    from wavemamba_torch.ops import scan_cuda
+    from wavemamba_torch.utils import profiler
+
+    wavemamba_apply(model, x)
+    traced = 0
+    for sessions in range(1, PROFILE_SESSIONS + 1):  # a session may record no device event
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        before = scan_cuda.ss2d_scan_pair.launches
+        with profiler.trace(trace_dir):
+            with profiler.annotate("wavemamba_forward"):
+                wavemamba_apply(model, x)
+        traced += scan_cuda.ss2d_scan_pair.launches - before
+        files = os.listdir(trace_dir)
+        with open(os.path.join(trace_dir, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+        if any(e.get("cat") == "kernel" and "chunk_scan" in e.get("name", "") for e in events):
+            break
+    return files, events, traced, sessions
+
+
 def phase_secondary(stock, smi):
     """The secondary pieces on the card, each against the CPU on the same
     inputs and weights: the VGG19 perceptual and style losses at batch 8 of
@@ -3709,14 +4037,10 @@ def phase_secondary(stock, smi):
     forward's)."""
     import copy
     import re
-    import shutil
 
     from wavemamba_torch.losses import gradient_penalty_loss, r1_penalty
     from wavemamba_torch.metrics.lpips import LPIPS, lpips
     from wavemamba_torch.models.vgg import VGG19, perceptual_loss
-    from wavemamba_torch.models.wavemamba import wavemamba_apply
-    from wavemamba_torch.ops import scan_cuda
-    from wavemamba_torch.utils import profiler
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -3787,23 +4111,10 @@ def phase_secondary(stock, smi):
     # utils/profiler.trace around one forward: K1's kernels by name in the trace
     trace_dir = os.path.join(ROOT, "build", "chip_smoke", "trace")
     x = torch.from_numpy((rs.rand(1, 512, 512, 3) * 0.12).astype(np.float32)).cuda()
-    wavemamba_apply(stock, x)
-    k1_names, traced, sessions = [], 0, 0
-    for sessions in range(1, PROFILE_SESSIONS + 1):  # a session may record no device event
-        shutil.rmtree(trace_dir, ignore_errors=True)
-        before = scan_cuda.ss2d_scan_pair.launches
-        with profiler.trace(trace_dir):
-            with profiler.annotate("wavemamba_forward"):
-                wavemamba_apply(stock, x)
-        traced += scan_cuda.ss2d_scan_pair.launches - before
-        files = os.listdir(trace_dir)
-        with open(os.path.join(trace_dir, files[0])) as f:
-            events = json.load(f)["traceEvents"]
-        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
-        k1_names = sorted({m.group(0) for m in map(re.compile(r"chunk_(scan|prefix)(<[^>]*>)?")
-                                                   .search, kernels) if m})
-        if kernels:
-            break
+    files, events, traced, sessions = trace_forward(stock, x, trace_dir)
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k1_names = sorted({m.group(0) for m in map(re.compile(r"chunk_(scan|prefix)(<[^>]*>)?")
+                                               .search, kernels) if m})
     trace_row = {"files": files, "kernels": len(kernels), "k1_kernel_names": k1_names,
                  "k1_kernels_in_trace": sum("chunk_scan" in n or "chunk_prefix" in n
                                             for n in kernels),
@@ -4392,6 +4703,7 @@ def main():
     train_mixed = phase_train_yml("train_mixed")
     phase_device_cache()
     data = phase_data()
+    scripts = phase_scripts(model, smi)
     par = phase_parallel(model, smi)
     phase_art(smi)
     secondary = phase_secondary(model, smi)
@@ -4458,7 +4770,8 @@ def main():
         "replaces": "wavemamba_tpu/ops/scan_pallas.py:705",
         "launches": launches + train_k1 + fast["launches"] + train_fast["k1_launches"]
         + fast_fused["k1_launches"] + train_mixed["k1_launches"] + data["train"]["k1_launches"]
-        + deploy["k1_launches"] + par["k1_launches"] + secondary["k1_launches"],
+        + deploy["k1_launches"] + par["k1_launches"] + secondary["k1_launches"]
+        + scripts["k1_launches"],
         "launches_serve": launches, "launches_train": train_k1,
         "launches_train_by_policy": {str(p): r["k1_launches"] for p, r in runs.items()},
         "launches_serve_fast": fast["launches"], "launches_train_fast": train_fast["k1_launches"],
@@ -4468,6 +4781,7 @@ def main():
         "launches_deploy": deploy["k1_launches"],
         "launches_parallel": par["k1_launches"],
         "launches_secondary": secondary["k1_launches"],
+        "launches_scripts": scripts["k1_launches"],
         "launches_deploy_mesh": deploy["mesh_tiles"]["k1_launches"],
         "launches_parallel_note": "child processes of the parallel phase: the NCCL rank's "
                                   "grouped steps, two gloo ranks' steps and sharded tiles",
@@ -4475,6 +4789,10 @@ def main():
                                 "a replay (a replay does not pass through the wrapper's count); "
                                 "with the sharded tile program's two ranks (child processes)",
         "launches_secondary_note": "the forward traced by utils/profiler.trace",
+        "launches_scripts_note": "the scripts phase's child processes as each script counted them "
+                                 "(cross_val_ckpts, tiled_localize, tiled_fidelity, eval_run_ckpts, "
+                                 "post_train_eval, conv1x1_sweep, chain_tune) and its traced "
+                                 "forward; not its pipelines.train child's",
         "variants": "x and y float32; both bfloat16 on the fast paths; bfloat16 x with float32 y "
                     "on the proc ymls' path (train_mixed)",
         "max_abs_err": errs["K1"]["max_abs_err"],
@@ -4576,8 +4894,10 @@ def main():
         "bf16": chain_bf16("k6_ms")}, {
         "name": "fused_chain_band (K7)", "route": "cuda", "source": "wavemamba_torch/csrc/conv_chain.cu",
         "replaces": "wavemamba_tpu/experimental/conv_fused.py:403",
-        "launches": fused["launches"] + fast_fused["launches"],
+        "launches": fused["launches"] + fast_fused["launches"] + scripts["k7_launches"],
         "launches_serve_fused": fused["launches"], "launches_serve_fast_fused": fast_fused["launches"],
+        "launches_scripts": scripts["k7_launches"],
+        "launches_scripts_note": "chain_tune's band_h sweep and its fast(conv_impl='fused') forwards",
         "shape": "paconv_chain " + "x".join(map(str, pac["shape"])),
         "max_abs_err": chain_err("max_abs_err", "float32"),
         "max_rel_err": chain_err("max_rel_err", "float32"),

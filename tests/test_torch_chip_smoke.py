@@ -5,6 +5,7 @@ and the profile's readings."""
 
 import importlib.util
 import json
+import os
 import pathlib
 
 import pytest
@@ -304,3 +305,39 @@ cs.main()
     assert proc.returncode != 0
     assert "check failed: child gloo_rank1 exited 5" in proc.stderr
     assert '"ok": true' not in proc.stdout
+
+
+def test_scripts_phase_is_on_the_main_path():
+    """`main` runs the scripts phase after the data phase (whose generated
+    sets the scripts read) and before the parallel phase, and adds its K1
+    launches to K1's and its K7 launches to K7's entry of the `kernels` line."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index("phase_data()") < src.index("phase_scripts(") < src.index("phase_parallel(")
+    assert '+ scripts["k1_launches"]' in src and '+ scripts["k7_launches"]' in src
+    phase = inspect.getsource(chip_smoke.phase_scripts)
+    for name in ("dataset_manifest", "merge_datasets", "metrics_sweep", "trace_topops",
+                 "cross_val_ckpts", "tiled_localize", "eval_run_ckpts", "post_train_eval",
+                 "conv1x1_sweep", "tiled_fidelity", "chain_tune"):
+        assert f'"{name}"' in phase, name
+    assert chip_smoke.script_cmd("cross_val_ckpts", "-n", 6)[1:] == [
+        "-m", "wavemamba_torch.scripts.cross_val_ckpts", "-n", "6"]
+
+
+def test_scripts_phase_trains_the_xxl4_yml_cut_short(tmp_path, monkeypatch):
+    """The scripts phase's run is the xxl4 yml on the generated set, cut to
+    SCRIPTS_ITERS iterations that each log, save and validate, started from
+    the yml's pretrained checkpoint; every other training setting as the yml
+    has it."""
+    monkeypatch.setattr(chip_smoke, "SCRIPTS_DIR", str(tmp_path))
+    got = yaml_load(chip_smoke.scripts_train_yml(str(tmp_path / "proc")))
+    want = yaml_load(chip_smoke.SCRIPTS_YML)
+    assert got["train"]["total_iter"] == chip_smoke.SCRIPTS_ITERS == 2
+    assert got["val"]["val_freq"] == 1 and got["logger"]["save_checkpoint_freq"] == 1
+    assert got["datasets"]["val"]["dataroot_lq"] == str(tmp_path / "proc" / "val" / "input")
+    assert got["path"]["pretrain_network_g"] == str(REPO / want["path"]["pretrain_network_g"])
+    assert os.path.exists(got["path"]["pretrain_network_g"])
+    assert got["train"]["ema_decay"] == want["train"]["ema_decay"] > 0  # the run saves net_g_ema_*
+    assert json.loads(json.dumps(got["network_g"])) == json.loads(json.dumps(want["network_g"]))
+    assert json.loads(json.dumps(got["val"]["metrics"])) == json.loads(json.dumps(want["val"]["metrics"]))

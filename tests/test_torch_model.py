@@ -236,9 +236,8 @@ def test_unfused_scan_can_be_rerouted():
 
 def test_network_g_keys_are_honoured_or_refused():
     """The factory's one rule: config fields are honoured (the bf16 dtypes
-    among them), the JAX package's other execution knobs pass at the values
-    the port runs and raise naming their ROADMAP item otherwise, anything else
-    is a KeyError."""
+    and every execution knob of the JAX package among them), anything else is
+    a KeyError."""
     from wavemamba_torch.models import config_from_opt
 
     base = {"type": "WaveMamba", "wf": 16, "n_l_blocks": [1, 1, 1], "n_h_blocks": [1, 1, 1]}
@@ -250,9 +249,12 @@ def test_network_g_keys_are_honoured_or_refused():
     assert config_from_opt({**base, "conv_impl": "fused"}).conv_impl == "fused"  # inference only
     bf16 = config_from_opt({**base, "compute_dtype": "bfloat16", "scan_dtype": "bfloat16"})
     assert (bf16.compute_dtype, bf16.scan_dtype) == ("bfloat16", "bfloat16")
-    for key, value, match in [("conv1x1_as_conv", ["ffn"], "item 15")]:
-        with pytest.raises(NotImplementedError, match=match):
-            config_from_opt({**base, key: value})
+    # conv1x1_as_conv (item 15) is a field with the JAX package's meaning: carried as a tuple
+    for value in (["ffn"], ["ffn", "hfe"]):
+        assert config_from_opt({**base, "conv1x1_as_conv": value}).conv1x1_as_conv == tuple(value)
+    assert config_from_opt(base).conv1x1_as_conv == tuple(jwm.WaveMambaConfig().conv1x1_as_conv)
+    with pytest.raises(ValueError, match="conv1x1_as_conv"):
+        config_from_opt({**base, "conv1x1_as_conv": ["ffm"]})
     # the sequence-sharded scan and its mesh fields are the JAX package's fields
     seq = config_from_opt({**base, "scan_impl": "seq_sharded", "scan_mesh": None,
                            "scan_mesh_axis": "data"})

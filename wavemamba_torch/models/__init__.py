@@ -11,12 +11,11 @@ One rule for every key of a `network_g` dict, whoever passes it (the inference
 CLI, the trainer, the yml pipelines): a field of the arch's config is honoured
 (for WaveMamba the architecture, `scan_impl`, `scan_chunk`, `scan_sub`,
 `scan_mesh`, `scan_mesh_axis`, `remat`, `remat_policy`, `conv_impl`,
-`compute_dtype`, `scan_dtype`; for ART its `ARTConfig` fields); an execution
-knob of the JAX package that the port does not run yet is accepted at the
-value of the path the port does run and raises `NotImplementedError`, naming
-where it waits in ROADMAP.md, at any other; any other key raises `KeyError`.
-Nothing is dropped silently (the JAX package's ART factory drops unknown
-keys; the execution knobs `remat`, `scan_impl`, ... are WaveMamba's only).
+`compute_dtype`, `scan_dtype`, `conv1x1_as_conv`; for ART its `ARTConfig`
+fields); any other key raises `KeyError`. Every execution knob of the JAX
+package is a field of the port's config. Nothing is dropped silently (the JAX
+package's ART factory drops unknown keys; the execution knobs `remat`,
+`scan_impl`, ... are WaveMamba's only).
 
 `conv_impl: fused` is inference only, as in the JAX package (its chains have no
 VJP): `build_network` and `init_network(..., train=False)` build it, and a
@@ -46,13 +45,6 @@ from wavemamba_torch.models.wavemamba import (
 )
 
 
-# The JAX package's execution knobs that the port does not run yet: the values
-# it accepts (what the port does anyway) and where the others wait.
-_NOT_PORTED = {
-    "conv1x1_as_conv": (((), []), "queue 1, item 15 (a TPU layout policy for the 1x1 convs)"),
-}
-
-
 _ARCHS = {}
 
 
@@ -67,18 +59,12 @@ def register_arch(name):
 
 def _strict_fields(config_type, opt: dict) -> dict:
     """The keys of `opt` that are fields of `config_type` (lists as tuples);
-    an execution knob the port does not run raises at any value but the
-    one it runs, any other key raises `KeyError`."""
+    any other key raises `KeyError`."""
     known = {f.name for f in dataclasses.fields(config_type)}
     kw = {}
     for key, value in opt.items():
         if key in known:
             kw[key] = tuple(value) if isinstance(value, list) else value
-        elif key in _NOT_PORTED and config_type is WaveMambaConfig:
-            accepted, where = _NOT_PORTED[key]
-            if value not in accepted:
-                raise NotImplementedError(f"network_g.{key}={value!r} is not ported: it waits "
-                                          f"for ROADMAP {where}; the port runs {accepted[0]!r}")
         else:
             raise KeyError(f"unknown network_g key {key!r} for {config_type.__name__}")
     return kw

@@ -31,10 +31,11 @@ does: parameters stay float32 and each conv, linear, PReLU slope, skip scale
 and attention temperature is cast to the activation's dtype (`ops/nn.py`);
 LayerNorm keeps float32 statistics, the channel matching float32 distances,
 the scans float32 parameters and state; the Haar DWT and the pixel-unshuffle
-pyramid take their conv forms (`dwt2_conv`, `_ps_down`), as in the JAX
-model. `scan_dtype` is the dtype of the scans' y: bf16 y is summed over the
-directions in bf16. `WaveMamba.forward` casts the input to `compute_dtype`
-and the output back. `WaveMambaConfig.fast()` and its siblings are the JAX
+pyramid take their conv forms (`dwt2_conv`, `_ps_down`), and every 1x1
+conv outside the regions that `conv1x1_as_conv` names is a token matmul, as
+in the JAX model. `scan_dtype` is the dtype of the scans' y: bf16 y is
+summed over the directions in bf16. `WaveMamba.forward` casts the input to
+`compute_dtype` and the output back. `WaveMambaConfig.fast()` and its siblings are the JAX
 package's presets.
 
 With `cfg.remat` every LFSS and HFE block runs under
@@ -81,6 +82,7 @@ _ROWS, _COLS = [0, 2], [1, 3]  # direction pairs: row-major and column-major fwd
 SCAN_IMPLS = ("pallas_fused", "pallas", "chunked", "par", "ref", "seq_sharded")
 CONV_IMPLS = ("xla", "fused")
 REMAT_POLICIES = ("save_scan", "full")
+CONV1X1_REGIONS = ("ffn", "hfe")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -134,6 +136,11 @@ class WaveMambaConfig:
     # `scan_dtype`.
     compute_dtype: str = "float32"
     scan_dtype: str = "float32"
+    # Regions whose 1x1 convs stay convs off float32 ('ffn': the LFSS FFN's
+    # conv1 / conv3; 'hfe': the HFE blocks' qkv, PAConv k2 and FeedForward
+    # 1x1s). Every other 1x1 conv lowers to a token matmul there, as the JAX
+    # package's `conv2d` does (`ops/nn.py:Conv2d`); float32 keeps the convs.
+    conv1x1_as_conv: Sequence[str] = ()
 
     @classmethod
     def fast(cls, **kw):
@@ -179,6 +186,10 @@ class WaveMambaConfig:
         for key in ("compute_dtype", "scan_dtype"):
             if getattr(self, key) not in DTYPES:
                 raise ValueError(f"unknown {key} {getattr(self, key)!r}; known: {tuple(DTYPES)}")
+        regions = self.conv1x1_as_conv
+        if isinstance(regions, str) or not set(regions) <= set(CONV1X1_REGIONS):
+            raise ValueError(f"conv1x1_as_conv takes a list of regions out of {CONV1X1_REGIONS}, "
+                             f"got {regions!r}")
 
     @property
     def d_inner(self) -> int:
@@ -305,12 +316,12 @@ class SS2D(nn.Module):
 class FFN(nn.Module):
     """NAFNet-style gated FFN (`ffn`)."""
 
-    def __init__(self, c, expand=2):
+    def __init__(self, c, expand=2, as_conv=False):
         super().__init__()
         dw = c * expand
-        self.conv1 = Conv2d(c, dw, 1)
+        self.conv1 = Conv2d(c, dw, 1, as_conv=as_conv)
         self.conv2 = Conv2d(dw, dw, 3, padding=1, groups=dw)
-        self.conv3 = Conv2d(dw // 2, c, 1)
+        self.conv3 = Conv2d(dw // 2, c, 1, as_conv=as_conv)
 
     def forward(self, x):
         y1, y2 = self.conv2(self.conv1(x)).chunk(2, dim=1)
@@ -325,7 +336,7 @@ class LFSSBlock(nn.Module):
         self.self_attention = SS2D(cfg)
         self.skip_scale = nn.Parameter(torch.ones(c))
         self.ln_2 = LayerNorm(c, eps=1e-5)
-        self.conv_blk = FFN(c)
+        self.conv_blk = FFN(c, as_conv="ffn" in cfg.conv1x1_as_conv)
         self.skip_scale2 = nn.Parameter(torch.ones(c))
         self.conv_fused = cfg.conv_impl == "fused"
 
@@ -351,9 +362,9 @@ def matching(x, perc):
 
 
 class PAConv(nn.Module):
-    def __init__(self, nf, conv_fused=False):
+    def __init__(self, nf, conv_fused=False, as_conv=False):
         super().__init__()
-        self.k2 = Conv2d(nf, nf, 1)
+        self.k2 = Conv2d(nf, nf, 1, as_conv=as_conv)
         self.k3 = Conv2d(nf, nf, 3, padding=1, bias=False)
         self.k4 = Conv2d(nf, nf // 2, 3, padding=1, bias=False)
         self.conv_fused = conv_fused
@@ -365,9 +376,9 @@ class PAConv(nn.Module):
 
 
 class MatchingTransformation(nn.Module):
-    def __init__(self, c, conv_fused=False):
+    def __init__(self, c, conv_fused=False, as_conv=False):
         super().__init__()
-        self.paconv = PAConv(2 * c, conv_fused)
+        self.paconv = PAConv(2 * c, conv_fused, as_conv)
 
     def forward(self, x, perc):
         return self.paconv(torch.cat([x, matching(x, perc)], dim=1))
@@ -376,14 +387,15 @@ class MatchingTransformation(nn.Module):
 class CMTAttention(nn.Module):
     """Transposed (channel) attention with perception-matched queries."""
 
-    def __init__(self, c, num_heads=1, conv_fused=False):
+    def __init__(self, c, num_heads=1, conv_fused=False, as_conv=False):
         super().__init__()
         self.num_heads = num_heads
         self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1))
-        self.qkv = Conv2d(c, 3 * c, 1)
+        self.qkv = Conv2d(c, 3 * c, 1, as_conv=as_conv)
         self.qkv_dwconv = Conv2d(3 * c, 3 * c, 3, padding=1, groups=3 * c)
+        # its input comes from the attention's product: a matmul in any region
         self.project_out = Conv2d(c, c, 1)
-        self.matching_transformation = MatchingTransformation(c, conv_fused)
+        self.matching_transformation = MatchingTransformation(c, conv_fused, as_conv)
         self.conv_fused = conv_fused
 
     def forward(self, x, perc, ln=None):
@@ -402,12 +414,13 @@ class CMTAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, c, conv_fused=False):
+    def __init__(self, c, conv_fused=False, as_conv=False):
         super().__init__()
-        self.project_in = nn.Sequential(Conv2d(c, c, 1), Conv2d(c, c, 3, padding=1, groups=c))
-        self.matching_transformation = MatchingTransformation(c, conv_fused)
+        self.project_in = nn.Sequential(Conv2d(c, c, 1, as_conv=as_conv),
+                                        Conv2d(c, c, 3, padding=1, groups=c))
+        self.matching_transformation = MatchingTransformation(c, conv_fused, as_conv)
         self.project_out = nn.Sequential(Conv2d(c, c, 3, padding=1, groups=c), nn.GELU(),
-                                         Conv2d(c, c, 1))
+                                         Conv2d(c, c, 1, as_conv=as_conv))
         self.conv_fused = conv_fused
 
     def forward(self, x, perc, ln=None):
@@ -435,13 +448,17 @@ class FeedForwardRestormer(nn.Module):
 
 
 class HFEBlock(nn.Module):
-    def __init__(self, c, ffn_restormer=False, conv_fused=False):
+    """`as_conv`: the 'hfe' region of `conv1x1_as_conv` (the Restormer FFN's
+    1x1s stay matmuls off float32, as in the JAX model)."""
+
+    def __init__(self, c, ffn_restormer=False, conv_fused=False, as_conv=False):
         super().__init__()
         self.norm1 = LayerNorm(c, eps=1e-6)
-        self.attn = CMTAttention(c, conv_fused=conv_fused)
+        self.attn = CMTAttention(c, conv_fused=conv_fused, as_conv=as_conv)
         self.norm2 = LayerNorm(c, eps=1e-6)
         self.LayerNorm = LayerNorm(c, eps=1e-6)
-        self.ffn = FeedForwardRestormer(c, conv_fused=conv_fused) if ffn_restormer else FeedForward(c, conv_fused)
+        self.ffn = (FeedForwardRestormer(c, conv_fused=conv_fused) if ffn_restormer
+                    else FeedForward(c, conv_fused, as_conv))
         self.conv_fused = conv_fused
 
     def forward(self, x, perc):
@@ -508,7 +525,8 @@ class DownFRG(nn.Module):
         self.l_blk = nn.ModuleList(LFSSBlock(cfg) for _ in range(n_l))
         self.h_fusion = SKFF(c)
         self.conv_fused = cfg.conv_impl == "fused"
-        self.h_blk = nn.ModuleList(HFEBlock(c, cfg.ffn_restormer, self.conv_fused) for _ in range(n_h))
+        self.h_blk = nn.ModuleList(HFEBlock(c, cfg.ffn_restormer, self.conv_fused,
+                                            "hfe" in cfg.conv1x1_as_conv) for _ in range(n_h))
         # bf16 takes the conv form of the DWT, as the JAX model does: the two
         # round differently.
         self.haar = dwt2 if cfg.compute_dtype == "float32" else dwt2_conv
@@ -532,7 +550,8 @@ class UpFRG(nn.Module):
         self.l_blk = nn.ModuleList(LFSSBlock(cfg) for _ in range(n_l))
         self.h_out_conv = Conv2d(c, 3 * c, 3, padding=1)
         self.conv_fused = cfg.conv_impl == "fused"
-        self.h_blk = nn.ModuleList(HFEBlock(c, cfg.ffn_restormer, self.conv_fused) for _ in range(n_h))
+        self.h_blk = nn.ModuleList(HFEBlock(c, cfg.ffn_restormer, self.conv_fused,
+                                            "hfe" in cfg.conv1x1_as_conv) for _ in range(n_h))
 
     def forward(self, x_l, x_h):
         for blk in self.l_blk:

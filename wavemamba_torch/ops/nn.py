@@ -5,7 +5,8 @@ The port keeps the reference's NCHW layout inside the model, so most of the
 JAX module maps onto stock modules and functions, each held against its JAX
 counterpart by `tests/test_torch_ops.py`:
 
-    conv2d (HWIO, NHWC)     -> nn.Conv2d (OIHW, NCHW; groups, padding)
+    conv2d (HWIO, NHWC)     -> nn.Conv2d (OIHW, NCHW; groups, padding), and
+                               off float32 a 1x1 as a token matmul (`Conv2d`)
     linear ((in, out))      -> nn.Linear ((out, in))
     gelu (exact erf), silu  -> F.gelu, F.silu
     prelu (one slope)       -> nn.PReLU()
@@ -48,10 +49,31 @@ def layer_norm(x, weight, bias, eps=1e-5, dim=-1):
 
 
 class Conv2d(nn.Conv2d):
-    """`nn.Conv2d` whose weight and bias take the input's dtype."""
+    """`nn.Conv2d` whose weight and bias take the input's dtype.
+
+    The JAX module's lowering rule: on an input that is not float32, a 1x1
+    conv with stride 1, one group and no padding is a token matmul, the
+    weight (Cout, Cin) times x (B, Cin, H*W) in x's dtype, then the bias added
+    in that dtype, unless `as_conv` opts the call site out (the JAX config's
+    `conv1x1_as_conv` regions). float32 keeps the conv, as there."""
+
+    def __init__(self, *args, as_conv=False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.as_conv = as_conv
+
+    def lowers_to_matmul(self, x) -> bool:
+        return (x.dtype != torch.float32 and not self.as_conv and self.kernel_size == (1, 1)
+                and self.stride == (1, 1) and self.groups == 1
+                and self.padding in ((0, 0), "valid", "same"))
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
+        if self.lowers_to_matmul(x):
+            b, _, h, w = x.shape
+            y = torch.matmul(self.weight.to(x.dtype).view(self.out_channels, -1), x.flatten(2))
+            if bias is not None:
+                y = y + bias.view(1, -1, 1)
+            return y.view(b, -1, h, w)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 

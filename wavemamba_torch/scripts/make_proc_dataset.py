@@ -20,8 +20,9 @@ Usage:
     python -m wavemamba_torch.scripts.make_proc_dataset --out datasets/proc_llie \
         --n-train 400 --n-val 15 [--size 512] [--seed 0] [--bsrgan] [--figures GLOB ...]
 
-then pin the set with `python scripts/dataset_manifest.py write <out>` and
-check it with `... verify <out>`.
+then pin the set with `python -m wavemamba_torch.scripts.dataset_manifest write
+<out> --generator-args '<the flags above>'` and check it with `python -m
+wavemamba_torch.scripts.dataset_manifest verify <out>`.
 """
 
 from __future__ import annotations
