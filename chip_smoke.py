@@ -186,7 +186,12 @@ and prints one JSON line per phase:
              at 512x512 against the one-process 'chunked' forward,
              `tiled_apply_mesh` of the tile phase's 2160x3840 frame against
              the one-process tiles, the device cache's slices against the
-             one-process global batch, and which collectives gloo runs on CUDA
+             one-process global batch, two trainer steps of the XXL4
+             checkpoint with `scan_impl: seq_sharded` at batch 2 of 256x256
+             (the step gathers the ranks' rows) against the same steps with
+             'chunked' in this process, on the parameters, with a planted
+             fault (the output gradient summed over the ranks) caught, and
+             which collectives gloo runs on CUDA
              tensors; then a child in an NCCL group of one rank: the grouped
              steps' parameters equal the ungrouped steps' bit for bit (under
              deterministic algorithms), and the ms a step with and without the
@@ -218,7 +223,15 @@ and prints one JSON line per phase:
              2160x3840 frame: within 1e-6 of the one-process artifact's
              tiles, the same bits on both ranks, K1 in every tile batch of
              each, and a planted fault (the shares gathered in swapped
-             order) caught.
+             order) caught. Two more artifacts, exported beside the CLI's
+             through `deploy.export_model` (the CLI has no `conv_impl` flag),
+             each one 1152x1920 bucket: `fast(conv_impl="fused")` with uint8
+             I/O, whose graph holds K1 and the chain op (K7), within one
+             level of the eager fused `fast()` bytes on every pixel and >= 40
+             dB from float32; and `scan_impl: pallas` float32, whose graph
+             holds K3's op, within 1e-5 of the eager forward; in each graph
+             the kernels the eager forward launches (wrappers and kernel
+             names), replay and eager ms, idle shares and load seconds.
  12f. art    ART, the second model family, at its default width (dim 48, 8
              blocks): the uhdll yml with `network_g: {type: ART}` through
              `pipelines.train` for 1 + 4 iterations at batch 8 of 512x512 from
@@ -685,7 +698,7 @@ def kernel_phases(call, phase_of, phases, what, reps=5):
     raise RuntimeError(f"check failed: {what}'s {len(phases)} kernels ran under the profiler: {ms}")
 
 
-def clocks_under_load(call, seconds=1.0):
+def clocks_under_load(call, seconds=0.5):
     """(SM clock MHz, power draw W): the medians of nvidia-smi's samples,
     every 50 ms, while `call` runs back to back for `seconds`. The load starts
     once nvidia-smi has given its first sample, which is left out: its start
@@ -775,7 +788,7 @@ def phase_k1():
             args = (x,) + args[1:]
         y = ss2d_scan_pair(*args)
         torch.cuda.synchronize()
-        y_plain = ss2d_scan_pair_plain(*args)
+        y_plain, plain_ms = timed_once(lambda: ss2d_scan_pair_plain(*args))
         err = float((y - y_plain).abs().max())
         check(bool(torch.isfinite(y).all()), f"K1 {name}: finite")
         check(err <= K1_ATOL, f"K1 {name}: max abs err {err} <= {K1_ATOL}")
@@ -784,7 +797,7 @@ def phase_k1():
                "geometry": k1_row_geometry(1, h * w, F32_STREAMS)}
         if not columns and name != "ragged":
             k1_timings(row, lambda: ss2d_scan_pair(*args))
-            row["plain_ms"] = cuda_ms(lambda: ss2d_scan_pair_plain(*args), 1, warmup=False)
+            row["plain_ms"] = plain_ms  # the comparison's one call, as K3's
             row["bound_ms"], row["bound_by"], row["bound_unit"] = k1_bound(1, h * w, 64, 16, 2)
         row["launches"] = ss2d_scan_pair.launches
         emit(row)
@@ -3593,6 +3606,61 @@ def cache_loader(device, mesh=None):
     return loader
 
 
+# (f) Training through the sequence-sharded scan: SEQ_TRAIN_STEPS trainer
+# steps of the XXL4 checkpoint at batch SEQ_TRAIN_BATCH of 256x256, float32
+# parity mode, on two gloo ranks (each handed its row; the step gathers the
+# global batch), against the same steps in one process with the 'chunked'
+# scan, on the parameters within PARALLEL_PARAM_ATOL. A planted fault, the
+# output gather's gradient summed over the ranks (n times the true
+# gradient), must land beyond it.
+SEQ_TRAIN_BATCH, SEQ_TRAIN_SIZE, SEQ_TRAIN_STEPS = 2, 256, 2
+
+
+def seq_train_batches():
+    return [synthetic_batch(PARALLEL_BATCH_SEED + 20 + s, SEQ_TRAIN_BATCH, SEQ_TRAIN_SIZE)
+            for s in range(SEQ_TRAIN_STEPS)]
+
+
+def seq_train(device, mesh=None, fault=False):
+    """SEQ_TRAIN_STEPS steps of `make_train_step(TrainConfig(), mesh)` (the
+    uhdll yml's defaults) from the XXL4 checkpoint on `seq_train_batches()`:
+    with a mesh, `scan_impl: seq_sharded` over it, each rank handed its rows;
+    without, 'chunked' on the whole batch. `fault` plants the summed output
+    gradient. (each step's ms, the parameters as numpy)."""
+    from wavemamba_torch.checkpoint import load_network
+    from wavemamba_torch.models import build_network
+    from wavemamba_torch.parallel import mesh as pmesh
+    from wavemamba_torch.parallel import seq_scan
+    from wavemamba_torch.train import trainer
+
+    net = ({"type": "WaveMamba", "scan_impl": "chunked"} if mesh is None else
+           {"type": "WaveMamba", "scan_impl": "seq_sharded", "scan_mesh": mesh})
+    model = build_network(net, load_network(CKPT, device=device), device=device)
+    tcfg = trainer.TrainConfig()
+    state = trainer.create_train_state(model, tcfg)
+    step = trainer.make_train_step(tcfg, mesh)
+    real = seq_scan.selective_scan_seq_sharded
+
+    def summed(*args, **kwargs):
+        y = real(*args, **kwargs)
+        y.register_hook(lambda g: pmesh.all_reduce_sum_(mesh, g.clone()))
+        return y
+
+    seq_scan.selective_scan_seq_sharded = summed if fault else real
+    ms = []
+    try:
+        for lq, gt in seq_train_batches():
+            batch = pmesh.shard_batch(mesh, {"lq": lq.to(device), "gt": gt.to(device)})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, batch["lq"], batch["gt"])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        seq_scan.selective_scan_seq_sharded = real
+    return ms, _numpy_params(model)
+
+
 def parallel_gloo_child(init, rank, out_dir):
     """Rank `rank` of two over gloo, both on cuda:0: (b) PARALLEL_STEPS
     steps of the uhdll yml's trainer at batch_size_per_gpu 4 (global 8),
@@ -3600,7 +3668,8 @@ def parallel_gloo_child(init, rank, out_dir):
     without the mesh (the planted fault: each rank on its own gradients); (c) the XXL4 checkpoint
     with `scan_impl: seq_sharded` on `seq_input()`; (d) `tiled_apply_mesh`
     of `tile_frame()` at 240 / 16; (e) the device cache's slices of the
-    global batch; and which collectives gloo runs on CUDA tensors. Writes
+    global batch; (f) `seq_train` over the mesh, and again with its planted
+    fault; and which collectives gloo runs on CUDA tensors. Writes
     `rank<r>.pkl` (and rank 0 the arrays) under `out_dir`."""
     import pickle
 
@@ -3669,6 +3738,11 @@ def parallel_gloo_child(init, rank, out_dir):
     # (e) the device cache under the group
     arrays["cache"] = [(b["lq"].cpu().numpy(), b["gt"].cpu().numpy(), b["lq_path"])
                        for b in cache_loader(device, mesh)]
+    # (f) training through the sequence-sharded scan
+    torch.cuda.empty_cache()
+    ms, arrays["seq_train"] = seq_train(device, mesh)
+    fault_ms, arrays["seq_train_fault"] = seq_train(device, mesh, fault=True)
+    row["seq_train"] = {"step_ms": ms, "fault_step_ms": fault_ms}
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump({"row": row, "arrays": arrays}, f)
     parallel.barrier()
@@ -3679,7 +3753,7 @@ def phase_parallel(stock, smi):
     """Multi-GPU on the one card. (a) `torchrun --standalone
     --nproc_per_node=1 -m wavemamba_torch.pipelines.train -opt
     options/train_wavemamba_uhdll.yml` (NCCL at world size 1) for 1 + 4
-    iterations on the data phase's generated set, beside (b)-(e) on two gloo
+    iterations on the data phase's generated set, beside (b)-(f) on two gloo
     ranks sharing cuda:0 (`parallel_gloo_child`); then the NCCL child's bit
     check and step times, alone on the card (`parallel_nccl_child`). This
     process holds each against its own one-process references."""
@@ -3720,6 +3794,9 @@ def phase_parallel(stock, smi):
     cache_want = [(b["lq"].cpu().numpy(), b["gt"].cpu().numpy(), b["lq_path"])
                   for b in cache_loader("cuda")]
     del sd
+    torch.cuda.empty_cache()
+    seq_train_ms, seq_train_want = seq_train(torch.device("cuda"))
+    torch.cuda.empty_cache()
     children = wait_children(procs)
     # (a) the entry point
     text = children["torchrun"][1]
@@ -3774,6 +3851,17 @@ def phase_parallel(stock, smi):
                        want_b[j]) for i, want_b in enumerate(cache_want) for j in (0, 1)) and all(
         ranks[0]["arrays"]["cache"][i][2] + ranks[1]["arrays"]["cache"][i][2] == w[2]
         for i, w in enumerate(cache_want))
+    seq_diff = lambda got: float(max(np.abs(got[k] - seq_train_want[k]).max()  # noqa: E731
+                                     for k in seq_train_want))
+    f_rows = [{**res["row"]["seq_train"],
+               "param_max_abs_vs_chunked": seq_diff(res["arrays"]["seq_train"]),
+               "fault_param_max_abs_vs_chunked": seq_diff(res["arrays"]["seq_train_fault"])}
+              for res in ranks]
+    row_f = {"ranks": f_rows, "chunked_step_ms": seq_train_ms, "batch": SEQ_TRAIN_BATCH,
+             "image": [SEQ_TRAIN_SIZE] * 2, "steps": SEQ_TRAIN_STEPS, "atol": PARALLEL_PARAM_ATOL,
+             "ranks_same_bits": all(np.array_equal(v, ranks[1]["arrays"]["seq_train"][k])
+                                    for k, v in ranks[0]["arrays"]["seq_train"].items()),
+             "fault": "the output gather's gradient summed over the ranks"}
     row = {"phase": "parallel", "smi": smi, "a_torchrun_nccl": row_a,
            "a_nccl_world1": row_n,
            "b_gloo_two_ranks": {"ranks": b_rows, "ranks_same_bits": same_ranks,
@@ -3784,6 +3872,7 @@ def phase_parallel(stock, smi):
            "d_tiles": {"ranks": [res["row"]["tiles"] for res in ranks],
                        "max_abs_vs_one_process": tile_err, "atol": TILE_MESH_ATOL},
            "e_device_cache": {"batches": len(cache_want), "slices_equal_global_batch": cache_same},
+           "f_seq_sharded_train": row_f,
            "gloo_cuda_collectives": ranks[0]["row"]["gloo_cuda_collectives"],
            "children_s": {k: v[0] for k, v in children.items()},
            "phase_s": time.perf_counter() - t0}
@@ -3808,6 +3897,11 @@ def phase_parallel(stock, smi):
     for r in row["d_tiles"]["ranks"]:
         check(r["k1_launches"] == 28 * -(-tiles_n // 8), f"a rank's K1 in the tiles: {r}")
     check(cache_same, "the device cache's slices are the global batch, bit for bit")
+    for r in f_rows:
+        check(r["param_max_abs_vs_chunked"] <= PARALLEL_PARAM_ATOL,
+              f"seq-sharded training against one 'chunked' process: {r}")
+        check(r["fault_param_max_abs_vs_chunked"] > PARALLEL_PARAM_ATOL,
+              f"the planted fault (the output gradient summed over the ranks) is caught: {r}")
     return row
 
 
@@ -4152,19 +4246,62 @@ DEPLOY_EXPORTS = {
 DEPLOY_MESH_ATOL = 1e-6
 
 
+# The artifacts that keep kernels beside K1 as ops, which the export CLI has
+# no flag for (nor has the JAX package's, for conv_impl): name -> its io
+# dtype. `export_child` makes each through `deploy.export_model` with
+# allow_custom_calls, one DEPLOY_BUCKET program and no tile program.
+DEPLOY_OP_EXPORTS = {
+    "fused_fast_u8": "uint8",  # WaveMambaConfig.fast(conv_impl="fused"): K1 and the chain op (K7)
+    "k3": "float32",  # WaveMambaConfig(scan_impl="pallas"): K3's op
+}
+# K1, K3 and K7 in the replay of each against the eager forward: counted by
+# the wrappers at the capture and by kernel name in a profiled replay.
+DEPLOY_OP_KERNELS = {"fused_fast_u8": {"K1": 28, "K3": 0, "K6": 0, "K7": 76},
+                     "k3": {"K1": 0, "K3": 14, "K6": 0, "K7": 0}}
+
+
+def deploy_op_named(name):
+    """DEPLOY_OP_KERNELS[name] as `named_launches` counts them (K6 and K7
+    are one kernel by name)."""
+    want = DEPLOY_OP_KERNELS[name]
+    return {"K1": want["K1"], "K3": want["K3"], "chain": want["K6"] + want["K7"]}
+
+
+def deploy_op_config(name):
+    from wavemamba_torch.models.wavemamba import WaveMambaConfig
+
+    return (WaveMambaConfig.fast(conv_impl="fused") if name == "fused_fast_u8"
+            else WaveMambaConfig(scan_impl="pallas"))
+
+
+def export_child(name):
+    """Export DEPLOY_OP_EXPORTS[name] from CKPT (see there), on the host."""
+    from wavemamba_torch.checkpoint import load_network
+    from wavemamba_torch.deploy import export_model
+
+    t0 = time.perf_counter()
+    manifest = export_model(load_network(CKPT, device="cpu"), deploy_op_config(name),
+                            [DEPLOY_BUCKET], export_path(name), allow_custom_calls=True,
+                            io_dtype=DEPLOY_OP_EXPORTS[name])
+    print(f"wrote {export_path(name)}: platforms {manifest['platforms']}, "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+
 def export_cmds():
     """{name: argv} of `python -m wavemamba_torch.scripts.export_model
-    export` for each of DEPLOY_EXPORTS from CKPT into DEPLOY_DIR (emptied
-    here), for `start_children` with EXPORT_ENV: children that see no card
-    (a build host), started together, which trace on the host while the
-    phases before `deploy` run."""
+    export` for each of DEPLOY_EXPORTS, and of `export_child` for each of
+    DEPLOY_OP_EXPORTS, from CKPT into DEPLOY_DIR (emptied here), for
+    `start_children` with EXPORT_ENV: children that see no card (a build
+    host), started together, which trace on the host while the phases before
+    `deploy` run."""
     import shutil
 
     shutil.rmtree(DEPLOY_DIR, ignore_errors=True)
     os.makedirs(DEPLOY_DIR)
-    return {name: [sys.executable, "-m", "wavemamba_torch.scripts.export_model", "export", "-w",
-                   CKPT, "-o", export_path(name), *flags]
-            for name, flags in DEPLOY_EXPORTS.items()}
+    cli = {name: [sys.executable, "-m", "wavemamba_torch.scripts.export_model", "export", "-w",
+                  CKPT, "-o", export_path(name), *flags]
+           for name, flags in DEPLOY_EXPORTS.items()}
+    return {**cli, **{name: child_cmd("export_child", name) for name in DEPLOY_OP_EXPORTS}}
 
 
 EXPORT_ENV = {"CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
@@ -4220,18 +4357,129 @@ def serve_subprocess(artifact, folder, cache):
     return first_request_s(proc.stdout), time.perf_counter() - t0
 
 
+def named_launches(rows):
+    """K1's, K3's and the chain kernel's launches by kernel name in
+    `profile_rows`' rows: one replay kernel a call of K1 / K3
+    (`chunk_scan<..., true, ...>`, `selective_chunk<16, true>`), one
+    `chain_kernel` a call of K6 or K7."""
+    count = lambda *pats: sum(n for _, n, name in rows if all(p in name for p in pats))  # noqa: E731
+    return {"K1": count("chunk_scan<", "true"), "K3": count("selective_chunk<", "true"),
+            "chain": count("chain_kernel")}
+
+
 def replay_profile(fn, unprofiled_ms):
-    """Busy time, idle share and K1's replay kernels of one call of `fn`
-    under torch.profiler (`profile_rows`)."""
+    """Busy time, idle share and the kernels' launches by name
+    (`named_launches`) of one call of `fn` under torch.profiler
+    (`profile_rows`)."""
     wall_ms, rows, _ = profile_rows(fn)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    k1 = sum(n for _, n, name in rows if "chunk_scan<" in name and "true" in name)
+    named = named_launches(rows)
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
             "unprofiled_ms": unprofiled_ms, "idle_share_unprofiled": 1.0 - busy_ms / unprofiled_ms,
-            "k1_launches_profiled": k1, "kernels": sum(r[1] for r in rows)}
+            "k1_launches_profiled": named["K1"], "launches_profiled": named,
+            "kernels": sum(r[1] for r in rows)}
 
 
-def phase_deploy(jobs, stock, fast):
+def deploy_ops(art, fast_fused, img, f32_ref):
+    """The DEPLOY_OP_EXPORTS artifacts, each one CUDA graph for DEPLOY_BUCKET,
+    on the request `img` (reflect-padded), held against the eager forward
+    on the same padded input: `fused_fast_u8` on `img`'s bytes against
+    `fast_fused` (`fast(conv_impl="fused")`) quantized the same way, within
+    one level on every pixel, and against `f32_ref` (the float32 artifact's
+    bytes) in dB; `k3` against the eager `scan_impl='pallas'` forward within
+    DEPLOY_ATOL. For each: the kernels' counts in the graph (the wrappers at
+    the capture) against the eager forward's, and by kernel name in a
+    profiled replay and a profiled eager forward; replay and eager ms (CUDA
+    events, median of 7), each one's idle share, and the load s. The
+    wrappers' counts are set to 0 just before each artifact's first call and
+    read just after (its warm-up and its capture). Returns {name: row,
+    "launches": each kernel's launches on the artifact route}."""
+    from wavemamba_torch.checkpoint import load_network
+    from wavemamba_torch.deploy import _COUNTERS, _reflect_pad
+    from wavemamba_torch.models import build_network
+    from wavemamba_torch.models.wavemamba import wavemamba_apply
+
+    counts = lambda: {k: f.launches for k, f in _COUNTERS.items()}  # noqa: E731
+    h, w = img.shape[1:3]
+    u8 = np.round(img * 255.0).astype(np.uint8)
+    unfused = build_network({"type": "WaveMamba", "scan_impl": "pallas"},
+                            load_network(CKPT, device="cuda"), device="cuda")
+    out = {"launches": dict.fromkeys(_COUNTERS, 0)}
+    for name, request, eager in (("fused_fast_u8", u8, fast_fused), ("k3", img, unfused)):
+        model = art[name]["model"]
+        run = model.runners[DEPLOY_BUCKET]
+        for f in _COUNTERS.values():
+            f.launches = 0  # the main path's count starts here
+        got = model(request)
+        wrapper = counts()  # read just after the main path
+        again = model(request)
+        x = torch.from_numpy(_reflect_pad(request, *DEPLOY_BUCKET)).cuda()
+        x = x.float() / 255.0 if name == "fused_fast_u8" else x
+        for f in _COUNTERS.values():
+            f.launches = 0
+        y = wavemamba_apply(eager, x)
+        eager_counts = counts()
+        replay_ms = cuda_ms(run.graph.replay, 7)
+        eager_ms = cuda_ms(lambda: wavemamba_apply(eager, x), 7)
+        profiles = {"replay": replay_profile(run.graph.replay, replay_ms),
+                    "eager": replay_profile(lambda: wavemamba_apply(eager, x), eager_ms)}
+        for prof in profiles.values():
+            prof["short_profile"] = prof["launches_profiled"] != deploy_op_named(name)
+        row = {"image": [h, w], "bucket": list(DEPLOY_BUCKET), "io_dtype": DEPLOY_OP_EXPORTS[name],
+               "config": {k: model.manifest["config"][k]
+                          for k in ("scan_impl", "conv_impl", "compute_dtype", "scan_dtype")},
+               "platforms": model.manifest["platforms"], "load_s": art[name]["load_s"],
+               "in_graph": run.in_graph, "eager_counts": eager_counts,
+               "wrapper_counts_main_path": wrapper, "want_in_graph": DEPLOY_OP_KERNELS[name],
+               "same_bits_again": bool(np.array_equal(got, again)),
+               "forward_ms": {"replay": replay_ms, "eager": eager_ms}, "profile": profiles}
+        if name == "fused_fast_u8":
+            want = torch.round(y.clamp(0.0, 1.0) * 255.0).to(torch.uint8)[:, :h, :w].cpu().numpy()
+            diff = np.abs(got.astype(int) - want.astype(int))
+            row.update(max_abs_levels_vs_eager=int(diff.max()),
+                       share_differing_vs_eager=float((diff > 0).mean()),
+                       psnr_vs_float32_db=psnr_db(got / 255.0, f32_ref / 255.0))
+        else:
+            row["max_abs_vs_eager"] = float(np.abs(got - y[:, :h, :w].cpu().numpy()).max())
+        for k in _COUNTERS:
+            out["launches"][k] += run.in_graph[k] * (1 + run.replays)
+        row["replays"] = run.replays
+        out[name] = row
+    return out
+
+
+def check_deploy_ops(ops):
+    """Hold `deploy_ops`' readings to their contract; raise on any miss."""
+    for name, want in DEPLOY_OP_KERNELS.items():
+        row = ops[name]
+        check(row["platforms"] == ["cuda"], f"{name}: platforms {row['platforms']}")
+        check(row["in_graph"] == want and row["eager_counts"] == want,
+              f"{name}: kernels in the graph {row['in_graph']}, in the eager forward "
+              f"{row['eager_counts']}, want {want}")
+        check(all(row["wrapper_counts_main_path"][k] == 2 * n for k, n in want.items()),
+              f"{name}: the wrappers counted {row['wrapper_counts_main_path']} over the warm-up "
+              f"and the capture, want twice {want}")
+        # By name: each kernel of the graph is there and no other; a profiler
+        # session late in the script may drop a few records (it kept 73 of 76
+        # chain kernels, 27 of 28 K1 and 13 of 14 K3 on the card), so fewer
+        # than the count is flagged (`short_profile`), not failed, as
+        # `profiled_launches` does.
+        named = deploy_op_named(name)
+        for run in ("replay", "eager"):
+            got = row["profile"][run]["launches_profiled"]
+            check(all((got[k] > 0) == (n > 0) and got[k] <= n for k, n in named.items()),
+                  f"{name}: {run} kernels by name {got}, want {named}")
+        check(row["same_bits_again"], f"{name}: the replay gives the same bits twice")
+    fused = ops["fused_fast_u8"]
+    check(fused["max_abs_levels_vs_eager"] <= 1,
+          f"fused_fast_u8 against the eager fused fast bytes: {fused['max_abs_levels_vs_eager']}")
+    check(fused["psnr_vs_float32_db"] >= FAST_VS_F32_PSNR,
+          f"fused_fast_u8 {fused['psnr_vs_float32_db']} dB from float32 < {FAST_VS_F32_PSNR}")
+    check(ops["k3"]["max_abs_vs_eager"] <= DEPLOY_ATOL,
+          f"k3 artifact against the eager forward: {ops['k3']['max_abs_vs_eager']}")
+
+
+def phase_deploy(jobs, stock, fast, fast_fused=None):
     """The deployment route: the artifacts of `export_cmds`, traced on the
     host (the XXL4 checkpoint with K1's op for the 1152x1920 bucket and a
     240 / 16 tile program; the `fast` preset with uint8 I/O) loaded on the
@@ -4239,10 +4487,13 @@ def phase_deploy(jobs, stock, fast):
     720x1280) and a 2160x3840 one through `tiled`, held against the eager
     forward (`stock`) on the same padded input; the replay against the eager
     forward in ms and idle share; K1 in each graph; the fast uint8 artifact
-    against the float32 one; and `export_model run` twice on a fresh
-    `--compile_cache` (a cold K1 build, then none). Returns the row, with
-    `k1_launches`: K1's launches on the path (the warm-ups' and each replay's
-    28; a replay does not pass through the wrapper's count)."""
+    against the float32 one; the artifacts that keep the chain op and K3's
+    op (`deploy_ops`, against the eager `fast_fused` and 'pallas' forwards);
+    and `export_model run` twice on a fresh `--compile_cache` (a cold K1
+    build, then none). Returns the row, with `k1_launches`: K1's launches on
+    the path (the warm-ups' and each replay's 28; a replay does not pass
+    through the wrapper's count), and `k3_launches` / `k7_launches` those of
+    the op artifacts' graphs."""
     from wavemamba_torch.deploy import SUFFIX, _reflect_pad, load_exported
     from wavemamba_torch.inference import enhance
     from wavemamba_torch.models.wavemamba import wavemamba_apply
@@ -4284,10 +4535,10 @@ def phase_deploy(jobs, stock, fast):
             reserved = {"bucket": torch.cuda.memory_reserved() - reserved0}
     wrapper = scan_cuda.ss2d_scan_pair.launches  # read just after the main path
     peak = torch.cuda.max_memory_allocated()
-    main_launches = run.k1_in_graph * (1 + run.replays)
-    check(wrapper == 2 * run.k1_in_graph and main_launches > 0,
+    main_launches = run.in_graph["K1"] * (1 + run.replays)
+    check(wrapper == 2 * run.in_graph["K1"] and main_launches > 0,
           f"K1 on the main path: the wrapper counted {wrapper} (the warm-up's and the "
-          f"capture's {run.k1_in_graph} each), {run.replays} replays")
+          f"capture's {run.in_graph['K1']} each), {run.replays} replays")
     requests = []
     for img, out, s in served[:2]:
         h, w = img.shape[1:3]
@@ -4299,7 +4550,7 @@ def phase_deploy(jobs, stock, fast):
                          "max_abs_vs_eager": float(np.abs(out - want).max()),
                          "bit_equal_eager": bool(np.array_equal(out, want)),
                          "same_bits_again": bool(np.array_equal(out, again)),
-                         "k1_in_graph": run.k1_in_graph})
+                         "k1_in_graph": run.in_graph["K1"]})
     first = served[0][1]
     handles = [em.dispatch(images[0]), em.dispatch(images[1])]  # two in flight, then fetch
     pipelined = [h.fetch() for h in handles]
@@ -4334,27 +4585,46 @@ def phase_deploy(jobs, stock, fast):
     xb = torch.from_numpy(_reflect_pad(images[0], *DEPLOY_BUCKET)).cuda()
     fast_replay_ms = cuda_ms(fast_run.graph.replay, 7)
     fast_eager_ms = cuda_ms(lambda: wavemamba_apply(fast, xb), 7) if fast is not None else None
+    torch.cuda.empty_cache()
+    ops = deploy_ops(art, fast_fused, images[0], f32_ref)
+    emit({"phase": "deploy_ops", **ops})
+    check_deploy_ops(ops)
     # K1 on the artifact route: each graph's warm-up call and its replays
     # (the capture records K1 into the graph and launches nothing).
     runners = [r for m in (em, fm) for r in m.runners.values() if r.graph is not None]
-    launches = sum(r.k1_in_graph * (1 + r.replays) for r in runners)
+    launches = sum(r.in_graph["K1"] * (1 + r.replays) for r in runners) + ops["launches"]["K1"]
 
-    # --compile_cache: one request in a fresh process, twice on one fresh directory.
+    # --compile_cache: one request in a fresh process, twice on one fresh
+    # directory, in a thread that waits on them while the sharded tile
+    # program's ranks run (the script's time limit: both are child processes
+    # that mostly load; their first-request seconds are read beside the ranks).
+    from concurrent.futures import ThreadPoolExecutor
+
     import cv2
 
     folder, cache = os.path.join(DEPLOY_DIR, "request"), os.path.join(DEPLOY_DIR, "kernels")
     os.makedirs(folder)
     cv2.imwrite(os.path.join(folder, "a.png"), u8_in[0][..., ::-1])
     torch.cuda.empty_cache()  # room for the child processes
-    cold_s, cold_proc_s = serve_subprocess(export_path("fast_u8"), folder, cache)
-    libs = sorted(os.listdir(cache))
-    warm_s, warm_proc_s = serve_subprocess(export_path("fast_u8"), folder, cache)
-    mesh = deploy_mesh(tiled)
+
+    def cold_then_warm():
+        cold = serve_subprocess(export_path("fast_u8"), folder, cache)
+        libs = sorted(os.listdir(cache))
+        return cold, libs, serve_subprocess(export_path("fast_u8"), folder, cache)
+
+    with ThreadPoolExecutor(1) as pool:
+        served_cache = pool.submit(cold_then_warm)
+        mesh = deploy_mesh(tiled)
+        (cold_s, cold_proc_s), libs, (warm_s, warm_proc_s) = served_cache.result()
     launches += mesh["k1_launches"]
     row = {"phase": "deploy", "suffix": SUFFIX,
            "artifacts": {k: {kk: vv for kk, vv in v.items() if kk != "model"} for k, v in art.items()},
            "requests": requests, "same_bits_twice": all(r["same_bits_again"] for r in requests),
            "pipelined_matches": pipelined_matches, "k1_launches": launches,
+           "k3_launches": ops["launches"]["K3"], "k6_launches": ops["launches"]["K6"],
+           "k7_launches": ops["launches"]["K7"],
+           "ops": {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
+                   for k, v in ops.items() if k != "launches"},
            "k1_launches_main_path": main_launches, "k1_wrapper_count_main_path": wrapper,
            "replays": {"bucket": run.replays, "tile": tile_run.replays, "fast_u8": fast_run.replays},
            "peak_memory_bytes_main_path": peak,
@@ -4371,8 +4641,9 @@ def phase_deploy(jobs, stock, fast):
                      "finite": bool(np.isfinite(tiled).all())},
            "fast_u8": {"psnr_vs_float32_db": psnr_db(u8_out / 255.0, f32_ref / 255.0),
                        "max_abs_levels": int(np.abs(u8_out.astype(int) - f32_ref.astype(int)).max()),
-                       "k1_in_graph": fast_run.k1_in_graph, "tol_psnr_db": FAST_VS_F32_PSNR},
-           "compile_cache": {"first_request_cold_s": cold_s, "first_request_warm_s": warm_s,
+                       "k1_in_graph": fast_run.in_graph["K1"], "tol_psnr_db": FAST_VS_F32_PSNR},
+           "compile_cache": {"beside": "the sharded tile program's two ranks",
+                             "first_request_cold_s": cold_s, "first_request_warm_s": warm_s,
                              "process_cold_s": cold_proc_s, "process_warm_s": warm_proc_s,
                              "cold_built_k1": any(n.startswith("ss2d_scan_") and n.endswith(".so")
                                                   for n in libs),
@@ -4419,8 +4690,8 @@ def deploy_mesh_child(init, rank, want_path, out):
     finally:
         pmesh.gather_rows = gather
     row = {"rank": int(rank), "device": str(device), "load_s": load_s, "first_s": first_s,
-           "s": again_s, "replays": replays, "k1_in_graph": run.k1_in_graph,
-           "k1_launches": run.k1_in_graph * (1 + replays),  # the warm-up and the first frame's
+           "s": again_s, "replays": replays, "k1_in_graph": run.in_graph["K1"],
+           "k1_launches": run.in_graph["K1"] * (1 + replays),  # the warm-up and the first frame's
            "tile_rank_batch": model.manifest["tile_rank_batch"],
            "max_abs_vs_one_process": float(np.abs(got - want).max()),
            "bit_equal_one_process": bool(np.array_equal(got, want)),
@@ -4707,7 +4978,7 @@ def main():
     par = phase_parallel(model, smi)
     phase_art(smi)
     secondary = phase_secondary(model, smi)
-    deploy = phase_deploy(exports, model, fast_model)
+    deploy = phase_deploy(exports, model, fast_model, fast_fused_model)
     k2_steps = phase_profile(model, x1080, forward_ms, runs, pipe, fused, fast, fast_fused, train_fast,
                              train_mixed)
     bench = phase_bench()
@@ -4718,7 +4989,8 @@ def main():
     # (fused, fast, mixed and the data phase's uhdll yml from the generated
     # set) and the fused fast serve path's, K2 the training paths' (K1 and K2
     # also the parallel phase's child processes, each counted there), K3 and K4 the pipeline path's (steps, validation, the request), K7 the
-    # two fused serve paths' (float32 and fast), P1-P5 the
+    # two fused serve paths' (float32 and fast), K1, K3 and K7 also the
+    # artifact route's graphs (the deploy phase), P1-P5 the
     # probe path's timed calls.
     level1 = k1_rows[0]
     k2_level1 = k2_rows[0]
@@ -4842,7 +5114,11 @@ def main():
                   "max_rel_err_all_shapes": max(max(r["max_rel_err"].values()) for r in k2_mixed_rows)}}, {
         "name": "selective_scan_cuda (K3)", "route": "cuda",
         "source": "wavemamba_torch/csrc/selective_scan.cu",
-        "replaces": "wavemamba_tpu/ops/scan_pallas.py:134", "launches": pipe["launches"]["k3"],
+        "replaces": "wavemamba_tpu/ops/scan_pallas.py:134",
+        "launches": pipe["launches"]["k3"] + deploy["k3_launches"],
+        "launches_pipeline": pipe["launches"]["k3"], "launches_deploy": deploy["k3_launches"],
+        "launches_deploy_note": "the k3 artifact's CUDA graph (K3's op): its warm-up and 14 a "
+                                "replay",
         "max_abs_err": max(max(r["carries_err"].values()) for r in k3_rows),
         "ms": k3_level1["ms"], "plain_ms": k3_level1["plain_ms"],
         "bound_ms": k3_level1["bound_ms"], "bound_by": k3_level1["bound_by"],
@@ -4884,8 +5160,11 @@ def main():
                                             if "share_differing" in r)} if tag == "bf16" else {})}
            for tag, y, r in (("bf16", "bfloat16", k5_bf16), ("mixed", "float32", k5_mixed))}}, {
         "name": "fused_chain (K6)", "route": "cuda", "source": "wavemamba_torch/csrc/conv_chain.cu",
-        "replaces": "wavemamba_tpu/experimental/conv_fused.py:96", "launches": fused["k6_launches"],
-        "launches_note": "one 1152x1920 forward of the fused route under chain_route('tile')",
+        "replaces": "wavemamba_tpu/experimental/conv_fused.py:96",
+        "launches": fused["k6_launches"] + deploy["k6_launches"],
+        "launches_note": "one 1152x1920 forward of the fused route under chain_route('tile'); "
+                         "the artifact route's graphs hold K7, not K6 (launches_deploy)",
+        "launches_deploy": deploy["k6_launches"],
         "shape": "paconv_chain " + "x".join(map(str, pac["shape"])),
         "max_abs_err": chain_err("max_abs_err", "float32"),
         "max_rel_err": chain_err("max_rel_err", "float32"),
@@ -4894,8 +5173,12 @@ def main():
         "bf16": chain_bf16("k6_ms")}, {
         "name": "fused_chain_band (K7)", "route": "cuda", "source": "wavemamba_torch/csrc/conv_chain.cu",
         "replaces": "wavemamba_tpu/experimental/conv_fused.py:403",
-        "launches": fused["launches"] + fast_fused["launches"] + scripts["k7_launches"],
+        "launches": fused["launches"] + fast_fused["launches"] + scripts["k7_launches"]
+        + deploy["k7_launches"],
         "launches_serve_fused": fused["launches"], "launches_serve_fast_fused": fast_fused["launches"],
+        "launches_deploy": deploy["k7_launches"],
+        "launches_deploy_note": "the fused_fast_u8 artifact's CUDA graph (the chain op): its "
+                                "warm-up and 76 a replay",
         "launches_scripts": scripts["k7_launches"],
         "launches_scripts_note": "chain_tune's band_h sweep and its fast(conv_impl='fused') forwards",
         "shape": "paconv_chain " + "x".join(map(str, pac["shape"])),

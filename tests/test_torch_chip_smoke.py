@@ -128,6 +128,8 @@ def test_deploy_phase_is_on_the_main_path():
     assert "atexit.register(stop_children, exports)" in src
     assert src.index("phase_data()") < src.index("phase_deploy(") < src.index("phase_profile(")
     assert '+ deploy["k1_launches"]' in src
+    assert '+ deploy["k3_launches"]' in src and '+ deploy["k7_launches"]' in src
+    assert '+ deploy["k6_launches"]' in src
     for flags in chip_smoke.DEPLOY_EXPORTS.values():
         assert "--allow_custom_calls" in flags and "--target" in flags
         assert flags[flags.index("--shapes") + 1] == "x".join(map(str, chip_smoke.DEPLOY_BUCKET))
@@ -174,6 +176,91 @@ def test_deploy_readings_fail_loudly(fault):
         row[key][index][field] = value
     with pytest.raises(RuntimeError, match="check failed"):
         chip_smoke.check_deploy(row)
+
+
+def test_op_artifacts_are_exported_beside_the_cli():
+    """The two artifacts that keep the chain op and K3's op are made by
+    `export_child` (`deploy.export_model`: the CLI has no conv_impl flag),
+    started with the CLI's children and with their environment (no card):
+    `fast(conv_impl="fused")` with uint8 I/O, and `scan_impl: pallas` in
+    float32; the deploy phase takes the eager fused fast model."""
+    import inspect
+    import sys
+
+    from wavemamba_torch.models.wavemamba import WaveMambaConfig
+
+    cmds = chip_smoke.export_cmds()
+    assert set(cmds) == set(chip_smoke.DEPLOY_EXPORTS) | {"fused_fast_u8", "k3"}
+    for name in chip_smoke.DEPLOY_OP_EXPORTS:
+        assert cmds[name] == [sys.executable, "-c",
+                              "import sys, chip_smoke; chip_smoke.export_child(*sys.argv[1:])", name]
+    assert chip_smoke.deploy_op_config("fused_fast_u8") == WaveMambaConfig.fast(conv_impl="fused")
+    assert chip_smoke.deploy_op_config("k3") == WaveMambaConfig(scan_impl="pallas")
+    assert chip_smoke.DEPLOY_OP_EXPORTS == {"fused_fast_u8": "uint8", "k3": "float32"}
+    src = inspect.getsource(chip_smoke.export_child)
+    assert "allow_custom_calls=True" in src and "[DEPLOY_BUCKET]" in src
+    assert "phase_deploy(exports, model, fast_model, fast_fused_model)" in inspect.getsource(
+        chip_smoke.main)
+
+
+def _ops_row():
+    def row(name, **kw):
+        want = chip_smoke.DEPLOY_OP_KERNELS[name]
+        named = chip_smoke.deploy_op_named(name)
+        return {"platforms": ["cuda"], "in_graph": dict(want), "eager_counts": dict(want),
+                "wrapper_counts_main_path": {k: 2 * n for k, n in want.items()},
+                "profile": {"replay": {"launches_profiled": dict(named)},
+                            "eager": {"launches_profiled": dict(named)}},
+                "same_bits_again": True, **kw}
+
+    return {"fused_fast_u8": row("fused_fast_u8", max_abs_levels_vs_eager=1,
+                                 psnr_vs_float32_db=52.0),
+            "k3": row("k3", max_abs_vs_eager=3e-6)}
+
+
+@pytest.mark.parametrize("fault", [
+    ("fused_fast_u8", "max_abs_levels_vs_eager", 2), ("fused_fast_u8", "psnr_vs_float32_db", 39.0),
+    ("k3", "max_abs_vs_eager", 2e-5), ("k3", "same_bits_again", False),
+    ("fused_fast_u8", "platforms", ["cpu", "cuda"]),
+    ("fused_fast_u8", ("in_graph", "K7"), 75), ("k3", ("in_graph", "K3"), 13),
+    ("fused_fast_u8", ("eager_counts", "K1"), 27), ("k3", ("wrapper_counts_main_path", "K3"), 14),
+    ("fused_fast_u8", ("profile", "replay", "launches_profiled", "chain"), 0),
+    ("fused_fast_u8", ("profile", "eager", "launches_profiled", "K3"), 14),
+    ("k3", ("profile", "eager", "launches_profiled", "K3"), 15)])
+def test_deploy_op_readings_fail_loudly(fault):
+    """A reading of the op artifacts out of its contract raises: the fused
+    fast bytes within one level of the eager ones and >= 40 dB from float32,
+    K3's graph within 1e-5; in each graph the eager forward's kernels (K1 28
+    and K7 76; K3 14), twice in the wrappers' count over the warm-up and the
+    capture; by kernel name in a profiled replay and eager forward each
+    kernel of the graph and no other, no more than the graph holds (a
+    profile that dropped records passes, flagged); the same bits twice; a
+    card-only artifact. Good readings pass."""
+    chip_smoke.check_deploy_ops(_ops_row())
+    short = _ops_row()
+    short["fused_fast_u8"]["profile"]["replay"]["launches_profiled"].update(K1=27, chain=73)
+    short["k3"]["profile"]["eager"]["launches_profiled"]["K3"] = 13
+    chip_smoke.check_deploy_ops(short)
+    row = _ops_row()
+    name, field, value = fault
+    target = row[name]
+    if isinstance(field, tuple):
+        for key in field[:-1]:
+            target = target[key]
+        field = field[-1]
+    target[field] = value
+    with pytest.raises(RuntimeError, match="check failed"):
+        chip_smoke.check_deploy_ops(row)
+
+
+def test_named_launches_count_each_kernel_by_name():
+    """K1's and K3's replay kernels and the chain kernel, by name."""
+    rows = [(5.0, 28, "void chunk_scan<float, float, true, 64>(Params)"),
+            (1.0, 28, "void chunk_scan<float, float, false, 64>(Params)"),
+            (2.0, 14, "void selective_chunk<16, true>(P)"), (1.0, 14, "void selective_chunk<16, false>(P)"),
+            (3.0, 76, "void (anonymous namespace)::chain_kernel<__nv_bfloat16>(Chain, Plan)"),
+            (9.0, 3, "cudnn::conv")]
+    assert chip_smoke.named_launches(rows) == {"K1": 28, "K3": 14, "chain": 76}
 
 
 def test_a_failed_export_raises(tmp_path):
@@ -266,6 +353,14 @@ def test_parallel_phase_is_on_the_main_path():
     assert '+ par["k1_launches"]' in src and '+ par["k2_launches"]' in src
     assert '"launches_parallel": par["k1_launches"]' in src
     assert '"launches_parallel": par["k2_launches"]' in src
+    # (f): the gloo ranks train through the sequence-sharded scan, and with
+    # the planted fault; this process takes the 'chunked' steps meanwhile
+    child = inspect.getsource(chip_smoke.parallel_gloo_child)
+    assert "seq_train(device, mesh)" in child and "seq_train(device, mesh, fault=True)" in child
+    phase = inspect.getsource(chip_smoke.phase_parallel)
+    assert phase.index('seq_train(torch.device("cuda"))') < phase.index("wait_children(procs)")
+    assert (chip_smoke.SEQ_TRAIN_BATCH, chip_smoke.SEQ_TRAIN_SIZE, chip_smoke.SEQ_TRAIN_STEPS) == (
+        2, 256, 2)
 
 
 def test_a_failed_child_stops_the_others_and_fails_the_script(tmp_path):

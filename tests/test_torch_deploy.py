@@ -9,7 +9,9 @@ the JAX side reads it back through `convert/torch_import.py`, the port reads
 the same file. Most checks share one artifact (wf=8, (1, 1, 1) blocks,
 buckets 32x32 and 64x32 and a tile program) exported with
 `allow_custom_calls=True` for both devices, so each program holds K1's
-registered op, which takes the plain version on a CPU tensor.
+registered op, which takes the plain version on a CPU tensor. The chains'
+op and K3's op (`conv_impl: fused`, `scan_impl: pallas`) are exported with
+and without `allow_custom_calls` and held against the eager port's bits.
 
 The artifact whose tile program is sharded over two ranks (`mesh_devices=2`)
 is served by two gloo rank processes on the CPU
@@ -203,41 +205,102 @@ def test_mesh_tile_program_refuses_one_process(mesh_ranks, workdir):
         model.tiled(W.artifact_image()[0])
 
 
-@pytest.mark.parametrize("length,out_dtype", [(200, None), (64, torch.bfloat16), (1, None)])
-def test_fake_matches_the_plain_op(length, out_dtype):
-    """`register_fake` gives the shapes and dtypes of what the op returns
-    (the plain version on the CPU, K1's allocations on the card)."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
+def _op_case(op, length, dtype):
+    """(the registered op's call, its plain version's call, the tensors they
+    take) on seeded inputs: K1's pair (`dtype`: its out_dtype), K3's scan
+    (B=2, K=4, D=N=16) or a chain of every stage kind on a (1, 8, length,
+    12) x in `dtype` (default float32)."""
+    from wavemamba_torch.experimental import conv_fused as cf
+    from wavemamba_torch.ops.scan import selective_scan_plain
 
     rs = np.random.RandomState(length)
-    d, n, r = 16, 16, 1
-    args = [torch.from_numpy(rs.rand(*s).astype(np.float32))
-            for s in [(2, length, d), (2, d, r + 2 * n), (2, r, d), (2, d), (2, n, d), (2, d)]]
-    args[4] = -args[4]
-    real = scan_cuda.ss2d_scan_pair_fwd(*args, out_dtype)
-    plain = ss2d_scan_pair_plain(*args, chunk=scan_cuda.CHUNK, return_carries=True,
-                                 out_dtype=out_dtype)
+    t = lambda *s: torch.from_numpy(rs.rand(*s).astype(np.float32))  # noqa: E731
+    if op == "k1":
+        d, n, r = 16, 16, 1
+        args = [t(*s) for s in [(2, length, d), (2, d, r + 2 * n), (2, r, d), (2, d), (2, n, d),
+                                (2, d)]]
+        args[4] = -args[4]
+        return (lambda *a: scan_cuda.ss2d_scan_pair_fwd(*a, dtype),
+                lambda *a: ss2d_scan_pair_plain(*a, chunk=scan_cuda.CHUNK, return_carries=True,
+                                                out_dtype=dtype), args)
+    if op == "k3":
+        args = [t(2, 4, length, 16), t(2, 4, length, 16), -t(4, 16, 16), t(2, 4, length, 16),
+                t(2, 4, length, 16), t(4, 16), t(4, 16)]
+        return (scan_cuda.selective_scan_fwd,
+                lambda *a: selective_scan_plain(*a, chunk=scan_cuda.CHUNK, return_carries=True),
+                args)
+    c = 8
+    w = [t(c, c, 3, 3) - 0.5, t(c, c) - 0.5, t(c), t(c), t(c), t(2 * c, c) - 0.5, t(2 * c),
+         t(2 * c, 1, 3, 3), t(2 * c), t(c, c) - 0.5, t(c), t(c)]
+    x = (t(1, c, length, 12) - 0.5).to(dtype or torch.float32)
+
+    def stages(*w):
+        return (("dense", w[0], None), ("mulsig0", w[1], w[2]), ("ln", w[3], w[4], 1e-5),
+                ("pw", w[5], w[6]), ("dw", w[7], w[8]), ("glu", "gelu"), ("pw", w[9], w[10]),
+                ("act", "silu"), ("res0", w[11]))
+
+    return (lambda x, *w: cf.conv_chain_op(x, *cf._op_args(x, stages(*w)), 16, x.shape[3], True),
+            lambda x, *w: cf.fused_chain_plain(x, stages(*w)), [x] + w)
+
+
+@pytest.mark.parametrize("op,length,out_dtype", [
+    pytest.param("k1", 200, None, id="200-None"),
+    pytest.param("k1", 64, torch.bfloat16, id="64-out_dtype1"),
+    pytest.param("k1", 1, None, id="1-None"),
+    pytest.param("k3", 200, None, id="k3-200"), pytest.param("k3", 1, None, id="k3-1"),
+    pytest.param("chain", 20, None, id="chain-float32"),
+    pytest.param("chain", 7, torch.bfloat16, id="chain-bf16")])
+def test_fake_matches_the_plain_op(op, length, out_dtype):
+    """`register_fake` gives the shapes and dtypes of what each registered op
+    returns (the plain version on the CPU, the kernel's allocations on the
+    card): K1's `ss2d_scan_pair_fwd`, K3's `selective_scan_fwd` and the
+    chains' `conv_chain` (its weights a list of tensors, None where a stage
+    has none). On the CPU the op is its plain version, bit for bit."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    call, plain, args = _op_case(op, length, out_dtype)
+    real, want = call(*args), plain(*args)
     with FakeTensorMode() as mode:
-        fake = scan_cuda.ss2d_scan_pair_fwd(*[mode.from_tensor(a) for a in args], out_dtype)
-    for f, t, p in zip(fake, real, plain):
-        assert (f.shape, f.dtype) == (t.shape, t.dtype) == (p.shape, p.dtype)
+        fake = call(*[mode.from_tensor(a) for a in args])
+    real, want, fake = ([t] if isinstance(t, torch.Tensor) else t for t in (real, want, fake))
+    for f, r, p in zip(fake, real, want):
+        assert (f.shape, f.dtype) == (r.shape, r.dtype) == (p.shape, p.dtype)
+        assert torch.equal(r, p)
 
 
-def test_op_route_is_the_eager_route(eager):
-    """`ss2d_scan_pair_op` (the op under no_grad) gives the eager scan's bits."""
-    from wavemamba_torch.models.wavemamba import set_scan
+@pytest.mark.parametrize("op", ["k1", "k3", "chain"])
+def test_op_route_is_the_eager_route(weights, eager, op):
+    """Each op's route under no_grad gives the eager route's bits:
+    `ss2d_scan_pair_op` (K1, installed by `set_scan`), `selective_scan_op`
+    (K3 under `scan_impl='pallas'`, by `set_unfused_scan`), and the chains
+    under `conv_impl='fused'` inside `chain_route('op')`."""
+    from wavemamba_torch.experimental import conv_fused as cf
+    from wavemamba_torch.models.wavemamba import set_scan, set_unfused_scan
 
     x = torch.from_numpy(_image(3, 32, 32))
+    if op == "k1":
+        model, install = eager, lambda on: set_scan(
+            eager, scan_cuda.ss2d_scan_pair_op if on else scan_cuda.ss2d_scan_pair)
+    else:
+        knob = {"scan_impl": "pallas"} if op == "k3" else {"conv_impl": "fused"}
+        model = build_network({"type": "WaveMamba", **SIZE, **knob}, weights[0],
+                              device="cpu").requires_grad_(False)
+        install = lambda on: set_unfused_scan(model, scan_cuda.selective_scan_op if on else None)
     with torch.no_grad():
-        want = wavemamba_forward(eager, x)
-        set_scan(eager, scan_cuda.ss2d_scan_pair_op)
-        try:
-            got = wavemamba_forward(eager, x)
-        finally:
-            set_scan(eager, scan_cuda.ss2d_scan_pair)
+        want = wavemamba_forward(model, x)
+        if op == "chain":
+            with cf.chain_route("op"):
+                got = wavemamba_forward(model, x)
+        else:
+            install(True)
+            try:
+                got = wavemamba_forward(model, x)
+            finally:
+                install(False)
     assert torch.equal(got, want)
-    with pytest.raises(ValueError, match="K1 only"):
-        scan_cuda.ss2d_scan_pair_op(*[None] * 6, variant="ssd")
+    if op == "k1":
+        with pytest.raises(ValueError, match="K1 only"):
+            scan_cuda.ss2d_scan_pair_op(*[None] * 6, variant="ssd")
 
 
 def test_export_roundtrip_bit_exact(artifact, eager):
@@ -322,22 +385,64 @@ def test_cuda_pinned_export_builds_on_cpu_host(weights, workdir):
 
 
 def test_export_refuses_what_has_no_op(weights, workdir):
-    """The mesh-sharded tile program takes JAX's checks (a tile spec, a tile
-    batch that divides over the devices); the fused conv chains and K3 / K4
-    have no registered op."""
+    """What export still refuses: the mesh-sharded tile program takes JAX's
+    checks (a tile spec, a tile batch that divides over the devices), and a
+    platform the port has no runtime for. (Every kernel now has a registered
+    op: `test_fused_and_unfused_kernels_export`.)"""
     sd, path = weights[0], str(workdir / "x.wmt")
     with pytest.raises(ValueError, match="shards the tile program"):
         deploy.export_model(sd, WaveMambaConfig(**SIZE), [(32, 32)], path, mesh_devices=2)
     with pytest.raises(ValueError, match="must divide"):
         deploy.export_model(sd, WaveMambaConfig(**SIZE), [(32, 32)], path,
                             tile={"size": 16, "pad": 8, "batch": 3}, mesh_devices=2)
-    with pytest.raises(NotImplementedError, match="conv_impl='fused'"):
-        deploy.export_model(sd, WaveMambaConfig(conv_impl="fused", **SIZE), [(32, 32)], path)
-    with pytest.raises(NotImplementedError, match="K3 / K4"):
-        deploy.export_model(sd, WaveMambaConfig(scan_impl="pallas", **SIZE), [(32, 32)], path,
-                            allow_custom_calls=True)
     with pytest.raises(ValueError, match="platforms"):
         deploy.export_model(sd, WaveMambaConfig(**SIZE), [(32, 32)], path, platforms=("tpu",))
+
+
+@pytest.mark.parametrize("custom_calls", [True, False], ids=["ops", "portable"])
+def test_fused_and_unfused_kernels_export(weights, workdir, monkeypatch, custom_calls):
+    """`conv_impl: fused` with `scan_impl: pallas` exports, as JAX's does.
+    With `allow_custom_calls` the program holds K3's op once an SS2D and the
+    chain op once a chain of the eager forward, for the card (platforms
+    ['cuda']: serving it through the artifact on the CPU refuses, its program
+    on the CPU runs the ops' plain versions); without, a portable program
+    with no op of the port (the chains traced plain, the scan swapped to
+    'par'). The manifest keeps the config (the scan as swapped). The
+    program's output is the eager port's, on the artifact's config, bit for
+    bit."""
+    from wavemamba_torch.experimental import conv_fused as cf
+    from wavemamba_torch.models.wavemamba import SS2D
+
+    path = workdir / f"kernels_{custom_calls}.wmt"
+    cfg = WaveMambaConfig(conv_impl="fused", scan_impl="pallas", **SIZE)
+    manifest = deploy.export_model(weights[0], cfg, [(32, 32)], str(path),
+                                   allow_custom_calls=custom_calls)
+    assert manifest["platforms"] == (["cuda"] if custom_calls else ["cpu", "cuda"])
+    want_cfg = {**deploy._clean_config(cfg), "scan_impl": "pallas" if custom_calls else "par"}
+    assert manifest["config"] == want_cfg
+    eager_cfg = {k: tuple(v) if isinstance(v, list) else v for k, v in want_cfg.items()}
+    model = build_network({"type": "WaveMamba", **eager_cfg}, weights[0],
+                          device="cpu").requires_grad_(False)
+    calls = []
+    op = cf.conv_chain_op
+    monkeypatch.setattr(cf, "conv_chain_op", lambda *a: calls.append(1) or op(*a))
+    x = _image(4, 32, 32)
+    with torch.no_grad(), cf.chain_route("op"):
+        want = wavemamba_forward(model, torch.from_numpy(x)).numpy()
+    art = deploy.load_exported(str(path), device="cpu")
+    nodes = [str(n.target) for n in art.runners[(32, 32)].module.graph.nodes]
+    counts = {name: nodes.count(f"wavemamba_torch.{name}.default")
+              for name in ("conv_chain", "selective_scan_fwd", "ss2d_scan_pair_fwd")}
+    if custom_calls:
+        assert counts == {"conv_chain": len(calls), "ss2d_scan_pair_fwd": 0,
+                          "selective_scan_fwd": sum(isinstance(m, SS2D) for m in model.modules())}
+        with pytest.raises(ValueError, match=r"exported for platform\(s\) \['cuda'\]"):
+            art(x)
+        got = art.runners[(32, 32)].run(torch.from_numpy(x)).numpy()
+    else:
+        assert counts == dict.fromkeys(counts, 0) and len(calls) > 0
+        got = art(x)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_checksum_guards_weight_payload(weights_only, tmp_path):

@@ -57,6 +57,10 @@ JAX_TRAIN = jwm.WaveMambaConfig(wf=8, n_l_blocks=(1, 1, 1), n_h_blocks=(1, 1, 1)
                                 scan_impl="ref")
 # Data-parallel parameters and EMA against JAX's mesh step (see the train test).
 PARAM_ATOL = 2e-5
+# The sequence-sharded scan's gradients against JAX's, as tests/test_torch_remat.py
+# holds gradients through a scan.
+GRAD_RTOL, GRAD_ATOL = 5e-4, 5e-5
+SCAN_INPUTS = ("u", "delta", "A", "Bs", "Cs", "D_skip", "delta_bias")
 
 
 class _Ranks:
@@ -218,9 +222,31 @@ def _jax_scan(n):
     wants = {"scan": [np.asarray(jax_seq_sharded(*args, mesh=mesh, chunk=16)),
                       np.asarray(jax_chunked(*args, chunk=16))],
              "scan_slow": [np.asarray(jax_chunked(*slow, chunk=32))]}
+    ct = jnp.asarray(W.scan_cotangent())
+    loss = lambda *a: jnp.sum(jax_seq_sharded(*a, mesh=mesh, chunk=16) * ct)  # noqa: E731
+    wants["scan_grads"] = [np.asarray(g) for g in
+                           jax.jit(jax.grad(loss, argnums=tuple(range(7))))(*args)]
     with pytest.raises(ValueError) as err:
         jax_seq_sharded(*map(jnp.asarray, W.scan_case(2, length=255)), mesh=mesh, chunk=16)
     return wants, str(err.value)
+
+
+def _jax_seq_train(weights):
+    """JAX's mesh step with the tiny config's scan sequence-sharded over
+    `make_mesh(2)` (`scan_impl='seq_sharded'`, `scan_mesh`), one step on the
+    ranks' first global batch: (metrics, parameters as the port's state
+    dict)."""
+    mesh = jmesh.make_mesh(2)
+    cfg = jwm.WaveMambaConfig(wf=8, n_l_blocks=(1, 1, 1), n_h_blocks=(1, 1, 1), remat=False,
+                              scan_impl="seq_sharded", scan_chunk=16, scan_mesh=mesh)
+    tcfg = jtrain.TrainConfig(**W.TCFG)
+    state = jmesh.replicate(mesh, jtrain.create_train_state(
+        jax.tree_util.tree_map(jnp.asarray, weights), tcfg))
+    lq, gt = W.train_batches(2)[0]
+    batch = jmesh.shard_batch(mesh, {"lq": lq, "gt": gt})
+    state, m = jtrain.make_train_step(cfg, tcfg, mesh)(state, batch["lq"], batch["gt"])
+    return ({k: float(v) for k, v in m.items()},
+            convert.state_dict_from_jax(jax.tree_util.tree_map(np.asarray, state["params"])))
 
 
 def _jax_tiles(weights):
@@ -233,9 +259,10 @@ def _jax_tiles(weights):
 def jax_refs(weights):
     """The JAX side of the train, scan and tile tests, each a future of a
     thread started with the module."""
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         yield {"train": pool.submit(_jax_train, weights), "scan2": pool.submit(_jax_scan, 2),
-               "scan4": pool.submit(_jax_scan, 4), "tiles": pool.submit(_jax_tiles, weights)}
+               "scan4": pool.submit(_jax_scan, 4), "tiles": pool.submit(_jax_tiles, weights),
+               "seq_train": pool.submit(_jax_seq_train, weights)}
 
 
 # ------------------------------------------------------------------ one process
@@ -339,11 +366,82 @@ def test_seq_sharded_scan_matches_jax(request, jax_refs, n):
     wants, ragged = jax_refs[f"scan{n}"].result()
     got = _ranks(request, n)
     for key, want in wants.items():
+        if key == "scan_grads":
+            continue
         for res in got:
             assert res[key].shape == want[0].shape
             for w in want:
                 np.testing.assert_allclose(res[key], w, rtol=3e-5, atol=3e-5)
     assert all(r["scan_ragged_error"] == ragged for r in got)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_seq_sharded_scan_grads_match_jax(request, jax_refs, n):
+    """The gradients of every input of `selective_scan_seq_sharded` on n
+    ranks, for one seeded cotangent, against `jax.grad` of JAX's on
+    `make_mesh(n)` (the scan test's case), rtol 5e-4 / atol 5e-5 as
+    `tests/test_torch_remat.py` holds gradients through a scan; every rank
+    holds the same whole gradients, bit for bit. The differentiable call's
+    forward has the no_grad call's bits (the forward is unchanged)."""
+    wants, _ = jax_refs[f"scan{n}"].result()
+    got = _ranks(request, n)
+    for res in got:
+        assert res["scan_grad_forward_same_bits"]
+        for name, mine, want in zip(SCAN_INPUTS, res["scan_grads"], wants["scan_grads"]):
+            assert mine.shape == want.shape, name
+            np.testing.assert_allclose(mine, want, rtol=GRAD_RTOL, atol=GRAD_ATOL, err_msg=name)
+        for mine, first in zip(res["scan_grads"], got[0]["scan_grads"]):
+            np.testing.assert_array_equal(mine, first)
+
+
+def test_seq_sharded_step_matches_jax_and_one_process(request, jax_refs):
+    """One step of the tiny config with `scan_impl: seq_sharded` on 2 ranks
+    (each handed 2 of the 4 images; the step gathers them) against JAX's mesh
+    step with its scan sharded over `make_mesh(2)`, and against the port's
+    one-process 'chunked' step on the 4 images: the parameters within
+    PARAM_ATOL, the loss rtol 1e-5 (the data-parallel test's tolerances).
+    Both ranks end with the same bits."""
+    want_metrics, want_jax = jax_refs["seq_train"].result()
+    got = _ranks(request, 2)
+    weights = torch.load(os.path.join(request.getfixturevalue("ranks2").data, "tiny.pth"))["params"]
+    one = build_network(W.TRAIN_NET, weights, device="cpu")
+    tcfg = ttrain.TrainConfig(**W.TCFG)
+    lq, gt = (torch.from_numpy(a) for a in W.train_batches(2)[0])
+    _, metrics = ttrain.make_train_step(tcfg)(ttrain.create_train_state(one, tcfg), lq, gt)
+    want_one = one.state_dict()
+    for res in got:
+        for k, v in want_metrics.items():
+            np.testing.assert_allclose(res["seq_train_loss"][k], v, rtol=1e-5, err_msg=k)
+            np.testing.assert_allclose(res["seq_train_loss"][k], float(metrics[k]), rtol=1e-5,
+                                       err_msg=k)
+        params = res["seq_train_params"]
+        assert max(np.abs(params[k] - want_jax[k].numpy()).max() for k in want_jax) <= PARAM_ATOL
+        assert max(np.abs(params[k] - want_one[k].numpy()).max() for k in want_one) <= PARAM_ATOL
+    for k, v in got[0]["seq_train_params"].items():
+        np.testing.assert_array_equal(v, got[1]["seq_train_params"][k], err_msg=k)
+
+
+def test_seq_sharded_eval_and_validation_run_every_row_on_every_rank(request):
+    """With `scan_impl: seq_sharded` the ranks must hold the same rows: the
+    eval step runs the whole global batch of 4 on each rank and the runner's
+    validation every image on each rank (5 images, not shared out). Against
+    one process with 'chunked' on the same weights: the outputs 3e-5 (the
+    model test's tolerance), the metrics rtol 1e-4 (PSNR / SSIM of the
+    quantized outputs); both ranks return the same averages."""
+    got = _ranks(request, 2)
+    weights = torch.load(os.path.join(request.getfixturevalue("ranks2").data, "tiny.pth"))["params"]
+    one = build_network(W.TRAIN_NET, weights, device="cpu")
+    want = ttrain.make_eval_step()(one, torch.from_numpy(W.train_batches(2)[0][0])).numpy()
+    opt = W.val_opt("cpu")
+    opt["network_g"] = W.TRAIN_NET
+    want_val, _ = build_model(opt).validation(W.val_images(), current_iter=1)
+    for res in got:
+        assert res["seq_eval"].shape == want.shape == (4, 32, 32, 3)
+        np.testing.assert_allclose(res["seq_eval"], want, rtol=3e-5, atol=3e-5)
+        assert set(res["seq_val"]) == set(want_val) == {"psnr", "ssim"}
+        for k, v in want_val.items():
+            np.testing.assert_allclose(res["seq_val"][k], v, rtol=1e-4, err_msg=k)
+    assert got[0]["seq_val"] == got[1]["seq_val"]
 
 
 def test_seq_sharded_model_matches_one_process_chunked(request):

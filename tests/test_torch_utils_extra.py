@@ -1,5 +1,7 @@
 """The port's download helper and profiler (`wavemamba_torch/utils/
-download_util.py`, `utils/profiler.py`) on the CPU, beside the JAX package's.
+download_util.py`, `utils/profiler.py`), and its inverse colour conversions
+and `crop_border` (`utils/color.py`, `utils/img_util.py`), on the CPU, beside
+the JAX package's.
 
 The download tests never reach the network: a cached file is returned as
 it is, and a miss goes through `urlretrieve`, which each test replaces.
@@ -13,8 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+import wavemamba_torch.utils as tutils
+import wavemamba_tpu.utils as jutils
 from wavemamba_torch.utils import download_util as tdl
 from wavemamba_torch.utils import profiler as tprof
+from wavemamba_tpu.utils import color as jcolor
 from wavemamba_tpu.utils import download_util as jdl
 
 # The suite runs in several worker processes on a few cores: torch's intra-op
@@ -92,3 +97,38 @@ def test_step_timer_counts_steps():
         pass
     s = timer.summary()
     assert s["n"] == 4 and s["min_s"] >= 0 and np.isfinite(s["mean_s"]) and s["p50_s"] >= s["min_s"]
+
+
+@pytest.mark.parametrize("name", ["ycbcr2rgb", "ycbcr2bgr"])
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_inverse_colour_conversions_match_jax(name, dtype):
+    """`ycbcr2rgb` / `ycbcr2bgr` on seeded HWC images against the JAX
+    package's: the same numpy arithmetic, so the same bits (uint8 in gives
+    uint8, float [0, 1] gives float32); a float round trip through
+    `rgb2ycbcr` comes back within 1e-3 (MATLAB's constants have 6 digits)."""
+    rs = np.random.RandomState(7)
+    img = rs.randint(0, 256, (17, 23, 3), np.uint8)
+    if dtype == np.float32:
+        img = (img / 255.0).astype(np.float32)
+    got = getattr(tutils, name)(img)
+    want = getattr(jcolor, name)(img)
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    if name == "ycbcr2rgb" and dtype == np.float32:
+        from wavemamba_torch.utils.color import rgb2ycbcr
+
+        assert np.abs(tutils.ycbcr2rgb(rgb2ycbcr(img)) - img).max() <= 1e-3
+
+
+@pytest.mark.parametrize("crop", [0, 3])
+def test_crop_border_matches_jax(crop):
+    """`crop_border` of one image and of a list, uint8 and float32, equals
+    JAX's (exported from `utils` in both packages)."""
+    rs = np.random.RandomState(crop)
+    imgs = [rs.randint(0, 256, (20, 16, 3), np.uint8), rs.rand(20, 16, 1).astype(np.float32)]
+    for got, want in zip(tutils.crop_border(imgs, crop), jutils.crop_border(imgs, crop)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(tutils.crop_border(imgs[0], crop),
+                                  jutils.crop_border(imgs[0], crop))
+    assert tutils.crop_border(imgs[0], crop).shape == (20 - 2 * crop, 16 - 2 * crop, 3)

@@ -3,9 +3,10 @@ code or weights on the side. The counterpart of `wavemamba_tpu/deploy.py`.
 
 `export_model` turns a state dict into a self-contained archive: the weights
 once, and one `torch.export` program per static input shape. A serving
-process needs only this module and the op that runs kernel K1
-(`ops/scan_cuda.py`), not the model source, the converter or the config
-system, and it traces nothing.
+process needs only this module and the ops its programs hold (K1 and K3 in
+`ops/scan_cuda.py`, the conv chains' in `experimental/conv_fused.py`, all
+registered when this module is imported), not the model source, the
+converter or the config system, and it traces nothing.
 
 Archive layout (a single ``.wmt`` zip; ``.wmx`` is the JAX package's)::
 
@@ -31,15 +32,21 @@ program runs under ``NamedSharding(mesh, PartitionSpec('data'))``.
 Programs are traced on the CPU. By default the artifact is portable
 (``platforms=('cpu', 'cuda')``): a configured kernel scan
 (``scan_impl='pallas*'``) is swapped for the plain 'par' scan, the same
-swap as the JAX package's. ``allow_custom_calls=True`` keeps kernel K1 as one
-node of its registered op (`scan_cuda.ss2d_scan_pair_fwd`) and narrows the
-default platforms to ``('cuda',)``; the op takes the plain version on a CPU
-tensor, so listing ``'cpu'`` as well gives an artifact that serves on both.
+swap as the JAX package's, and the fused conv chains (``conv_impl='fused'``)
+are traced as their plain version (`conv_fused.chain_route('plain')`), as
+the JAX package traces its chains in interpret mode on a host without a TPU;
+the manifest keeps the config as it was asked for, but for the scan.
+``allow_custom_calls=True`` keeps each kernel the config selects as one node
+of its registered op, K1 (`scan_cuda.ss2d_scan_pair_fwd`, 'pallas_fused'),
+K3 (`scan_cuda.selective_scan_fwd`, 'pallas') and the chains' K7 / K6
+(`conv_fused.conv_chain_op`, 'fused'), and narrows the default platforms to
+``('cuda',)``; each op takes the plain version on a CPU tensor, so listing
+``'cpu'`` as well gives an artifact that serves on both.
 At load on the card each program is moved there by
 `torch.export.passes.move_to_device_pass` (the manifest's `placement`).
 
 On the card each program runs as one CUDA graph: captured at its first call
-(a warm-up on a side stream first, which builds K1 and settles cuDNN's
+(a warm-up on a side stream first, which builds the kernels and settles cuDNN's
 choices), replayed after that, with a static input buffer and the weights
 placed once. Each captured shape holds its own memory pool. On the CPU the
 program runs as it is. Serving never gives way to eager modules, to the plain
@@ -61,6 +68,7 @@ import numpy as np
 import torch
 
 from wavemamba_torch.device import resolve_device
+from wavemamba_torch.experimental import conv_fused
 from wavemamba_torch.models.tiling import tiled_apply, tiled_apply_mesh
 from wavemamba_torch.ops import scan_cuda
 
@@ -159,7 +167,8 @@ def export_model(state_dict, cfg, shapes, out_path, *, batch=1, platforms=None,
     Args:
         state_dict: the model's weights (`checkpoint.load_network`), on any device.
         cfg: `WaveMambaConfig`. A kernel scan ('pallas*') becomes the portable
-            'par' scan unless `allow_custom_calls`.
+            'par' scan, and fused conv chains their plain version, unless
+            `allow_custom_calls`.
         shapes: iterable of ``(H, W)`` static input shapes. Callers pad to a
             multiple of 128 like the reference; this is not re-checked (tiles
             only need x8).
@@ -167,9 +176,10 @@ def export_model(state_dict, cfg, shapes, out_path, *, batch=1, platforms=None,
         batch: static batch dimension of every program.
         platforms: the devices the artifact serves on, of ``('cpu', 'cuda')``.
             Default both, or ``('cuda',)`` with `allow_custom_calls`.
-        allow_custom_calls: keep K1 as its registered op
-            (``scan_impl='pallas_fused'``; the unfused kernels K3 / K4 and the
-            fused conv chains have no registered op and are refused).
+        allow_custom_calls: keep the kernels the config selects as their
+            registered ops: K1 (``scan_impl='pallas_fused'``), K3
+            (``scan_impl='pallas'``) and the conv chains' K7 / K6
+            (``conv_impl='fused'``).
         tile: optional ``{"size": 240, "pad": 16, "batch": 8, "pad_multiple": 8}``:
             also export one fixed-shape tile program, so the artifact serves
             frames larger than any whole-frame bucket through
@@ -183,18 +193,12 @@ def export_model(state_dict, cfg, shapes, out_path, *, batch=1, platforms=None,
             like the save path (clip to [0, 1], * 255, round half to even).
     """
     from wavemamba_torch.models import build_network
-    from wavemamba_torch.models.wavemamba import set_scan
+    from wavemamba_torch.models.wavemamba import set_scan, set_unfused_scan
 
     if io_dtype not in ("float32", "uint8"):
         raise ValueError(f"io_dtype must be 'float32' or 'uint8', got {io_dtype!r}")
-    if cfg.conv_impl == "fused":
-        raise NotImplementedError("conv_impl='fused' (the chain kernels K6 / K7) has no registered "
-                                  "op to export; export conv_impl='xla' (the same weights)")
     if cfg.scan_impl.startswith("pallas") and not allow_custom_calls:
         cfg = dataclasses.replace(cfg, scan_impl=_PORTABLE_SCAN)
-    if allow_custom_calls and cfg.scan_impl == "pallas":
-        raise NotImplementedError("scan_impl='pallas' (kernels K3 / K4) has no registered op to "
-                                  "export; allow_custom_calls keeps K1 ('pallas_fused')")
     if platforms is None:
         platforms = ("cuda",) if allow_custom_calls else PLATFORMS
     platforms = tuple(platforms)
@@ -217,6 +221,9 @@ def export_model(state_dict, cfg, shapes, out_path, *, batch=1, platforms=None,
     model.requires_grad_(False)
     if cfg.scan_impl == "pallas_fused":
         set_scan(model, scan_cuda.ss2d_scan_pair_op)
+    elif cfg.scan_impl == "pallas":
+        set_unfused_scan(model, scan_cuda.selective_scan_op)
+    chains = "op" if allow_custom_calls else "plain"  # reached only with conv_impl='fused'
     names = list(model.state_dict())
     flat = tuple(t.contiguous() for t in model.state_dict().values())
     program = _Program(model, names, io_dtype)
@@ -226,7 +233,9 @@ def export_model(state_dict, cfg, shapes, out_path, *, batch=1, platforms=None,
 
     def trace(name, shape):
         t0 = time.perf_counter()
-        ep = torch.export.export(program, (flat, torch.zeros(shape, dtype=x_dtype)), strict=False)
+        with conv_fused.chain_route(chains):
+            ep = torch.export.export(program, (flat, torch.zeros(shape, dtype=x_dtype)),
+                                     strict=False)
         _drop_no_op_casts(ep)
         t1 = time.perf_counter()
         buf = io.BytesIO()
@@ -267,17 +276,23 @@ def export_model(state_dict, cfg, shapes, out_path, *, batch=1, platforms=None,
     return manifest
 
 
+# The launch counts of the kernels a program may hold, by name.
+_COUNTERS = {"K1": scan_cuda.ss2d_scan_pair, "K3": scan_cuda.selective_scan_cuda,
+             "K6": conv_fused.fused_chain, "K7": conv_fused.fused_chain_band}
+
+
 class _Runner:
     """One program on one device. On the CPU it runs as it is. On the card it
     is captured into a CUDA graph at its first call and replayed after that:
-    `replays` counts the replays, `k1_in_graph` the K1 launches the capture
-    recorded (each replay runs them again without passing through the
-    wrapper's count)."""
+    `replays` counts the replays, `in_graph` each kernel's launches that the
+    capture recorded ({'K1', 'K3', 'K6', 'K7'}; each replay runs them again
+    without passing through the wrappers' counts)."""
 
     def __init__(self, module, flat, device):
         self.module, self.flat, self.device = module, flat, device
         self.graph = self.static_x = self.static_y = None
-        self.replays = self.k1_in_graph = 0
+        self.replays = 0
+        self.in_graph = dict.fromkeys(_COUNTERS, 0)
 
     def run(self, x: torch.Tensor):
         """The program's output for `x` (on the CPU or on the card) on the
@@ -319,13 +334,13 @@ class _Runner:
             side = torch.cuda.Stream(self.device)
             side.wait_stream(main)
             with torch.cuda.stream(side), torch.no_grad():
-                self.module(self.flat, self.static_x)  # builds K1, settles cuDNN's choices
+                self.module(self.flat, self.static_x)  # builds the kernels, settles cuDNN's choices
             main.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            before = scan_cuda.ss2d_scan_pair.launches
+            before = {k: f.launches for k, f in _COUNTERS.items()}
             with torch.no_grad(), torch.cuda.graph(graph):
                 self.static_y = self.module(self.flat, self.static_x)
-            self.k1_in_graph = scan_cuda.ss2d_scan_pair.launches - before
+            self.in_graph = {k: f.launches - before[k] for k, f in _COUNTERS.items()}
             self.graph = graph
 
 

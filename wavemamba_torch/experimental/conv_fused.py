@@ -32,21 +32,25 @@ VJP): a call with grad mode on and an input or weight that requires grad
 raises. `_run` sends the nine wrappers to the band kernel by default, as the
 JAX package does; `band_h=None`, or a call inside `chain_route("tile")`, takes
 K6, and inside `chain_route("plain")` they run the plain version on any device
-(to hold the kernels against it on the card).
+(to hold the kernels against it on the card). Inside `chain_route("op")` they
+reach the same kernel through the registered op `wavemamba_torch::conv_chain`
+(`conv_chain_op`), which `torch.export` keeps as one node: the deployment
+artifact's route (`wavemamba_torch/deploy.py`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from wavemamba_torch.ops.conv_fused_cuda import ACTS, conv_chain
+from wavemamba_torch.ops.conv_fused_cuda import ACTS, KINDS, conv_chain
 from wavemamba_torch.ops.nn import layer_norm
 
-ROUTES = ("band", "tile", "plain")
+ROUTES = ("band", "tile", "plain", "op")
 _ROUTE = ["band"]
 
 
@@ -121,9 +125,13 @@ def fused_chain_plain(x, stages):
     """The chain over the whole image in plain PyTorch (the plain version of
     K6 and K7): x (B, C, H, W) float32 or bf16 -> (B, Cout, H, W) in x's
     dtype, computed in float32 (each product's sum exactly, `_product`)."""
+    return _plain(x, _specs(x.shape[1], stages))
+
+
+def _plain(x, specs):
     x0 = x.float()
     cur = x0
-    for kind, cin, cout, act, w, b, eps in _specs(x.shape[1], stages):
+    for kind, cin, cout, act, w, b, eps in specs:
         if kind == "pw":
             cur = _product(cur, w.view(cout, cin, 1, 1), b)
         elif kind == "dense":
@@ -155,11 +163,10 @@ def _check(name, x, stages):
                            "conv_impl='xla' to train")
 
 
-def _launch(name, x, stages, tile_h, tile_w):
+def _launch(name, x, specs, tile_h, tile_w):
     """One launch of the chain kernel on a CUDA tensor; any other device raises."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    specs = _specs(x.shape[1], stages)
     for s in specs:
         for t in s[4:6]:
             if t is not None and (t.device != x.device or t.dtype != torch.float32
@@ -175,7 +182,7 @@ def fused_chain(x, stages, tile_h=8, tile_w=128):
     _check("fused_chain", x, stages)
     if x.device.type == "cpu":
         return fused_chain_plain(x, stages)
-    y = _launch("fused_chain", x, stages, tile_h, tile_w)
+    y = _launch("fused_chain", x, _specs(x.shape[1], stages), tile_h, tile_w)
     fused_chain.launches += 1
     return y
 
@@ -189,7 +196,7 @@ def fused_chain_band(x, stages, band_h=16):
     _check("fused_chain_band", x, stages)
     if x.device.type == "cpu":
         return fused_chain_plain(x, stages)
-    y = _launch("fused_chain_band", x, stages, band_h, x.shape[3])
+    y = _launch("fused_chain_band", x, _specs(x.shape[1], stages), band_h, x.shape[3])
     fused_chain_band.launches += 1
     return y
 
@@ -197,12 +204,49 @@ def fused_chain_band(x, stages, band_h=16):
 fused_chain_band.launches = 0
 
 
+@torch.library.custom_op("wavemamba_torch::conv_chain", mutates_args=())
+def conv_chain_op(x: torch.Tensor, weights: list[Optional[torch.Tensor]], kinds: list[int],
+                  cin: list[int], cout: list[int], act: list[int], eps: list[float], tile_h: int,
+                  tile_w: int, band: bool) -> torch.Tensor:
+    """K7 (`band`: row bands of `tile_h` rows, as `fused_chain_band`) or K6
+    (2-D tiles, as `fused_chain`) as a registered op, so that `torch.export`
+    keeps a chain as one node whose weights are the program's inputs: the
+    chain of `_specs` as tensor and number lists (`_op_args`), each stage's
+    (w, b) in `weights`, its kind and activation as indices into
+    `conv_fused_cuda.KINDS` / `ACTS` (-1: none). The kernel's descriptor is
+    built here from the weights' addresses, which a FakeTensor lacks. On a
+    CPU tensor the plain version; counts each launch as its entry point does."""
+    specs = [(KINDS[k], ci, co, None if a < 0 else ACTS[a], weights[2 * i], weights[2 * i + 1], e)
+             for i, (k, ci, co, a, e) in enumerate(zip(kinds, cin, cout, act, eps))]
+    if x.device.type == "cpu":
+        return _plain(x, specs)
+    entry = fused_chain_band if band else fused_chain
+    y = _launch(entry.__name__, x, specs, tile_h, tile_w)
+    entry.launches += 1
+    return y
+
+
+@conv_chain_op.register_fake
+def _conv_chain_fake(x, weights, kinds, cin, cout, act, eps, tile_h, tile_w, band):
+    return x.new_empty((x.shape[0], cout[-1], x.shape[2], x.shape[3]))
+
+
+def _op_args(x, stages):
+    """`conv_chain_op`'s weights and number lists for `stages` on x."""
+    specs = _specs(x.shape[1], stages)
+    return ([t for s in specs for t in s[4:6]], [KINDS.index(s[0]) for s in specs],
+            [s[1] for s in specs], [s[2] for s in specs],
+            [-1 if s[3] is None else ACTS.index(s[3]) for s in specs], [s[6] for s in specs])
+
+
 @contextlib.contextmanager
 def chain_route(route):
     """Inside, every wrapper below takes `route`: 'tile' the 2-D tile kernel
-    (K6), as with band_h=None, 'plain' the plain version on any device, 'band'
+    (K6), as with band_h=None, 'plain' the plain version on any device, 'op'
+    the kernel the default picks (K7, or K6 with band_h=None) through the
+    registered op `conv_chain_op` (the deployment artifact's route), 'band'
     the default. The model calls the wrappers with their defaults: this is how
-    K6, and the plain chains on the card, run through it."""
+    K6, the op, and the plain chains on the card, run through it."""
     if route not in ROUTES:
         raise ValueError(f"unknown chain route {route!r}; known: {ROUTES}")
     before = _ROUTE[0]
@@ -219,10 +263,16 @@ def chain_route(route):
 
 def _run(x, stages, tile_h, tile_w, band_h):
     """Row-band kernel by default; band_h=None (or `chain_route('tile')`) the
-    2-D tiles; `chain_route('plain')` the plain version."""
+    2-D tiles; `chain_route('plain')` the plain version; `chain_route('op')`
+    the default's kernel through `conv_chain_op`."""
     if _ROUTE[0] == "plain":
         _check("fused_chain_plain", x, stages)
         return fused_chain_plain(x, stages)
+    if _ROUTE[0] == "op":
+        _check("conv_chain_op", x, stages)
+        band = band_h is not None
+        return conv_chain_op(x, *_op_args(x, stages), band_h if band else tile_h,
+                             x.shape[3] if band else tile_w, band)
     if band_h is not None and _ROUTE[0] == "band":
         return fused_chain_band(x, stages, band_h=band_h)
     return fused_chain(x, stages, tile_h=tile_h, tile_w=tile_w)

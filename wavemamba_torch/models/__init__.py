@@ -132,18 +132,18 @@ def build_network(opt: dict, state_dict: dict, device="cuda"):
 
 def refuse_training(cfg) -> None:
     """Raise for a config that cannot train: a WaveMamba with
-    `conv_impl='fused'`, or `scan_impl='seq_sharded'` (its gathers have no
-    backward). Other archs have no such knobs."""
-    if not isinstance(cfg, WaveMambaConfig):
-        return
-    if cfg.scan_impl == "seq_sharded":
-        raise NotImplementedError("scan_impl='seq_sharded' is inference only: the sequence-"
-                                  "sharded scan's gathers have no backward; train with "
-                                  "scan_impl='pallas_fused' (data-parallel over the ranks)")
-    if cfg.conv_impl == "fused":
+    `conv_impl='fused'` (the chains have no backward). Other archs have no
+    such knob."""
+    if isinstance(cfg, WaveMambaConfig) and cfg.conv_impl == "fused":
         raise NotImplementedError("conv_impl='fused' is inference only: the fused conv chains have "
                                   "no backward, as in the JAX package; train with conv_impl='xla' "
                                   "(the same weights serve both)")
+
+
+def seq_sharded(cfg) -> bool:
+    """Whether `cfg`'s scan splits its token axis over the ranks of a mesh
+    (`scan_impl='seq_sharded'`): every rank must then run the same rows."""
+    return isinstance(cfg, WaveMambaConfig) and cfg.scan_impl == "seq_sharded"
 
 
 def init_network(opt: dict, generator: torch.Generator, device="cuda", train=True):
@@ -160,4 +160,4 @@ def init_network(opt: dict, generator: torch.Generator, device="cuda", train=Tru
 __all__ = ["ART", "ARTConfig", "WaveMamba", "WaveMambaConfig", "art_apply", "art_forward",
            "build_network", "config_from_opt", "init_art", "init_for", "init_network",
            "init_wavemamba", "module_for", "param_count", "refuse_training", "register_arch",
-           "wavemamba_apply", "wavemamba_forward"]
+           "seq_sharded", "wavemamba_apply", "wavemamba_forward"]

@@ -94,7 +94,8 @@ class WaveMambaConfig:
     same routes here: 'pallas_fused' is kernels K1 / K2, 'pallas' kernels K3 /
     K4, 'chunked' | 'par' | 'ref' plain torch ops, 'seq_sharded' the
     'chunked' scan with its token axis split over the ranks of `scan_mesh`
-    (`parallel/seq_scan.py`, inference only). The default is
+    (`parallel/seq_scan.py`; it trains with every rank on the same rows,
+    `train/trainer.py`). The default is
     'pallas_fused', not the JAX package's 'chunked': on the card the entry
     points launch a kernel by default, and every `options/*.yml` sets it.
 

@@ -13,7 +13,9 @@ custom VJP `ss2d_scan_fused_diff`. `selective_scan_cuda` replaces
 `csrc/selective_scan.cu`; `selective_scan_cuda_bwd` replaces
 `selective_scan_pallas_bwd` (`_scan_bwd_kernel`), source
 `csrc/selective_scan_bwd.cu`; `SelectiveScan` joins them as the counterpart of
-`wavemamba_tpu/ops/scan.py:_scan_pallas_diff`. `ss2d_scan_pair_ssd` replaces
+`wavemamba_tpu/ops/scan.py:_scan_pallas_diff`, and the registered op
+`selective_scan_fwd` holds K3 alone for the deployment artifact (inference).
+`ss2d_scan_pair_ssd` replaces
 `ss2d_scan_fused(variant='ssd')` (`_fused_kernel_ssd`), source
 `csrc/ss2d_scan_ssd.cu` (K1's layout, whose staging and chunk prefix it
 shares through `csrc/ss2d_scan_common.cuh`); it has no backward, as on the
@@ -955,6 +957,38 @@ def selective_scan_cuda(u, delta, A, Bs, Cs, D_skip, delta_bias, return_carries=
 
 
 selective_scan_cuda.launches = 0
+
+
+@torch.library.custom_op("wavemamba_torch::selective_scan_fwd", mutates_args=())
+def selective_scan_fwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor, Bs: torch.Tensor,
+                       Cs: torch.Tensor, D_skip: torch.Tensor, delta_bias: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 as a registered op: (y, state, sumda) of `selective_scan_cuda(...,
+    return_carries=True)` on float32 inputs, by the kernel on a CUDA tensor
+    and the plain version on a CPU one. Inference: it has no backward (train
+    through `selective_scan_cuda`, whose backward is K4)."""
+    return _scan_forward(u, delta, A, Bs, Cs, D_skip, delta_bias)
+
+
+@torch.library.register_fake("wavemamba_torch::selective_scan_fwd")
+def _scan_fwd_fake(u, delta, A, Bs, Cs, D_skip, delta_bias):
+    """The op's outputs as `_launch_k3` allocates them, without data."""
+    b, k, length, d = u.shape
+    n, nc = A.shape[-1], -(-length // CHUNK)
+    return (torch.empty_like(u), u.new_empty((b, k, nc, n, d), dtype=torch.float32),
+            u.new_empty((b, k, nc, d), dtype=torch.float32))
+
+
+def selective_scan_op(u, delta, A, Bs, Cs, D_skip, delta_bias, return_carries=False):
+    """`selective_scan_cuda` through the registered op `selective_scan_fwd`,
+    so that `torch.export` keeps K3 as one op node (the deployment artifact's
+    route for `scan_impl='pallas'`, installed with
+    `models.wavemamba.set_unfused_scan`). bf16 inputs are widened first, as
+    there. Inference only."""
+    args = tuple(t.float() if t.dtype == torch.bfloat16 else t
+                 for t in (u, delta, A, Bs, Cs, D_skip, delta_bias))
+    out = selective_scan_fwd(*args)
+    return out if return_carries else out[0]
 
 
 def selective_scan_cuda_bwd(u, delta, A, Bs, Cs, D_skip, delta_bias, state, sumda, dy):

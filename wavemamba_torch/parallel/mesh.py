@@ -11,7 +11,8 @@ and `replicated` (sharding objects for `device_put` and `jit`) have no
 tensor-level counterpart in PyTorch, and the port defines none.
 
 The collectives are broadcasts, all_reduces and one all_gather into a flat
-tensor, which NCCL and gloo both run on the rank's device (the card's torch
+tensor (`gather_rows`, and `reduce_rows`, its transpose, through an
+all_reduce), which NCCL and gloo both run on the rank's device (the card's torch
 ran each under gloo on CUDA tensors, so two ranks can share one card). A
 collective that the backend refuses raises; nothing is moved through the
 host instead.
@@ -145,6 +146,18 @@ def gather_rows(mesh, t, axis="data"):
     out = t.new_empty(n * t.numel())  # flat: gloo takes no (n, ...) output
     dist.all_gather_into_tensor(out, t.contiguous().view(-1), group=mesh.get_group(axis))
     return out.view((n,) + tuple(t.shape))
+
+
+def reduce_rows(mesh, t, axis="data"):
+    """The transpose of `gather_rows`: t (n, *shape) on every rank -> the sum
+    over the ranks of row `axis_rank` (a reduce-scatter, taken as one
+    all_reduce of the rows: the backward of the sequence-sharded scan sends
+    rows the size of a scan state, where the n-fold bytes cost nothing that
+    counts). `t[0]` without a mesh."""
+    if mesh is None:
+        return t[0]
+    total = all_reduce_sum_(mesh, t.clone(memory_format=torch.contiguous_format), axis)
+    return total[axis_rank(mesh, axis)]
 
 
 def world_sum(values):

@@ -14,7 +14,8 @@ on every rank and replicated from rank 0, after `resume()` too; the train
 step averages the gradients over the mesh; rank 0 alone writes checkpoints,
 and the other ranks wait for it before they read one. Validation shards the
 images round-robin by rank and reduces each metric's (sum, count) over the
-group. Evaluation runs the EMA weights when EMA is on, through
+group; with `scan_impl: seq_sharded` every rank validates every image, since
+the scan splits each image's tokens over the ranks. Evaluation runs the EMA weights when EMA is on, through
 `torch.func.functional_call`, so the trained weights stay where they are.
 """
 
@@ -36,7 +37,7 @@ from wavemamba_torch.checkpoint import (
 )
 from wavemamba_torch.device import resolve_device
 from wavemamba_torch.metrics import METRIC_DIRECTION, build_metric
-from wavemamba_torch.models import init_network
+from wavemamba_torch.models import init_network, seq_sharded
 from wavemamba_torch.models.buckets import BucketLadder
 from wavemamba_torch.models.tiling import tiled_apply
 from wavemamba_torch.parallel.dist import barrier, get_dist_info, is_master
@@ -205,6 +206,8 @@ class RestorationModel:
         opt_val = self.opt.get("val", {})
         metric_opts = opt_val.get("metrics") or {}
         world, rank = _world()
+        if seq_sharded(self.model.cfg):  # every rank runs every image through the sharded scan
+            world, rank = 1, 0
         num_shards = world if num_shards is None else num_shards
         shard_id = rank if shard_id is None else shard_id
         key_metric = opt_val.get("key_metric")

@@ -17,7 +17,9 @@ caller holds them against the JAX package and against one process):
             `master_only`, the logger's rank-0 rule)
   sampler   `EnlargedSampler` rank sharding
   scan      `selective_scan_seq_sharded` on `scan_case(...)`'s inputs, the
-            long-memory case, and an L that does not divide
+            long-memory case, and an L that does not divide; the gradients
+            of every input for the cotangent `scan_cotangent()`, and whether
+            the differentiable call's forward has the no_grad call's bits
   train     two data-parallel steps of the tiny config (wf=8, one block a
             level) from the weights in `--data`/tiny.pth, each rank on its
             2 rows of `train_batches()`: the averaged losses and the
@@ -26,6 +28,12 @@ caller holds them against the JAX package and against one process):
             catch, the same steps with each rank on its own gradients
   model     the small config (wf=16) with `scan_impl: seq_sharded` over
             the ranks
+  seq_train one step of the tiny config with `scan_impl: seq_sharded` over
+            the ranks, each rank given its 2 rows of `train_batches()[0]`
+            (the step gathers the global batch): the loss and the parameters;
+            before it, the eval step on that global batch and the runner's
+            validation of `val_images()` with the same scan (every rank runs
+            every row)
   tiles     `tiled_apply_mesh` of `tile_image()` with the tiny config
   val       validation sharded round-robin, the (sum, count) reduce
   cache     the device cache's slices of the global batch (`--data`/pngs)
@@ -60,7 +68,7 @@ TCFG = dict(lr=5e-4, weight_decay=1e-3, betas=(0.9, 0.99), scheduler=SCHEDULER,
             pixel_weight=1.0, fft_weight=0.1, ema_decay=0.999, grad_clip=0.5)
 TRAIN_STEPS = 2
 PER_RANK = 2  # images a rank takes a step
-CHECKS = ("init", "sampler", "scan", "train", "model", "tiles", "val", "cache")
+CHECKS = ("init", "sampler", "scan", "train", "seq_train", "model", "tiles", "val", "cache")
 
 
 def scan_case(seed, b=2, k=2, length=256, d=8, n=4, slow=False):
@@ -74,6 +82,11 @@ def scan_case(seed, b=2, k=2, length=256, d=8, n=4, slow=False):
         A = A * np.float32(0.01)
     return (f(b, k, length, d), f(b, k, length, d) * 0.5, A, f(b, k, length, n),
             f(b, k, length, n), f(k, d), f(k, d) * 0.1)
+
+
+def scan_cotangent(seed=5, shape=(2, 2, 256, 8)):
+    """A seeded dy for `scan_case(0)`'s y, float32 numpy."""
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
 
 
 def train_batches(world, seed=10, size=32):
@@ -158,6 +171,12 @@ def run_checks(checks, device, data, rank, world):
             return selective_scan_seq_sharded(*t, mesh=mesh, chunk=chunk).cpu().numpy()
 
         res["scan"] = seq(scan_case(0), 16)
+        leaves = [torch.from_numpy(a).to(device).requires_grad_() for a in scan_case(0)]
+        y = selective_scan_seq_sharded(*leaves, mesh=mesh, chunk=16)
+        res["scan_grad_forward_same_bits"] = bool(np.array_equal(y.detach().cpu().numpy(),
+                                                                 res["scan"]))
+        dy = torch.from_numpy(scan_cotangent()).to(device)
+        res["scan_grads"] = [g.cpu().numpy() for g in torch.autograd.grad(y, leaves, dy)]
         res["scan_slow"] = seq(scan_case(1, b=1, k=1, length=512, d=4, n=2, slow=True), 32)
         try:
             seq(scan_case(2, length=255), 16)
@@ -197,6 +216,30 @@ def run_checks(checks, device, data, rank, world):
         fault, _, _ = train(None)
         res["train_params_unaveraged"] = {k: v.detach().cpu().numpy()
                                           for k, v in fault.state_dict().items()}
+
+    if "seq_train" in checks:
+        from wavemamba_torch.checkpoint import load_network
+        from wavemamba_torch.models import build_network
+        from wavemamba_torch.runner import build_model
+        from wavemamba_torch.train import trainer
+
+        net = {**TRAIN_NET, "scan_impl": "seq_sharded", "scan_mesh": mesh}
+        model = parallel.replicate(mesh, build_network(
+            net, load_network(os.path.join(data, "tiny.pth"), device="cpu"), device=device))
+        tcfg = trainer.TrainConfig(**TCFG)
+        lq, gt = train_batches(world)[0]
+        res["seq_eval"] = trainer.make_eval_step(mesh)(model, torch.from_numpy(lq).to(device))
+        res["seq_eval"] = res["seq_eval"].cpu().numpy()
+        opt = val_opt(str(device))
+        opt["network_g"] = net
+        res["seq_val"], _ = build_model(opt, mesh).validation(val_images(), current_iter=1)
+        state = trainer.create_train_state(model, tcfg)
+        batch = parallel.shard_batch(mesh, {"lq": torch.from_numpy(lq).to(device),
+                                            "gt": torch.from_numpy(gt).to(device)})
+        state, metrics = trainer.make_train_step(tcfg, mesh)(state, batch["lq"], batch["gt"])
+        res["seq_train_loss"] = {k: float(v) for k, v in metrics.items()}
+        res["seq_train_params"] = {k: v.detach().cpu().numpy()
+                                   for k, v in model.state_dict().items()}
 
     if "model" in checks:
         from wavemamba_torch.models import init_network, wavemamba_apply

@@ -24,6 +24,15 @@ clip and AdamW: the gradient of the global batch's mean, which the JAX
 step's XLA all-reduce gives. The step runs no `DistributedDataParallel`, so
 nothing hooks the backward in which the 'save_scan' recompute hands K1's
 outputs back (`ops/scan_cuda.py:save_scan_contexts`).
+
+A model whose scan splits its token axis over the ranks
+(`scan_impl='seq_sharded'`, `models.seq_sharded`) needs every rank on the
+same rows: the step first gathers the global batch from the ranks' shards,
+every rank steps on all of it, and the gradient mean is skipped, since the
+scan's backward leaves every rank with the same gradients
+(`parallel/seq_scan.py`). That is one step on the global batch, as the JAX
+step under `scan_mesh` is. The eval step runs the global batch on every rank
+the same way.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ from typing import Callable, Sequence
 import torch
 
 from wavemamba_torch.losses import fft_loss, l1_loss, uhd_loss
-from wavemamba_torch.models import refuse_training
+from wavemamba_torch.models import refuse_training, seq_sharded
 from wavemamba_torch.models.wavemamba import wavemamba_forward
 from wavemamba_torch.parallel.mesh import gather_rows, mean_, shard_batch
 from wavemamba_torch.train.schedules import build_scheduler, with_warmup
@@ -168,18 +177,22 @@ def make_train_step(tcfg: TrainConfig, mesh=None) -> Callable:
     """step(state, lq, gt) -> (state, metrics): one update of `state` in
     place. lq, gt: NHWC batches on the model's device, float32 or uint8:
     with a mesh, this rank's shard of the global batch (the gradients are
-    averaged over the mesh, see the module docstring). The metrics are this
+    averaged over the mesh, or, for a 'seq_sharded' model, the shards
+    gathered: see the module docstring). The metrics are this
     rank's, detached tensors on that device (no host sync here):
     `mean_metrics` averages them over the mesh."""
     lr = make_lr(tcfg)
 
     def step(state: TrainState, lq, gt):
+        whole = mesh is not None and seq_sharded(state.model.cfg)
+        if whole:  # every rank on the global batch (the module docstring)
+            lq, gt = (gather_rows(mesh, t).flatten(0, 1) for t in (lq, gt))
         lq, gt = _to_float(lq), _to_float(gt)
         state.optimizer.zero_grad(set_to_none=True)
         total, metrics = loss_fn(state.model, tcfg, lq, gt)
         total.backward()
         params = list(state.model.parameters())
-        if mesh is not None:
+        if mesh is not None and not whole:
             mean_(mesh, [p.grad for p in params if p.grad is not None])
         if tcfg.grad_clip:
             clip_by_global_norm(params, tcfg.grad_clip)
@@ -212,17 +225,19 @@ def make_eval_step(mesh=None) -> Callable:
     """fwd(model, lq) -> the network's output, no gradient; the model's mode
     is restored afterwards. With a mesh, lq is the global batch: each rank
     runs its shard and every rank gets the whole output (the rows gathered
-    in rank order), as the JAX step's sharded output is one global array."""
+    in rank order; a 'seq_sharded' model runs all of it on every rank), as
+    the JAX step's sharded output is one global array."""
 
     @torch.no_grad()
     def fwd(model, lq):
+        whole = mesh is None or seq_sharded(getattr(model, "cfg", None))
         was_training = model.training
         model.eval()
         try:
-            out = wavemamba_forward(model, _to_float(shard_batch(mesh, lq)))
+            out = wavemamba_forward(model, _to_float(lq if whole else shard_batch(mesh, lq)))
         finally:
             model.train(was_training)
-        if mesh is None:
+        if whole:
             return out
         rows = lambda y: gather_rows(mesh, y).flatten(0, 1)  # noqa: E731
         return type(out)(map(rows, out)) if isinstance(out, (tuple, list)) else rows(out)

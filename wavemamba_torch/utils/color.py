@@ -1,5 +1,5 @@
 """MATLAB-parity colour conversion for the metrics. The counterpart of
-`wavemamba_tpu/utils/color.py` (`to_y_channel` and what it needs).
+`wavemamba_tpu/utils/color.py`.
 
 Float inputs in [0, 1] give float outputs scaled to [0, 1]; uint8 inputs
 give uint8 outputs."""
@@ -41,6 +41,19 @@ def rgb2ycbcr(img, y_only=False):
 
 def bgr2ycbcr(img, y_only=False):
     return rgb2ycbcr(img[..., ::-1], y_only=y_only)
+
+
+def ycbcr2rgb(img):
+    """The inverse BT.601 of MATLAB's `ycbcr2rgb`, with its constants."""
+    img, t = _convert_input(img)
+    mat = np.array([[0.00456621, 0.00456621, 0.00456621], [0.0, -0.00153632, 0.00791071],
+                    [0.00625893, -0.00318811, 0.0]])
+    out = (img * 255.0) @ mat * 255.0 + np.array([-222.921, 135.576, -276.836])
+    return _convert_output(out, t)
+
+
+def ycbcr2bgr(img):
+    return ycbcr2rgb(img)[..., ::-1]
 
 
 def to_y_channel(img):

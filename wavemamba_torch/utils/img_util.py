@@ -82,3 +82,13 @@ def padding(img_lq, img_gt, gt_size):
     if img_gt.ndim == 2:
         img_gt = img_gt[..., None]
     return img_lq, img_gt
+
+
+def crop_border(imgs, crop_size):
+    """`crop_size` pixels cropped from each border of an HWC image, or of
+    each image of a list."""
+    if crop_size == 0:
+        return imgs
+    if isinstance(imgs, list):
+        return [v[crop_size:-crop_size, crop_size:-crop_size, ...] for v in imgs]
+    return imgs[crop_size:-crop_size, crop_size:-crop_size, ...]
