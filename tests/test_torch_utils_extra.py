@@ -86,19 +86,6 @@ def test_trace_writes_a_trace_with_the_annotation(tmp_path):
     assert "wm_region" in names and any("conv" in str(n) for n in names)
 
 
-def test_step_timer_counts_steps():
-    timer = tprof.StepTimer()
-    fenced = []
-    for i in range(3):
-        with timer.step(lambda: fenced.append(i) or {"y": torch.ones(2)}):
-            torch.rand(8).sum()
-    assert fenced == [0, 1, 2] and len(timer.times) == 3
-    with timer.step():
-        pass
-    s = timer.summary()
-    assert s["n"] == 4 and s["min_s"] >= 0 and np.isfinite(s["mean_s"]) and s["p50_s"] >= s["min_s"]
-
-
 @pytest.mark.parametrize("name", ["ycbcr2rgb", "ycbcr2bgr"])
 @pytest.mark.parametrize("dtype", [np.uint8, np.float32])
 def test_inverse_colour_conversions_match_jax(name, dtype):

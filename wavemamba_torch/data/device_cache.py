@@ -31,6 +31,7 @@ from wavemamba_torch.device import resolve_device
 from wavemamba_torch.parallel.mesh import axis_rank, axis_size
 from wavemamba_torch.utils.file_client import FileClient
 from wavemamba_torch.utils.img_util import imfrombytes
+from wavemamba_torch.utils.profiler import annotate
 
 # out[i, j] = img[rows, cols] of `transforms.data_augmentation(img, mode)` for
 # a square image of side s: rows / cols are i or j (transposed where the mode
@@ -202,14 +203,16 @@ class DeviceCachedLoader:
         local = self.batch_size // self.ranks
         rows = slice(self.rank * local, (self.rank + 1) * local)  # this rank's share
         for b in range(len(indices) // self.batch_size):
-            idx = indices[b * self.batch_size:(b + 1) * self.batch_size]
-            tops = rng.randint(0, self.crop_max_top + 1, size=self.batch_size)
-            lefts = rng.randint(0, self.crop_max_left + 1, size=self.batch_size)
-            # random_augmentation picks a mode in 1..7 (transforms.py)
-            modes = (rng.randint(1, 8, size=self.batch_size) if self.geometric_augs
-                     else np.zeros(self.batch_size, np.int64))
-            idx, tops, lefts, modes = (a[rows] for a in (idx, tops, lefts, modes))
-            lq, gt = self.sample(idx, tops, lefts, modes)
+            # closed before the yield: a span open across it would time the consumer
+            with annotate("wm.data.batch"):
+                idx = indices[b * self.batch_size:(b + 1) * self.batch_size]
+                tops = rng.randint(0, self.crop_max_top + 1, size=self.batch_size)
+                lefts = rng.randint(0, self.crop_max_left + 1, size=self.batch_size)
+                # random_augmentation picks a mode in 1..7 (transforms.py)
+                modes = (rng.randint(1, 8, size=self.batch_size) if self.geometric_augs
+                         else np.zeros(self.batch_size, np.int64))
+                idx, tops, lefts, modes = (a[rows] for a in (idx, tops, lefts, modes))
+                lq, gt = self.sample(idx, tops, lefts, modes)
             yield {"lq": lq, "gt": gt,
                    "lq_path": [self.paths[i]["lq_path"] for i in idx],
                    "gt_path": [self.paths[i]["gt_path"] for i in idx]}

@@ -21,12 +21,17 @@ the JAX package's. An artifact whose tile program is sharded over N ranks
 `torchrun --standalone --nproc_per_node=N -m wavemamba_torch.inference ...`:
 every rank takes its share of each tile batch, and rank 0 alone prints and
 writes. `--lpips_weights` (with `-g`) also scores LPIPS (AlexNet,
-`metrics/lpips.py`) from that state dict.
+`metrics/lpips.py`) from that state dict. `--trace DIR` writes a Chrome
+trace of the run (`utils/profiler.trace`, read by
+`python -m wavemamba_torch.scripts.trace_topops DIR`): each image is a
+`wm.request` span, its file name in the span's `args`, around its `wm.*`
+spans (`img2batch`, `enhance`'s pad, H2D, forward and D2H, `batch2img`).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import sys
@@ -46,6 +51,7 @@ from wavemamba_torch.parallel import initialize, is_master
 from wavemamba_torch.parallel.dist import shutdown
 from wavemamba_torch.utils.img_util import batch2img, img2batch, imread, imwrite
 from wavemamba_torch.utils.misc import scandir
+from wavemamba_torch.utils.profiler import annotate, trace
 
 def set_parity_mode():
     """float32 parity: no TF32 in cuDNN convolutions or cuBLAS matmuls."""
@@ -59,15 +65,24 @@ def enhance(model, batch: np.ndarray, ladder: BucketLadder | None, tile=0) -> np
     `ladder` is None; with `tile` > 0, runs `tile` x `tile` tiles instead
     (tiles only need the model's x8 divisibility)."""
     dev = next(model.parameters()).device
-    fwd = lambda x: wavemamba_apply(model, torch.from_numpy(np.ascontiguousarray(x)).to(dev))
+
+    def fwd(x, h=None, w=None):
+        with annotate("wm.enhance.h2d"):
+            x = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        with annotate("wm.enhance.forward"):  # the host's enqueue of the forward
+            y = wavemamba_apply(model, x)
+        with annotate("wm.enhance.d2h"):  # waits for the forward's last kernels
+            return y[:, :h, :w].cpu().numpy()
+
     if tile:
-        return tiled_apply(lambda t: fwd(t).cpu().numpy(), batch, tile_size=tile, pad_multiple=8)
+        return tiled_apply(fwd, batch, tile_size=tile, pad_multiple=8)
     h, w = batch.shape[1:3]
-    if ladder is None:
-        x, _, _ = pad_to_multiple(batch, 128)
-    else:
-        x = pad_to_shape(batch, *ladder.shape_for(h, w))
-    return fwd(x)[:, :h, :w].cpu().numpy()
+    with annotate("wm.enhance.pad"):
+        if ladder is None:
+            x, _, _ = pad_to_multiple(batch, 128)
+        else:
+            x = pad_to_shape(batch, *ladder.shape_for(h, w))
+    return fwd(x, h, w)
 
 
 def parse_args(argv=None):
@@ -98,6 +113,9 @@ def parse_args(argv=None):
     parser.add_argument("--n_l_blocks", type=int, nargs="+", default=[1, 2, 4])
     parser.add_argument("--n_h_blocks", type=int, nargs="+", default=[1, 1, 2])
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--trace", type=str, default=None, metavar="DIR",
+                        help="write a torch.profiler Chrome trace of the run into DIR, each image "
+                             "a wm.request span")
     return parser.parse_args(argv)
 
 
@@ -144,33 +162,35 @@ def _serve(args, dev):
     else:
         paths = sorted(scandir(args.input, full_path=True))
     scores = {"psnr": [], "ssim": [], "lpips": []}
-    for path in paths:
-        name = os.path.basename(path)
-        img = imread(path)  # BGR uint8
-        t0 = time.time()
-        if artifact is not None:
-            batch = img[..., ::-1][None] if bytes_io else img2batch(img)  # RGB
-            out = artifact.tiled(batch) if args.tile else artifact(batch)
-        else:
-            out = enhance(model, img2batch(img), ladder, tile=args.tile)
-        line = f"{name}: {time.time() - t0:.3f}s"
-        sr = out[0][..., ::-1] if bytes_io else batch2img(out)  # BGR uint8
-        if args.gt:
-            gt_path = os.path.join(args.gt, name)
-            if os.path.exists(gt_path):
-                gt = imread(gt_path)
-                p, s = psnr(sr, gt), ssim(sr, gt)
-                scores["psnr"].append(p)
-                scores["ssim"].append(s)
-                line += f"  psnr {p:.4f}  ssim {s:.4f}"
-                if lpips_fn is not None:
-                    lp = lpips_fn(sr, gt)
-                    scores["lpips"].append(lp)
-                    line += f"  lpips {lp:.4f}"
-        say(line, flush=True)
-        stem, ext = os.path.splitext(name)
-        if is_master():
-            imwrite(sr, os.path.join(args.output, f"{stem}{args.suffix}{ext or '.png'}"))
+    with trace(args.trace) if args.trace else contextlib.nullcontext():
+        for path in paths:
+            name = os.path.basename(path)
+            with annotate("wm.request", args=name):  # the parent of the image's spans
+                img = imread(path)  # BGR uint8
+                t0 = time.time()
+                if artifact is not None:
+                    batch = img[..., ::-1][None] if bytes_io else img2batch(img)  # RGB
+                    out = artifact.tiled(batch) if args.tile else artifact(batch)
+                else:
+                    out = enhance(model, img2batch(img), ladder, tile=args.tile)
+                line = f"{name}: {time.time() - t0:.3f}s"
+                sr = out[0][..., ::-1] if bytes_io else batch2img(out)  # BGR uint8
+                if args.gt:
+                    gt_path = os.path.join(args.gt, name)
+                    if os.path.exists(gt_path):
+                        gt = imread(gt_path)
+                        p, s = psnr(sr, gt), ssim(sr, gt)
+                        scores["psnr"].append(p)
+                        scores["ssim"].append(s)
+                        line += f"  psnr {p:.4f}  ssim {s:.4f}"
+                        if lpips_fn is not None:
+                            lp = lpips_fn(sr, gt)
+                            scores["lpips"].append(lp)
+                            line += f"  lpips {lp:.4f}"
+                say(line, flush=True)
+                stem, ext = os.path.splitext(name)
+                if is_master():
+                    imwrite(sr, os.path.join(args.output, f"{stem}{args.suffix}{ext or '.png'}"))
 
     for k, v in scores.items():
         if v:

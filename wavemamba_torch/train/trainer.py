@@ -6,6 +6,9 @@
   * LR schedule: a closed-form function of the step (`train/schedules.py`),
     written into the optimizer before every update, step counted from 0
   * EMA: ema = ema * decay + p * (1 - decay), after the update
+  * spans (`utils/profiler.annotate`, recorded only under a profiler):
+    `wm.step.forward`, `wm.step.backward` and `wm.step.update` (clip, LR,
+    AdamW, EMA)
 
 A model built with `compute_dtype: bfloat16` runs its forward and backward in
 bf16 (the model casts its float32 parameters where they are used): the
@@ -47,6 +50,7 @@ from wavemamba_torch.models import refuse_training, seq_sharded
 from wavemamba_torch.models.wavemamba import wavemamba_forward
 from wavemamba_torch.parallel.mesh import gather_rows, mean_, shard_batch
 from wavemamba_torch.train.schedules import build_scheduler, with_warmup
+from wavemamba_torch.utils.profiler import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,23 +192,26 @@ def make_train_step(tcfg: TrainConfig, mesh=None) -> Callable:
         if whole:  # every rank on the global batch (the module docstring)
             lq, gt = (gather_rows(mesh, t).flatten(0, 1) for t in (lq, gt))
         lq, gt = _to_float(lq), _to_float(gt)
-        state.optimizer.zero_grad(set_to_none=True)
-        total, metrics = loss_fn(state.model, tcfg, lq, gt)
-        total.backward()
-        params = list(state.model.parameters())
-        if mesh is not None and not whole:
-            mean_(mesh, [p.grad for p in params if p.grad is not None])
-        if tcfg.grad_clip:
-            clip_by_global_norm(params, tcfg.grad_clip)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr(state.step) if callable(lr) else lr
-        state.optimizer.step()
-        state.step += 1
-        if state.ema is not None:
-            d = tcfg.ema_decay
-            ema = list(state.ema.values())
-            torch._foreach_mul_(ema, d)
-            torch._foreach_add_(ema, [p.detach() for p in params], alpha=1.0 - d)
+        with annotate("wm.step.forward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            total, metrics = loss_fn(state.model, tcfg, lq, gt)
+        with annotate("wm.step.backward"):
+            total.backward()
+            params = list(state.model.parameters())
+            if mesh is not None and not whole:
+                mean_(mesh, [p.grad for p in params if p.grad is not None])
+        with annotate("wm.step.update"):
+            if tcfg.grad_clip:
+                clip_by_global_norm(params, tcfg.grad_clip)
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr(state.step) if callable(lr) else lr
+            state.optimizer.step()
+            state.step += 1
+            if state.ema is not None:
+                d = tcfg.ema_decay
+                ema = list(state.ema.values())
+                torch._foreach_mul_(ema, d)
+                torch._foreach_add_(ema, [p.detach() for p in params], alpha=1.0 - d)
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return step

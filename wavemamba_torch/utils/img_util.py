@@ -10,6 +10,8 @@ import os
 
 import numpy as np
 
+from wavemamba_torch.utils.profiler import annotate
+
 
 def imfrombytes(content: bytes, flag="color", float32=False):
     """Decode an image file's bytes -> BGR HWC uint8 (or float32 in [0, 1])."""
@@ -42,27 +44,33 @@ def imwrite(img, file_path, params=None, auto_mkdir=True):
 
 def img2batch(img, bgr2rgb=True, float32=True):
     """HWC BGR (uint8 or float) -> (1, H, W, C) RGB float32 in [0, 1]."""
-    img = np.asarray(img)
-    if img.dtype == np.uint8:
-        img = img.astype(np.float32) / 255.0
-    if bgr2rgb and img.ndim == 3 and img.shape[2] == 3:
-        img = img[..., ::-1]
-    if float32:
-        img = img.astype(np.float32)
-    return img[None].copy()
+    with annotate("wm.img2batch"):
+        img = np.asarray(img)
+        if img.dtype == np.uint8:
+            img = img.astype(np.float32) / 255.0
+        if bgr2rgb and img.ndim == 3 and img.shape[2] == 3:
+            img = img[..., ::-1]
+        if float32:
+            img = img.astype(np.float32)
+        batch = img[None].copy()
+        del img  # the float temporary is freed inside the span, not after it
+    return batch
 
 
 def batch2img(batch, rgb2bgr=True, min_max=(0, 1)):
     """(1|B, H, W, C) RGB float -> uint8 BGR HWC of the first item: clamp
     to min_max, rescale to [0, 1], *255 and round."""
-    img = np.asarray(batch)
-    if img.ndim == 4:
-        img = img[0]
-    img = np.clip(img, min_max[0], min_max[1])
-    img = (img - min_max[0]) / (min_max[1] - min_max[0])
-    if rgb2bgr and img.ndim == 3 and img.shape[2] == 3:
-        img = img[..., ::-1]
-    return (img * 255.0).round().astype(np.uint8)
+    with annotate("wm.batch2img"):
+        img = np.asarray(batch)
+        if img.ndim == 4:
+            img = img[0]
+        img = np.clip(img, min_max[0], min_max[1])
+        img = (img - min_max[0]) / (min_max[1] - min_max[0])
+        if rgb2bgr and img.ndim == 3 and img.shape[2] == 3:
+            img = img[..., ::-1]
+        out = (img * 255.0).round().astype(np.uint8)
+        del img  # the float temporary is freed inside the span, not after it
+    return out
 
 
 def padding(img_lq, img_gt, gt_size):

@@ -1,7 +1,12 @@
 """Profiling and tracing hooks on `torch.profiler`. The counterpart of
 `wavemamba_tpu/utils/profiler.py`: training and inference can write device
 traces (Chrome trace JSON, viewable in Perfetto or `chrome://tracing`) with
-named regions, and time steps against the device."""
+named regions.
+
+The port's spans (`annotate`, names starting with `wm.`) live on the
+profiler's own clock, in its memory, beside the kernels it records; whoever
+holds the profiler (`trace`, or a benchmark's window) writes or reads them.
+With no profiler recording a span costs one check."""
 
 from __future__ import annotations
 
@@ -10,6 +15,8 @@ import os
 import time
 
 import torch
+
+_OFF = contextlib.nullcontext()  # stateless, so one instance serves every unrecorded span
 
 
 def _activities():
@@ -21,10 +28,12 @@ def _activities():
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """Trace the enclosed block (the host's ops and, where there is a card,
-    its kernels) into `log_dir/trace_<pid>_<ns>.json`; yields the profiler."""
+    """Trace the enclosed block (the host's ops and spans and, where there is
+    a card, its kernels) into `log_dir/trace_<pid>_<ns>.json`; yields the
+    profiler. Input shapes are recorded, which also carries each span's
+    `args` into the file."""
     os.makedirs(log_dir, exist_ok=True)
-    prof = torch.profiler.profile(activities=_activities())
+    prof = torch.profiler.profile(activities=_activities(), record_shapes=True)
     prof.start()
     try:
         yield prof
@@ -36,44 +45,16 @@ def trace(log_dir: str):
             os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-def annotate(name: str):
-    """A named region that shows up in traces (a context manager)."""
-    return torch.profiler.record_function(name)
-
-
-def _synchronize(result):
-    """Wait for the devices of every tensor in `result` (a tensor, or a
-    list, tuple or dict of them)."""
-    if isinstance(result, torch.Tensor):
-        if result.is_cuda:
-            torch.cuda.synchronize(result.device)
-    elif isinstance(result, dict):
-        for v in result.values():
-            _synchronize(v)
-    elif isinstance(result, (list, tuple)):
-        for v in result:
-            _synchronize(v)
-
-
-class StepTimer:
-    """Wall time a step, fenced on the device: `step(result_fn)` calls
-    `result_fn()` after the block and waits for the device of what it
-    returns before it reads the clock."""
-
-    def __init__(self):
-        self.times = []
-
-    @contextlib.contextmanager
-    def step(self, result_fn=None):
-        t0 = time.perf_counter()
-        yield
-        if result_fn is not None:
-            _synchronize(result_fn())
-        self.times.append(time.perf_counter() - t0)
-
-    def summary(self):
-        import numpy as np
-
-        t = np.asarray(self.times[1:] or self.times)
-        return {"mean_s": float(t.mean()), "p50_s": float(np.median(t)),
-                "min_s": float(t.min()), "n": len(self.times)}
+def annotate(name: str, args: str | None = None):
+    """A named span (a context manager) while a profiler records, else a
+    shared no-op that calls nothing into the dispatcher. Spans nest on the
+    calling thread: the enclosing one is the parent. `args` identifies the
+    span (a request's file name); under `trace` it is written into the
+    span's `args` as `id`."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    if args is None:
+        return torch.profiler.record_function(name)
+    # record_function's own `args` never reaches an exported trace; the
+    # profiler's keyword values do, where input shapes are recorded.
+    return torch._C._profiler._RecordFunctionFast(name, (), {"id": args})
