@@ -16,49 +16,24 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import platform
-import subprocess
 from pathlib import Path
 
 import numpy as np
 
-ROOT = Path(__file__).resolve().parents[2]
+from wavemamba_torch.utils import cxx
+from wavemamba_torch.utils.cxx import CXX_FLAGS, ROOT  # noqa: F401 (native/build.sh's flags)
+
 SOURCE = ROOT / "native" / "wavedata.cc"
-BUILD_DIR = ROOT / "build" / "wavemamba_torch"
-CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-pthread", "-std=c++17"]  # native/build.sh
 _INV255 = np.float32(1.0) / np.float32(255.0)  # the C++ pass's `1.0f / 255.0f`
 _MASK64 = (1 << 64) - 1
 _GOLDEN = 0x9E3779B97F4A7C15
 
 
-def _cpu_model() -> str:
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith("model name"):
-                    return line.split(":", 1)[1].strip()
-    except OSError:
-        pass
-    return platform.processor()
-
-
 def build() -> Path:
     """Compile `native/wavedata.cc` into a shared library; returns its path.
     An unchanged build on the same CPU is made once."""
-    key = b"\0".join([SOURCE.read_bytes(), " ".join(CXX_FLAGS).encode(), _cpu_model().encode()])
-    out = BUILD_DIR / f"libwavedata_{hashlib.sha256(key).hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed ({proc.returncode}) on {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return cxx.build(SOURCE, "libwavedata")
 
 
 @functools.cache

@@ -10,6 +10,7 @@ import os
 
 import numpy as np
 
+from wavemamba_torch.utils import frames
 from wavemamba_torch.utils.profiler import annotate
 
 
@@ -43,9 +44,19 @@ def imwrite(img, file_path, params=None, auto_mkdir=True):
 
 
 def img2batch(img, bgr2rgb=True, float32=True):
-    """HWC BGR (uint8 or float) -> (1, H, W, C) RGB float32 in [0, 1]."""
+    """HWC BGR (uint8 or float) -> (1, H, W, C) RGB float32 in [0, 1].
+
+    A uint8 (H, W, 3) frame, strided in any way, at the default flags takes
+    the native frame pass (`utils/frames.py`), the same bits as the numpy
+    route below; each such call counts in `img2batch.fused_calls`. Every
+    other input, and every input where the library cannot be built, takes
+    the numpy route."""
     with annotate("wm.img2batch"):
         img = np.asarray(img)
+        if bgr2rgb and float32 and frames.strided_frame(img, np.uint8) and frames.available():
+            batch = frames.bgr_u8_to_rgb_batch(img)
+            img2batch.fused_calls += 1
+            return batch
         if img.dtype == np.uint8:
             img = img.astype(np.float32) / 255.0
         if bgr2rgb and img.ndim == 3 and img.shape[2] == 3:
@@ -57,13 +68,28 @@ def img2batch(img, bgr2rgb=True, float32=True):
     return batch
 
 
+img2batch.fused_calls = 0
+
+
 def batch2img(batch, rgb2bgr=True, min_max=(0, 1)):
     """(1|B, H, W, C) RGB float -> uint8 BGR HWC of the first item: clamp
-    to min_max, rescale to [0, 1], *255 and round."""
+    to min_max, rescale to [0, 1], *255 and round.
+
+    A float32 item of 3 channels, strided in any way (the model's output
+    is channel-planar), with `rgb2bgr` and `min_max` (0, 1) takes the native
+    frame pass (`utils/frames.py`), the same bits as the numpy route below;
+    each such call counts in `batch2img.fused_calls`. Every other input, and
+    every input where the library cannot be built, takes the numpy route."""
     with annotate("wm.batch2img"):
         img = np.asarray(batch)
         if img.ndim == 4:
             img = img[0]
+        # A numpy scalar in min_max would promote the numpy route to float64.
+        unit = all(type(v) in (int, float) for v in min_max) and tuple(min_max) == (0, 1)
+        if rgb2bgr and unit and frames.strided_frame(img, np.float32) and frames.available():
+            out = frames.rgb_f32_to_bgr_u8(img)
+            batch2img.fused_calls += 1
+            return out
         img = np.clip(img, min_max[0], min_max[1])
         img = (img - min_max[0]) / (min_max[1] - min_max[0])
         if rgb2bgr and img.ndim == 3 and img.shape[2] == 3:
@@ -71,6 +97,9 @@ def batch2img(batch, rgb2bgr=True, min_max=(0, 1)):
         out = (img * 255.0).round().astype(np.uint8)
         del img  # the float temporary is freed inside the span, not after it
     return out
+
+
+batch2img.fused_calls = 0
 
 
 def padding(img_lq, img_gt, gt_size):
