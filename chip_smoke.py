@@ -3912,6 +3912,10 @@ ART_ITERS = 5
 # ART on the card against the CPU at 64x96, float32 parity (TF32 off): as
 # MODEL_ATOL, cuDNN / cuBLAS against the CPU's sums over 8 blocks.
 ART_CPU_ATOL = 1e-4
+# The fused attention route on the card against the formula that builds the
+# scores, at a training shape: max |a - b| over max |b| of the output and of
+# each gradient, at the gradient rtol of `tests/test_torch_art_serve.py`.
+ART_ATTN_RTOL = 1e-4
 # The secondary pieces on the card against the CPU, float32 parity: the VGG19
 # perceptual and style losses relative (means of sums over up to 4,608 terms
 # a value, taken in another order), LPIPS absolute (a distance of order
@@ -3976,6 +3980,68 @@ def art_train_child(yml, out):
                                                                "net_g_latest.pth"))}, f)
 
 
+def art_attention_check(attn, batch=TRAIN_BATCH, gh=8, gw=8, groups_y=16, groups_x=16):
+    """One block's `Attention` (the fused route, the memory-efficient kernel
+    on the card, forward and backward) against `attention_by_scores` at a
+    training shape: a batch of 8 512x512 crops is a 128x128 token grid, whose
+    8x8 dense windows and interval-16 sparse groups are both 16 x 16 groups
+    of 8 x 8 = 64 tokens an image. With no pad, and with four pad classes
+    (the last row and the last column of groups with a pad row / column of
+    tokens). Reads the output and every gradient (x, qkv, proj, the bias
+    MLP's weights) against the formula in float32, TF32 off, and both against
+    the formula in float64 (whose bias MLP runs in float32: the port's
+    `Linear` casts its weight to the input's dtype)."""
+    import copy
+
+    from wavemamba_torch.models.art import attention_by_scores, fused_attention
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is off for the attention check")
+    groups, n = groups_y * groups_x, gh * gw
+    c = attn.qkv.in_features
+    dev = attn.qkv.weight.device
+    gen = torch.Generator(device=dev).manual_seed(105)
+    x = torch.randn(batch * groups, n, c, device=dev, generator=gen)
+    g = torch.randn(batch * groups, n, c, device=dev, generator=gen)
+    marks = np.zeros((groups_y, groups_x, gh, gw), bool)
+    marks[-1, :, -1, :] = True
+    marks[:, -1, :, -1] = True
+    attn64 = copy.deepcopy(attn).double()
+    names = ["x"] + [k for k, _ in attn.named_parameters()]
+    # The bias MLP's last bias adds one value to every score of a head, which
+    # the softmax takes out again: its gradient is 0 but for rounding, so its
+    # error is read against its layer's weight gradient, every other one
+    # against its own largest value.
+    scale = {"d_pos.pos3.2.bias": "d_pos.pos3.2.weight"}
+
+    def run(module, fn, xx, key_pad):
+        xx = xx.detach().requires_grad_()
+        params = [xx] + list(module.parameters())
+        out = fn(module, xx, key_pad)
+        return [out] + list(torch.autograd.grad(out, params, g.to(out.dtype)))
+
+    rows = {}
+    for pads, key_pad in (("none", None), ("classes", marks.reshape(groups, n))):
+        calls = fused_attention.calls
+        fused = run(attn, lambda m, xx, kp: m(xx, gh, gw, kp), x, key_pad)
+        calls = fused_attention.calls - calls
+        formula = run(attn, lambda m, xx, kp: attention_by_scores(m, xx, gh, gw, kp), x, key_pad)
+        exact = run(attn64, lambda m, xx, kp: attention_by_scores(m, xx, gh, gw, kp), x.double(),
+                    key_pad)
+        keys = ["out"] + [f"d_{k}" for k in names]
+
+        def errs(got, want):
+            want = {k: t.detach() for k, t in zip(keys, want)}
+            return {k: float((a.detach() - want[k]).abs().max() / want[scale.get(k, k)].abs().max())
+                    for k, a in zip(keys, got)}
+
+        rows[pads] = {"calls": calls, "rel_err": errs(fused, formula),
+                      "fused_vs_f64": errs(fused, exact), "formula_vs_f64": errs(formula, exact)}
+        del fused, formula, exact
+    torch.cuda.empty_cache()
+    return {"shape": [batch * groups, n, c], "heads": attn.num_heads, "rtol": ART_ATTN_RTOL,
+            **rows}
+
+
 def phase_art(smi):
     """ART, the second model family, at its default width on the card: the
     uhdll yml with `network_g: {type: ART}` through `pipelines.train` for
@@ -3983,13 +4049,22 @@ def phase_art(smi):
     processes under deterministic algorithms (finite losses, the same
     parameters' bits, a checkpoint, the final validation through
     `runner.test`); then, here, ms a step and peak memory at batch 8 of
-    512x512 through `build_model`, a 1080x1920 forward timed, and a 64x96
-    forward against the CPU. ART runs no kernel of the port."""
+    512x512 through `build_model`, a 2160x3840 request through the CLI's path
+    (`img2batch`, `enhance` with the bucket ladder, `batch2img`) timed with
+    its peak memory, one block's attention forward and backward against the
+    formula that builds the scores at the training shape
+    (`art_attention_check`), and a 64x96 forward against the CPU. ART runs no kernel
+    of the port: its attention is torch's memory-efficient kernel, one call
+    for each grouping (`models/art.py:fused_attention`)."""
     import pickle
     import shutil
 
+    from wavemamba_torch.inference import enhance
     from wavemamba_torch.models import ART, ARTConfig, art_apply, param_count
+    from wavemamba_torch.models.art import fused_attention
+    from wavemamba_torch.models.buckets import BucketLadder
     from wavemamba_torch.runner import build_model
+    from wavemamba_torch.utils.img_util import batch2img, img2batch
 
     t0 = time.perf_counter()
     shutil.rmtree(ART_DIR, ignore_errors=True)
@@ -4020,14 +4095,22 @@ def phase_art(smi):
     model = runner.model.eval()
     del runner, lq, gt
     torch.cuda.empty_cache()
-    # a 1080x1920 forward (the sparse groups hold 17 x 30 = 510 tokens)
-    x = torch.from_numpy((np.random.RandomState(103).rand(1, 1080, 1920, 3) * 0.12)
-                         .astype(np.float32)).cuda()
-    art_apply(model, x)
+    # a 2160x3840 request through the CLI's path; the 2176x3840 bucket's
+    # sparse groups hold 34 x 60 = 2,040 tokens
+    frame = np.random.RandomState(103).randint(0, 40, (2160, 3840, 3), np.uint8)
+    ladder = BucketLadder()
+    y = enhance(model, img2batch(frame), ladder)  # warm-up
     torch.cuda.reset_peak_memory_stats()
-    fwd_ms = cuda_ms(lambda: art_apply(model, x), 3)
-    peak_fwd = torch.cuda.max_memory_allocated()
-    y = art_apply(model, x)
+    calls = fused_attention.calls
+    request_ms = []
+    for _ in range(3):
+        t = time.perf_counter()
+        y = enhance(model, img2batch(frame), ladder)
+        answer = batch2img(y)
+        request_ms.append((time.perf_counter() - t) * 1e3)
+    peak_request = torch.cuda.max_memory_allocated()
+    calls = (fused_attention.calls - calls) // 3
+    attention = art_attention_check(model.restoration_network.feats[0].attn)
     # the card against the CPU, same weights, 64x96
     small = (np.random.RandomState(104).rand(1, 64, 96, 3)).astype(np.float32)
     cpu = ART(ARTConfig())
@@ -4046,9 +4129,12 @@ def phase_art(smi):
            "ms_per_step": float(np.median(ms)), "step_ms": ms,
            "images_per_s": TRAIN_BATCH / (float(np.median(ms)) / 1e3),
            "peak_memory_train_bytes": peak_train,
-           "forward_1080p": {"ms": fwd_ms, "peak_memory_bytes": peak_fwd,
-                             "finite": bool(torch.isfinite(y).all()),
-                             "sparse_group_tokens": (-(-270 // 16)) * (-(-480 // 16))},
+           "request_2160x3840": {"ms": float(np.median(request_ms)), "ms_each": request_ms,
+                                 "peak_memory_bytes": peak_request, "buckets": ladder.buckets,
+                                 "attention_calls": calls, "finite": bool(np.isfinite(y).all()),
+                                 "answer_shape": list(answer.shape),
+                                 "sparse_group_tokens": (2176 // 4 // 16) * (3840 // 4 // 16)},
+           "attention_train_shape": attention,
            "cpu_64x96": {"max_abs_err": cpu_err, "atol": ART_CPU_ATOL},
            "phase_s": time.perf_counter() - t0}
     emit(row)
@@ -4056,7 +4142,18 @@ def phase_art(smi):
     check(same, "ART's two deterministic runs end with the same parameters' bits")
     check(all(r["validated"] and r["checkpoint"] for r in res),
           "ART's pipeline validates through runner.test and writes its checkpoint")
-    check(row["forward_1080p"]["finite"], "ART's 1080x1920 forward is finite")
+    req = row["request_2160x3840"]
+    check(req["finite"] and req["answer_shape"] == [2160, 3840, 3],
+          f"ART's 2160x3840 request is finite and whole: {req['answer_shape']}")
+    check(req["attention_calls"] == 2 * ARTConfig().n_blocks,
+          f"one fused attention call for each grouping of each block: {req['attention_calls']}")
+    for pads in ("none", "classes"):
+        got = attention[pads]
+        check(got["calls"] == (1 if pads == "none" else 4),
+              f"one fused call for each pad class ({pads}): {got['calls']}")
+        check(max(got["rel_err"].values()) <= ART_ATTN_RTOL,
+              f"ART's fused attention and its gradients against the scores formula ({pads}): "
+              f"{got['rel_err']}")
     check(cpu_err <= ART_CPU_ATOL, f"ART on the card against the CPU: {cpu_err}")
     return row
 

@@ -10,6 +10,7 @@ gradients rtol 5e-4 (atol 5e-6), a runner step's loss rtol 1e-5.
 """
 
 import dataclasses
+import logging
 
 import jax
 import jax.numpy as jnp
@@ -133,11 +134,16 @@ def _opt(tmp_path, is_train=True):
                                          "test_y_channel": False}}}}
 
 
-def test_runner_step_matches_jax_runner(tmp_path):
+def test_runner_step_matches_jax_runner(tmp_path, monkeypatch):
     """One `RestorationModel` step (L1 + FFT) from the same weights and batch
     as the JAX runner's: the loss rtol 1e-5, and the test route's output
     after the step within 1e-5 of JAX's."""
     jopt = _opt(tmp_path)
+    # The JAX runner's `get_root_logger` turns the `wavemamba_tpu` logger's
+    # propagation off for the whole process: put it back after this test, so
+    # that a later test's caplog still hears that logger.
+    monkeypatch.setattr(logging.getLogger("wavemamba_tpu"), "propagate",
+                        logging.getLogger("wavemamba_tpu").propagate)
     jmodel = jrunner.build_model(jopt)
     sd = convert.state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jmodel.state["params"]))
     torch.save({"params": sd}, tmp_path / "w.pth")

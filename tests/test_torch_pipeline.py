@@ -172,11 +172,16 @@ def test_validation_and_best_tracking(tmp_path):
     assert not improved2 and model.best_metric_results["psnr"] == avg["psnr"]
 
 
-def test_runner_matches_jax_runner_from_the_same_weights(tmp_path):
+def test_runner_matches_jax_runner_from_the_same_weights(tmp_path, monkeypatch):
     """`test` on an odd size and `validation`, against the JAX runner loaded
     with the same weights: outputs within 1e-5, PSNR within 1e-3 dB."""
     opt = _opt(tmp_path, scan_impl="chunked")
     jopt = {**opt, "network_g": {k: v for k, v in opt["network_g"].items()}}
+    # The JAX runner's `get_root_logger` turns the `wavemamba_tpu` logger's
+    # propagation off for the whole process: put it back after this test, so
+    # that a later test's caplog still hears that logger.
+    monkeypatch.setattr(logging.getLogger("wavemamba_tpu"), "propagate",
+                        logging.getLogger("wavemamba_tpu").propagate)
     jmodel = jrunner.build_model(jopt)
     sd = convert.state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jmodel.params))
     torch.save({"params": sd}, tmp_path / "w.pth")
@@ -385,7 +390,7 @@ def _totals(lines):
     return [float(m.group(1)) for ln in lines if (m := re.search(r"total: (\S+)", ln))]
 
 
-def _train_against_jax(synth_data, tmp_path, cache_on_device):
+def _train_against_jax(synth_data, tmp_path, cache_on_device, monkeypatch):
     """Six steps of the port's train pipeline from JAX's initial weights, the
     first three held against the JAX package's (rtol 3e-4). The JAX side is
     its dataset, sampler, loader and runner as its train pipeline wires them,
@@ -406,6 +411,11 @@ def _train_against_jax(synth_data, tmp_path, cache_on_device):
         jloader = jdata.ThreadedLoader(jset, batch_size=8, num_workers=1, drop_last=True, seed=0,
                                        sampler=sampler)
     jloader.set_epoch(0)
+    # The JAX runner's `get_root_logger` turns the `wavemamba_tpu` logger's
+    # propagation off for the whole process: put it back after this test, so
+    # that a later test's caplog still hears that logger.
+    monkeypatch.setattr(logging.getLogger("wavemamba_tpu"), "propagate",
+                        logging.getLogger("wavemamba_tpu").propagate)
     jmodel = jrunner.build_model(jopt)
     want = [float(jmodel.optimize_parameters(batch)["total"])
             for _, batch in zip(range(3), jloader)]
@@ -433,18 +443,19 @@ def _train_against_jax(synth_data, tmp_path, cache_on_device):
     return model, lines, opt, opt_path, args
 
 
-def test_train_pipeline_from_the_device_cache_matches_jax(synth_data, tmp_path):
+def test_train_pipeline_from_the_device_cache_matches_jax(synth_data, tmp_path, monkeypatch):
     """`cache_on_device: true` on both sides: the port's device-resident
     loader (on the CPU here) against JAX's `DeviceCachedLoader`."""
-    _train_against_jax(synth_data, tmp_path, cache_on_device=True)
+    _train_against_jax(synth_data, tmp_path, cache_on_device=True, monkeypatch=monkeypatch)
 
 
-def test_train_then_test_pipeline_end_to_end(synth_data, tmp_path):
+def test_train_then_test_pipeline_end_to_end(synth_data, tmp_path, monkeypatch):
     # The host loaders on both sides (`ThreadedLoader` + `device_prefetch`),
     # as the shipped ymls without `cache_on_device` train; then the saved
     # outputs, a resume and the test pipeline.
     model, lines, opt, opt_path, args = _train_against_jax(synth_data, tmp_path,
-                                                           cache_on_device=False)
+                                                           cache_on_device=False,
+                                                           monkeypatch=monkeypatch)
 
     exp = tmp_path / "experiments" / "tiny_e2e"
     assert {"net_g_3.pth", "net_g_6.pth", "net_g_latest.pth", "net_g_ema_6.pth",

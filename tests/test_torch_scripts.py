@@ -18,6 +18,7 @@ import csv
 import importlib.util
 import io
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -355,7 +356,7 @@ def test_post_train_eval_writes_a_pth_jax_loads(tmp_path):
     assert rows[0]["psnr_out"] == pytest.approx(common.psnr(np.clip(want, 0, 1), gt), abs=1e-4)
 
 
-def test_eval_run_ckpts_matches_the_jax_runner_validation(tmp_path):
+def test_eval_run_ckpts_matches_the_jax_runner_validation(tmp_path, monkeypatch):
     _write_pairs(str(tmp_path / "val"), n=2)
     net = {"type": "WaveMamba", "in_chn": 3, **{k: list(v) if isinstance(v, tuple) else v
                                                  for k, v in SMALL.items()},
@@ -388,6 +389,11 @@ def test_eval_run_ckpts_matches_the_jax_runner_validation(tmp_path):
                      "training_states": str(tmp_path / "j"), "visualization": str(tmp_path / "j")}}
     jval = {**opt["datasets"]["val"], "phase": "val",
             "dataroot_gt": str(tmp_path / "val" / "gt"), "dataroot_lq": str(tmp_path / "val" / "input")}
+    # The JAX runner's `get_root_logger` turns the `wavemamba_tpu` logger's
+    # propagation off for the whole process: put it back after this test, so
+    # that a later test's caplog still hears that logger.
+    monkeypatch.setattr(logging.getLogger("wavemamba_tpu"), "propagate",
+                        logging.getLogger("wavemamba_tpu").propagate)
     jmodel = jrunner.build_model(jopt)
     val_set = jdata.build_dataset(jval)
     for label, avg in results.items():

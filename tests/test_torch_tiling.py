@@ -7,6 +7,7 @@ only: 1e-5 absolute, as the whole-image runner test; the CLI's PNGs within one
 uint8 level and its PSNR within 1e-3 dB, as the whole-image CLI test.
 """
 
+import logging
 import os
 import re
 
@@ -85,11 +86,16 @@ def _opt(tmp_path):
             "device": "cpu", "network_g": dict(NET), "path": {}, "val": {}}
 
 
-def test_runner_tiles_like_the_jax_runner(tmp_path):
+def test_runner_tiles_like_the_jax_runner(tmp_path, monkeypatch):
     """`RestorationModel.test(tile=...)` against the JAX runner's, the same
     weights: the tiled outputs within 1e-5, and not the whole-image output
     (the tiles see reflected context at their seams' ends)."""
     jopt = _opt(tmp_path)
+    # The JAX runner's `get_root_logger` turns the `wavemamba_tpu` logger's
+    # propagation off for the whole process: put it back after this test, so
+    # that a later test's caplog still hears that logger.
+    monkeypatch.setattr(logging.getLogger("wavemamba_tpu"), "propagate",
+                        logging.getLogger("wavemamba_tpu").propagate)
     jmodel = jrunner.build_model(jopt)
     sd = convert.state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jmodel.params))
     torch.save({"params": sd}, tmp_path / "w.pth")

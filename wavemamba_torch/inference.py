@@ -8,7 +8,11 @@ through the model and cropped back; with `--tile N` it goes through the model
 in N x N tiles instead (`models/tiling.py`, 16 pixels of context, tiles padded
 to a multiple of 8). Runs in float32 parity mode: TF32 is off for cuDNN
 convolutions and cuBLAS matmuls. `--fast` runs `WaveMambaConfig.fast()`, the
-bf16 preset (K1 on bf16 token streams), on the same path.
+bf16 preset (K1 on bf16 token streams), on the same path. `-opt YML` serves
+the yml's `network_g` instead, any registered arch (`models.build_network`:
+'WaveMamba', 'ART', or one in `ARCH_REGISTRY`), on the same path; it names
+the network, so it takes none of `--fast`, `--wf`, `--n_l_blocks` and
+`--n_h_blocks`.
 
 `-w` takes a `.wmt` deployment artifact too (`wavemamba_torch/deploy.py`,
 `python -m wavemamba_torch.scripts.export_model export`): the artifact pads to
@@ -43,14 +47,15 @@ import torch
 from wavemamba_torch.checkpoint import load_network
 from wavemamba_torch.deploy import SUFFIX, enable_compilation_cache, load_exported
 from wavemamba_torch.metrics import build_metric
-from wavemamba_torch.models import build_network
+from wavemamba_torch.models import build_network, network_apply
 from wavemamba_torch.models.buckets import BucketLadder, pad_to_shape
 from wavemamba_torch.models.tiling import tiled_apply
-from wavemamba_torch.models.wavemamba import WaveMambaConfig, pad_to_multiple, wavemamba_apply
+from wavemamba_torch.models.wavemamba import WaveMambaConfig, pad_to_multiple
 from wavemamba_torch.parallel import initialize, is_master
 from wavemamba_torch.parallel.dist import shutdown
 from wavemamba_torch.utils.img_util import batch2img, img2batch, imread, imwrite
 from wavemamba_torch.utils.misc import scandir
+from wavemamba_torch.utils.options import yaml_load
 from wavemamba_torch.utils.profiler import annotate, trace
 
 def set_parity_mode():
@@ -70,7 +75,7 @@ def enhance(model, batch: np.ndarray, ladder: BucketLadder | None, tile=0) -> np
         with annotate("wm.enhance.h2d"):
             x = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
         with annotate("wm.enhance.forward"):  # the host's enqueue of the forward
-            y = wavemamba_apply(model, x)
+            y = network_apply(model, x)
         with annotate("wm.enhance.d2h"):  # waits for the forward's last kernels
             return y[:, :h, :w].cpu().numpy()
 
@@ -83,6 +88,27 @@ def enhance(model, batch: np.ndarray, ladder: BucketLadder | None, tile=0) -> np
         else:
             x = pad_to_shape(batch, *ladder.shape_for(h, w))
     return fwd(x, h, w)
+
+
+def network_g_of(args) -> dict:
+    """The `network_g` the CLI serves: the options yml's (`--opt`), else
+    WaveMamba from `--wf`, `--n_l_blocks` and `--n_h_blocks`, under `--fast`
+    its bf16 preset."""
+    if args.opt:
+        return dict(yaml_load(args.opt)["network_g"])
+    mk = WaveMambaConfig.fast if args.fast else WaveMambaConfig
+    cfg = mk(wf=args.wf or 32, n_l_blocks=tuple(args.n_l_blocks or (1, 2, 4)),
+             n_h_blocks=tuple(args.n_h_blocks or (1, 1, 2)))
+    return {"type": "WaveMamba", **dataclasses.asdict(cfg)}
+
+
+def load_model(network_g: dict, weights, device):
+    """The model the CLI serves: `network_g` (any registered arch) built
+    through `build_network`, `weights` (a `.pth` path, or a state dict)
+    loaded strictly, in eval mode on `device`."""
+    if isinstance(weights, str):
+        weights = load_network(weights, device=device)
+    return build_network(network_g, weights, device=device)
 
 
 def parse_args(argv=None):
@@ -107,16 +133,25 @@ def parse_args(argv=None):
                         help="pad each image to its own 128-multiple instead of shared buckets")
     parser.add_argument("--bucket_waste", type=float, default=1.35,
                         help="max padded-area overhead before a new bucket is opened")
+    parser.add_argument("-opt", "--opt", type=str, default=None, metavar="YML",
+                        help="serve this options yml's network_g, any registered arch (ART, ...)")
     parser.add_argument("--fast", action="store_true",
                         help="bf16 preset (WaveMambaConfig.fast: K1 on bf16 token streams)")
-    parser.add_argument("--wf", type=int, default=32)
-    parser.add_argument("--n_l_blocks", type=int, nargs="+", default=[1, 2, 4])
-    parser.add_argument("--n_h_blocks", type=int, nargs="+", default=[1, 1, 2])
+    parser.add_argument("--wf", type=int, default=None, help="WaveMamba's width (32)")
+    parser.add_argument("--n_l_blocks", type=int, nargs="+", default=None, help="(1 2 4)")
+    parser.add_argument("--n_h_blocks", type=int, nargs="+", default=None, help="(1 1 2)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--trace", type=str, default=None, metavar="DIR",
                         help="write a torch.profiler Chrome trace of the run into DIR, each image "
                              "a wm.request span")
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if args.opt:
+        clash = [flag for flag, given in (("--fast", args.fast), ("--wf", args.wf),
+                                          ("--n_l_blocks", args.n_l_blocks),
+                                          ("--n_h_blocks", args.n_h_blocks)) if given]
+        if clash:
+            parser.error(f"-opt/--opt names the network: it takes no {', '.join(clash)}")
+    return args
 
 
 def main(argv=None):
@@ -147,10 +182,7 @@ def _serve(args, dev):
         # The artifact pads to its own exported buckets: the ladder is not used.
         artifact = load_exported(args.weight, device=dev)
     else:
-        mk = WaveMambaConfig.fast if args.fast else WaveMambaConfig
-        cfg = mk(wf=args.wf, n_l_blocks=tuple(args.n_l_blocks), n_h_blocks=tuple(args.n_h_blocks))
-        model = build_network({"type": "WaveMamba", **dataclasses.asdict(cfg)},
-                              load_network(args.weight, device=dev), device=dev)
+        model = load_model(network_g_of(args), args.weight, dev)
     bytes_io = artifact is not None and artifact.io_dtype == "uint8"
 
     say = print if is_master() else (lambda *a, **k: None)  # rank 0 alone prints and writes

@@ -43,6 +43,7 @@ from wavemamba_torch.models.wavemamba import (
     wavemamba_apply,
     wavemamba_forward,
 )
+from wavemamba_torch.ops.nn import network_apply
 
 
 _ARCHS = {}
@@ -159,5 +160,5 @@ def init_network(opt: dict, generator: torch.Generator, device="cuda", train=Tru
 
 __all__ = ["ART", "ARTConfig", "WaveMamba", "WaveMambaConfig", "art_apply", "art_forward",
            "build_network", "config_from_opt", "init_art", "init_for", "init_network",
-           "init_wavemamba", "module_for", "param_count", "refuse_training", "register_arch",
-           "seq_sharded", "wavemamba_apply", "wavemamba_forward"]
+           "init_wavemamba", "module_for", "network_apply", "param_count", "refuse_training",
+           "register_arch", "seq_sharded", "wavemamba_apply", "wavemamba_forward"]

@@ -6,8 +6,20 @@ interval attention (the tokens I apart) with one attention's weights and a
 dynamic position bias, fuses the two with a 1x1 conv, then an MLP with
 exact GELU. The network is a conv stem and a pixel-unshuffle, the blocks, a
 global residual, and a conv and a pixel-shuffle. It runs no kernel of its
-own: convolutions, matrix products and softmax, as in the JAX package, which
-computes them outside any Pallas kernel.
+own (the JAX package computes all of it outside any Pallas kernel).
+
+Each grouping's attention is one fused call (`fused_attention`) that never
+holds the (groups, heads, N, N) scores: at a 2176x3840 bucket the sparse
+groups hold 34 x 60 = 2,040 tokens, and the scores of one sparse call would
+take 25.6 GB. The dynamic bias is the call's additive mask, gathered once a
+call from the bias MLP's (2gh-1)(2gw-1) rows. Where a pad mask is live, the
+groups fall into at most four pad classes (no pad, pad rows, pad columns,
+both), and each class is one call whose mask is the bias plus the class's
+pad keys, shared by the class's groups.
+
+Spans (`utils/profiler.annotate`): `wm.art.pos_bias` (the bias MLP and its
+gather), `wm.art.dense` and `wm.art.sparse` (grouping, the calls,
+ungrouping), `wm.art.mlp` (the fusion conv and the MLP).
 
 The module names are the JAX tree's (`restoration_network.to_feat.0`,
 `feats.N.attn.pos.pos1.0`, ...), so `convert.state_dict_from_jax` carries an
@@ -24,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from wavemamba_torch.ops.nn import (
     Conv2d,
@@ -32,7 +45,10 @@ from wavemamba_torch.ops.nn import (
     init_conv2d,
     init_layer_norm,
     init_linear,
+    network_apply,
+    network_forward,
 )
+from wavemamba_torch.utils.profiler import annotate
 
 NEG_INF = -1000000.0  # the pad masks' additive value (not -inf: a row of pads stays finite)
 
@@ -87,6 +103,41 @@ def _relative_index(gh, gw):
     return biases.astype(np.float32), rel.sum(-1).reshape(-1)
 
 
+def _row(n):
+    """A mask row's length in memory: n rounded up to 16 values. The
+    memory-efficient kernel wants every stride but the last a multiple of
+    16 and copies a mask that has other strides, on every call."""
+    return -(-n // 16) * 16
+
+
+@functools.lru_cache(maxsize=16)
+def _device_index(gh, gw, device):
+    """`_relative_index` on `device`, once for each (gh, gw, device): the
+    offsets, and the index (N * _row(N),) of a bias whose rows are
+    `_row(N)` long (the pad columns read offset 0 and are never used)."""
+    biases, idx = _relative_index(gh, gw)
+    n = gh * gw
+    idx = np.pad(idx.reshape(n, n), ((0, 0), (0, _row(n) - n)))
+    return torch.from_numpy(biases).to(device), torch.from_numpy(idx.reshape(-1)).to(device)
+
+
+def fused_attention(q, k, v, mask):
+    """softmax(q k^T + mask) v in one call that never holds the scores: q
+    (B, heads, N, hd) already scaled, k and v alike, mask (1, heads, N, N)
+    additive, shared by the batch. On CUDA the memory-efficient kernel
+    alone (float32 with a float mask; the pin raises rather than fall back
+    to the math route, which would build the scores), elsewhere torch's
+    default route. Counts its calls in `fused_attention.calls`."""
+    fused_attention.calls += 1
+    if q.is_cuda:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+
+
+fused_attention.calls = 0
+
+
 class Attention(nn.Module):
     """Multi-head attention over grouped tokens with the dynamic relative
     position bias of the group's gh x gw grid."""
@@ -98,26 +149,81 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
 
-    def relative_bias(self, gh, gw, device):
-        biases, idx = _relative_index(gh, gw)
-        pos = self.pos(torch.from_numpy(biases).to(device))  # (M, heads)
+    def bias_rows(self, gh, gw, device):
+        """The dynamic bias (heads, N, _row(N)): the bias MLP over the
+        group's offsets, gathered for each pair of its tokens; the values
+        past N in a row are not used."""
+        biases, idx = _device_index(gh, gw, device)
         n = gh * gw
-        return pos[torch.from_numpy(idx).to(device)].reshape(n, n, -1).permute(2, 0, 1)
+        return self.pos(biases).t()[:, idx].view(self.num_heads, n, _row(n))
 
-    def forward(self, x, gh, gw, mask=None):
-        """x: (B_, N, C) grouped tokens; mask: (groups, 1, N) additive, or None."""
+    def relative_bias(self, gh, gw, device):
+        """(heads, N, N)."""
+        return self.bias_rows(gh, gw, device)[:, :, :gh * gw]
+
+    def forward(self, x, gh, gw, key_pad=None):
+        """x: (B_, N, C) grouped tokens, batch-major (B_ = batch x groups);
+        key_pad: (groups, N) bool numpy, True at a pad token, or None."""
         b_, n, c = x.shape
         heads = self.num_heads
         hd = c // heads
         qkv = self.qkv(x).reshape(b_, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0] * (hd**-0.5), qkv[1], qkv[2]
-        attn = q @ k.transpose(-2, -1) + self.relative_bias(gh, gw, x.device)[None]
-        if mask is not None:
-            groups = mask.shape[0]
-            attn = (attn.reshape(b_ // groups, groups, heads, n, n) + mask[None, :, None])
-            attn = attn.reshape(b_, heads, n, n)
-        out = attn.softmax(-1) @ v
+        with annotate("wm.art.pos_bias"):
+            rows = self.bias_rows(gh, gw, x.device)
+        if key_pad is None:
+            out = fused_attention(q, k, v, rows[None, :, :, :n])
+        else:
+            out = _by_pad_class(q, k, v, rows, key_pad)
         return self.proj(out.transpose(1, 2).reshape(b_, n, c))
+
+
+def _by_pad_class(q, k, v, rows, key_pad):
+    """`fused_attention` once for each pad class of groups (the groups whose
+    pad keys are the same), its mask the bias `rows` plus NEG_INF at the
+    class's pad keys. q, k, v: (batch x groups, heads, N, hd)."""
+    b_, heads, n, hd = q.shape
+    groups = key_pad.shape[0]
+    # One opaque value a row: np.unique(axis=0) would compare the rows a
+    # field (a token) at a time, ~0.2 s at the 2176x3840 bucket's shapes.
+    as_bytes = np.ascontiguousarray(key_pad).view(np.dtype((np.void, key_pad.shape[1])))
+    _, first, of_group = np.unique(as_bytes[:, 0], return_index=True, return_inverse=True)
+    classes = key_pad[first]
+
+    def mask(pads):
+        keys = np.zeros(rows.shape[-1], np.float32)
+        keys[:n] = np.where(pads, NEG_INF, 0.0)
+        return (rows + torch.from_numpy(keys).to(q.device))[None, :, :, :n]
+
+    if len(classes) == 1:
+        return fused_attention(q, k, v, mask(classes[0]))
+    split = lambda t: t.reshape(b_ // groups, groups, heads, n, hd)  # noqa: E731
+    q5, k5, v5 = split(q), split(k), split(v)
+    out = torch.empty_like(q5)
+    for cls, pads in enumerate(classes):
+        idx = torch.from_numpy(np.flatnonzero(of_group == cls)).to(q.device)
+        pick = lambda t: t[:, idx].reshape(-1, heads, n, hd)  # noqa: E731
+        out[:, idx] = fused_attention(pick(q5), pick(k5), pick(v5), mask(pads)).view(
+            b_ // groups, len(idx), heads, n, hd)
+    return out.reshape(b_, heads, n, hd)
+
+
+def attention_by_scores(attn, x, gh, gw, key_pad=None):
+    """`attn(x, gh, gw, key_pad)` as the JAX package writes it, with every
+    score built: the formula that the fused route is held to, by the tests
+    and on the card by `chip_smoke.py`. Not for serving: at the 2176x3840
+    bucket the scores of one sparse call take 25.6 GB."""
+    b_, n, c = x.shape
+    heads = attn.num_heads
+    hd = c // heads
+    q, k, v = attn.qkv(x).reshape(b_, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    s = (q * hd**-0.5) @ k.transpose(-2, -1) + attn.relative_bias(gh, gw, x.device)[None]
+    if key_pad is not None:
+        groups = key_pad.shape[0]
+        mask = torch.where(torch.from_numpy(key_pad).to(x.device), NEG_INF, 0.0)[:, None, :]
+        s = s.reshape(b_ // groups, groups, heads, n, n) + mask[None, :, None].to(s.dtype)
+        s = s.reshape(b_, heads, n, n)
+    return attn.proj((s.softmax(-1) @ v).transpose(1, 2).reshape(b_, n, c))
 
 
 def _pad_mask(x, size):
@@ -132,12 +238,6 @@ def _pad_mask(x, size):
     if pad_r:
         mask[:, :, -pad_r:] = -1
     return xp, mask, pad_b, pad_r
-
-
-def _attn_mask(group_mask, device):
-    """(groups, N) pad marks -> (groups, 1, N): NEG_INF at a pad key."""
-    m = torch.from_numpy(np.ascontiguousarray(group_mask)).to(device)
-    return torch.where(m < 0, NEG_INF, 0.0)[:, None, :]
 
 
 class Mlp(nn.Module):
@@ -168,42 +268,43 @@ class TransformerBlock(nn.Module):
         b, h, w, c = x.shape
         xn = self.norm1(x)
 
-        # dense window attention
-        g = min(self.cfg.window_size, h, w)
-        xd, md, pad_b, pad_r = _pad_mask(xn, g)
-        hd_, wd_ = xd.shape[1:3]
-        npd = (hd_ // g) * (wd_ // g)
-        xd = xd.reshape(b, hd_ // g, g, wd_ // g, g, c).permute(0, 1, 3, 2, 4, 5)
-        mask = None
-        if pad_b or pad_r:
-            md = md.reshape(1, hd_ // g, g, wd_ // g, g, 1).transpose(0, 1, 3, 2, 4, 5)
-            mask = _attn_mask(md.reshape(npd, g * g), x.device)
-        xd = self.attn(xd.reshape(b * npd, g * g, c), g, g, mask)
-        xd = xd.reshape(b, hd_ // g, wd_ // g, g, g, c).permute(0, 1, 3, 2, 4, 5)
-        xd = xd.reshape(b, hd_, wd_, c)[:, :h, :w]
+        with annotate("wm.art.dense"):  # window attention
+            g = min(self.cfg.window_size, h, w)
+            xd, md, pad_b, pad_r = _pad_mask(xn, g)
+            hd_, wd_ = xd.shape[1:3]
+            npd = (hd_ // g) * (wd_ // g)
+            xd = xd.reshape(b, hd_ // g, g, wd_ // g, g, c).permute(0, 1, 3, 2, 4, 5)
+            key_pad = None
+            if pad_b or pad_r:
+                md = md.reshape(1, hd_ // g, g, wd_ // g, g, 1).transpose(0, 1, 3, 2, 4, 5)
+                key_pad = md.reshape(npd, g * g) < 0
+            xd = self.attn(xd.reshape(b * npd, g * g, c), g, g, key_pad)
+            xd = xd.reshape(b, hd_ // g, wd_ // g, g, g, c).permute(0, 1, 3, 2, 4, 5)
+            xd = xd.reshape(b, hd_, wd_, c)[:, :h, :w]
 
-        # sparse interval attention
-        i = self.cfg.interval
-        xs, ms, pad_b, pad_r = _pad_mask(xn, i)
-        hs, ws = xs.shape[1:3]
-        gh, gw = hs // i, ws // i
-        xs = xs.reshape(b, gh, i, gw, i, c).permute(0, 2, 4, 1, 3, 5)
-        mask = None
-        if pad_b or pad_r:
-            ms = ms.reshape(1, gh, i, gw, i, 1).transpose(0, 2, 4, 1, 3, 5)
-            mask = _attn_mask(ms.reshape(i * i, gh * gw), x.device)
-        xs = self.attn(xs.reshape(b * i * i, gh * gw, c), gh, gw, mask)
-        xs = xs.reshape(b, i, i, gh, gw, c).permute(0, 3, 1, 4, 2, 5)
-        xs = xs.reshape(b, hs, ws, c)[:, :h, :w]
+        with annotate("wm.art.sparse"):  # interval attention
+            i = self.cfg.interval
+            xs, ms, pad_b, pad_r = _pad_mask(xn, i)
+            hs, ws = xs.shape[1:3]
+            gh, gw = hs // i, ws // i
+            xs = xs.reshape(b, gh, i, gw, i, c).permute(0, 2, 4, 1, 3, 5)
+            key_pad = None
+            if pad_b or pad_r:
+                ms = ms.reshape(1, gh, i, gw, i, 1).transpose(0, 2, 4, 1, 3, 5)
+                key_pad = ms.reshape(i * i, gh * gw) < 0
+            xs = self.attn(xs.reshape(b * i * i, gh * gw, c), gh, gw, key_pad)
+            xs = xs.reshape(b, i, i, gh, gw, c).permute(0, 3, 1, 4, 2, 5)
+            xs = xs.reshape(b, hs, ws, c)[:, :h, :w]
 
-        fused = self.fusion(torch.cat([xd, xs], -1).permute(0, 3, 1, 2))
-        # The reference reads the NCHW fusion output as (B, H*W, C) tokens
-        # without a permute, which scrambles channels across tokens; trained
-        # checkpoints bake it in. `reshape` follows the logical NCHW order
-        # whatever the output's memory format, as the reference's `.view` of
-        # a contiguous NCHW tensor does.
-        x = x.reshape(b, h * w, c) + fused.reshape(b, h * w, c)
-        return (x + self.mlp(self.norm2(x))).reshape(b, h, w, c)
+        with annotate("wm.art.mlp"):
+            fused = self.fusion(torch.cat([xd, xs], -1).permute(0, 3, 1, 2))
+            # The reference reads the NCHW fusion output as (B, H*W, C) tokens
+            # without a permute, which scrambles channels across tokens; trained
+            # checkpoints bake it in. `reshape` follows the logical NCHW order
+            # whatever the output's memory format, as the reference's `.view` of
+            # a contiguous NCHW tensor does.
+            x = x.reshape(b, h * w, c) + fused.reshape(b, h * w, c)
+            return (x + self.mlp(self.norm2(x))).reshape(b, h, w, c)
 
 
 class Net(nn.Module):
@@ -248,13 +349,6 @@ def init_art(model: ART, generator) -> ART:
     return model
 
 
-def art_forward(model: ART, x):
-    """x: (B, H, W, 3) NHWC, H and W multiples of `upscaling_factor` -> the
-    same, float32, differentiable (JAX's `art_apply`); `art_apply` is the same
-    without a gradient."""
-    return model(x.permute(0, 3, 1, 2).float()).permute(0, 2, 3, 1)
-
-
-@torch.no_grad()
-def art_apply(model: ART, x):
-    return art_forward(model, x)
+# x: (B, H, W, 3) NHWC, H and W multiples of `upscaling_factor` -> the same,
+# float32 (JAX's `art_apply`); differentiable, and without a gradient.
+art_forward, art_apply = network_forward, network_apply

@@ -74,6 +74,8 @@ from wavemamba_torch.ops.nn import (
     init_layer_norm,
     init_linear,
     l2_normalize,
+    network_apply,
+    network_forward,
 )
 from wavemamba_torch.ops.scan import selective_scan
 from wavemamba_torch.ops.scan_cuda import save_scan_contexts, ss2d_scan_pair
@@ -680,16 +682,9 @@ def init_wavemamba(model: nn.Module, generator) -> nn.Module:
     return model
 
 
-def wavemamba_forward(model: WaveMamba, x):
-    """x: (B, H, W, in_chn) NHWC, H and W multiples of 8 -> the same, float32.
-    Differentiable; `wavemamba_apply` is the same without a gradient."""
-    return model(x.permute(0, 3, 1, 2).float()).permute(0, 2, 3, 1)
-
-
-@torch.no_grad()
-def wavemamba_apply(model: WaveMamba, x):
-    """x: (B, H, W, in_chn) float32 NHWC, H and W multiples of 8 -> same."""
-    return wavemamba_forward(model, x)
+# x: (B, H, W, in_chn) NHWC, H and W multiples of 8 -> the same, float32;
+# differentiable, and without a gradient.
+wavemamba_forward, wavemamba_apply = network_forward, network_apply
 
 
 def pad_to_multiple(x: np.ndarray, multiple=8):

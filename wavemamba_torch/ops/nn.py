@@ -37,6 +37,19 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def network_forward(model, x):
+    """x: (B, H, W, C) NHWC -> the model's output, float32 NHWC, for a model
+    of any arch: every arch's module takes and gives NCHW, and the JAX
+    package's apply functions take and give NHWC. Differentiable."""
+    return model(x.permute(0, 3, 1, 2).float()).permute(0, 2, 3, 1)
+
+
+@torch.no_grad()
+def network_apply(model, x):
+    """`network_forward` without a gradient."""
+    return network_forward(model, x)
+
+
 def layer_norm(x, weight, bias, eps=1e-5, dim=-1):
     """LayerNorm over axis `dim`, float32 statistics (biased variance)."""
     xf = x.float()
