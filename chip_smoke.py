@@ -232,15 +232,25 @@ and prints one JSON line per phase:
              holds K3's op, within 1e-5 of the eager forward; in each graph
              the kernels the eager forward launches (wrappers and kernel
              names), replay and eager ms, idle shares and load seconds.
- 12f. art    ART, the second model family, at its default width (dim 48, 8
+ 12f. art_attention  ART's attention kernel (`ops/art_attention.py`,
+             `csrc/art_attention.cu`) against its plain version on small and
+             ragged grids (pad classes, rows); at the 2176x3840 bucket's sparse
+             (256 x 6 x 2,040) and dense (8,160 x 6 x 64) calls its ms, bound,
+             plain ms and the memory-efficient kernel's (`library_ms`), and its
+             error against the float64 formula, at most 2x the float32
+             formula's, with no pad and with four pad classes; a 2160x3840
+             forward against `cardbench/reference/art.py`, every call through
+             the kernel.
+ 12g. art    ART, the second model family, at its default width (dim 48, 8
              blocks): the uhdll yml with `network_g: {type: ART}` through
              `pipelines.train` for 1 + 4 iterations at batch 8 of 512x512 from
              the data phase's generated set, twice in child processes under
              deterministic algorithms (finite losses, the same parameters'
              bits, the checkpoint, the final validation); ms a step and peak
              memory through `build_model`; a 1080x1920 forward timed; a 64x96
-             forward against the CPU. ART runs no kernel of the port.
- 12g. secondary the VGG19 perceptual and style losses at batch 8 of 512x512,
+             forward against the CPU. Training takes torch's memory-efficient
+             attention, serving the port's kernel (12f).
+ 12h. secondary the VGG19 perceptual and style losses at batch 8 of 512x512,
              LPIPS at 1080x1920, the R1 and WGAN-GP penalties (and their own
              gradient) on a small discriminator, each against the CPU on the
              same seeded weights (no pretrained weights are in the
@@ -599,10 +609,11 @@ def phase_device():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    from wavemamba_torch.ops import scan_cuda
+    from wavemamba_torch.ops import art_attention, scan_cuda
 
     t0 = time.perf_counter()
     libs = scan_cuda.build_all()  # one nvcc per source, started together
+    art_lib = scan_cuda.build(art_attention.SOURCE)
     build_s = time.perf_counter() - t0
 
     def ptxas(lib, kernels, shipped="ILi16ELi2E"):
@@ -634,7 +645,8 @@ def phase_device():
           "k4_ptxas": ptxas(libs[3], ["bwd_local", "bwd_prefix", "bwd_main", "bwd_reduce"], "ILi16ELi64E"),
           "k5_ptxas": ptxas(libs[4], ["chunk_scan_ssd", "chunk_prefix"]),
           "chain_ptxas": ptxas(libs[5], ["chain_kernel"]),
-          "probe_ptxas": ptxas(libs[6], ["flat", "shaped", "expchain", "nsum", "mxu_seg"])})
+          "probe_ptxas": ptxas(libs[6], ["flat", "shaped", "expchain", "nsum", "mxu_seg"]),
+          "art_attention_ptxas": ptxas(art_lib, ["window_kernel", "group_kernel"])})
     return smi
 
 
@@ -4042,6 +4054,173 @@ def art_attention_check(attn, batch=TRAIN_BATCH, gh=8, gw=8, groups_y=16, groups
             **rows}
 
 
+# ART's attention kernel (`ops/art_attention.py`) at the 2176x3840 bucket's
+# calls, (groups, gh, gw): the 8,160 8x8 dense windows and the 256 sparse
+# sets of 34 x 60 tokens; 6 heads of 32.
+ART_ATTN_CALLS = {"sparse": (256, 34, 60), "dense": (8160, 8, 8)}
+ART_ATTN_HEADS = 6
+# The kernel against its plain version (the scores built, float32) on small
+# grids: max |a - b| over max |b|; both float32-accurate (three TF32 products
+# against cuBLAS's float32), sums over up to 2,040 terms in other orders.
+ART_KERNEL_RTOL = 1e-5
+# The kernel's error against the float64 formula, at most this times the
+# float32 formula's: the two readings `art_attention_check` takes of the
+# memory-efficient route.
+ART_ATTN_F64_RATIO = 2.0
+
+
+def _art_pad_marks(kind):
+    """(groups, N) pad marks of a call with four pad classes (none, pad rows,
+    pad columns, both): the sparse sets whose offset row / column is 12 or
+    more lose their last row / column of tokens (a 540-token-high grid pads
+    the sets of rows 12-15); the last row / column of dense windows loses
+    rows 4-7 / columns 6-7."""
+    if kind == "sparse":
+        m = np.zeros((16, 16, 34, 60), bool)
+        m[12:, :, -1, :] = True
+        m[:, 12:, :, -1] = True
+    else:
+        m = np.zeros((68, 120, 8, 8), bool)
+        m[-1, :, 4:, :] = True
+        m[:, -1, :, 6:] = True
+    return m.reshape(m.shape[0] * m.shape[1], -1)
+
+
+def _art_qkv(groups, n, gen, heads=ART_ATTN_HEADS):
+    """q, k, v (groups, heads, n, 32) as `Attention.forward` lays them out:
+    views of one (groups, n, 3, heads, 32) tensor, q scaled into a new one."""
+    qkv = torch.randn(groups, n, 3, heads, 32, device="cuda", generator=gen)
+    qkv = qkv.permute(2, 0, 3, 1, 4)
+    return qkv[0] * 32**-0.5, qkv[1], qkv[2]
+
+
+def _art_by_class(fn, q, k, v, table, gh, gw, key_pad):
+    """`fn` (art_attention or its plain version) once for each pad class of
+    `key_pad` (or once without), into one output, as `Attention.forward`
+    calls it; returns (out, calls)."""
+    from wavemamba_torch.models.art import _pad_classes
+
+    out = torch.empty(q.shape[0], q.shape[2], q.shape[1] * q.shape[3], device=q.device,
+                      dtype=q.dtype)
+    calls = _pad_classes(key_pad, q.shape[0], q.shape[2], q.device)
+    for key_bias, rows in calls:
+        fn(q, k, v, table, gh, gw, None if key_bias is None else key_bias.to(q.dtype), rows, out)
+    return out, len(calls)
+
+
+def phase_art_attention(smi):
+    """ART's attention kernel (`ops/art_attention.py`, `csrc/art_attention.cu`):
+    against its plain version on small and ragged grids, with and without
+    key vectors and rows; at the 2176x3840 bucket's two calls its ms, the
+    bound (`cardbench/roofline_art.attention_bound`), the plain version's ms
+    and the memory-efficient kernel's (`library_ms`, the route it replaces,
+    on the bias gathered into a mask), and its error and the float32
+    formula's against the float64 formula, with no pad and with four pad
+    classes; then a 2160x3840 forward (both pad masks live) against the
+    benchmark's plain reference (`cardbench/reference/art.py`), every call
+    through the kernel."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from cardbench.reference import art as ref_art
+    from cardbench.reference.init import make_state_dict
+    from cardbench.roofline_art import attention_bound
+    from wavemamba_torch.inference import load_model
+    from wavemamba_torch.models import art_apply
+    from wavemamba_torch.models.art import fused_attention
+    from wavemamba_torch.ops import art_attention as aa
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(121)
+    lib = aa._library()
+    small = []
+    for groups, heads, gh, gw, pads in ((5, 2, 3, 5, False), (6, 2, 3, 5, True), (37, 6, 8, 8, False),
+                                        (3, 6, 34, 60, False), (4, 3, 9, 7, True), (2, 1, 1, 1, False),
+                                        (3, 2, 1, 70, True)):
+        n = gh * gw
+        check(lib.art_attention_smem(gh, gw, n) == aa.smem_bytes(gh, gw),
+              f"the source's shared memory and `smem_bytes` agree at {gh}x{gw}")
+        q, k, v = _art_qkv(groups, n, gen, heads)
+        table = torch.randn((2 * gh - 1) * (2 * gw - 1), heads, device="cuda", generator=gen)
+        key_pad = None
+        if pads:
+            key_pad = np.zeros((groups, n), bool)
+            key_pad[1:, -1] = True
+            key_pad[2:, 0] = True
+        launches = aa.art_attention.launches
+        got, calls = _art_by_class(aa.art_attention, q, k, v, table, gh, gw, key_pad)
+        launches = aa.art_attention.launches - launches
+        want, _ = _art_by_class(aa.art_attention_plain, q, k, v, table, gh, gw, key_pad)
+        small.append({"groups": groups, "heads": heads, "grid": [gh, gw], "pads": pads,
+                      "calls": calls, "launches": launches, "rel_err": _rel(got, want)})
+    rows = {}
+    for kind, (groups, gh, gw) in ART_ATTN_CALLS.items():
+        n, offsets = gh * gw, (2 * gh - 1) * (2 * gw - 1)
+        q, k, v = _art_qkv(groups, n, gen)
+        table = torch.randn(offsets, ART_ATTN_HEADS, device="cuda", generator=gen)
+        bound_s, unit = attention_bound(groups, ART_ATTN_HEADS, n, 32, 1, offsets)
+        ms = cuda_ms(lambda: aa.art_attention(q, k, v, table, gh, gw), 10)
+        plain_ms = cuda_ms(lambda: aa.art_attention_plain(q, k, v, table, gh, gw), 1, warmup=False)
+        from wavemamba_torch.models.art import _device_index, _row
+
+        idx = _device_index(gh, gw, q.device)[1]
+        mask = table.t()[:, idx].view(ART_ATTN_HEADS, n, _row(n))[None, :, :, :n]
+
+        def library():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+
+        library_ms = cuda_ms(library, 3)
+        del mask
+        row = {"shape": [groups, ART_ATTN_HEADS, n, 32], "grid": [gh, gw], "ms": ms,
+               "bound_ms": bound_s * 1e3, "bound_unit": unit,
+               "roofline_pct": 100 * bound_s * 1e3 / ms, "plain_ms": plain_ms,
+               "library_ms": library_ms}
+        q64, k64, v64, t64 = (t.double() for t in (q, k, v, table))
+        for pads, key_pad in (("none", None), ("classes", _art_pad_marks(kind))):
+            got, calls = _art_by_class(aa.art_attention, q, k, v, table, gh, gw, key_pad)
+            f32, _ = _art_by_class(aa.art_attention_plain, q, k, v, table, gh, gw, key_pad)
+            f64, _ = _art_by_class(aa.art_attention_plain, q64, k64, v64, t64, gh, gw, key_pad)
+            row[pads] = {"calls": calls, "kernel_vs_f64": _rel(got, f64),
+                         "formula_vs_f64": _rel(f32, f64), "kernel_vs_formula": _rel(got, f32)}
+            del got, f32, f64
+        rows[kind] = row
+        del q, k, v, q64, k64, v64
+        torch.cuda.empty_cache()
+    # a 2160x3840 forward, both pad masks live, against the plain reference
+    cfg = json.load(open(os.path.join(ROOT, "cardbench", "configs", "art-uhd-f32.json")))
+    ref = ref_art.from_config(cfg)
+    weights = make_state_dict(ref, 123, "cuda")
+    ref.load_state_dict(weights, strict=True)
+    ref = ref.cuda().eval()
+    model = load_model(cfg["network_g"], weights, torch.device("cuda"))
+    x = torch.rand(1, 2160, 3840, 3, device="cuda", generator=gen) * 0.2
+    calls, launches = fused_attention.calls, aa.art_attention.launches
+    got = art_apply(model, x)
+    calls, launches = fused_attention.calls - calls, aa.art_attention.launches - launches
+    with torch.no_grad():
+        want = ref(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    forward = {"max_abs_err": float((got - want).abs().max()), "atol": ART_CPU_ATOL,
+               "calls": calls, "launches": launches}
+    del model, ref, got, want
+    torch.cuda.empty_cache()
+    row = {"phase": "art_attention", "smi": smi, "small": small, **rows,
+           "forward_2160x3840": forward, "phase_s": time.perf_counter() - t0}
+    emit(row)
+    for r in small:
+        check(r["launches"] == r["calls"] and r["rel_err"] <= ART_KERNEL_RTOL,
+              f"ART's attention kernel against its plain version: {r}")
+    for kind in ART_ATTN_CALLS:
+        for pads in ("none", "classes"):
+            got = rows[kind][pads]
+            check(got["kernel_vs_f64"] <= ART_ATTN_F64_RATIO * got["formula_vs_f64"],
+                  f"ART's attention kernel ({kind}, {pads}) within {ART_ATTN_F64_RATIO}x the "
+                  f"float32 formula's error against float64: {got}")
+    check(forward["launches"] == forward["calls"] > 0 and forward["max_abs_err"] <= ART_CPU_ATOL,
+          f"ART's 2160x3840 forward through the kernel against the reference: {forward}")
+    return row
+
+
 def phase_art(smi):
     """ART, the second model family, at its default width on the card: the
     uhdll yml with `network_g: {type: ART}` through `pipelines.train` for
@@ -4053,9 +4232,10 @@ def phase_art(smi):
     (`img2batch`, `enhance` with the bucket ladder, `batch2img`) timed with
     its peak memory, one block's attention forward and backward against the
     formula that builds the scores at the training shape
-    (`art_attention_check`), and a 64x96 forward against the CPU. ART runs no kernel
-    of the port: its attention is torch's memory-efficient kernel, one call
-    for each grouping (`models/art.py:fused_attention`)."""
+    (`art_attention_check`), and a 64x96 forward against the CPU. One
+    attention call for each grouping: torch's memory-efficient kernel where
+    a gradient is recorded (`models/art.py:fused_attention`), the port's
+    kernel without one (`ops/art_attention.py`, phase 12f)."""
     import pickle
     import shutil
 
@@ -5073,6 +5253,7 @@ def main():
     data = phase_data()
     scripts = phase_scripts(model, smi)
     par = phase_parallel(model, smi)
+    phase_art_attention(smi)
     phase_art(smi)
     secondary = phase_secondary(model, smi)
     deploy = phase_deploy(exports, model, fast_model, fast_fused_model)

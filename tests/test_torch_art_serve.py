@@ -1,8 +1,9 @@
 """ART served through the inference CLI's path (`-opt`, `load_model`,
 `enhance` with the bucket ladder) against the benchmark's plain float32
-reference (`cardbench/reference/art.py`), and the fused attention of
-`wavemamba_torch/models/art.py` against the formula that builds the scores,
-on the CPU at small sizes.
+reference (`cardbench/reference/art.py`), and both attention routes of
+`wavemamba_torch/models/art.py` (the differentiable fused call, and without a
+gradient the table route of `ops/art_attention.py`, its plain version here)
+against the formula that builds the scores, on the CPU at small sizes.
 
 The reference and the port share no code; both take the benchmark's seeded
 weights (`cardbench/reference/init.py`). Tolerances: the float output 1e-5
@@ -24,6 +25,7 @@ from cardbench.reference.init import make_state_dict
 from wavemamba_torch import inference as tinf
 from wavemamba_torch.models import art as tart
 from wavemamba_torch.models.buckets import BucketLadder, pad_to_shape
+from wavemamba_torch.ops import art_attention as tart_ops
 
 # The suite runs in several worker processes on a few cores: torch's intra-op
 # threads spin while they wait, and the tiny tensors here gain nothing from them.
@@ -150,3 +152,73 @@ def test_bias_rows_are_aligned_and_cached_on_the_device():
     assert rows[None, :, :, :15].stride()[:3] == (2 * 15 * 16, 15 * 16, 16)
     a = tart._device_index(3, 5, torch.device("cpu"))
     assert tart._device_index(3, 5, torch.device("cpu")) is a
+
+
+@pytest.mark.parametrize("gh,gw", [(3, 5), (8, 8), (34, 60), (1, 7), (4, 1)])
+def test_offset_index_is_the_relative_index(gh, gw):
+    """The kernel's index, lin(i) - lin(j) + C, is the bias MLP's row that
+    `_relative_index` gathers for each pair of tokens."""
+    from wavemamba_torch.ops.art_attention import offset_index
+
+    assert np.array_equal(offset_index(gh, gw).reshape(-1), tart._relative_index(gh, gw)[1])
+
+
+@pytest.mark.parametrize("pads", ["none", "classes"])
+def test_attention_without_gradient_matches_the_scores_formula(pads, monkeypatch):
+    """Without a gradient the attention takes the table route
+    (`art_attention`'s plain version here): the bias looked up in the bias
+    MLP's table by the offset index and a key vector for each pad class, at
+    a ragged grid (3 x 5), against the formula; one call for each class."""
+    torch.manual_seed(1)
+    attn = tart.Attention(16, 2)
+    gh, gw, b = 3, 5, 2
+    key_pad = None if pads == "none" else _pad_classes(gh, gw, 2, 3)
+    x = torch.randn(b * 6, gh * gw, 16)
+    seen = []
+    monkeypatch.setattr(tart, "art_attention",
+                        lambda *a: seen.append(a[6]) or tart_ops.art_attention(*a))
+    before = tart.fused_attention.calls
+    with torch.no_grad():
+        got = attn(x, gh, gw, key_pad)
+        want = tart.attention_by_scores(attn, x, gh, gw, key_pad)
+    classes = 1 if pads == "none" else 4
+    assert tart.fused_attention.calls - before == classes == len(seen)
+    assert (seen == [None]) == (pads == "none")  # a key vector for each class where pads are live
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
+
+
+def test_a_call_needing_gradients_takes_the_differentiable_route(monkeypatch):
+    """With autograd recording, `Attention` keeps `fused_attention` (the
+    gathered bias as a mask) and never calls the table route; one call for
+    each pad class either way."""
+    attn = tart.Attention(16, 2)
+    key_pad = _pad_classes(3, 5, 2, 3)
+    x = torch.randn(12, 15, 16)
+    routes = []
+    monkeypatch.setattr(tart, "art_attention", lambda *a: routes.append("table"))
+    for needs in (x.requires_grad_(), x.detach()):  # input or weights need a gradient
+        before = tart.fused_attention.calls
+        attn(needs, 3, 5, key_pad).sum().backward()
+        assert tart.fused_attention.calls - before == 4
+    assert routes == []
+
+
+def test_plain_version_writes_only_its_rows():
+    """One pad class's call writes its groups' rows of the shared output and
+    leaves the others as they were, in the (B, N, heads * hd) layout."""
+    g = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn(5, 2, 6, 32, generator=g) for _ in range(3))
+    table = torch.randn(3 * 5, 2, generator=g)
+    out = torch.full((5, 6, 64), 7.0)
+    rows = torch.tensor([1, 3], dtype=torch.int32)
+    tart_ops.art_attention_plain(q, k, v, table, 2, 3, None, rows, out)
+    whole = tart_ops.art_attention_plain(q, k, v, table, 2, 3)
+    assert torch.equal(out[[0, 2, 4]], torch.full((3, 6, 64), 7.0))
+    assert torch.allclose(out[[1, 3]], whole[[1, 3]], atol=1e-6, rtol=0)
+
+
+def test_the_kernel_takes_the_4k_buckets_grids():
+    """The sparse groups of a 4K bucket (34 x 60) and of an 8K frame's
+    (68 x 120) hold their table and keys in a block's shared memory."""
+    assert tart_ops.fits(34, 60) and tart_ops.fits(8, 8) and tart_ops.fits(68, 120)
+    assert not tart_ops.fits(100, 200)

@@ -436,3 +436,31 @@ def test_scripts_phase_trains_the_xxl4_yml_cut_short(tmp_path, monkeypatch):
     assert got["train"]["ema_decay"] == want["train"]["ema_decay"] > 0  # the run saves net_g_ema_*
     assert json.loads(json.dumps(got["network_g"])) == json.loads(json.dumps(want["network_g"]))
     assert json.loads(json.dumps(got["val"]["metrics"])) == json.loads(json.dumps(want["val"]["metrics"]))
+
+
+def test_art_attention_phase_runs_before_art_with_four_pad_classes():
+    """The kernel's phase runs on the main path before ART's phase; the pad
+    marks it reads its error under hold four classes in both calls, and its
+    by-class helper writes every group's rows once (here through the plain
+    version, on the CPU)."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from wavemamba_torch.models.art import _classes
+    from wavemamba_torch.ops.art_attention import art_attention_plain
+
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index("phase_parallel(") < src.index("phase_art_attention(") < src.index("phase_art(")
+    for kind, (groups, gh, gw) in chip_smoke.ART_ATTN_CALLS.items():
+        marks = chip_smoke._art_pad_marks(kind)
+        assert marks.shape == (groups, gh * gw) and len(_classes(marks)[0]) == 4
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(6, 2, 15, 32, generator=g) for _ in range(3))
+    table = torch.randn(5 * 9, 2, generator=g)
+    marks = np.zeros((6, 15), bool)
+    marks[3:, -1] = True
+    got, calls = chip_smoke._art_by_class(art_attention_plain, q, k, v, table, 3, 5, marks)
+    assert calls == 2 and torch.isfinite(got).all()
+    assert torch.allclose(got[:3], art_attention_plain(q, k, v, table, 3, 5)[:3], atol=1e-6)

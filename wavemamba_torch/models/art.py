@@ -5,21 +5,34 @@ Each `TransformerBlock` runs dense window attention (G x G tiles) and sparse
 interval attention (the tokens I apart) with one attention's weights and a
 dynamic position bias, fuses the two with a 1x1 conv, then an MLP with
 exact GELU. The network is a conv stem and a pixel-unshuffle, the blocks, a
-global residual, and a conv and a pixel-shuffle. It runs no kernel of its
-own (the JAX package computes all of it outside any Pallas kernel).
+global residual, and a conv and a pixel-shuffle. The JAX package computes
+all of it outside any Pallas kernel; the port's attention without a
+gradient is a kernel of its own (`ops/art_attention.py`).
 
-Each grouping's attention is one fused call (`fused_attention`) that never
-holds the (groups, heads, N, N) scores: at a 2176x3840 bucket the sparse
-groups hold 34 x 60 = 2,040 tokens, and the scores of one sparse call would
-take 25.6 GB. The dynamic bias is the call's additive mask, gathered once a
-call from the bias MLP's (2gh-1)(2gw-1) rows. Where a pad mask is live, the
-groups fall into at most four pad classes (no pad, pad rows, pad columns,
-both), and each class is one call whose mask is the bias plus the class's
-pad keys, shared by the class's groups.
+Each grouping's attention is one fused call that never holds the (groups,
+heads, N, N) scores: at a 2176x3840 bucket the sparse groups hold 34 x 60 =
+2,040 tokens, and the scores of one sparse call would take 25.6 GB. Where a
+pad mask is live, the groups fall into at most four pad classes (no pad, pad
+rows, pad columns, both), and each class is one call with the class's pad
+keys, shared by the class's groups. Two routes, chosen by what autograd
+needs (`Attention.forward`):
 
-Spans (`utils/profiler.annotate`): `wm.art.pos_bias` (the bias MLP and its
-gather), `wm.art.dense` and `wm.art.sparse` (grouping, the calls,
-ungrouping), `wm.art.mlp` (the fusion conv and the MLP).
+- without a gradient (serving: `network_apply` runs under `no_grad`),
+  `ops/art_attention.py:art_attention`: the bias MLP's (2gh-1)(2gw-1) x
+  heads table goes to it whole, and it looks each score's bias up by the
+  offset between its tokens; the class's pad keys are a vector and its
+  groups a list of rows, and every call writes into one output in the
+  layout `proj` reads;
+- with one (training), `fused_attention`: the dynamic bias gathered into
+  the call's additive (heads, N, N) mask, torch's differentiable
+  memory-efficient attention on CUDA.
+
+Both count their calls in `fused_attention.calls`.
+
+Spans (`utils/profiler.annotate`): `wm.art.pos_bias` (the bias MLP, and on
+the differentiable route its gather), `wm.art.dense` and `wm.art.sparse`
+(grouping, the calls, ungrouping), `wm.art.mlp` (the fusion conv and the
+MLP).
 
 The module names are the JAX tree's (`restoration_network.to_feat.0`,
 `feats.N.attn.pos.pos1.0`, ...), so `convert.state_dict_from_jax` carries an
@@ -38,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from wavemamba_torch.ops.art_attention import art_attention
 from wavemamba_torch.ops.nn import (
     Conv2d,
     LayerNorm,
@@ -122,12 +136,13 @@ def _device_index(gh, gw, device):
 
 
 def fused_attention(q, k, v, mask):
-    """softmax(q k^T + mask) v in one call that never holds the scores: q
-    (B, heads, N, hd) already scaled, k and v alike, mask (1, heads, N, N)
-    additive, shared by the batch. On CUDA the memory-efficient kernel
-    alone (float32 with a float mask; the pin raises rather than fall back
-    to the math route, which would build the scores), elsewhere torch's
-    default route. Counts its calls in `fused_attention.calls`."""
+    """softmax(q k^T + mask) v in one differentiable call that never holds
+    the scores: q (B, heads, N, hd) already scaled, k and v alike, mask (1,
+    heads, N, N) additive, shared by the batch. On CUDA the memory-efficient
+    kernel alone (float32 with a float mask; the pin raises rather than fall
+    back to the math route, which would build the scores), elsewhere torch's
+    default route. Counts its calls, and those of the route without a
+    gradient (`Attention.forward`), in `fused_attention.calls`."""
     fused_attention.calls += 1
     if q.is_cuda:
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
@@ -149,13 +164,19 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
 
-    def bias_rows(self, gh, gw, device):
-        """The dynamic bias (heads, N, _row(N)): the bias MLP over the
-        group's offsets, gathered for each pair of its tokens; the values
-        past N in a row are not used."""
-        biases, idx = _device_index(gh, gw, device)
+    def table(self, gh, gw, device):
+        """The bias MLP over the group's offsets: ((2gh-1)(2gw-1), heads)."""
+        return self.pos(_device_index(gh, gw, device)[0])
+
+    def bias_rows(self, gh, gw, device, table=None):
+        """The dynamic bias (heads, N, _row(N)): the bias MLP's `table` (made
+        here if None), gathered for each pair of the group's tokens; the
+        values past N in a row are not used."""
+        if table is None:
+            table = self.table(gh, gw, device)
+        idx = _device_index(gh, gw, device)[1]
         n = gh * gw
-        return self.pos(biases).t()[:, idx].view(self.num_heads, n, _row(n))
+        return table.t()[:, idx].view(self.num_heads, n, _row(n))
 
     def relative_bias(self, gh, gw, device):
         """(heads, N, N)."""
@@ -163,14 +184,25 @@ class Attention(nn.Module):
 
     def forward(self, x, gh, gw, key_pad=None):
         """x: (B_, N, C) grouped tokens, batch-major (B_ = batch x groups);
-        key_pad: (groups, N) bool numpy, True at a pad token, or None."""
+        key_pad: (groups, N) bool numpy, True at a pad token, or None.
+        Without a gradient to compute, `art_attention` once for each pad
+        class; otherwise `fused_attention` on the gathered bias."""
         b_, n, c = x.shape
         heads = self.num_heads
         hd = c // heads
         qkv = self.qkv(x).reshape(b_, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0] * (hd**-0.5), qkv[1], qkv[2]
         with annotate("wm.art.pos_bias"):
-            rows = self.bias_rows(gh, gw, x.device)
+            table = self.table(gh, gw, x.device)
+            differentiable = torch.is_grad_enabled() and (q.requires_grad or table.requires_grad)
+            if differentiable:
+                rows = self.bias_rows(gh, gw, x.device, table)
+        if not differentiable:
+            out = q.new_empty(b_, n, c)
+            for key_bias, groups in _pad_classes(key_pad, b_, n, x.device):
+                fused_attention.calls += 1
+                art_attention(q, k, v, table, gh, gw, key_bias, groups, out)
+            return self.proj(out)
         if key_pad is None:
             out = fused_attention(q, k, v, rows[None, :, :, :n])
         else:
@@ -178,17 +210,44 @@ class Attention(nn.Module):
         return self.proj(out.transpose(1, 2).reshape(b_, n, c))
 
 
-def _by_pad_class(q, k, v, rows, key_pad):
-    """`fused_attention` once for each pad class of groups (the groups whose
-    pad keys are the same), its mask the bias `rows` plus NEG_INF at the
-    class's pad keys. q, k, v: (batch x groups, heads, N, hd)."""
-    b_, heads, n, hd = q.shape
-    groups = key_pad.shape[0]
+def _classes(key_pad):
+    """The pad classes of groups (the groups whose pad keys are the same):
+    (classes (n_classes, N) bool, each group's class (groups,))."""
     # One opaque value a row: np.unique(axis=0) would compare the rows a
     # field (a token) at a time, ~0.2 s at the 2176x3840 bucket's shapes.
     as_bytes = np.ascontiguousarray(key_pad).view(np.dtype((np.void, key_pad.shape[1])))
     _, first, of_group = np.unique(as_bytes[:, 0], return_index=True, return_inverse=True)
-    classes = key_pad[first]
+    return key_pad[first], of_group.reshape(-1)
+
+
+def _pad_classes(key_pad, b_, n, device):
+    """[(key_bias, rows)] of `art_attention`'s calls: one (None, None)
+    without a pad; else, for each pad class, its keys (N,) float32, NEG_INF
+    at a pad, and the int32 rows of its groups in the (batch x groups)
+    batch, or None where the class holds every group."""
+    if key_pad is None:
+        return [(None, None)]
+    groups = key_pad.shape[0]
+    classes, of_group = _classes(key_pad)
+    calls = []
+    for cls, pads in enumerate(classes):
+        key_bias = torch.from_numpy(np.where(pads, NEG_INF, 0.0).astype(np.float32)).to(device)
+        rows = None
+        if len(classes) > 1:
+            picked = np.flatnonzero(of_group == cls)
+            rows = (np.arange(b_ // groups)[:, None] * groups + picked[None]).reshape(-1)
+            rows = torch.from_numpy(rows.astype(np.int32)).to(device)
+        calls.append((key_bias, rows))
+    return calls
+
+
+def _by_pad_class(q, k, v, rows, key_pad):
+    """`fused_attention` once for each pad class of groups, its mask the
+    bias `rows` plus NEG_INF at the class's pad keys. q, k, v: (batch x
+    groups, heads, N, hd)."""
+    b_, heads, n, hd = q.shape
+    groups = key_pad.shape[0]
+    classes, of_group = _classes(key_pad)
 
     def mask(pads):
         keys = np.zeros(rows.shape[-1], np.float32)
