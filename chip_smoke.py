@@ -609,11 +609,10 @@ def phase_device():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    from wavemamba_torch.ops import art_attention, scan_cuda
+    from wavemamba_torch.utils import cxx
 
     t0 = time.perf_counter()
-    libs = scan_cuda.build_all()  # one nvcc per source, started together
-    art_lib = scan_cuda.build(art_attention.SOURCE)
+    libs = cxx.build_all()  # every csrc/*.cu, one nvcc each, started together
     build_s = time.perf_counter() - t0
 
     def ptxas(lib, kernels, shipped="ILi16ELi2E"):
@@ -637,16 +636,21 @@ def phase_device():
     emit({"phase": "device", "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s, "build_s_by_source": dict(scan_cuda.BUILD_SECONDS),
-          "libraries": [os.path.relpath(lib, ROOT) for lib in libs],
-          "k1_ptxas": ptxas(libs[0], ["chunk_scan", "chunk_prefix"]),
-          "k2_ptxas": ptxas(libs[1], ["bwd_local", "bwd_prefix", "bwd_main", "bwd_reduce"]),
-          "k3_ptxas": ptxas(libs[2], ["selective_chunk", "selective_prefix"], "ILi16E"),
-          "k4_ptxas": ptxas(libs[3], ["bwd_local", "bwd_prefix", "bwd_main", "bwd_reduce"], "ILi16ELi64E"),
-          "k5_ptxas": ptxas(libs[4], ["chunk_scan_ssd", "chunk_prefix"]),
-          "chain_ptxas": ptxas(libs[5], ["chain_kernel"]),
-          "probe_ptxas": ptxas(libs[6], ["flat", "shaped", "expchain", "nsum", "mxu_seg"]),
-          "art_attention_ptxas": ptxas(art_lib, ["window_kernel", "group_kernel"])})
+          "build_s": build_s, "build_s_by_source": dict(cxx.BUILD_SECONDS),
+          "libraries": [os.path.relpath(lib, ROOT) for lib in libs.values()],
+          "k1_ptxas": ptxas(libs["ss2d_scan.cu"], ["chunk_scan", "chunk_prefix"]),
+          "k2_ptxas": ptxas(libs["ss2d_scan_bwd.cu"],
+                            ["bwd_local", "bwd_prefix", "bwd_main", "bwd_reduce"]),
+          "k3_ptxas": ptxas(libs["selective_scan.cu"], ["selective_chunk", "selective_prefix"],
+                            "ILi16E"),
+          "k4_ptxas": ptxas(libs["selective_scan_bwd.cu"],
+                            ["bwd_local", "bwd_prefix", "bwd_main", "bwd_reduce"], "ILi16ELi64E"),
+          "k5_ptxas": ptxas(libs["ss2d_scan_ssd.cu"], ["chunk_scan_ssd", "chunk_prefix"]),
+          "chain_ptxas": ptxas(libs["conv_chain.cu"], ["chain_kernel"]),
+          "probe_ptxas": ptxas(libs["gpu_probe.cu"],
+                               ["flat", "shaped", "expchain", "nsum", "mxu_seg"]),
+          "art_attention_ptxas": ptxas(libs["art_attention.cu"],
+                                       ["window_kernel", "group_kernel"])})
     return smi
 
 
@@ -1232,8 +1236,9 @@ def k5_loops():
     from wavemamba_torch.ops import scan_cuda
     from wavemamba_torch.scripts.gpu_probe import sass_loop
     from wavemamba_torch.scripts.k5_variants import TEMPLATES
+    from wavemamba_torch.utils import cxx
 
-    lib = scan_cuda.build(scan_cuda.SOURCE_K5)
+    lib = cxx.build(scan_cuda.SOURCE_K5)
     return {name: {k: v for k, v in sass_loop("chunk_scan_ssd", lib, "MUFU", tag).items()
                    if k != "opcodes"} for name, tag in TEMPLATES[False].items()}
 
@@ -4672,7 +4677,8 @@ def deploy_ops(art, fast_fused, img, f32_ref):
     read just after (its warm-up and its capture). Returns {name: row,
     "launches": each kernel's launches on the artifact route}."""
     from wavemamba_torch.checkpoint import load_network
-    from wavemamba_torch.deploy import _COUNTERS, _reflect_pad
+    from wavemamba_torch.deploy import _COUNTERS
+    from wavemamba_torch.models.buckets import pad_to_shape
     from wavemamba_torch.models import build_network
     from wavemamba_torch.models.wavemamba import wavemamba_apply
 
@@ -4690,7 +4696,7 @@ def deploy_ops(art, fast_fused, img, f32_ref):
         got = model(request)
         wrapper = counts()  # read just after the main path
         again = model(request)
-        x = torch.from_numpy(_reflect_pad(request, *DEPLOY_BUCKET)).cuda()
+        x = torch.from_numpy(pad_to_shape(request, *DEPLOY_BUCKET)).cuda()
         x = x.float() / 255.0 if name == "fused_fast_u8" else x
         for f in _COUNTERS.values():
             f.launches = 0
@@ -4771,7 +4777,8 @@ def phase_deploy(jobs, stock, fast, fast_fused=None):
     the path (the warm-ups' and each replay's 28; a replay does not pass
     through the wrapper's count), and `k3_launches` / `k7_launches` those of
     the op artifacts' graphs."""
-    from wavemamba_torch.deploy import SUFFIX, _reflect_pad, load_exported
+    from wavemamba_torch.deploy import SUFFIX, load_exported
+    from wavemamba_torch.models.buckets import pad_to_shape
     from wavemamba_torch.inference import enhance
     from wavemamba_torch.models.wavemamba import wavemamba_apply
     from wavemamba_torch.ops import scan_cuda
@@ -4819,7 +4826,7 @@ def phase_deploy(jobs, stock, fast, fast_fused=None):
     requests = []
     for img, out, s in served[:2]:
         h, w = img.shape[1:3]
-        x = torch.from_numpy(_reflect_pad(img, *DEPLOY_BUCKET)).cuda()
+        x = torch.from_numpy(pad_to_shape(img, *DEPLOY_BUCKET)).cuda()
         want = wavemamba_apply(stock, x)[:, :h, :w].cpu().numpy()
         again = next(o for im, o, _ in served[2:] if im is img)
         requests.append({"image": [h, w], "bucket": list(DEPLOY_BUCKET), "latency_s": s,
@@ -4835,7 +4842,7 @@ def phase_deploy(jobs, stock, fast, fast_fused=None):
                              and np.array_equal(pipelined[1], served[1][1]))
 
     # Replay against eager, device time by CUDA events, and each one's idle share.
-    x = torch.from_numpy(_reflect_pad(images[0], *DEPLOY_BUCKET)).cuda()
+    x = torch.from_numpy(pad_to_shape(images[0], *DEPLOY_BUCKET)).cuda()
     replay_ms = cuda_ms(run.graph.replay, 7)
     eager_ms = cuda_ms(lambda: wavemamba_apply(stock, x), 7)
     profiles = {"replay": replay_profile(run.graph.replay, replay_ms),
@@ -4859,7 +4866,7 @@ def phase_deploy(jobs, stock, fast, fast_fused=None):
     reserved["fast_u8"] = torch.cuda.memory_reserved() - reserved0
     f32_ref = np.round(np.clip(em(u8_in.astype(np.float32) / 255.0), 0.0, 1.0) * 255.0)
     fast_run = fm.runners[DEPLOY_BUCKET]
-    xb = torch.from_numpy(_reflect_pad(images[0], *DEPLOY_BUCKET)).cuda()
+    xb = torch.from_numpy(pad_to_shape(images[0], *DEPLOY_BUCKET)).cuda()
     fast_replay_ms = cuda_ms(fast_run.graph.replay, 7)
     fast_eager_ms = cuda_ms(lambda: wavemamba_apply(fast, xb), 7) if fast is not None else None
     torch.cuda.empty_cache()

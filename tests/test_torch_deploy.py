@@ -46,12 +46,14 @@ import torch
 from wavemamba_torch import deploy
 from wavemamba_torch.checkpoint import load_network
 from wavemamba_torch.models import build_network
+from wavemamba_torch.models.buckets import pad_to_shape
 from wavemamba_torch.models.tiling import tiled_apply
 from wavemamba_torch.models.wavemamba import WaveMambaConfig, wavemamba_forward
 from wavemamba_torch.ops import scan_cuda
 from wavemamba_torch.ops.scan import ss2d_scan_pair_plain
 from wavemamba_torch.parallel.dist import local_init_method
 from wavemamba_torch.scripts import multiproc_worker as W
+from wavemamba_torch.utils import cxx
 
 # The suite runs in several worker processes on a few cores: torch's intra-op
 # threads spin while they wait, and the tiny tensors here gain nothing from them.
@@ -327,7 +329,7 @@ def test_exported_pad_crop_matches_direct(artifact, eager):
     got = artifact(x)
     assert got.shape == (1, 20, 26, 3)
     with torch.no_grad():
-        want = wavemamba_forward(eager, torch.from_numpy(deploy._reflect_pad(x, 32, 32))).numpy()
+        want = wavemamba_forward(eager, torch.from_numpy(pad_to_shape(x, 32, 32))).numpy()
     np.testing.assert_array_equal(got, want[:, :20, :26])
     # 40x30 fits only the 64x32 bucket.
     assert artifact(_image(2, 40, 30)).shape == (1, 40, 30, 3)
@@ -528,11 +530,11 @@ def test_loading_for_the_card_raises_without_one(weights_only, monkeypatch):
 
 
 def test_compile_cache_is_the_kernels_build_directory(tmp_path, monkeypatch):
-    """`enable_compilation_cache` points every kernel build at its directory:
-    the first build there runs the compiler, a later one (another process's)
-    finds the library by its source's hash and runs nothing. Checked with a
-    stand-in for nvcc."""
-    monkeypatch.setattr(scan_cuda, "BUILD_DIR", scan_cuda.BUILD_DIR)
+    """`enable_compilation_cache` points every build at its directory
+    (`cxx.set_build_dir`): the first build there runs the compiler, a later
+    one (another process's) finds the library by its source's hash and runs
+    nothing. Checked with a stand-in for nvcc."""
+    monkeypatch.setattr(cxx, "BUILD_DIR", cxx.BUILD_DIR)
     runs = []
 
     def fake_nvcc(cmd, **kw):
@@ -541,13 +543,13 @@ def test_compile_cache_is_the_kernels_build_directory(tmp_path, monkeypatch):
             f.write(b"library")
         return type("Done", (), {"returncode": 0, "stdout": "", "stderr": ""})()
 
-    monkeypatch.setattr(scan_cuda, "_nvcc", lambda: "nvcc")
-    monkeypatch.setattr(scan_cuda.subprocess, "run", fake_nvcc)
+    monkeypatch.setattr(cxx, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(cxx.subprocess, "run", fake_nvcc)
     cache = deploy.enable_compilation_cache(tmp_path / "cache")
-    assert scan_cuda.BUILD_DIR == cache == (tmp_path / "cache").resolve()
-    first = scan_cuda.build(scan_cuda.SOURCE)
+    assert cxx.BUILD_DIR == cache == (tmp_path / "cache").resolve()
+    first = cxx.build(scan_cuda.SOURCE)
     assert first.parent == cache and first.exists() and len(runs) == 1
-    assert scan_cuda.build(scan_cuda.SOURCE) == first and len(runs) == 1
+    assert cxx.build(scan_cuda.SOURCE) == first and len(runs) == 1
 
 
 def test_mesh_sharded_tile_program_matches_one_process(mesh_ranks, artifact, bytes_artifact):

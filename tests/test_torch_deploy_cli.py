@@ -20,8 +20,8 @@ import pytest
 import torch
 
 from wavemamba_torch import deploy
-from wavemamba_torch.ops import scan_cuda
 from wavemamba_torch.scripts.export_model import main as cli
+from wavemamba_torch.utils import cxx
 
 # The suite runs in several worker processes on a few cores: torch's intra-op
 # threads spin while they wait, and the tiny tensors here gain nothing from them.
@@ -109,15 +109,15 @@ def mesh_wmt(pth, workdir):
 
 def test_export_cli_serves_folder(portable, tmp_path, monkeypatch):
     """export -> run: the serving path touches only deploy.py, K1's op and
-    image I/O; `--compile_cache` points the kernels' build there."""
-    monkeypatch.setattr(scan_cuda, "BUILD_DIR", scan_cuda.BUILD_DIR)
+    image I/O; `--compile_cache` points every build there (`cxx.BUILD_DIR`)."""
+    monkeypatch.setattr(cxx, "BUILD_DIR", cxx.BUILD_DIR)
     lq = _folder(tmp_path / "lq", {"a.png": (20, 26), "b.png": (32, 32)})
     out_dir = tmp_path / "served"
     cli(["run", "-a", str(portable), "-i", str(lq), "-o", str(out_dir), "--device", "cpu",
          "--compile_cache", str(tmp_path / "kernels")])
     assert sorted(os.listdir(out_dir)) == ["a.png", "b.png"]
     assert cv2.imread(str(out_dir / "a.png")).shape == (20, 26, 3)
-    assert scan_cuda.BUILD_DIR == (tmp_path / "kernels").resolve()
+    assert cxx.BUILD_DIR == (tmp_path / "kernels").resolve()
 
 
 def test_export_swaps_pallas_for_portable_lowering(portable, jax_wmx):

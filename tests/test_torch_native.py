@@ -163,10 +163,10 @@ def test_the_native_route_is_skipped_where_jax_skips_it(folders, monkeypatch, kw
 def test_a_failed_build_takes_the_numpy_route(folders, monkeypatch):
     """Where g++ fails, `available()` is False and the dataset takes the
     numpy route, as JAX's does without its library: JAX's numpy items."""
-    def fail():
+    def fail(*args):
         raise RuntimeError("g++ failed")
 
-    monkeypatch.setattr(tnat, "build", fail)
+    monkeypatch.setattr(tnat.cxx, "build", fail)
     tnat._load.cache_clear()
     try:
         assert not tnat.available()

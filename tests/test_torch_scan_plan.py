@@ -13,6 +13,7 @@ import torch
 from test_torch_scan import FakeCuda, _pair_inputs
 
 from wavemamba_torch.ops import scan_cuda
+from wavemamba_torch.utils import cxx
 
 # The suite runs in several worker processes on a few cores: torch's intra-op
 # threads spin while they wait.
@@ -70,7 +71,7 @@ def test_plan_counts_the_shared_memory_of_the_source():
         assert scan_cuda.k1_plan(1, 1000, D, 16, R, T, H100_SMS)["smem_scan"] == want
     assert scan_cuda.k1_plan(1, 1000, 128, 16, 4, T, H100_SMS)["smem_scan"] == 90_240
     assert scan_cuda.k1_plan(1, 1000, 64, 16, 2, T, H100_SMS)["smem_prefix"] == 4 * 2 * 64 * 16
-    source = scan_cuda.SOURCE.read_text() + (scan_cuda.CSRC / "ss2d_scan_common.cuh").read_text()
+    source = scan_cuda.SOURCE.read_text() + (cxx.CSRC / "ss2d_scan_common.cuh").read_text()
     const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", source).group(1))
     assert const("kGroup") == scan_cuda.K1_GROUP
     assert (const("kPrefixLanes"), const("kPrefixWorkers")) == \

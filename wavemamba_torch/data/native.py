@@ -4,9 +4,10 @@ uint8 images in one C++ pass, threaded across a batch. The counterpart of
 `wavemamba_tpu/data/native.py`. Host code; no device kernel.
 
 The library is built from the repository's source with `native/build.sh`'s
-`g++` flags at first use, into `build/wavemamba_torch/` (named by the hash
-of the source, the flags and the host's CPU, since `-march=native` ties it
-to the CPU). `available()` is False where `g++` or the build fails; the
+`g++` flags at first use and loaded through `utils/cxx.py`, into its build
+directory (`build/wavemamba_torch/` by default; named by the hash of the
+source, the flags and the host's CPU, since `-march=native` ties it to the
+CPU). `available()` is False where `g++` or the build fails; the
 dataset then takes the numpy route, as in the JAX package, and draws the
 same crops. `paired_crop_augment_plain` and `batch_draws` are the numpy
 versions of the two entry points, bit for bit.
@@ -25,6 +26,7 @@ from wavemamba_torch.utils import cxx
 from wavemamba_torch.utils.cxx import CXX_FLAGS, ROOT  # noqa: F401 (native/build.sh's flags)
 
 SOURCE = ROOT / "native" / "wavedata.cc"
+STEM = "libwavedata"
 _INV255 = np.float32(1.0) / np.float32(255.0)  # the C++ pass's `1.0f / 255.0f`
 _MASK64 = (1 << 64) - 1
 _GOLDEN = 0x9E3779B97F4A7C15
@@ -33,34 +35,25 @@ _GOLDEN = 0x9E3779B97F4A7C15
 def build() -> Path:
     """Compile `native/wavedata.cc` into a shared library; returns its path.
     An unchanged build on the same CPU is made once."""
-    return cxx.build(SOURCE, "libwavedata")
+    return cxx.build(SOURCE, STEM)
 
 
 @functools.cache
 def _load():
     """The bound library, or None where it cannot be built or loaded."""
-    try:
-        lib = ctypes.CDLL(str(build()))
-    except (OSError, RuntimeError):
-        return None
     u8p = ctypes.POINTER(ctypes.c_uint8)
     f32p = ctypes.POINTER(ctypes.c_float)
     i32p = ctypes.POINTER(ctypes.c_int)
-    lib.wd_paired_crop_augment.argtypes = [
-        u8p, u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, f32p, f32p,
-    ]
-    lib.wd_batch_paired_crop_augment.argtypes = [
-        ctypes.POINTER(u8p), ctypes.POINTER(u8p), i32p, i32p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_uint64, ctypes.c_int,
-        ctypes.c_int, f32p, f32p, ctypes.c_int,
-    ]
-    lib.wd_to_float_rgb.argtypes = [
-        u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, f32p,
-    ]
-    for fn in (lib.wd_paired_crop_augment, lib.wd_batch_paired_crop_augment, lib.wd_to_float_rgb):
-        fn.restype = None
-    return lib
+    i = ctypes.c_int
+    table = {"wd_paired_crop_augment": ([u8p, u8p, *[i] * 8, f32p, f32p], None),
+             "wd_batch_paired_crop_augment": ([ctypes.POINTER(u8p), ctypes.POINTER(u8p), i32p,
+                                               i32p, i, i, i, ctypes.c_uint64, i, i, f32p, f32p,
+                                               i], None),
+             "wd_to_float_rgb": ([u8p, i, i, i, i, f32p], None)}
+    try:
+        return cxx.load(SOURCE, table, stem=STEM)
+    except (OSError, RuntimeError):
+        return None
 
 
 def available() -> bool:

@@ -69,8 +69,10 @@ import torch
 
 from wavemamba_torch.device import resolve_device
 from wavemamba_torch.experimental import conv_fused
+from wavemamba_torch.models.buckets import pad_to_shape
 from wavemamba_torch.models.tiling import tiled_apply, tiled_apply_mesh
 from wavemamba_torch.ops import scan_cuda
+from wavemamba_torch.utils import cxx
 
 FORMAT_VERSION = 1
 SUFFIX = ".wmt"
@@ -82,18 +84,16 @@ _PLACEMENT = "traced on the CPU; torch.export.passes.move_to_device_pass at load
 
 
 def enable_compilation_cache(cache_dir) -> Path:
-    """Build and look up the port's kernels in `cache_dir`
-    (`scan_cuda.BUILD_DIR`, through which every kernel library builds).
+    """Build and look up the port's compiled libraries in `cache_dir`
+    (`utils/cxx.py:set_build_dir`): the kernels and the host passes
+    (`utils/frames.py`, `data/native.py`) alike.
 
-    A library's name is keyed by the hash of its source, headers and `nvcc`
-    flags, so the first process builds K1 there and every later one loads
-    the library instead of running `nvcc`: the counterpart of the JAX
+    A kernel library's name is keyed by the hash of its source, headers and
+    `nvcc` flags, so the first process builds K1 there and every later one
+    loads the library instead of running `nvcc`: the counterpart of the JAX
     package's persistent XLA cache. Call it before the first kernel launch,
     or pass ``compile_cache=`` to `ExportedModel.load`."""
-    path = Path(cache_dir).resolve()
-    path.mkdir(parents=True, exist_ok=True)
-    scan_cuda.BUILD_DIR = path
-    return path
+    return cxx.set_build_dir(cache_dir)
 
 
 def _clean_config(cfg):
@@ -453,7 +453,7 @@ class ExportedModel:
             raise ValueError(f"batch {b} != exported batch {self.manifest['batch']}")
         H, W = self._shape_for(h, w)
         if (h, w) != (H, W):
-            x = _reflect_pad(x, H, W)
+            x = pad_to_shape(x, H, W)
         return _Pending(*self.runners[(H, W)].launch(x), h, w)
 
     def tiled(self, x):
@@ -507,12 +507,6 @@ class _Pending:
         if self._done is not None:
             self._done.synchronize()
         return self._y.numpy()[:, : self._h, : self._w]
-
-
-def _reflect_pad(x, H, W):
-    """Bottom/right reflect pad, re-reflecting when the pad exceeds the
-    extent (as `models.wavemamba.pad_to_multiple`)."""
-    return np.pad(x, ((0, 0), (0, H - x.shape[1]), (0, W - x.shape[2]), (0, 0)), mode="reflect")
 
 
 def load_exported(path, compile_cache=None, device="cuda"):

@@ -18,8 +18,9 @@ the network, so it takes none of `--fast`, `--wf`, `--n_l_blocks` and
 `python -m wavemamba_torch.scripts.export_model export`): the artifact pads to
 its own exported buckets (`--tile`: its tile program) and serves each on the
 card through one CUDA graph; a uint8 artifact takes and gives bytes.
-`--compile_cache DIR` is the directory where the kernels are built and looked
-up, so a later process loads K1 instead of building it. `.wmx` artifacts are
+`--compile_cache DIR` is the directory where the kernels and the host passes
+(`utils/frames.py`, `data/native.py`) are built and looked up, so a later
+process loads K1 instead of building it. `.wmx` artifacts are
 the JAX package's. An artifact whose tile program is sharded over N ranks
 (`export_model export --tile T --mesh_devices N`) serves `--tile` under
 `torchrun --standalone --nproc_per_node=N -m wavemamba_torch.inference ...`:
@@ -127,8 +128,8 @@ def parse_args(argv=None):
     parser.add_argument("--lpips_weights", type=str, default=None,
                         help="AlexNet LPIPS state-dict path (optional; scored with -g)")
     parser.add_argument("--compile_cache", type=str, default=None, metavar="DIR",
-                        help="directory where the kernels are built and looked up: a later "
-                             "process loads K1 instead of building it")
+                        help="directory where the kernels and the host passes are built and "
+                             "looked up: a later process loads K1 instead of building it")
     parser.add_argument("--no_bucket", action="store_true",
                         help="pad each image to its own 128-multiple instead of shared buckets")
     parser.add_argument("--bucket_waste", type=float, default=1.35,

@@ -1,4 +1,6 @@
-"""Bucket ladder for mixed-size folders, and the host-side reflect pad.
+"""Bucket ladder for mixed-size folders, and the port's one bottom/right
+reflect pad, which every front door takes: the CLI (`inference.enhance`),
+validation (`runner.RestorationModel`) and the `.wmt` route (`deploy`).
 
 The counterpart of `wavemamba_tpu/models/buckets.py`. An image is padded up
 to the smallest bucket already seen that fits it with at most `max_waste`
@@ -10,6 +12,8 @@ scale; `--no_bucket` pads each image to its own 128-multiple instead.
 from __future__ import annotations
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 
 class BucketLadder:
@@ -32,10 +36,17 @@ class BucketLadder:
 
 
 def pad_to_shape(x, H, W):
-    """Reflect-pad (B, h, w, C) bottom/right to exactly (H, W) with numpy,
-    which re-reflects a pad wider than the image (torch's F.pad raises)."""
+    """Reflect-pad (B, h, w, C) bottom/right to exactly (H, W), re-reflecting
+    a pad wider than the image as numpy does. An array is padded by
+    `np.pad`; a tensor by `F.pad` on its device where every pad is narrower
+    than its extent (`F.pad` raises otherwise), else through numpy and back
+    to its device. x itself where (H, W) is its size."""
     _, h, w, _ = x.shape
     ph, pw = H - h, W - w
     if ph == 0 and pw == 0:
         return x
+    if isinstance(x, torch.Tensor):
+        if ph < h and pw < w:
+            return F.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph), mode="reflect").permute(0, 2, 3, 1)
+        return torch.from_numpy(pad_to_shape(x.cpu().numpy(), H, W)).to(x.device)
     return np.pad(np.asarray(x), ((0, 0), (0, ph), (0, pw), (0, 0)), mode="reflect")

@@ -63,6 +63,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from wavemamba_torch.experimental import conv_fused as cf
+from wavemamba_torch.models.buckets import pad_to_shape
 from wavemamba_torch.ops.haar import dwt2, dwt2_conv, iwt2_cat
 from wavemamba_torch.ops.nn import (
     Conv2d,
@@ -688,13 +689,10 @@ wavemamba_forward, wavemamba_apply = network_forward, network_apply
 
 
 def pad_to_multiple(x: np.ndarray, multiple=8):
-    """Reflect-pad (B, H, W, C) bottom/right to a multiple, on the host;
-    returns (padded, h, w). numpy re-reflects a pad wider than the image."""
+    """Reflect-pad (B, H, W, C) bottom/right to a multiple (`pad_to_shape`);
+    returns (padded, h, w)."""
     _, h, w, _ = x.shape
-    ph, pw = (-h) % multiple, (-w) % multiple
-    if ph or pw:
-        x = np.pad(x, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="reflect")
-    return x, h, w
+    return pad_to_shape(x, h + (-h) % multiple, w + (-w) % multiple), h, w
 
 
 def param_count(model: nn.Module) -> int:

@@ -19,8 +19,8 @@ note at the top of the source says what bounds it and how it is laid out.
 tensor and launches the kernel for a CUDA one, or raises: float32, head
 width 32, the grid's table and keys within a block's shared memory
 (`fits`). Its launches are counted in `art_attention.launches`. The source is
-built by `scan_cuda.build` at the first launch; importing this module needs
-no `nvcc`.
+built, loaded and launched through `utils/cxx.py` (built at the first
+launch); importing this module needs no `nvcc`.
 """
 
 from __future__ import annotations
@@ -31,9 +31,9 @@ import functools
 import numpy as np
 import torch
 
-from wavemamba_torch.ops.scan_cuda import CSRC, _need_cuda, build
+from wavemamba_torch.utils import cxx
 
-SOURCE = CSRC / "art_attention.cu"
+SOURCE = cxx.CSRC / "art_attention.cu"
 HEAD_DIM = 32  # the one head width the kernel is built for
 SMEM_MAX = 232_448  # a block's shared memory on an H100 (kSmemMax of the source)
 PLAIN_SCORE_BYTES = 1 << 28  # the plain version builds the scores this many bytes at a time
@@ -96,16 +96,10 @@ class _Params(ctypes.Structure):
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    _need_cuda("ART attention")
-    lib = ctypes.CDLL(str(build(SOURCE)))
-    lib.art_attention.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.art_attention.restype = ctypes.c_int
-    lib.art_attention_smem.argtypes = [ctypes.c_int] * 3
-    lib.art_attention_smem.restype = ctypes.c_longlong
-    lib.art_attention_error_string.argtypes = [ctypes.c_int]
-    lib.art_attention_error_string.restype = ctypes.c_char_p
-    return lib
+def _library():
+    return cxx.load(SOURCE, {"art_attention": ([ctypes.c_void_p] * 2, ctypes.c_int),
+                             "art_attention_smem": ([ctypes.c_int] * 3, ctypes.c_longlong)},
+                    "ART attention")
 
 
 def _check(q, k, v, table, gh, gw, key_bias, rows, out):
@@ -164,11 +158,7 @@ def art_attention(q, k, v, table, gh, gw, key_bias=None, rows=None, out=None):
                 rows.data_ptr() if rows is not None else None,
                 out.data_ptr(), out.stride(0), out.stride(1),
                 groups, heads, n, gh, gw)
-    with torch.cuda.device(q.device):
-        err = lib.art_attention(ctypes.byref(p), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ART attention launch failed: "
-                           f"{lib.art_attention_error_string(err).decode()}")
+    cxx.launch(lib, "art_attention", q.device, ctypes.byref(p))
     art_attention.launches += 1
     return out
 

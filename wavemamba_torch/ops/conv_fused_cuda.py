@@ -6,8 +6,8 @@ compute one function on two tilings; `experimental/conv_fused.py` launches it
 from both entry points and counts their launches. The chain is passed as a
 descriptor array (`Chain`), which the kernel walks; its 1x1, dense 3x3 and gate
 products run on the tensor cores (`mma.sync` bf16). x is float32 or bf16 and y
-comes back in x's dtype. The source is built like the scan kernels', by
-`scan_cuda.build` at the first launch (and by `scan_cuda.build_all`);
+comes back in x's dtype. The source is built, loaded and launched through
+`utils/cxx.py` (built at the first launch, and by `cxx.build_all`);
 importing this module needs no `nvcc`.
 """
 
@@ -18,8 +18,9 @@ import functools
 
 import torch
 
-from wavemamba_torch.ops.scan_cuda import SOURCE_CHAIN, _need_cuda, build
+from wavemamba_torch.utils import cxx
 
+SOURCE = cxx.CSRC / "conv_chain.cu"
 KINDS = ("pw", "dense", "dw", "act", "glu", "mulsig0", "ln", "res0")  # the kernel's enum order
 ACTS = ("gelu", "silu", "sigmoid")
 MAX_STAGES = 12  # kMaxStages of the source
@@ -37,18 +38,11 @@ class Chain(ctypes.Structure):
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    _need_cuda("K6 / K7 conv-chain")
-    lib = ctypes.CDLL(str(build(SOURCE_CHAIN)))
-    lib.conv_chain.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 4
-                               + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    lib.conv_chain.restype = ctypes.c_int
-    lib.conv_chain_plan.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                    ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-    lib.conv_chain_plan.restype = ctypes.c_int
-    lib.conv_chain_error_string.argtypes = [ctypes.c_int]
-    lib.conv_chain_error_string.restype = ctypes.c_char_p
-    return lib
+def _library():
+    i, p, out = ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)
+    return cxx.load(SOURCE, {
+        "conv_chain": ([p] * 2 + [ctypes.c_longlong] * 4 + [p] + [i] * 6 + [p], i),
+        "conv_chain_plan": ([p, i, i, out, out], i)}, "K6 / K7 conv-chain")
 
 
 def _descriptor(c0, specs) -> Chain:
@@ -86,10 +80,6 @@ def conv_chain(x, specs, tile_h, tile_w):
     lib = _library()
     ch = _descriptor(c0, specs)
     y = torch.empty((b, ch.cout, h, w), device=x.device, dtype=x.dtype)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.conv_chain(ctypes.byref(ch), x.data_ptr(), *x.stride(), y.data_ptr(),
-                             b, h, w, tile_h, tile_w, int(x.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"conv chain launch failed: {lib.conv_chain_error_string(err).decode()}")
+    cxx.launch(lib, "conv_chain", x.device, ctypes.byref(ch), x.data_ptr(), *x.stride(),
+               y.data_ptr(), b, h, w, tile_h, tile_w, int(x.dtype == torch.bfloat16))
     return y

@@ -19,19 +19,14 @@ custom VJP `ss2d_scan_fused_diff`. `selective_scan_cuda` replaces
 `ss2d_scan_fused(variant='ssd')` (`_fused_kernel_ssd`), source
 `csrc/ss2d_scan_ssd.cu` (K1's layout, whose staging and chunk prefix it
 shares through `csrc/ss2d_scan_common.cuh`); it has no backward, as on the
-TPU. `build_all` also
-builds `csrc/conv_chain.cu`, the conv-chain kernel of
-`ops/conv_fused_cuda.py` (K6 / K7), and `csrc/gpu_probe.cu`, the probes of
-`scripts/gpu_probe.py` (P1-P5). The note at the top of each
+TPU. The note at the top of each
 source says what bounds the kernel and how it is laid out. `k1_plan` ...
 `k5_plan` give K1-K5's launch geometry from shapes alone (K3: a quad of
 threads per channel, 256-thread blocks over a chunk, a stream and 64
 channels, and a prefix with a worker for every 8 chunks; K5: K1's), and
-`k1_occupancy` ... `k5_occupancy` what the card lets reside. A source is
-compiled for sm_90a with `nvcc` at the first launch, into
-`build/wavemamba_torch/` keyed by a hash of the source, the headers beside it
-and the compiler flags, and loaded with ctypes. Importing this module needs
-no `nvcc`.
+`k1_occupancy` ... `k5_occupancy` what the card lets reside. Each source is
+built, loaded and launched through `utils/cxx.py` (compiled for sm_90a with
+`nvcc` at the first launch); importing this module needs no `nvcc`.
 
 A CPU tensor takes the plain versions (`ops/scan.py:ss2d_scan_pair_plain`,
 `ss2d_scan_pair_plain_bwd`, `selective_scan_plain`,
@@ -55,15 +50,8 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 import threading
-import time
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 from typing import Optional
 
 import torch
@@ -74,17 +62,13 @@ from wavemamba_torch.ops.scan import (
     ss2d_scan_pair_plain,
     ss2d_scan_pair_plain_bwd,
 )
+from wavemamba_torch.utils import cxx
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCE = CSRC / "ss2d_scan.cu"
-SOURCE_BWD = CSRC / "ss2d_scan_bwd.cu"
-SOURCE_K3 = CSRC / "selective_scan.cu"
-SOURCE_K4 = CSRC / "selective_scan_bwd.cu"
-SOURCE_K5 = CSRC / "ss2d_scan_ssd.cu"
-SOURCE_CHAIN = CSRC / "conv_chain.cu"
-SOURCE_PROBE = CSRC / "gpu_probe.cu"
-SOURCES = (SOURCE, SOURCE_BWD, SOURCE_K3, SOURCE_K4, SOURCE_K5, SOURCE_CHAIN, SOURCE_PROBE)
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "wavemamba_torch"
+SOURCE = cxx.CSRC / "ss2d_scan.cu"
+SOURCE_BWD = cxx.CSRC / "ss2d_scan_bwd.cu"
+SOURCE_K3 = cxx.CSRC / "selective_scan.cu"
+SOURCE_K4 = cxx.CSRC / "selective_scan_bwd.cu"
+SOURCE_K5 = cxx.CSRC / "ss2d_scan_ssd.cu"
 D_STATE = 16  # the one state width the kernels are compiled for
 MAX_DT_RANK = 4
 MAX_D = 128  # K1: a block scans 64 channels, two blocks a chunk above 64
@@ -93,126 +77,38 @@ MAX_D_K3 = 256  # K3: a block scans 64 channels, a quad of threads each; up to f
 MAX_D_K4 = 128  # K4: a block holds 64 channels (D <= 64) or 128, a quad of threads each
 MAX_STREAMS = 65535  # K3, K4: B*K is a grid's second dimension
 CHUNK = 64  # tokens per block of the kernels, and the plain versions' chunk on the CPU
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-BUILD_SECONDS: dict[str, float] = {}  # source name -> seconds of its nvcc run in this process
 
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME")
-    for cand in (home and os.path.join(home, "bin", "nvcc"), shutil.which("nvcc"),
-                 "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME): the kernels are built from source")
-
-
-def build(source: Path = SOURCE) -> Path:
-    """Compile a kernel source into a shared library for sm_90a; returns its path.
-
-    The library is named by the hash of the source, of every header in its
-    directory (a source may include any of them) and of `NVCC_FLAGS`, so an
-    unchanged build is made once. `nvcc`'s resource report (`-Xptxas -v`) is kept beside it as
-    a `.log` file, and the seconds `nvcc` took in `BUILD_SECONDS`."""
-    text = b"\0".join(p.read_bytes() for p in [source, *sorted(source.parent.glob("*.cuh"))])
-    digest = hashlib.sha256(text + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{source.stem}_{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_SECONDS[source.name] = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source}:\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
-
-
-def build_all() -> list[Path]:
-    """Every library of `SOURCES` (K1-K5, K6 / K7's and the probes P1-P5 of
-    `scripts/gpu_probe.py`), one `nvcc` each, started together."""
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        return list(pool.map(build, SOURCES))
-
-
-def _need_cuda(kernel: str) -> None:
-    if not torch.cuda.is_available():
-        raise RuntimeError(f"the {kernel} kernel needs a CUDA device; "
-                           "torch.cuda.is_available() is False")
+_P, _I, _OUT = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    _need_cuda("K1")
-    lib = ctypes.CDLL(str(build(SOURCE)))
-    fn = lib.ss2d_scan_pair
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.ss2d_scan_occupancy.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
-    lib.ss2d_scan_occupancy.restype = ctypes.c_int
-    lib.ss2d_scan_error_string.argtypes = [ctypes.c_int]
-    lib.ss2d_scan_error_string.restype = ctypes.c_char_p
-    return lib
+def _library():
+    return cxx.load(SOURCE, {"ss2d_scan_pair": ([_P] * 10 + [_I] * 9 + [_P], _I),
+                             "ss2d_scan_occupancy": ([_I] * 6 + [_OUT], _I)}, "K1")
 
 
 @functools.cache
-def _library_bwd() -> ctypes.CDLL:
-    _need_cuda("K2")
-    lib = ctypes.CDLL(str(build(SOURCE_BWD)))
-    fn = lib.ss2d_scan_pair_bwd
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.ss2d_scan_bwd_occupancy.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
-    lib.ss2d_scan_bwd_occupancy.restype = ctypes.c_int
-    lib.ss2d_scan_bwd_error_string.argtypes = [ctypes.c_int]
-    lib.ss2d_scan_bwd_error_string.restype = ctypes.c_char_p
-    return lib
+def _library_bwd():
+    return cxx.load(SOURCE_BWD, {"ss2d_scan_pair_bwd": ([_P] * 13 + [_I] * 9 + [_P], _I),
+                                 "ss2d_scan_bwd_occupancy": ([_I] * 5 + [_OUT], _I)}, "K2")
 
 
 @functools.cache
-def _library_k3() -> ctypes.CDLL:
-    _need_cuda("K3")
-    lib = ctypes.CDLL(str(build(SOURCE_K3)))
-    fn = lib.selective_scan_fwd_f32
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.selective_scan_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
-    lib.selective_scan_occupancy.restype = ctypes.c_int
-    lib.selective_scan_error_string.argtypes = [ctypes.c_int]
-    lib.selective_scan_error_string.restype = ctypes.c_char_p
-    return lib
+def _library_k3():
+    return cxx.load(SOURCE_K3, {"selective_scan_fwd_f32": ([_P] * 10 + [_I] * 7 + [_P], _I),
+                                "selective_scan_occupancy": ([_I] * 4 + [_OUT], _I)}, "K3")
 
 
 @functools.cache
-def _library_k4() -> ctypes.CDLL:
-    _need_cuda("K4")
-    lib = ctypes.CDLL(str(build(SOURCE_K4)))
-    fn = lib.selective_scan_bwd_f32
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.selective_scan_bwd_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    lib.selective_scan_bwd_occupancy.restype = ctypes.c_int
-    lib.selective_scan_bwd_error_string.argtypes = [ctypes.c_int]
-    lib.selective_scan_bwd_error_string.restype = ctypes.c_char_p
-    return lib
+def _library_k4():
+    return cxx.load(SOURCE_K4, {"selective_scan_bwd_f32": ([_P] * 17 + [_I] * 7 + [_P], _I),
+                                "selective_scan_bwd_occupancy": ([_I] * 3 + [_OUT], _I)}, "K4")
 
 
 @functools.cache
-def _library_k5() -> ctypes.CDLL:
-    _need_cuda("K5")
-    lib = ctypes.CDLL(str(build(SOURCE_K5)))
-    fn = lib.ss2d_scan_pair_ssd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.ss2d_scan_ssd_occupancy.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
-    lib.ss2d_scan_ssd_occupancy.restype = ctypes.c_int
-    lib.ss2d_scan_ssd_error_string.argtypes = [ctypes.c_int]
-    lib.ss2d_scan_ssd_error_string.restype = ctypes.c_char_p
-    return lib
+def _library_k5():
+    return cxx.load(SOURCE_K5, {"ss2d_scan_pair_ssd": ([_P] * 10 + [_I] * 10 + [_P], _I),
+                                "ss2d_scan_ssd_occupancy": ([_I] * 6 + [_OUT], _I)}, "K5")
 
 
 STREAM_DTYPES = (torch.float32, torch.bfloat16)  # of K1's, K2's and K5's x, y, dy and dx
@@ -267,20 +163,6 @@ def _pair_shapes(x, wx, dtw, bias, A, dsk):
             "dsk": (dsk, (2, d))}
 
 
-@functools.cache
-def _sm_count(index):
-    """The SMs of CUDA device `index` (None: the current device)."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _on_device(device):
-    """A context that makes `device` current, or none where it is already
-    (switching costs the host some microseconds a launch)."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
 def _launch_pair(name, library, plan_of, x, wx, dtw, bias, A, dsk, out_dtype, *sub):
     """K1 (or, with `sub`, K5) on CUDA tensors: y in `out_dtype`, and what it
     leaves behind for K2, `state` (B, 2, nc, N, D), the state entering each
@@ -295,7 +177,7 @@ def _launch_pair(name, library, plan_of, x, wx, dtw, bias, A, dsk, out_dtype, *s
     b, length, d = x.shape
     r, n = dtw.shape[1], A.shape[1]
     lib = library()
-    plan = plan_of(b, length, d, n, r, CHUNK, *sub, _sm_count(x.device.index))
+    plan = plan_of(b, length, d, n, r, CHUNK, *sub, cxx.sm_count(x.device.index))
     # The kernel reads x and wx 16 bytes at a time: a view that starts off a
     # 16-byte boundary is copied.
     x, wx = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, wx))
@@ -304,15 +186,9 @@ def _launch_pair(name, library, plan_of, x, wx, dtw, bias, A, dsk, out_dtype, *s
     state = torch.empty((b, 2, nc, n, d), device=x.device, dtype=torch.float32)
     sumda = torch.empty((b, 2, nc, d), device=x.device, dtype=torch.float32)
     xdbl = torch.empty(plan["xdbl_shape"], device=x.device, dtype=torch.float32)
-    with _on_device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, name)(
-            x.data_ptr(), wx.data_ptr(), dtw.data_ptr(), bias.data_ptr(), A.data_ptr(),
-            dsk.data_ptr(), y.data_ptr(), state.data_ptr(), sumda.data_ptr(), xdbl.data_ptr(),
-            b, length, d, n, r, CHUNK, *sub, plan["smem_scan"], x_bf16, y_bf16, stream)
-    if err != 0:
-        message = getattr(lib, name.replace("_pair", "") + "_error_string")(err).decode()
-        raise RuntimeError(f"{name} launch failed: {message}")
+    cxx.launch(lib, name, x.device, x.data_ptr(), wx.data_ptr(), dtw.data_ptr(), bias.data_ptr(),
+               A.data_ptr(), dsk.data_ptr(), y.data_ptr(), state.data_ptr(), sumda.data_ptr(),
+               xdbl.data_ptr(), b, length, d, n, r, CHUNK, *sub, plan["smem_scan"], x_bf16, y_bf16)
     return y, state, sumda
 
 
@@ -649,12 +525,8 @@ def _pair_occupancy(name, library, prefix, D, R, streams, T):
     """`k1_occupancy` from K1's or K5's library, whose C functions are named
     from `prefix` (`ss2d_scan`, `ss2d_scan_ssd`)."""
     flags = _stream_flags(name, streams[0], "y", streams[1])
-    lib = library()
     out = (ctypes.c_int * 6)()
-    err = getattr(lib, f"{prefix}_occupancy")(D_STATE, R, D, T, *flags, out)
-    if err != 0:
-        message = getattr(lib, f"{prefix}_error_string")(err).decode()
-        raise RuntimeError(f"{prefix}_occupancy failed: {message}")
+    cxx.call(library(), f"{prefix}_occupancy", D_STATE, R, D, T, *flags, out)
     keys = ("threads", "smem_scan", "blocks_per_sm_pass1", "blocks_per_sm_replay",
             "prefix_threads", "blocks_per_sm_prefix")
     return dict(zip(keys, out))
@@ -707,11 +579,8 @@ def k2_occupancy(R=2, streams=STREAM_PAIRS[0], T=CHUNK):
     smem_local, smem_main, blocks_per_sm_local, blocks_per_sm_main} from
     `cudaOccupancyMaxActiveBlocksPerMultiprocessor`, registers included."""
     flags = _stream_flags("k2_occupancy", streams[0], "dy", streams[1])
-    lib = _library_bwd()
     out = (ctypes.c_int * 5)()
-    err = lib.ss2d_scan_bwd_occupancy(D_STATE, R, T, *flags, out)
-    if err != 0:
-        raise RuntimeError(f"ss2d_scan_bwd_occupancy failed: {lib.ss2d_scan_bwd_error_string(err).decode()}")
+    cxx.call(_library_bwd(), "ss2d_scan_bwd_occupancy", D_STATE, R, T, *flags, out)
     keys = ("threads", "smem_local", "smem_main", "blocks_per_sm_local", "blocks_per_sm_main")
     return dict(zip(keys, out))
 
@@ -758,11 +627,8 @@ def k3_occupancy(D=64, L=65_536, T=CHUNK):
     blocks_per_sm_pass1, blocks_per_sm_replay, prefix_threads,
     blocks_per_sm_prefix} from `cudaOccupancyMaxActiveBlocksPerMultiprocessor`,
     registers included."""
-    lib = _library_k3()
     out = (ctypes.c_int * 6)()
-    err = lib.selective_scan_occupancy(D_STATE, D, L, T, out)
-    if err != 0:
-        raise RuntimeError(f"selective_scan_occupancy failed: {lib.selective_scan_error_string(err).decode()}")
+    cxx.call(_library_k3(), "selective_scan_occupancy", D_STATE, D, L, T, out)
     keys = ("threads", "smem_scan", "blocks_per_sm_pass1", "blocks_per_sm_replay",
             "prefix_threads", "blocks_per_sm_prefix")
     return dict(zip(keys, out))
@@ -810,12 +676,8 @@ def k4_occupancy(D=64, T=CHUNK):
     threads and shared memory for D channels: {threads, smem_local,
     smem_main, blocks_per_sm_local, blocks_per_sm_main} from
     `cudaOccupancyMaxActiveBlocksPerMultiprocessor`, registers included."""
-    lib = _library_k4()
     out = (ctypes.c_int * 5)()
-    err = lib.selective_scan_bwd_occupancy(D_STATE, D, T, out)
-    if err != 0:
-        raise RuntimeError("selective_scan_bwd_occupancy failed: "
-                           f"{lib.selective_scan_bwd_error_string(err).decode()}")
+    cxx.call(_library_k4(), "selective_scan_bwd_occupancy", D_STATE, D, T, out)
     keys = ("threads", "smem_local", "smem_main", "blocks_per_sm_local", "blocks_per_sm_main")
     return dict(zip(keys, out))
 
@@ -847,22 +709,15 @@ def ss2d_scan_pair_bwd(x, wx, dtw, bias, A, dsk, state, sumda, dy):
     lib = _library_bwd()
     j = r + 2 * n
     rows = j + r + 1 + n + 1  # dwx | ddtw | dbias | dA | ddsk
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    gx = k2_plan(b, length, d, n, r, CHUNK, sms)["gx"]
+    gx = k2_plan(b, length, d, n, r, CHUNK, cxx.sm_count(x.device.index))["gx"]
     dx = torch.empty_like(x)
     gcar = torch.empty_like(state)
     part = torch.empty((gx, rows, 2, d), device=x.device, dtype=torch.float32)
     sums = torch.empty((rows, 2, d), device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ss2d_scan_pair_bwd(
-            x.data_ptr(), wx.data_ptr(), dtw.data_ptr(), bias.data_ptr(), A.data_ptr(),
-            dsk.data_ptr(), state.data_ptr(), sumda.data_ptr(), dy.data_ptr(),
-            dx.data_ptr(), gcar.data_ptr(), part.data_ptr(), sums.data_ptr(),
-            b, length, d, n, r, CHUNK, gx, *flags, stream)
-    if err != 0:
-        raise RuntimeError("ss2d_scan_pair_bwd launch failed: "
-                           f"{lib.ss2d_scan_bwd_error_string(err).decode()}")
+    cxx.launch(lib, "ss2d_scan_pair_bwd", x.device, x.data_ptr(), wx.data_ptr(), dtw.data_ptr(),
+               bias.data_ptr(), A.data_ptr(), dsk.data_ptr(), state.data_ptr(), sumda.data_ptr(),
+               dy.data_ptr(), dx.data_ptr(), gcar.data_ptr(), part.data_ptr(), sums.data_ptr(),
+               b, length, d, n, r, CHUNK, gx, *flags)
     ss2d_scan_pair_bwd.launches += 1
     return (dx, sums[:j].permute(1, 2, 0).contiguous(),
             sums[j:j + r].transpose(0, 1).contiguous(), sums[j + r],
@@ -904,7 +759,7 @@ def _launch_k3(u, delta, A, Bs, Cs, D_skip, delta_bias):
     b, k, length, d = u.shape
     n = A.shape[-1]
     lib = _library_k3()
-    plan = k3_plan(b, k, length, d, n, CHUNK, _sm_count(u.device.index))
+    plan = k3_plan(b, k, length, d, n, CHUNK, cxx.sm_count(u.device.index))
     # The kernel reads the inputs 16 bytes at a time: a view that starts off a
     # 16-byte boundary is copied.
     args = tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in args)
@@ -912,14 +767,9 @@ def _launch_k3(u, delta, A, Bs, Cs, D_skip, delta_bias):
     y = torch.empty_like(u)
     state = torch.empty((b, k, nc, n, d), device=u.device, dtype=torch.float32)
     sumda = torch.empty((b, k, nc, d), device=u.device, dtype=torch.float32)
-    with _on_device(u.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.selective_scan_fwd_f32(
-            *(t.data_ptr() for t in args), y.data_ptr(), state.data_ptr(), sumda.data_ptr(),
-            b, k, length, d, n, CHUNK, plan["smem_scan"], stream)
-    if err != 0:
-        raise RuntimeError("selective_scan_cuda launch failed: "
-                           f"{lib.selective_scan_error_string(err).decode()}")
+    cxx.launch(lib, "selective_scan_fwd_f32", u.device, *(t.data_ptr() for t in args),
+               y.data_ptr(), state.data_ptr(), sumda.data_ptr(), b, k, length, d, n, CHUNK,
+               plan["smem_scan"])
     selective_scan_cuda.launches += 1
     return y, state, sumda
 
@@ -1013,23 +863,16 @@ def selective_scan_cuda_bwd(u, delta, A, Bs, Cs, D_skip, delta_bias, state, sumd
                   dy=(dy, (b, k, length, d)))
     _check_scan_inputs("selective_scan_cuda_bwd", u, shapes, MAX_D_K4)
     lib = _library_k4()
-    sms = torch.cuda.get_device_properties(u.device).multi_processor_count
-    gx = k4_plan(b, k, length, d, n, CHUNK, sms)["gx"]
+    gx = k4_plan(b, k, length, d, n, CHUNK, cxx.sm_count(u.device.index))["gx"]
     du, ddelta = torch.empty_like(u), torch.empty_like(u)
     dB, dC = torch.empty_like(Bs), torch.empty_like(Cs)
     gcar = torch.empty_like(state)
     part = torch.empty((k, gx, n + 2, d), device=u.device, dtype=torch.float32)
     sums = torch.empty((k, n + 2, d), device=u.device, dtype=torch.float32)
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.selective_scan_bwd_f32(
-            *(t.data_ptr() for t in args), state.data_ptr(), sumda.data_ptr(), dy.data_ptr(),
-            du.data_ptr(), ddelta.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-            gcar.data_ptr(), part.data_ptr(), sums.data_ptr(),
-            b, k, length, d, n, CHUNK, gx, stream)
-    if err != 0:
-        raise RuntimeError("selective_scan_cuda_bwd launch failed: "
-                           f"{lib.selective_scan_bwd_error_string(err).decode()}")
+    cxx.launch(lib, "selective_scan_bwd_f32", u.device, *(t.data_ptr() for t in args),
+               state.data_ptr(), sumda.data_ptr(), dy.data_ptr(), du.data_ptr(),
+               ddelta.data_ptr(), dB.data_ptr(), dC.data_ptr(), gcar.data_ptr(), part.data_ptr(),
+               sums.data_ptr(), b, k, length, d, n, CHUNK, gx)
     selective_scan_cuda_bwd.launches += 1
     return (du, ddelta, sums[:, :n].transpose(1, 2).contiguous(), dB, dC,
             sums[:, n], sums[:, n + 1])

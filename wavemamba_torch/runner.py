@@ -26,7 +26,6 @@ import time
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from wavemamba_torch.checkpoint import (
     find_resume_state,
@@ -38,7 +37,7 @@ from wavemamba_torch.checkpoint import (
 from wavemamba_torch.device import resolve_device
 from wavemamba_torch.metrics import METRIC_DIRECTION, build_metric
 from wavemamba_torch.models import init_network, seq_sharded
-from wavemamba_torch.models.buckets import BucketLadder
+from wavemamba_torch.models.buckets import BucketLadder, pad_to_shape
 from wavemamba_torch.models.tiling import tiled_apply
 from wavemamba_torch.parallel.dist import barrier, get_dist_info, is_master
 from wavemamba_torch.parallel.mesh import replicate, world_sum
@@ -76,20 +75,6 @@ def _world():
     process."""
     rank, world = get_dist_info()
     return world, rank
-
-
-def _reflect_pad(x, H, W):
-    """(B, h, w, C) tensor -> (B, H, W, C), reflect-padded bottom/right on its
-    device; on the host with numpy where the pad is wider than the image
-    (numpy re-reflects, `F.pad` raises)."""
-    h, w = x.shape[1:3]
-    ph, pw = H - h, W - w
-    if ph == 0 and pw == 0:
-        return x
-    if ph < h and pw < w:
-        return F.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph), mode="reflect").permute(0, 2, 3, 1)
-    padded = np.pad(x.cpu().numpy(), ((0, 0), (0, ph), (0, pw), (0, 0)), mode="reflect")
-    return torch.from_numpy(padded).to(x.device)
 
 
 class RestorationModel:
@@ -194,7 +179,7 @@ class RestorationModel:
             H, W = self._bucket_ladder.shape_for(h, w)
         else:
             H, W = h + (-h) % pad_multiple, w + (-w) % pad_multiple
-        return self._forward(_reflect_pad(x, H, W))[:, :h, :w].cpu().numpy()
+        return self._forward(pad_to_shape(x, H, W))[:, :h, :w].cpu().numpy()
 
     def validation(self, dataloader, current_iter, save_img=False, num_shards=None,
                    shard_id=None):

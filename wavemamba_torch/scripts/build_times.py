@@ -1,8 +1,8 @@
 """Cold build times of the port's kernel sources.
 
 `python -m wavemamba_torch.scripts.build_times [--source PATH ...] [--repeat N]`
-builds each source (by default every one of `ops/scan_cuda.py:SOURCES`) the
-way the port does (`scan_cuda.build`), one after another so that no two
+builds each source (by default every `csrc/*.cu`, as `utils/cxx.py:build_all`
+finds them) the way the port does (`cxx.build`), one after another so that no two
 builds share the host's cores, each into an empty directory under
 `build/build_times/`, and prints one JSON line per build: the source, the
 seconds `nvcc` took and the host's CPU count. A source from another checkout
@@ -19,21 +19,22 @@ import shutil
 import sys
 from pathlib import Path
 
-from wavemamba_torch.ops import scan_cuda
+from wavemamba_torch.utils import cxx
 
-OUT_DIR = scan_cuda.BUILD_DIR.parent / "build_times"
+OUT_DIR = cxx.BUILD_DIR.parent / "build_times"
 
 
 def cold_build_s(source: Path) -> float:
     """Seconds of one build of `source` from nothing."""
     shutil.rmtree(OUT_DIR, ignore_errors=True)
-    default, scan_cuda.BUILD_DIR = scan_cuda.BUILD_DIR, OUT_DIR
+    default = cxx.BUILD_DIR
+    cxx.set_build_dir(OUT_DIR)
     try:
-        scan_cuda.build(source)
+        cxx.build(source)
     finally:
-        scan_cuda.BUILD_DIR = default
+        cxx.set_build_dir(default)
         shutil.rmtree(OUT_DIR, ignore_errors=True)
-    return scan_cuda.BUILD_SECONDS[source.name]
+    return cxx.BUILD_SECONDS[source.name]
 
 
 def main(argv=None):
@@ -43,7 +44,7 @@ def main(argv=None):
     parser.add_argument("--repeat", type=int, default=1, help="builds of each source, in turn")
     args = parser.parse_args(argv)
     for _ in range(args.repeat):
-        for source in args.source or scan_cuda.SOURCES:
+        for source in args.source or sorted(cxx.CSRC.glob("*.cu")):
             print(json.dumps({"source": str(source), "build_s": cold_build_s(source.resolve()),
                               "cpus": os.cpu_count()}), flush=True)
 

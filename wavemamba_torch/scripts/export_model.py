@@ -149,8 +149,8 @@ def main(argv=None):
     p.add_argument("--tiled", action="store_true",
                    help="use the artifact's tile program (frames larger than every bucket)")
     p.add_argument("--compile_cache", default=None, metavar="DIR",
-                   help="directory where the kernels are built and looked up: the first "
-                        "process builds K1 there, every later one loads it")
+                   help="directory where the kernels and the host passes are built and "
+                        "looked up: the first process builds K1 there, every later one loads it")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_run)
 

@@ -36,8 +36,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from wavemamba_torch.ops import scan_cuda
+from wavemamba_torch.utils import cxx
 
+SOURCE = cxx.CSRC / "gpu_probe.cu"
 T, N, D2 = 512, 16, 128  # chunk tokens, states, packed lanes (2 * D)
 S = 8
 R = T // S
@@ -111,24 +112,15 @@ def probe_mxu_seg_plain(x):
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    if not torch.cuda.is_available():
-        raise RuntimeError("the probe kernels need a CUDA device; torch.cuda.is_available() is False")
-    lib = ctypes.CDLL(str(scan_cuda.build(scan_cuda.SOURCE_PROBE)))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for name, args in (("gpu_probe_flat", [p, p, p, i, i, i, i, i, i, i, i, p]),
-                       ("gpu_probe_shaped", [p, p, i, i, i, i, p]),
-                       ("gpu_probe_exp", [p, p, p, i, i, i, i, i, i, i, i, p]),
-                       ("gpu_probe_nsum", [p, p, p, i, i, i, i, i, i, p]),
-                       ("gpu_probe_mxu_seg", [p, p, i, i, i, p])):
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = args, ctypes.c_int
-    lib.gpu_probe_nsum_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.gpu_probe_stream_occupancy.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    lib.gpu_probe_nsum_occupancy.restype = lib.gpu_probe_stream_occupancy.restype = ctypes.c_int
-    lib.gpu_probe_error_string.argtypes = [ctypes.c_int]
-    lib.gpu_probe_error_string.restype = ctypes.c_char_p
-    return lib
+def _library():
+    p, i, out = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    return cxx.load(SOURCE, {"gpu_probe_flat": ([p, p, p] + [i] * 8 + [p], i),
+                             "gpu_probe_shaped": ([p, p] + [i] * 4 + [p], i),
+                             "gpu_probe_exp": ([p, p, p] + [i] * 8 + [p], i),
+                             "gpu_probe_nsum": ([p, p, p] + [i] * 6 + [p], i),
+                             "gpu_probe_mxu_seg": ([p, p] + [i] * 3 + [p], i),
+                             "gpu_probe_nsum_occupancy": ([out], i),
+                             "gpu_probe_stream_occupancy": ([i, out], i)}, "P1-P5 probe")
 
 
 def _check(name, tensors):
@@ -149,12 +141,8 @@ def _run(name, tensors, out_shape, *ints):
     x = tensors[0]
     lib = _library()
     out = torch.empty(out_shape, device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"gpu_probe_{name}")(*(t.data_ptr() for t in tensors), out.data_ptr(),
-                                                 *ints, stream)
-    if err != 0:
-        raise RuntimeError(f"probe_{name} launch failed: {lib.gpu_probe_error_string(err).decode()}")
+    cxx.launch(lib, f"gpu_probe_{name}", x.device, *(t.data_ptr() for t in tensors),
+               out.data_ptr(), *ints)
     return out
 
 
@@ -201,11 +189,8 @@ def _stream_resident(name, device):
     on a CUDA device, from the source's occupancy query."""
     lib = _library()
     out = (ctypes.c_int * 5)()
-    with torch.cuda.device(device):
-        err = lib.gpu_probe_stream_occupancy(int(name == "exp"), out)
-    if err != 0:
-        raise RuntimeError(f"probe_{name}'s occupancy query failed: "
-                           f"{lib.gpu_probe_error_string(err).decode()}")
+    with cxx.on_device(device):
+        cxx.call(lib, "gpu_probe_stream_occupancy", int(name == "exp"), out)
     return out[3], out[2]
 
 
@@ -418,8 +403,7 @@ def run_all(grid=GRID):
 
 
 def _cuobjdump() -> str:
-    nvcc = Path(scan_cuda._nvcc())
-    return str(nvcc.with_name("cuobjdump"))
+    return str(Path(cxx.nvcc()).with_name("cuobjdump"))
 
 
 def parse_sass_loop(sass, kernel, opcode="FFMA", template="E"):
@@ -473,7 +457,7 @@ def parse_sass_loop(sass, kernel, opcode="FFMA", template="E"):
 def sass_loop(kernel="nsum", library=None, opcode="FFMA", template="E"):
     """`parse_sass_loop` of `kernel` in a built library (the probes' by
     default), from `cuobjdump -sass`. Needs the CUDA toolkit, not a card."""
-    library = library or scan_cuda.build(scan_cuda.SOURCE_PROBE)
+    library = library or cxx.build(SOURCE)
     sass = subprocess.run([_cuobjdump(), "-sass", str(library)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
     return parse_sass_loop(sass, kernel, opcode, template)
@@ -492,13 +476,12 @@ def probe_resources(name):
     memory, P1 and P3 the elements of a g a thread (`V`), the g a tile and
     the persistent grid at `GRID` blocks."""
     kernel, opcode = RESOURCE_KERNELS[name]
-    lib = _library()
     out = (ctypes.c_int * 5)()
-    err = (lib.gpu_probe_nsum_occupancy(out) if name == "nsum"
-           else lib.gpu_probe_stream_occupancy(int(name == "exp"), out))
-    if err != 0:
-        raise RuntimeError(f"{kernel}'s occupancy query failed: {lib.gpu_probe_error_string(err).decode()}")
-    library = scan_cuda.build(scan_cuda.SOURCE_PROBE)
+    if name == "nsum":
+        cxx.call(_library(), "gpu_probe_nsum_occupancy", out)
+    else:
+        cxx.call(_library(), "gpu_probe_stream_occupancy", int(name == "exp"), out)
+    library = cxx.build(SOURCE)
     log = library.with_suffix(".log").read_text()
     entry = log[log.index(f"{len(kernel)}{kernel}E"):]  # from its "Compiling entry function" line on
     registers = int(re.search(r"Used (\d+) registers", entry).group(1))

@@ -36,6 +36,7 @@ import torch
 from wavemamba_torch.ops import scan_cuda
 from wavemamba_torch.ops.scan import ss2d_scan_pair_plain
 from wavemamba_torch.scripts.gpu_probe import sass_loop
+from wavemamba_torch.utils import cxx
 
 ROOT = Path(__file__).resolve().parents[2]
 SUB = 8
@@ -73,15 +74,13 @@ class Variant:
 
     def __init__(self, source: Path):
         self.source = source
-        self.library = scan_cuda.build(source)
-        self.lib = ctypes.CDLL(str(self.library))
+        self.library = cxx.build(source)
         p, i = ctypes.c_void_p, ctypes.c_int
-        self.first = not hasattr(self.lib, "ss2d_scan_pair_ssd")
-        if self.first:
-            self.lib.ss2d_scan_pair_ssd_f32.argtypes = [p] * 9 + [i] * 7 + [p]
-        else:
-            self.lib.ss2d_scan_pair_ssd.argtypes = [p] * 10 + [i] * 10 + [p]
-            self.lib.ss2d_scan_ssd_occupancy.argtypes = [i] * 6 + [ctypes.POINTER(i)]
+        self.first = b"ss2d_scan_pair_ssd_f32(" in source.read_bytes()
+        table = ({"ss2d_scan_pair_ssd_f32": ([p] * 9 + [i] * 7 + [p], i)} if self.first else
+                 {"ss2d_scan_pair_ssd": ([p] * 10 + [i] * 10 + [p], i),
+                  "ss2d_scan_ssd_occupancy": ([i] * 6 + [ctypes.POINTER(i)], i)})
+        self.lib = cxx.load(source, table, "K5", prefix="ss2d_scan_ssd")
 
     def call(self, args):
         """A callable that runs the kernel on `args` into outputs it keeps,
@@ -94,19 +93,16 @@ class Variant:
                 torch.empty((b, 2, nc, d), device=x.device)]
         shape = (b, length, d, 16, 2, scan_cuda.CHUNK, SUB)
         if self.first:
-            entry, tail = self.lib.ss2d_scan_pair_ssd_f32, ()
+            entry, tail = "ss2d_scan_pair_ssd_f32", ()
             bufs = [*args, *outs]
         else:
-            sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-            plan = scan_cuda.k5_plan(b, length, d, 16, 2, scan_cuda.CHUNK, SUB, sms)
-            entry, tail = self.lib.ss2d_scan_pair_ssd, (plan["smem_scan"], 0, 0)
+            plan = scan_cuda.k5_plan(b, length, d, 16, 2, scan_cuda.CHUNK, SUB,
+                                     cxx.sm_count(x.device.index))
+            entry, tail = "ss2d_scan_pair_ssd", (plan["smem_scan"], 0, 0)
             bufs = [*args, *outs, torch.empty(plan["xdbl_shape"], device=x.device)]
 
         def run():  # `bufs` keeps every buffer the kernel writes alive
-            err = entry(*(t.data_ptr() for t in bufs), *shape, *tail,
-                        torch.cuda.current_stream().cuda_stream)
-            if err != 0:
-                raise RuntimeError(f"{self.source}: launch failed ({err})")
+            cxx.launch(self.lib, entry, x.device, *(t.data_ptr() for t in bufs), *shape, *tail)
         return run, outs
 
     def resources(self):
@@ -117,8 +113,7 @@ class Variant:
                              for name, tag in templates.items()}}
         if not self.first:
             out = (ctypes.c_int * 6)()
-            if self.lib.ss2d_scan_ssd_occupancy(16, 2, 64, scan_cuda.CHUNK, 0, 0, out) != 0:
-                raise RuntimeError(f"{self.source}: occupancy query failed")
+            cxx.call(self.lib, "ss2d_scan_ssd_occupancy", 16, 2, 64, scan_cuda.CHUNK, 0, 0, out)
             row["occupancy"] = dict(zip(("threads", "smem_scan", "blocks_per_sm_pass1",
                                          "blocks_per_sm_replay", "prefix_threads",
                                          "blocks_per_sm_prefix"), out))
@@ -147,7 +142,7 @@ def main(argv=None):
 
     sources = [s.resolve() for s in args.source or [scan_cuda.SOURCE_K5]]
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each, started together
-        list(pool.map(scan_cuda.build, sources))
+        list(pool.map(cxx.build, sources))
     variants = [Variant(s) for s in sources]
     rs = np.random.RandomState(5)
     inputs = [cs.pair_inputs(rs, 1, h * w) for h, w in cs.LEVELS_1080P]

@@ -4,9 +4,10 @@ item -> uint8 BGR frame, one C++ pass each with its rows split over the
 CPUs this process may use, the bits of `img_util`'s numpy route. Host code;
 no device kernel.
 
-The library is built with g++ at first use (`utils/cxx.py`, into
-`build/wavemamba_torch/`). `available()` is False where g++ or the build
-fails; `img_util` then takes its numpy route.
+The library is built with g++ at first use and loaded through
+`utils/cxx.py` (into its build directory, `build/wavemamba_torch/` by
+default). `available()` is False where g++ or the build fails; `img_util`
+then takes its numpy route.
 """
 
 from __future__ import annotations
@@ -20,27 +21,26 @@ import numpy as np
 
 from wavemamba_torch.utils import cxx
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "frames.cc"
+SOURCE = cxx.CSRC / "frames.cc"
+STEM = "libwmframes"
 
 
 def build() -> Path:
     """Compile `csrc/frames.cc` into a shared library; returns its path."""
-    return cxx.build(SOURCE, "libwmframes")
+    return cxx.build(SOURCE, STEM)
 
 
 @functools.cache
 def _load():
     """The bound library, or None where it cannot be built or loaded."""
+    # src, its (row, pixel, channel) strides in elements, h, w, dst, threads
+    args = [ctypes.c_void_p, *[ctypes.c_int64] * 3, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int]
     try:
-        lib = ctypes.CDLL(str(build()))
+        return cxx.load(SOURCE, {"bgr_u8_to_rgb_f32": (args, None),
+                                 "rgb_f32_to_bgr_u8": (args, None)}, stem=STEM)
     except (OSError, RuntimeError):
         return None
-    for fn in (lib.bgr_u8_to_rgb_f32, lib.rgb_f32_to_bgr_u8):
-        # src, its (row, pixel, channel) strides in elements, h, w, dst, threads
-        fn.argtypes = [ctypes.c_void_p, *[ctypes.c_int64] * 3, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_int]
-        fn.restype = None
-    return lib
 
 
 def available() -> bool:
